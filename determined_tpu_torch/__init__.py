@@ -1,0 +1,12 @@
+"""determined_tpu_torch: the PyTorch and CUDA port of determined_tpu.
+
+The JAX package ``determined_tpu`` is the reference and stays as it is; this
+package grows beside it slice by slice and imports nothing of it (nor JAX,
+flax, optax or orbax).  Every TPU kernel on a ported path becomes a kernel
+written by hand for Hopper (``csrc/``), with a plain PyTorch version beside
+it.  Entry points run on CUDA unless the caller passes ``device="cpu"``.
+
+Ported so far: the serving path of the flagship decoder-only LM
+(``models/transformer.py``, ``serve/``) and the flash attention forward
+kernel (``ops/flash_attention.py``, ``csrc/flash_fwd.cu``).
+"""

@@ -1,0 +1,97 @@
+"""Weight bridge between the JAX package's param tree and the port's modules.
+
+The tree is the one ``determined_tpu.models.transformer.TransformerLM.init``
+produces (unboxed), with or without the outer ``"params"`` key, its leaves
+given as numpy arrays.  Layouts mapped:
+
+- ``DenseGeneral`` ``wq``/``wk``/``wv`` kernels ``[d, h, hd]`` and ``wo``
+  ``[h, hd, d]`` against ``nn.Linear.weight`` ``[h*hd, d]`` and ``[d, h*hd]``;
+- ``nn.Dense`` kernels ``[in, out]`` (MLP, ``lm_head`` ``[d, V]``) against
+  ``nn.Linear.weight`` ``[out, in]``;
+- ``Embed.embedding`` ``[V, d]`` as is; RMSNorm ``scale`` as ``weight``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from determined_tpu_torch.models.transformer import TransformerLM
+
+_ATTN = ("wq", "wk", "wv")
+_MLP = ("w_gate", "w_up", "w_down")
+
+
+def state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's ``state_dict`` (as numpy) from the JAX param tree."""
+    if "params" in tree:
+        tree = tree["params"]
+    arr = lambda x: np.asarray(x, dtype=np.float32)  # noqa: E731
+    out = {
+        "embed.weight": arr(tree["embed"]["embedding"]),
+        "ln_f.weight": arr(tree["ln_f"]["scale"]),
+        "lm_head.weight": arr(tree["lm_head"]["kernel"]).T,
+    }
+    n_layers = sum(1 for k in tree if k.startswith("block_"))
+    for i in range(n_layers):
+        blk, pre = tree[f"block_{i}"], f"blocks.{i}."
+        out[pre + "ln1.weight"] = arr(blk["ln1"]["scale"])
+        out[pre + "ln2.weight"] = arr(blk["ln2"]["scale"])
+        for name in _ATTN:
+            kern = arr(blk["attn"][name]["kernel"])  # [d, h, hd]
+            out[pre + f"attn.{name}.weight"] = kern.reshape(kern.shape[0], -1).T
+        wo = arr(blk["attn"]["wo"]["kernel"])  # [h, hd, d]
+        out[pre + "attn.wo.weight"] = wo.reshape(-1, wo.shape[-1]).T
+        for name in _MLP:
+            out[pre + f"mlp.{name}.weight"] = arr(blk["mlp"][name]["kernel"]).T
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+def flax_from_state_dict(
+    state: Mapping[str, Any], n_heads: int, n_kv_heads: int
+) -> Dict[str, Any]:
+    """The inverse: the JAX param tree (inner dict, numpy leaves) from the
+    port's ``state_dict``."""
+    arr = lambda x: (  # noqa: E731
+        x.detach().cpu().float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    )
+    tree: Dict[str, Any] = {
+        "embed": {"embedding": arr(state["embed.weight"])},
+        "ln_f": {"scale": arr(state["ln_f.weight"])},
+        "lm_head": {"kernel": arr(state["lm_head.weight"]).T},
+    }
+    n_layers = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("blocks."))
+    heads = {"wq": n_heads, "wk": n_kv_heads, "wv": n_kv_heads}
+    for i in range(n_layers):
+        pre = f"blocks.{i}."
+        attn = {}
+        for name in _ATTN:
+            w = arr(state[pre + f"attn.{name}.weight"])  # [h*hd, d]
+            attn[name] = {"kernel": w.T.reshape(w.shape[1], heads[name], -1)}
+        wo = arr(state[pre + "attn.wo.weight"])  # [d, h*hd]
+        attn["wo"] = {"kernel": wo.T.reshape(n_heads, -1, wo.shape[0])}
+        tree[f"block_{i}"] = {
+            "ln1": {"scale": arr(state[pre + "ln1.weight"])},
+            "ln2": {"scale": arr(state[pre + "ln2.weight"])},
+            "attn": attn,
+            "mlp": {
+                name: {"kernel": arr(state[pre + f"mlp.{name}.weight"]).T}
+                for name in _MLP
+            },
+        }
+    return {k: _contiguous(v) for k, v in tree.items()}
+
+
+def _contiguous(node: Any) -> Any:
+    if isinstance(node, dict):
+        return {k: _contiguous(v) for k, v in node.items()}
+    return np.ascontiguousarray(node)
+
+
+def load_flax_params(model: TransformerLM, tree: Mapping[str, Any]) -> TransformerLM:
+    """Copy the JAX param tree into ``model`` (in place, on its device)."""
+    state = {k: torch.tensor(v) for k, v in state_dict_from_flax(tree).items()}
+    model.load_state_dict(state, strict=True)
+    return model

@@ -1,0 +1,21 @@
+"""Models of the port."""
+
+from determined_tpu_torch.models.transformer import (
+    TransformerConfig,
+    TransformerLM,
+    init_kv_cache,
+    kv_cache_shape,
+    transformer_decode,
+    transformer_prefill,
+    transformer_prefill_suffix,
+)
+
+__all__ = [
+    "TransformerConfig",
+    "TransformerLM",
+    "init_kv_cache",
+    "kv_cache_shape",
+    "transformer_decode",
+    "transformer_prefill",
+    "transformer_prefill_suffix",
+]

@@ -1,0 +1,517 @@
+"""Flagship model: decoder-only transformer LM, forward and serving path.
+
+Port of ``determined_tpu/models/transformer.py`` (dense, forward only):
+rotary position embeddings that pair even and odd lanes, GQA, RMSNorm with
+the variance taken in f32, SwiGLU, f32 parameters with compute in
+``cfg.dtype``.  The KV-cache serving functions (``transformer_prefill``,
+``transformer_decode``, ``transformer_prefill_suffix``) take the
+``TransformerLM`` module where the JAX functions take its param tree, and
+update the paged cache in place where JAX returns a donated copy.
+
+The paged pool is ``[n_layers, num_blocks, block_size, kv_heads, head_dim]``
+with keys stored after rope; physical block 0 is scratch (padded prefill
+positions and empty decode lanes write there).  Positions of ``-1`` mark
+empty decode lanes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from determined_tpu_torch._device import DeviceLike, resolve_device
+from determined_tpu_torch.ops.attention import NEG_INF, _repeat_kv, dot_product_attention
+
+Cache = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32768
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: Optional[int] = None          # None -> n_heads (MHA)
+    d_ff: Optional[int] = None                # None -> 4 * d_model
+    max_seq_len: int = 2048
+    dtype: torch.dtype = torch.bfloat16       # activation/compute dtype
+    attention_impl: str = "auto"              # auto|reference|flash
+    remat: bool = False                       # no effect on inference
+    rope_theta: float = 10000.0
+    moe_experts: int = 0
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    quantized_matmul: str = "none"
+    partition_params: bool = True             # no effect on one device
+    seq_axis_name: Optional[str] = None
+    expert_axis_name: Optional[str] = None
+
+    def __post_init__(self):
+        if self.moe_experts > 0 and self.moe_every < 1:
+            raise ValueError(
+                "moe_every must be >= 1 when moe_experts > 0 "
+                f"(got moe_every={self.moe_every})"
+            )
+        unported = [
+            (self.moe_experts > 0, "moe_experts > 0 (the MoE slice)"),
+            (self.attention_impl == "ring", "attention_impl='ring' (the sequence-parallel slice)"),
+            (self.quantized_matmul != "none", "quantized_matmul (the step-optimisation slice)"),
+            (self.seq_axis_name is not None, "seq_axis_name (the pipeline slice)"),
+            (self.expert_axis_name is not None, "expert_axis_name (the pipeline slice)"),
+        ]
+        for hit, what in unported:
+            if hit:
+                raise NotImplementedError(
+                    f"{what} is not ported to determined_tpu_torch yet; it comes "
+                    "with a later slice of the port (ROADMAP.md, Queue 1)"
+                )
+        if self.attention_impl not in ("auto", "reference", "flash"):
+            raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def ff_dim(self) -> int:
+        return self.d_ff or 4 * self.d_model
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+def _rope_angles(positions: torch.Tensor, d: int, theta: float):
+    freqs = theta ** (
+        -torch.arange(0, d, 2, dtype=torch.float32, device=positions.device) / d
+    )
+    angles = positions[:, None].float() * freqs[None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate lane pairs (2i, 2i+1) in f32 and cast back: the JAX layout,
+    not the rotate-half layout of HF models."""
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x1 * sin + x2 * cos
+    return torch.stack([rx1, rx2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embeddings on [b, h, s, d] with positions [s]."""
+    cos, sin = _rope_angles(positions, x.shape[-1], theta)  # [s, d/2]
+    return _rotate(x, cos, sin)
+
+
+def _rope_batched(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embeddings on [b, h, 1, d] with a per-sequence position [b]
+    (the decode step: every lane sits at its own offset)."""
+    cos, sin = _rope_angles(positions, x.shape[-1], theta)  # [b, d/2]
+    return _rotate(x, cos[:, None, None, :], sin[:, None, None, :])
+
+
+def _rms_apply(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm: variance in f32, scale cast back to x's dtype."""
+    var = x.float().pow(2).mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * weight.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, device: DeviceLike = None) -> None:
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _rms_apply(x, self.weight, self.eps)
+
+
+def _linear(d_in: int, d_out: int, device: torch.device) -> nn.Linear:
+    return nn.Linear(d_in, d_out, bias=False, device=device, dtype=torch.float32)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device: torch.device) -> None:
+        super().__init__()
+        self.cfg = cfg
+        hd = cfg.head_dim
+        self.wq = _linear(cfg.d_model, cfg.n_heads * hd, device)
+        self.wk = _linear(cfg.d_model, cfg.kv_heads * hd, device)
+        self.wv = _linear(cfg.d_model, cfg.kv_heads * hd, device)
+        self.wo = _linear(cfg.n_heads * hd, cfg.d_model, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        q, k, v = _attn_proj(self, x, cfg.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        out = dot_product_attention(q, k, v, causal=True, impl=cfg.attention_impl)
+        return _out_proj(self, out, cfg.dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device: torch.device) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.w_gate = _linear(cfg.d_model, cfg.ff_dim, device)
+        self.w_up = _linear(cfg.d_model, cfg.ff_dim, device)
+        self.w_down = _linear(cfg.ff_dim, cfg.d_model, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _mlp_apply(self, x, self.cfg.dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device: torch.device) -> None:
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.d_model, device=device)
+        self.attn = Attention(cfg, device)
+        self.ln2 = RMSNorm(cfg.d_model, device=device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+
+class TransformerLM(nn.Module):
+    """The flagship decoder-only LM.  Parameters are f32 on ``device``
+    (CUDA unless named), initialised from ``generator`` (seed 0 when
+    omitted): dense kernels normal with std ``fan_in ** -0.5``, the
+    embedding normal with std 0.02, norms one."""
+
+    def __init__(
+        self,
+        cfg: TransformerConfig,
+        *,
+        device: DeviceLike = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=dev)
+        self.blocks = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
+        self.ln_f = RMSNorm(cfg.d_model, device=dev)
+        self.lm_head = _linear(cfg.d_model, cfg.vocab_size, dev)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        self._init_weights(generator)
+
+    @torch.no_grad()
+    def _init_weights(self, generator: torch.Generator) -> None:
+        self.embed.weight.normal_(0.0, 0.02, generator=generator)
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                mod.weight.normal_(0.0, mod.in_features ** -0.5, generator=generator)
+
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False) -> torch.Tensor:
+        """Logits [b, s, vocab] in f32, or with ``return_hidden`` the final
+        normed hidden states [b, s, d] in ``cfg.dtype``."""
+        x = self.embed.weight[tokens].to(self.cfg.dtype)
+        for blk in self.blocks:
+            x = blk(x)
+        x = self.ln_f(x)
+        if return_hidden:
+            return x
+        return F.linear(x, self.lm_head.weight.to(self.cfg.dtype)).float()
+
+
+# ---------------------------------------------------------------------------
+# KV-cache serving path
+# ---------------------------------------------------------------------------
+
+
+def kv_cache_shape(cfg: TransformerConfig, num_blocks: int, block_size: int) -> Tuple[int, ...]:
+    return (cfg.n_layers, num_blocks, block_size, cfg.kv_heads, cfg.head_dim)
+
+
+def init_kv_cache(
+    cfg: TransformerConfig, num_blocks: int, block_size: int, *, device: DeviceLike = None
+) -> Cache:
+    """Zeroed paged K/V pool in the compute dtype (keys stored post-rope)."""
+    shape = kv_cache_shape(cfg, num_blocks, block_size)
+    dev = resolve_device(device)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+    }
+
+
+def _attn_proj(
+    attn: Attention, x: torch.Tensor, dtype: torch.dtype
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q/k/v projections of x [b, s, d] to [b, heads, s, head_dim]."""
+    b, s, _ = x.shape
+    hd = attn.cfg.head_dim
+
+    def proj(lin: nn.Linear) -> torch.Tensor:
+        return F.linear(x, lin.weight.to(dtype)).view(b, s, -1, hd).transpose(1, 2)
+
+    return proj(attn.wq), proj(attn.wk), proj(attn.wv)
+
+
+def _out_proj(attn: Attention, att: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Output projection of attention [b, heads, s, head_dim] to [b, s, d]."""
+    b, h, s, hd = att.shape
+    return F.linear(att.transpose(1, 2).reshape(b, s, h * hd), attn.wo.weight.to(dtype))
+
+
+def _mlp_apply(mlp: MLP, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    gate = F.linear(x, mlp.w_gate.weight.to(dtype))
+    up = F.linear(x, mlp.w_up.weight.to(dtype))
+    return F.linear(F.silu(gate) * up, mlp.w_down.weight.to(dtype))
+
+
+def _check_decodable(cfg: TransformerConfig) -> None:
+    if cfg.moe_experts > 0:
+        raise ValueError("KV-cache serving does not support MoE configs yet")
+    if cfg.seq_axis_name is not None or cfg.expert_axis_name is not None:
+        raise ValueError("KV-cache serving runs outside pipeline stages")
+
+
+def _embed(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
+    return model.embed.weight[tokens].to(model.cfg.dtype)
+
+
+def _head(model: TransformerLM, x: torch.Tensor) -> torch.Tensor:
+    x = _rms_apply(x, model.ln_f.weight)
+    return F.linear(x, model.lm_head.weight.to(model.cfg.dtype)).float()
+
+
+def _gather_table(cache_i: torch.Tensor, tables: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """The cache rows a block table maps, as [b, heads, T * block_size, hd]."""
+    b, t = tables.shape
+    _, bs, kvh, hd = cache_i.shape
+    rows = cache_i[tables].reshape(b, t * bs, kvh, hd)
+    return _repeat_kv(rows.transpose(1, 2), n_rep)
+
+
+def _masked_softmax_attention(
+    q: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor, scale: float
+) -> torch.Tensor:
+    logits = torch.matmul(q.float(), keys.float().transpose(-1, -2)) * scale
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(vals.dtype), vals)
+
+
+def transformer_prefill(
+    model: TransformerLM,
+    tokens: torch.Tensor,
+    prompt_lens: torch.Tensor,
+    block_tables: torch.Tensor,
+    cache: Cache,
+) -> Tuple[torch.Tensor, Cache]:
+    """Full-prompt forward that also writes the paged cache (in place).
+
+    ``tokens`` [B, S] is the prompt padded to a fixed S; ``prompt_lens`` [B]
+    the real lengths; ``block_tables`` [B, T] each lane's physical block
+    ids.  Returns (logits [B, S, vocab] f32, cache).  The causal attention
+    goes through the flash kernel on CUDA and its plain version on the CPU.
+    """
+    cfg = model.cfg
+    _check_decodable(cfg)
+    block_size = cache["k"].shape[2]
+    b, s = tokens.shape
+    dev = tokens.device
+    dt = cfg.dtype
+    tables = block_tables.long()
+    x = _embed(model, tokens)
+    positions = torch.arange(s, device=dev)
+    # physical destination of every (lane, position): padded tail -> scratch
+    col = (positions // block_size)[None, :].expand(b, s)
+    phys = torch.where(
+        positions[None, :] < prompt_lens.long()[:, None], torch.gather(tables, 1, col), 0
+    )
+    slots = (positions % block_size)[None, :].expand(b, s)
+    k_cache, v_cache = cache["k"], cache["v"]
+    for i, blk in enumerate(model.blocks):
+        h = _rms_apply(x, blk.ln1.weight)
+        q, k, v = _attn_proj(blk.attn, h, dt)
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        k_cache[i, phys, slots] = k.transpose(1, 2)
+        v_cache[i, phys, slots] = v.transpose(1, 2)
+        att = dot_product_attention(q, k, v, causal=True, impl="flash")
+        x = x + _out_proj(blk.attn, att, dt)
+        x = x + _mlp_apply(blk.mlp, _rms_apply(x, blk.ln2.weight), dt)
+    return _head(model, x), cache
+
+
+def _paged_attention_chunked(
+    q: torch.Tensor,
+    k_cache_i: torch.Tensor,
+    v_cache_i: torch.Tensor,
+    block_tables: torch.Tensor,
+    pos: torch.Tensor,
+    active: torch.Tensor,
+    n_rep: int,
+    scale: float,
+    chunk_blocks: int,
+    n_chunks: int,
+) -> torch.Tensor:
+    """Lazy paged attention for one decode step of one layer: attend over
+    only the first ``n_chunks * chunk_blocks`` table columns, the chunks
+    the longest active lane reaches, gathered at once.  The JAX function
+    folds the same chunks one by one into an online softmax; taking them
+    together gives the same softmax in f32 (scores, p and v in f32 as
+    there) up to reassociation, in one pass instead of a Python loop of
+    small launches.  Masked positions use the finite ``NEG_INF``.  Returns
+    [b, n_heads, 1, head_dim] in f32."""
+    cols = n_chunks * chunk_blocks
+    keys = _gather_table(k_cache_i, block_tables[:, :cols], n_rep)
+    vals = _gather_table(v_cache_i, block_tables[:, :cols], n_rep)
+    s = torch.matmul(q.float(), keys.float().transpose(-1, -2)) * scale
+    k_idx = torch.arange(keys.shape[2], device=q.device)
+    msk = ((k_idx[None, :] <= pos[:, None]) & active[:, None])[:, None, None, :]
+    s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return torch.matmul(p, vals.float()) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def transformer_decode(
+    model: TransformerLM,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    block_tables: torch.Tensor,
+    cache: Cache,
+    *,
+    chunk_blocks: int = 0,
+) -> Tuple[torch.Tensor, Cache]:
+    """One decode step over the paged cache for every lane at once.
+
+    ``tokens`` [B] the token each lane just consumed; ``positions`` [B] its
+    position (-1 marks an empty lane: it writes the scratch block and its
+    logits are garbage the caller ignores).  Returns (logits [B, vocab] f32,
+    cache), the cache updated in place.  ``chunk_blocks`` > 0 takes the lazy
+    chunked path over only the table columns the longest lane needs; 0
+    gathers the whole table.
+    """
+    cfg = model.cfg
+    _check_decodable(cfg)
+    block_size = cache["k"].shape[2]
+    b = tokens.shape[0]
+    t = block_tables.shape[1]
+    kv_len = t * block_size
+    dev = tokens.device
+    dt = cfg.dtype
+    tables = block_tables.long()
+    positions = positions.long()
+    active = positions >= 0
+    pos = positions.clamp_min(0)
+    x = _embed(model, tokens[:, None])
+    phys = torch.where(active, torch.gather(tables, 1, (pos // block_size)[:, None])[:, 0], 0)
+    slot = pos % block_size
+    k_pos = torch.arange(kv_len, device=dev)
+    # attend to every cache position up to and including the current token
+    mask = ((k_pos[None, :] <= pos[:, None]) & active[:, None])[:, None, None, :]
+    k_cache, v_cache = cache["k"], cache["v"]
+    n_rep = cfg.n_heads // cfg.kv_heads
+    scale = cfg.head_dim ** -0.5
+    n_chunks = 0
+    if chunk_blocks:
+        if t % chunk_blocks:
+            raise ValueError(f"chunk_blocks={chunk_blocks} must divide the table width {t}")
+        chunk_tokens = chunk_blocks * block_size
+        longest = int(torch.where(active, pos, 0).max())
+        n_chunks = min(longest // chunk_tokens + 1, t // chunk_blocks)
+    for i, blk in enumerate(model.blocks):
+        h = _rms_apply(x, blk.ln1.weight)
+        q, k, v = _attn_proj(blk.attn, h, dt)  # [b, heads|kv, 1, hd]
+        q = _rope_batched(q, pos, cfg.rope_theta)
+        k = _rope_batched(k, pos, cfg.rope_theta)
+        # write this token's k/v, then attend against the updated pool so
+        # the step sees its own key
+        k_cache[i, phys, slot] = k[:, :, 0, :]
+        v_cache[i, phys, slot] = v[:, :, 0, :]
+        if chunk_blocks:
+            att = _paged_attention_chunked(
+                q, k_cache[i], v_cache[i], tables, pos, active,
+                n_rep, scale, chunk_blocks, n_chunks,
+            ).to(dt)
+        else:
+            keys = _gather_table(k_cache[i], tables, n_rep)
+            vals = _gather_table(v_cache[i], tables, n_rep)
+            att = _masked_softmax_attention(q, keys, vals, mask, scale)
+        x = x + _out_proj(blk.attn, att, dt)
+        x = x + _mlp_apply(blk.mlp, _rms_apply(x, blk.ln2.weight), dt)
+    return _head(model, x)[:, 0, :], cache
+
+
+def transformer_prefill_suffix(
+    model: TransformerLM,
+    tokens: torch.Tensor,
+    start_lens: torch.Tensor,
+    prompt_lens: torch.Tensor,
+    block_tables: torch.Tensor,
+    cache: Cache,
+) -> Tuple[torch.Tensor, Cache]:
+    """Prefill only the un-cached suffix of each prompt (prefix caching).
+
+    ``tokens`` [B, S] is the full prompt padded to a multiple of the block
+    size; ``start_lens`` [B] how many leading tokens already sit in cache
+    blocks mapped into ``block_tables`` (block-aligned); ``prompt_lens`` [B]
+    the real lengths.  Walks one block of tokens per step from the first
+    un-cached block; queries attend to keys read back from the cache, so a
+    warm start and a cold ``start=0`` run see the same stored values.
+    Returns (logits at ``prompt_len - 1`` [B, vocab] f32, cache).
+    """
+    cfg = model.cfg
+    _check_decodable(cfg)
+    block_size = cache["k"].shape[2]
+    b, s = tokens.shape
+    if s % block_size:
+        raise ValueError(
+            f"suffix prefill needs tokens padded to the block size "
+            f"(got S={s}, block_size={block_size})"
+        )
+    t = block_tables.shape[1]
+    kv_len = t * block_size
+    dev = tokens.device
+    dt = cfg.dtype
+    tables = block_tables.long()
+    start_lens, prompt_lens = start_lens.long(), prompt_lens.long()
+    n_rep = cfg.n_heads // cfg.kv_heads
+    scale = cfg.head_dim ** -0.5
+    c_lo = int(start_lens.min()) // block_size
+    c_hi = (int(prompt_lens.max()) + block_size - 1) // block_size
+    k_pos = torch.arange(kv_len, device=dev)
+    lanes = torch.arange(b, device=dev)
+    slots = torch.arange(block_size, device=dev)[None, :].expand(b, block_size)
+    k_cache, v_cache = cache["k"], cache["v"]
+    last_logits = torch.zeros((b, cfg.vocab_size), dtype=torch.float32, device=dev)
+    for c in range(c_lo, c_hi):
+        toks = tokens[:, c * block_size : (c + 1) * block_size]
+        p = c * block_size + torch.arange(block_size, device=dev)  # absolute positions
+        valid = (p[None, :] >= start_lens[:, None]) & (p[None, :] < prompt_lens[:, None])
+        phys = torch.where(valid, tables[:, c : c + 1], 0)
+        att_mask = (k_pos[None, :] <= p[:, None])[None, None]  # [1, 1, bs, kv_len]
+        x = _embed(model, toks)
+        for i, blk in enumerate(model.blocks):
+            h = _rms_apply(x, blk.ln1.weight)
+            q, k, v = _attn_proj(blk.attn, h, dt)  # [b, heads|kv, bs, hd]
+            q = _rope(q, p, cfg.rope_theta)
+            k = _rope(k, p, cfg.rope_theta)
+            # write this block's k/v first, then attend through the cache
+            k_cache[i, phys, slots] = k.transpose(1, 2)
+            v_cache[i, phys, slots] = v.transpose(1, 2)
+            keys = _gather_table(k_cache[i], tables, n_rep)
+            vals = _gather_table(v_cache[i], tables, n_rep)
+            att = _masked_softmax_attention(q, keys, vals, att_mask, scale)
+            x = x + _out_proj(blk.attn, att, dt)
+            x = x + _mlp_apply(blk.mlp, _rms_apply(x, blk.ln2.weight), dt)
+        logits = _head(model, x)  # [b, bs, vocab]
+        sel = prompt_lens - 1 - c * block_size
+        contains = (sel >= 0) & (sel < block_size)
+        row = logits[lanes, sel.clamp(0, block_size - 1)]
+        last_logits = torch.where(contains[:, None], row, last_logits)
+    return last_logits, cache
