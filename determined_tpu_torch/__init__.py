@@ -7,6 +7,9 @@ written by hand for Hopper (``csrc/``), with a plain PyTorch version beside
 it.  Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
 Ported so far: the serving path of the flagship decoder-only LM
-(``models/transformer.py``, ``serve/``) and the flash attention forward
-kernel (``ops/flash_attention.py``, ``csrc/flash_fwd.cu``).
+(``models/transformer.py``, ``serve/``) and its training path
+(``train/``, ``data/``, ``core/``, ``config/``, ``LMTrial``), with the
+flash attention forward and backward kernels (``ops/flash_attention.py``,
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) and the fused AdamW kernel
+(``ops/fused_adamw.py``, ``csrc/fused_adamw.cu``).
 """

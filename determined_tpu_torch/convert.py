@@ -9,16 +9,22 @@ given as numpy arrays.  Layouts mapped:
 - ``nn.Dense`` kernels ``[in, out]`` (MLP, ``lm_head`` ``[d, V]``) against
   ``nn.Linear.weight`` ``[out, in]``;
 - ``Embed.embedding`` ``[V, d]`` as is; RMSNorm ``scale`` as ``weight``.
+
+Optimizer moments (``mu``/``nu`` trees of a ``FusedAdamWState`` or of the
+``ScaleByAdamState`` inside an optax chain state) are param-shaped and map
+through the same transforms (``opt_state_from_flax``,
+``flax_from_opt_state``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from determined_tpu_torch.models.transformer import TransformerLM
+from determined_tpu_torch.ops.fused_adamw import FusedAdamWState
 
 _ATTN = ("wq", "wk", "wv")
 _MLP = ("w_gate", "w_up", "w_down")
@@ -95,3 +101,46 @@ def load_flax_params(model: TransformerLM, tree: Mapping[str, Any]) -> Transform
     state = {k: torch.tensor(v) for k, v in state_dict_from_flax(tree).items()}
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """The (count, mu, nu) node of a JAX optimizer state: a FusedAdamWState
+    itself, or the ScaleByAdamState nested in an optax chain's tuples."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for node in opt_state:
+            found = _adam_state(node)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_flax(
+    opt_state: Any, *, device: Any = "cpu", mu_dtype: Optional[torch.dtype] = None
+) -> FusedAdamWState:
+    """The port's optimizer state from a JAX one (its moments in the port's
+    ``state_dict`` layout; mu in ``mu_dtype``, f32 when None; nu f32)."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no (count, mu, nu) Adam state in this optimizer state")
+    mu = state_dict_from_flax(adam.mu)
+    nu = state_dict_from_flax(adam.nu)
+    dev = torch.device(device)
+    return FusedAdamWState(
+        torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32, device=dev),
+        {k: torch.tensor(v, device=dev).to(mu_dtype or torch.float32) for k, v in mu.items()},
+        {k: torch.tensor(v, device=dev) for k, v in nu.items()},
+    )
+
+
+def flax_from_opt_state(
+    state: FusedAdamWState, n_heads: int, n_kv_heads: int
+) -> Dict[str, Any]:
+    """The inverse: ``{"count": int, "mu": tree, "nu": tree}`` with the
+    moments as JAX param trees (numpy f32 leaves)."""
+    return {
+        "count": int(state.count),
+        "mu": flax_from_state_dict(state.mu, n_heads, n_kv_heads),
+        "nu": flax_from_state_dict(state.nu, n_heads, n_kv_heads),
+    }

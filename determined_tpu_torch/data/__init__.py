@@ -1,0 +1,27 @@
+"""Input pipeline of the port: datasets, the resumable sampler and loader,
+and the overlapped prefetch feed (copies of ``determined_tpu/data``, with
+``to_device`` in place of ``to_global``)."""
+
+from determined_tpu_torch.data._dataset import Dataset, InMemoryDataset, SyntheticDataset
+from determined_tpu_torch.data._loader import DataLoader, to_device
+from determined_tpu_torch.data._prefetch import (
+    EpochFeed,
+    InputPipeline,
+    PrefetchingIterator,
+    device_prefetch,
+)
+from determined_tpu_torch.data._sampler import IndexSampler, SamplerState
+
+__all__ = [
+    "DataLoader",
+    "Dataset",
+    "EpochFeed",
+    "IndexSampler",
+    "InMemoryDataset",
+    "InputPipeline",
+    "PrefetchingIterator",
+    "SamplerState",
+    "SyntheticDataset",
+    "device_prefetch",
+    "to_device",
+]

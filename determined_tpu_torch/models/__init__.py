@@ -1,6 +1,7 @@
 """Models of the port."""
 
 from determined_tpu_torch.models.transformer import (
+    LMTrial,
     TransformerConfig,
     TransformerLM,
     init_kv_cache,
@@ -11,6 +12,7 @@ from determined_tpu_torch.models.transformer import (
 )
 
 __all__ = [
+    "LMTrial",
     "TransformerConfig",
     "TransformerLM",
     "init_kv_cache",

@@ -1,9 +1,11 @@
-"""Flagship model: decoder-only transformer LM, forward and serving path.
+"""Flagship model: decoder-only transformer LM, its training trial and its
+serving path.
 
-Port of ``determined_tpu/models/transformer.py`` (dense, forward only):
-rotary position embeddings that pair even and odd lanes, GQA, RMSNorm with
-the variance taken in f32, SwiGLU, f32 parameters with compute in
-``cfg.dtype``.  The KV-cache serving functions (``transformer_prefill``,
+Port of ``determined_tpu/models/transformer.py`` (dense): rotary position
+embeddings that pair even and odd lanes, GQA, RMSNorm with the variance
+taken in f32, SwiGLU, f32 parameters with compute in ``cfg.dtype``; per-block
+``torch.utils.checkpoint`` under ``cfg.remat``.  ``LMTrial`` is the JAX
+``LMTrial`` without its pipeline branches.  The KV-cache serving functions (``transformer_prefill``,
 ``transformer_decode``, ``transformer_prefill_suffix``) take the
 ``TransformerLM`` module where the JAX functions take its param tree, and
 update the paged cache in place where JAX returns a donated copy.
@@ -17,14 +19,18 @@ empty decode lanes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from determined_tpu_torch._device import DeviceLike, resolve_device
+from determined_tpu_torch.data import DataLoader, SyntheticDataset
 from determined_tpu_torch.ops.attention import NEG_INF, _repeat_kv, dot_product_attention
+from determined_tpu_torch.train._trial import TorchTrial
 
 Cache = Dict[str, torch.Tensor]
 
@@ -40,7 +46,7 @@ class TransformerConfig:
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16       # activation/compute dtype
     attention_impl: str = "auto"              # auto|reference|flash
-    remat: bool = False                       # no effect on inference
+    remat: bool = False                       # checkpoint each block in training
     rope_theta: float = 10000.0
     moe_experts: int = 0
     moe_every: int = 2
@@ -217,8 +223,10 @@ class TransformerLM(nn.Module):
         """Logits [b, s, vocab] in f32, or with ``return_hidden`` the final
         normed hidden states [b, s, d] in ``cfg.dtype``."""
         x = self.embed.weight[tokens].to(self.cfg.dtype)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            # remat: keep only each block's input; the backward reruns it
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
         x = self.ln_f(x)
         if return_hidden:
             return x
@@ -515,3 +523,146 @@ def transformer_prefill_suffix(
         row = logits[lanes, sel.clamp(0, block_size - 1)]
         last_logits = torch.where(contains[:, None], row, last_logits)
     return last_logits, cache
+
+
+# ---------------------------------------------------------------------------
+# training trial
+# ---------------------------------------------------------------------------
+
+_PIPE_HPARAMS = ("pipe_microbatches", "pipeline_schedule", "virtual_stages")
+
+
+class LMTrial(TorchTrial):
+    """Language-model trial over synthetic token data.
+
+    Hyperparameters, with the JAX ``LMTrial``'s names and defaults: lr,
+    global_batch_size, seq_len, vocab_size, d_model, n_layers, n_heads,
+    n_kv_heads, d_ff, attention (auto/flash/reference), remat, bf16,
+    warmup_steps, decay_steps, dataset_size, fused_ce, ce_chunk,
+    ce_bf16_residual, fused_adamw, adam_mu_bf16, weight_decay, grad_clip.
+    ``fused_adamw: auto`` is the fused kernel on a CUDA device (the JAX
+    trial reads "on a TPU").  Pipeline, MoE and quantised-matmul
+    hyperparameters raise ``NotImplementedError``: they come with later
+    slices of the port.
+    """
+
+    def _cfg(self) -> TransformerConfig:
+        g = self.context.get_hparam
+        for name in _PIPE_HPARAMS:
+            if g(name, None) is not None:
+                raise NotImplementedError(
+                    f"{name} (the pipeline slice) is not ported to determined_tpu_torch "
+                    "yet; it comes with a later slice of the port (ROADMAP.md, Queue 1)"
+                )
+        return TransformerConfig(
+            vocab_size=int(g("vocab_size", 2048)),
+            d_model=int(g("d_model", 256)),
+            n_layers=int(g("n_layers", 2)),
+            n_heads=int(g("n_heads", 8)),
+            n_kv_heads=g("n_kv_heads", None),
+            d_ff=g("d_ff", None),
+            max_seq_len=int(g("seq_len", 512)),
+            attention_impl=str(g("attention", "auto")),
+            remat=bool(g("remat", False)),
+            dtype=torch.bfloat16 if bool(g("bf16", True)) else torch.float32,
+            moe_experts=int(g("moe_experts", 0)),
+            moe_every=int(g("moe_every", 2)),
+            quantized_matmul=str(g("quantized_matmul", None) or "none"),
+        )
+
+    @property
+    def tokens_per_sample(self) -> int:
+        """Tokens one sample contributes per step."""
+        return int(self.context.get_hparam("seq_len", 512))
+
+    @property
+    def flops_per_token(self) -> float:
+        """Forward+backward matmul FLOPs per token by the 6N + attention
+        convention (the JAX trial's and bench.py's accounting)."""
+        cfg = self._cfg()
+        d, n_layers, vocab = cfg.d_model, cfg.n_layers, cfg.vocab_size
+        n_params = n_layers * (4 * d * d + 12 * d * d) + vocab * d
+        return float(6 * n_params + 12 * n_layers * cfg.max_seq_len * d)
+
+    def build_model(self) -> TransformerLM:
+        return TransformerLM(
+            self._cfg(), device=self.context.device, generator=self.context.generator()
+        )
+
+    def build_optimizer(self) -> Any:
+        from determined_tpu_torch.ops.fused_adamw import fused_adamw
+        from determined_tpu_torch.train._optim import ClipAdamW, warmup_cosine_decay_schedule
+
+        g = self.context.get_hparam
+        lr = float(g("lr", 3e-4))
+        schedule = warmup_cosine_decay_schedule(
+            0.0, lr, int(g("warmup_steps", 100)), int(g("decay_steps", 10000))
+        )
+        self.lr_schedule = schedule  # surfaced as the per-batch `lr` metric
+        # adam first-moment dtype: bf16 halves its traffic; the second
+        # moment stays f32 for the sqrt's range
+        mu_dtype = torch.bfloat16 if bool(g("adam_mu_bf16", False)) else None
+        fused = g("fused_adamw", "auto")
+        if fused == "auto":
+            fused = self.context.device.type == "cuda"
+        weight_decay = float(g("weight_decay", 0.01))
+        clip = float(g("grad_clip", 1.0))
+        if fused:
+            return fused_adamw(schedule, weight_decay=weight_decay, clip_norm=clip,
+                               mu_dtype=mu_dtype)
+        return ClipAdamW(schedule, clip_norm=clip, weight_decay=weight_decay, mu_dtype=mu_dtype)
+
+    def _dataset(self, seed: int) -> SyntheticDataset:
+        g = self.context.get_hparam
+        seq = int(g("seq_len", 512))
+        return SyntheticDataset(
+            {"tokens": ((seq + 1,), np.int32, int(g("vocab_size", 2048)))},
+            size=int(g("dataset_size", 2048)),
+            seed=seed,
+        )
+
+    def build_training_data_loader(self) -> DataLoader:
+        return DataLoader(
+            self._dataset(0), self.context.get_global_batch_size(),
+            shuffle=True, seed=self.context.seed,
+        )
+
+    def build_validation_data_loader(self) -> DataLoader:
+        return DataLoader(
+            self._dataset(1), self.context.get_global_batch_size(),
+            shuffle=False, seed=self.context.seed,
+        )
+
+    def loss(
+        self, model: TransformerLM, batch: Dict[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        tokens = batch["tokens"].long()
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        g = self.context.get_hparam
+        fused = g("fused_ce", "auto")
+        if fused == "auto":
+            fused = model.cfg.vocab_size >= 8192
+        if fused:
+            from determined_tpu_torch.ops.cross_entropy import fused_cross_entropy
+
+            hidden = model(inputs, return_hidden=True)
+            chunk = g("ce_chunk", None)
+            loss = fused_cross_entropy(
+                hidden,
+                model.lm_head.weight.t(),  # [d, vocab], the JAX kernel layout
+                targets,
+                chunk_size=None if chunk in (None, "auto") else int(chunk),
+                compute_dtype=model.cfg.dtype,
+                batch_shards=self.context.batch_axis_size,
+                bf16_residual=bool(g("ce_bf16_residual", False)),
+            )
+        else:
+            logits = model(inputs)
+            loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+        return loss, {"perplexity": torch.exp(loss)}
+
+    def evaluate_batch(
+        self, model: TransformerLM, batch: Dict[str, torch.Tensor]
+    ) -> Dict[str, torch.Tensor]:
+        loss, metrics = self.loss(model, batch)
+        return {"validation_loss": loss, "validation_perplexity": metrics["perplexity"]}

@@ -1,12 +1,19 @@
-"""Process-wide spans and gauges for the port's serving path.
+"""Process-wide spans, gauges and counters for the port's serving and
+training paths.
 
-The part of ``determined_tpu/observability/_tracer.py`` the serving engine
-uses: ``get_tracer()``, ``Tracer.span`` and ``Tracer.gauge``, under the same
-names (``serve.admit``, ``serve.prefill``, ``serve.decode``,
-``serve.kv_alloc``; gauges ``serve.queue_depth``, ``serve.kv_utilization``).
-Spans land in a bounded buffer (the oldest drop first) that
-``spans()`` reads; ``chip_smoke.py`` takes the decode-step time from it.
-Span times are host wall-clock around work that ends in a copy to the host.
+The part of ``determined_tpu/observability/_tracer.py`` the port uses:
+``get_tracer()``, ``Tracer.span``/``record_span``, ``gauge``, ``counter``
+and ``enabled``, under the same names.  Serving
+spans ``serve.admit``, ``serve.prefill``, ``serve.decode``,
+``serve.kv_alloc`` and gauges ``serve.queue_depth``,
+``serve.kv_utilization``; training spans ``data.wait``, ``step.dispatch``,
+``step.boundary_block``, ``validate``, ``data.fetch``, ``data.h2d`` and
+counters ``train.steps``, ``train.samples``, ``train.tokens`` (summed).
+Spans land in a bounded buffer (the oldest drop first) that ``spans()``
+reads; ``chip_smoke.py`` takes the decode-step time from it.  Span times are
+host wall-clock; a training step's span ends when its work is queued on the
+device, and ``step.boundary_block`` is where the host waits for the device.
+With ``enabled`` False every recording call returns at once.
 """
 
 from __future__ import annotations
@@ -45,13 +52,18 @@ class Tracer:
     """Thread-safe span and gauge sink."""
 
     def __init__(self, max_spans: int = DEFAULT_MAX_SPANS) -> None:
+        self.enabled = True
         self._lock = threading.Lock()
         self._spans: Deque[SpanRecord] = collections.deque(maxlen=max_spans)
         self._gauges: Dict[str, float] = {}
+        self._counters: Dict[str, float] = {}
 
     def record_span(
         self, name: str, cat: str, t0: float, t1: float, args: Optional[Dict[str, Any]] = None
     ) -> None:
+        """Record an already-timed span (``time.monotonic()`` endpoints)."""
+        if not self.enabled:
+            return
         with self._lock:
             self._spans.append((name, cat, t0, t1 - t0, args))
 
@@ -61,8 +73,21 @@ class Tracer:
 
     def gauge(self, name: str, value: float) -> None:
         """Point-in-time gauge (the last value wins)."""
+        if not self.enabled:
+            return
         with self._lock:
             self._gauges[name] = float(value)
+
+    def counter(self, name: str, value: float = 1.0) -> None:
+        """Accumulating counter (values sum)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0.0) + float(value)
+
+    def counters(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._counters)
 
     def spans(self, name: Optional[str] = None) -> List[SpanRecord]:
         with self._lock:
@@ -76,6 +101,7 @@ class Tracer:
         with self._lock:
             self._spans.clear()
             self._gauges.clear()
+            self._counters.clear()
 
 
 _tracer = Tracer()

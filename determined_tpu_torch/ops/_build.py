@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -61,21 +61,38 @@ def build(source: str) -> str:
     """Compile ``csrc/<source>`` unless its library is already built;
     returns the library path.  The ptxas report (registers, shared memory,
     spills) is kept beside the library as ``<lib>.ptxas.txt``."""
-    out = library_path(source)
-    if os.path.exists(out):
-        return out
+    return build_all([source])[0]
+
+
+def build_all(sources: Sequence[str]) -> List[str]:
+    """Compile every source whose library is not built yet, one ``nvcc``
+    process per source, all started together; returns the library paths in
+    the order given.  Raises ``NvccError`` naming each source that failed."""
+    outs = [library_path(s) for s in sources]
+    todo = [(s, out) for s, out in zip(sources, outs) if not os.path.exists(out)]
+    if not todo:
+        return outs
+    nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise NvccError(
-            f"nvcc failed on {source} (exit {proc.returncode}):\n{proc.stderr}"
-        )
-    with open(out + ".ptxas.txt", "w", encoding="utf-8") as f:
-        f.write(proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
+    procs = []
+    for source, out in todo:
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+        procs.append((source, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )))
+    failures = []
+    for source, out, tmp, proc in procs:
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {source} (exit {proc.returncode}):\n{stderr}")
+            continue
+        with open(out + ".ptxas.txt", "w", encoding="utf-8") as f:
+            f.write(stderr)
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failures:
+        raise NvccError("\n".join(failures))
+    return outs
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -4,8 +4,9 @@ Port of ``determined_tpu/ops/attention.py``.
 
 - ``reference_attention``: plain softmax attention, the semantics every
   other implementation must match.
-- ``flash_attention``: the hand-written CUDA forward kernel
-  (``ops/flash_attention.py``, ``csrc/flash_fwd.cu``).
+- ``flash_attention``: the hand-written CUDA forward and backward kernels
+  under an autograd Function (``ops/flash_attention.py``,
+  ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``).
 
 All take [batch, heads, q_len, head_dim] q and [batch, kv_heads, kv_len,
 head_dim] k/v (GQA when kv_heads < heads).

@@ -1,19 +1,26 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels, their plain versions, and the
+autograd ``Function`` that joins them.
 
-Port of ``determined_tpu/ops/flash_attention.py`` (forward only).  The JAX
-package runs the blockwise forward as a Pallas TPU kernel
-(``_flash_fwd_call``); here the same function is ``csrc/flash_fwd.cu``,
-built with ``nvcc`` for ``sm_90a`` and launched through ``ctypes``.
+Port of ``determined_tpu/ops/flash_attention.py``.  The JAX package runs the
+blockwise forward and the two backward sweeps as Pallas TPU kernels
+(``_flash_fwd_call``, ``_flash_bwd_call``'s ``_dq_kernel`` and
+``_dkv_kernel``) under a ``jax.custom_vjp``; here they are
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, built with ``nvcc`` for
+``sm_90a`` and launched through ``ctypes``, under a
+``torch.autograd.Function``.
 
 Layout: q [b, h, Sq, d]; k, v [b, h_kv, Sk, d] (GQA: h_kv divides h).  The
 softmax runs in log2 space: scores are ``q.k * scale * log2(e)``, masked to
 a finite ``-1e30`` where ``q_pos < k_pos`` (no offset), exponentiated with
 ``exp2``; ``l`` is floored at ``1e-30``.  ``flash_attention_fwd`` returns
 ``(out, lse)`` with ``lse = m + log2(l)`` laid out ``[b, h, 1, Sq]`` in f32,
-as ``_flash_fwd_call`` returns it (the backward kernels will read it).
+as ``_flash_fwd_call`` returns it; ``flash_attention_bwd`` rebuilds
+``p = exp2(s2 - lse)`` from it and returns ``(dq, dk, dv)`` with dk/dv in
+the kv-head shape, summed over each GQA group (what JAX's autodiff does
+through ``_repeat_kv``).
 
-On CPU tensors the wrapper computes the plain version; on CUDA tensors it
-launches the kernel or raises.  There is no fallback between the two.
+On CPU tensors the wrappers compute the plain versions; on CUDA tensors they
+launch the kernels or raise.  There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -28,19 +35,22 @@ from determined_tpu_torch.ops.attention import NEG_INF, _repeat_kv
 LOG2E = 1.4426950408889634
 
 KERNEL_SOURCE = "flash_fwd.cu"
-#: head dims and input dtypes the CUDA kernel is compiled for
+BWD_KERNEL_SOURCE = "flash_bwd.cu"
+#: head dims and input dtypes the CUDA kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches of the CUDA kernel since the last reset (the CPU path never
-#: touches it); ``chip_smoke.py`` reads it to show the serving path ran
-#: through the kernel
+#: launches of each CUDA kernel since the last reset (the CPU path never
+#: touches them); ``chip_smoke.py`` reads them to show the serving and
+#: training paths ran through the kernels
 launches = 0
+launches_bwd_dq = 0
+launches_bwd_dkv = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_bwd_dq, launches_bwd_dkv
+    launches = launches_bwd_dq = launches_bwd_dkv = 0
 
 
 def flash_attention_fwd_reference(
@@ -148,6 +158,167 @@ def flash_attention_fwd(
     raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
 
 
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the backward kernels: the JAX kernels'
+    math in one pass (full ``s2``, ``p = exp2(s2 - lse)``, ``ds`` and ``p``
+    cast to the input dtype before their products, f32 accumulation), with
+    dk/dv summed over each GQA group in f32 and cast once, as
+    ``csrc/flash_bwd.cu`` sums them."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    n_rep = h // hkv
+    kr, vr = _repeat_kv(k, n_rep).float(), _repeat_kv(v, n_rep).float()
+    s2 = torch.matmul(q.float(), kr.transpose(-1, -2)) * (scale * LOG2E)
+    if causal:
+        q_pos = torch.arange(sq, device=q.device)[:, None]
+        k_pos = torch.arange(sk, device=q.device)[None, :]
+        s2 = torch.where(q_pos >= k_pos, s2, torch.full_like(s2, NEG_INF))
+    p = torch.exp2(s2 - lse.transpose(-1, -2))             # [b, h, sq, sk]
+    delta = _delta(out, do).transpose(-1, -2)              # [b, h, sq, 1]
+    dp = torch.matmul(do.float(), vr.transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, kr).to(q.dtype)
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dk = dk.view(b, hkv, n_rep, sk, d).sum(2).to(k.dtype)
+    dv = dv.view(b, hkv, n_rep, sk, d).sum(2).to(v.dtype)
+    return dq, dk, dv
+
+
+def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(do * out) in f32, laid out [b, h, 1, Sq] like lse
+    (computed outside the kernels, as the JAX wrapper computes it)."""
+    return (do.float() * out.float()).sum(dim=-1)[:, :, None, :]
+
+
+def _check_bwd_inputs(q, k, v, out, lse, do) -> None:
+    _check_kernel_inputs(q, k, v)
+    b, h, sq, _ = q.shape
+    for name, t in (("out", out), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q in shape, dtype and device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if (
+        tuple(lse.shape) != (b, h, 1, sq)
+        or lse.dtype != torch.float32
+        or lse.device != q.device
+        or not lse.is_contiguous()
+    ):
+        raise ValueError(f"lse must be a contiguous f32 [b, h, 1, Sq] tensor on {q.device}")
+
+
+def _bwd_lib():
+    from determined_tpu_torch.ops import _build
+
+    lib = _build.load(BWD_KERNEL_SOURCE)
+    ptrs = [ctypes.c_void_p] * 6
+    tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.dtt_flash_bwd_dq.argtypes = ptrs + [ctypes.c_void_p] + tail
+    lib.dtt_flash_bwd_dkv.argtypes = ptrs + [ctypes.c_void_p] * 2 + tail
+    lib.dtt_flash_bwd_dq.restype = lib.dtt_flash_bwd_dkv.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal: bool, scale: float):
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    ins = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    dims = [_DTYPE_CODES[q.dtype], b, h, hkv, sq, sk, d,
+            float(scale * LOG2E), float(scale), int(bool(causal))]
+    return ins, dims
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Tensor:
+    """The dq kernel alone (inputs already checked, delta computed)."""
+    global launches_bwd_dq
+    ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):  # the launch goes to q's device
+        err = _bwd_lib().dtt_flash_bwd_dq(
+            *ins, dq.data_ptr(), *dims, torch.cuda.current_stream().cuda_stream
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd dq kernel launch failed: cudaError_t {err}")
+    launches_bwd_dq += 1
+    return dq
+
+
+def _launch_dkv(
+    q, k, v, do, lse, delta, causal: bool, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel alone (inputs already checked, delta computed)."""
+    global launches_bwd_dkv
+    ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):  # the launch goes to q's device
+        err = _bwd_lib().dtt_flash_bwd_dkv(
+            *ins, dk.data_ptr(), dv.data_ptr(), *dims, torch.cuda.current_stream().cuda_stream
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd dkv kernel launch failed: cudaError_t {err}")
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` from the forward's ``out`` and ``lse`` and the
+    output gradient ``do``: the CUDA kernels on CUDA tensors, the plain
+    version on CPU tensors.  dk/dv come back in k's kv-head shape."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        _check_bwd_inputs(q, k, v, out, lse, do)
+        delta = _delta(out, do)
+        dq = _launch_dq(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, scale)
+        return dq, dk, dv
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal, scale=scale)
+    raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through ``flash_attention_fwd``, backward through
+    ``flash_attention_bwd``; the residuals are q, k, v (not repeated), out
+    and lse, as ``_flash_fwd`` keeps them in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, do.contiguous(), causal=ctx.causal, scale=ctx.scale
+        )
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -156,6 +327,6 @@ def flash_attention(
     causal: bool = True,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Blockwise flash attention forward; GQA-aware.  Returns ``out``."""
-    out, _ = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
-    return out
+    """Blockwise flash attention; differentiable; GQA-aware.  Returns ``out``."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, causal, scale)

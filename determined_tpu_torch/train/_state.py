@@ -1,0 +1,56 @@
+"""TrainState: what the training step reads and writes, kept on the device.
+
+Port of ``determined_tpu/train/_state.py``.  The metric sums since the last
+report boundary (``metric_acc``/``metric_count``) live on the device beside
+the model and the optimizer state, so the hot loop never waits for the host;
+``fetch_metrics()`` is the one host sync, at report boundaries.  PyTorch
+updates the model and the optimizer state in place, so the state object is
+mutated rather than replaced.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+
+@dataclasses.dataclass
+class TrainState:
+    """step:          optimizer steps taken (device int64 scalar).
+    model:         the trial's module (parameters on the device).
+    opt_state:     the optimizer state (moments beside the params).
+    metric_acc:    running per-metric f32 sums since the last report.
+    metric_count:  number of accumulated steps (device f32 scalar)."""
+
+    step: torch.Tensor
+    model: Any
+    opt_state: Any
+    metric_acc: Dict[str, torch.Tensor]
+    metric_count: torch.Tensor
+
+    @classmethod
+    def create(cls, model: Any, opt_state: Any, device: torch.device) -> "TrainState":
+        """A fresh state; the metric keys are added by the first step."""
+        return cls(
+            step=torch.zeros((), dtype=torch.int64, device=device),
+            model=model,
+            opt_state=opt_state,
+            metric_acc={},
+            metric_count=torch.zeros((), dtype=torch.float32, device=device),
+        )
+
+    def reset_metrics(self) -> None:
+        for v in self.metric_acc.values():
+            v.zero_()
+        self.metric_count.zero_()
+
+    def fetch_metrics(self) -> Dict[str, float]:
+        """One host sync: mean of each accumulated metric."""
+        keys = list(self.metric_acc)
+        host = torch.stack([self.metric_acc[k] for k in keys] + [self.metric_count]).cpu()
+        count = float(host[-1])
+        if count == 0:
+            return {}
+        return {k: float(host[i]) / count for i, k in enumerate(keys)}

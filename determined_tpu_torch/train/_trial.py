@@ -1,0 +1,129 @@
+"""TorchTrial: the user-facing trial ABC and its TrialContext.
+
+Port of ``determined_tpu/train/_trial.py`` (``JaxTrial``).  Users subclass,
+implement the data/model/optimizer builders and a per-batch loss; the
+Trainer owns the loop.  Where the JAX trial's ``loss`` is a pure function of
+a param tree traced under ``jit``, here it is an eager forward of the
+trial's ``nn.Module`` that returns a differentiable scalar; the Trainer runs
+the backward and the optimizer step.  Where the JAX context holds a mesh,
+this one holds the ``torch.device`` the trial runs on (one device: the batch
+axes have size 1).
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+Metrics = Dict[str, torch.Tensor]
+
+
+class TrialContext:
+    """Per-trial handle: hyperparameters, device, seed and core services."""
+
+    def __init__(
+        self,
+        core: Any,
+        device: torch.device,
+        hparams: Optional[Dict[str, Any]] = None,
+        seed: int = 0,
+    ) -> None:
+        self.core = core
+        self.device = device
+        self.hparams = dict(hparams or {})
+        self.seed = seed
+        # the experiment configuration comes with a later slice of the port
+        self.exp_config = None
+
+    # -- hyperparameters ---------------------------------------------------
+
+    def get_hparam(self, name: str, default: Any = ...) -> Any:
+        if name in self.hparams:
+            v = self.hparams[name]
+            return getattr(v, "val", v)
+        if default is ...:
+            raise KeyError(f"hyperparameter {name!r} not set and no default given")
+        return default
+
+    # -- topology ----------------------------------------------------------
+
+    @property
+    def batch_axis_size(self) -> int:
+        """Product of the batch-carrying axes: 1 on one device."""
+        return 1
+
+    def get_global_batch_size(self) -> int:
+        return int(self.get_hparam("global_batch_size", 32))
+
+    def generator(self) -> torch.Generator:
+        """A generator on the trial's device seeded with the trial's seed
+        (model weights are drawn from it)."""
+        return torch.Generator(device=self.device).manual_seed(self.seed)
+
+
+class Callback:
+    """Training lifecycle hooks, all host-side, run at boundaries."""
+
+    def on_training_start(self, trainer: Any) -> None: ...
+
+    def on_epoch_end(self, epoch: int) -> None: ...
+
+    def on_validation_start(self) -> None: ...
+
+    def on_validation_end(self, metrics: Dict[str, float]) -> None: ...
+
+    def on_training_workload_end(
+        self, steps_completed: int, metrics: Dict[str, float]
+    ) -> None: ...
+
+    def on_trial_shutdown(self) -> None: ...
+
+
+class TorchTrial(abc.ABC):
+    """Subclass this; the Trainer drives everything else."""
+
+    def __init__(self, context: TrialContext) -> None:
+        self.context = context
+
+    # -- builders ----------------------------------------------------------
+
+    @abc.abstractmethod
+    def build_model(self) -> torch.nn.Module:
+        """The model, with its weights, on ``context.device``."""
+
+    @abc.abstractmethod
+    def build_optimizer(self) -> Any:
+        """An optimizer with ``init(params)`` and ``apply_step(grads, state,
+        params)`` over dicts of tensors keyed like ``named_parameters()``."""
+
+    @abc.abstractmethod
+    def build_training_data_loader(self) -> Any:
+        ...
+
+    @abc.abstractmethod
+    def build_validation_data_loader(self) -> Any:
+        ...
+
+    def build_callbacks(self) -> Dict[str, Callback]:
+        return {}
+
+    # -- compute -----------------------------------------------------------
+
+    @abc.abstractmethod
+    def loss(self, model: torch.nn.Module, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Metrics]:
+        """Scalar loss (differentiable) + auxiliary metric dict for one
+        training batch."""
+
+    def evaluate_batch(self, model: torch.nn.Module, batch: Dict[str, torch.Tensor]) -> Metrics:
+        """Validation metrics for one batch; defaults to the loss.  Runs
+        under ``torch.no_grad()``."""
+        loss, metrics = self.loss(model, batch)
+        return {"validation_loss": loss, **{f"val_{k}": v for k, v in metrics.items()}}
+
+    def evaluation_reducers(self) -> Dict[str, Any]:
+        """Per-metric across-batch reducers: builtin names
+        ("mean"/"sum"/"min"/"max"/"last") or ``MetricReducer`` instances.
+        Unlisted metrics reduce by mean."""
+        return {}

@@ -53,8 +53,8 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    # every module of the slice was walked, not a stub of the package
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+    # every module of both slices was walked, not a stub of the package
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 35
 
 
 def test_chip_smoke_fails_without_cuda():
