@@ -7,11 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device (always): require CUDA; print the card's name and power limit.
 2. kernel: build every hand-written kernel from csrc/ with nvcc (one process
-   per source, in parallel) and hold each against its plain PyTorch version
-   on the card: flash_fwd and flash_bwd (dq, dk/dv) at the training and
-   serving shapes and the ragged, GQA and f32 corners, fused_adamw on
-   flagship leaves and ragged tails.  Each kernel is timed at its main-path
-   shape beside its plain version, its bound and a library yardstick
+   per source, in parallel), print each one's ptxas registers, spills and
+   wgmma warnings, and hold each against its plain PyTorch version on the
+   card: flash_fwd (bf16: the launch's own tile and both the 64- and
+   128-row tiles) and flash_bwd (dq, dk/dv) at the training and serving
+   shapes and the ragged, GQA, head-dim-64, long-walk and f32 corners,
+   fused_adamw on flagship leaves and ragged tails.  Each kernel is timed at
+   its main-path shape beside its plain version, its bound (with the share
+   of it reached and the achieved TFLOP/s) and a library yardstick
    (``scaled_dot_product_attention`` and its backward,
    ``torch.optim.AdamW(fused=True)``), which the port never calls.
 3. serve: the flagship LM (examples/transformer_lm/const.yaml: d2048, L8,
@@ -67,7 +70,10 @@ KERNELS = {
 }
 
 # attention cases: the training and serving shapes, then the ragged, GQA and
-# f32 corners.  name, b, h, hkv, s, d, dtype name, causal
+# f32 corners, and the edges of the bf16 kernels' TMA pipelines: a ragged
+# last tile (TMA's zero fill and clipped store), GQA at head dim 64 (the 3-D
+# kv tensor map), and a long causal walk (the ring wraps many times).
+# name, b, h, hkv, s, d, dtype name, causal
 ATTN_CASES_SPEC = [
     ("training", 8, 16, 16, 1024, 128, "bfloat16", True),
     ("serving", 1, 16, 16, 1024, 128, "bfloat16", True),
@@ -75,6 +81,9 @@ ATTN_CASES_SPEC = [
     ("f32_hd64_ragged", 1, 4, 4, 200, 64, "float32", True),
     ("f32_hd128_full_gqa", 2, 8, 2, 77, 128, "float32", False),
     ("bf16_hd64_ragged_full", 1, 4, 4, 130, 64, "bfloat16", False),
+    ("bf16_ragged1000", 1, 8, 8, 1000, 128, "bfloat16", True),
+    ("bf16_gqa_hd64", 2, 8, 2, 640, 64, "bfloat16", True),
+    ("bf16_long4096", 1, 8, 8, 4096, 128, "bfloat16", True),
 ]
 
 # kernel vs plain version, per dtype.  bf16: both cast p to bf16 before P.V,
@@ -198,7 +207,8 @@ def attention_bound_us(b, h, hkv, sq, sk, d, dtype_name, causal, *, products, q_
     """Least time for the card: every input read once, every output written
     once (``q_side`` tensors of [b, h, sq, d], ``kv_side`` of [b, hkv, sk, d],
     ``rows`` f32 [b, h, sq] rows such as lse), against the operations that
-    ``products`` matrix products over the pairs this mask keeps need."""
+    ``products`` matrix products over the pairs this mask keeps need.
+    Returns (bound in us, "bytes" or "operations", the operations)."""
     elem = 2 if dtype_name == "bfloat16" else 4
     nbytes = elem * d * (q_side * b * h * sq + kv_side * b * hkv * sk) + 4 * rows * b * h * sq
     if causal:
@@ -208,7 +218,15 @@ def attention_bound_us(b, h, hkv, sq, sk, d, dtype_name, causal, *, products, q_
     flops = 2.0 * products * b * h * d * pairs
     t_bytes = nbytes / PEAK_BYTES
     t_ops = flops / PEAK_FLOPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e6, ("bytes" if t_bytes >= t_ops else "operations")
+    return max(t_bytes, t_ops) * 1e6, ("bytes" if t_bytes >= t_ops else "operations"), flops
+
+
+def timed_row(kernel_us, plain_us, library_us, bound_us, bound_by, flops) -> dict:
+    """A kernel's timed fields of the kernels line: times in ms, the share of
+    its bound it reaches (bound / time) and its achieved TFLOP/s."""
+    return dict(ms=kernel_us / 1e3, plain_ms=plain_us / 1e3, bound_ms=bound_us / 1e3,
+                bound_by=bound_by, library_ms=library_us / 1e3,
+                bound_share=bound_us / kernel_us, tflops=flops / kernel_us / 1e6)
 
 
 # ---------------------------------------------------------------------------
@@ -235,20 +253,19 @@ def build_kernels() -> None:
     for source in KERNEL_SOURCES:
         _build.load(source)
         for line in (_build.ptxas_report(source) or "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "setmaxnreg",
+                                       "wgmma", "Performance", "warning")):
                 log(f"  ptxas {source}: {line.strip()}")
 
 
 def check_flash_fwd(seed: int) -> dict:
-    """flash_fwd against its plain version on the five forward cases, timed
-    at the serving shape and at the training shape."""
+    """flash_fwd against its plain version on every forward case (bf16: the
+    launch's own tile and both tiles forced), timed at the serving shape and
+    at the training shape."""
     import torch
     import torch.nn.functional as F
 
-    from determined_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd,
-        flash_attention_fwd_reference,
-    )
+    import determined_tpu_torch.ops.flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     result = {}
@@ -258,32 +275,43 @@ def check_flash_fwd(seed: int) -> dict:
         q = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
         v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
-        out, lse = flash_attention_fwd(q, k, v, causal=causal)
-        ref_out, ref_lse = flash_attention_fwd_reference(q, k, v, causal=causal)
-        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
         tol = KERNEL_TOL[dname]
-        err_out, err_lse = _max_err(out, ref_out), _max_err(lse, ref_lse)
-        log(f"flash_fwd case {name}: [{b},{h}/{hkv},{s},{d}] {dname} causal={causal} "
-            f"max_abs_err out={err_out:.3e} lse={err_lse:.3e}")
-        torch.testing.assert_close(out.float(), ref_out.float(), **tol["out"])
-        torch.testing.assert_close(lse, ref_lse, **tol["lse"])
+        # bf16: the launch's own tile (0) and both tiles forced
+        for rows in fa.FWD_BLOCK_ROWS if dname == "bfloat16" else (0,):
+            if rows == 0:
+                out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            else:
+                out, lse = fa._launch_kernel(q, k, v, causal, d ** -0.5, rows)
+            torch.cuda.synchronize()
+            err_out, err_lse = _max_err(out, ref_out), _max_err(lse, ref_lse)
+            log(f"flash_fwd case {name}: [{b},{h}/{hkv},{s},{d}] {dname} causal={causal} "
+                f"block_rows={rows or 'auto'} max_abs_err out={err_out:.3e} lse={err_lse:.3e}")
+            torch.testing.assert_close(out.float(), ref_out.float(), **tol["out"],
+                                       msg=lambda m, rows=rows: f"flash_fwd rows={rows}: {m}")
+            torch.testing.assert_close(lse, ref_lse, **tol["lse"])
+            worst = max(worst, err_out)
         if name not in ("serving", "training"):
             continue
-        if name == "serving":
-            worst = err_out
-        kernel_us = device_time_us(lambda: flash_attention_fwd(q, k, v, causal=True))
-        plain_us = device_time_us(lambda: flash_attention_fwd_reference(q, k, v, causal=True))
+        by_rows = {
+            rows: device_time_us(lambda rows=rows: fa._launch_kernel(q, k, v, True, d ** -0.5, rows))
+            for rows in fa.FWD_BLOCK_ROWS
+        }
+        plain_us = device_time_us(lambda: fa.flash_attention_fwd_reference(q, k, v, causal=True))
         library_us = device_time_us(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
         )
-        bound_us, bound_by = attention_bound_us(
+        bound_us, bound_by, flops = attention_bound_us(
             b, h, hkv, s, s, d, dname, causal, products=2, q_side=2, kv_side=2, rows=1
         )
+        kernel_us = by_rows[0]
         log(f"flash_fwd at the {name} shape [{b},{h},{s},{d}] {dname} causal: "
-            f"kernel_us={kernel_us:.2f} plain_us={plain_us:.2f} "
-            f"library_us={library_us:.2f} bound_us={bound_us:.2f} ({bound_by})")
-        times = dict(ms=kernel_us / 1e3, plain_ms=plain_us / 1e3, bound_ms=bound_us / 1e3,
-                     bound_by=bound_by, library_ms=library_us / 1e3)
+            f"kernel_us={kernel_us:.2f} (block_rows 64: {by_rows[64]:.2f}, 128: "
+            f"{by_rows[128]:.2f}) plain_us={plain_us:.2f} library_us={library_us:.2f} "
+            f"bound_us={bound_us:.2f} ({bound_by}) bound_share={bound_us / kernel_us:.3f} "
+            f"tflops={flops / kernel_us / 1e6:.1f}")
+        times = timed_row(kernel_us, plain_us, library_us, bound_us, bound_by, flops)
+        times.update(block64_ms=by_rows[64] / 1e3, block128_ms=by_rows[128] / 1e3)
         if name == "serving":
             result.update(times)
         else:
@@ -349,16 +377,15 @@ def check_flash_bwd(seed: int) -> dict:
         for row, kernel_us, products, q_side, kv_side in (
             ("flash_bwd_dq", dq_us, 3, 3, 2), ("flash_bwd_dkv", dkv_us, 4, 2, 4),
         ):
-            bound_us, bound_by = attention_bound_us(
+            bound_us, bound_by, flops = attention_bound_us(
                 b, h, hkv, s, s, d, dname, causal, products=products, q_side=q_side,
                 kv_side=kv_side, rows=2,
             )
+            rows[row] = timed_row(kernel_us, plain_us, library_us, bound_us, bound_by, flops)
             log(f"{row} at the training shape [{b},{h},{s},{d}] {dname} causal: "
                 f"kernel_us={kernel_us:.2f} plain_us(whole bwd)={plain_us:.2f} "
-                f"library_us(SDPA bwd)={library_us:.2f} bound_us={bound_us:.2f} ({bound_by})")
-            rows[row] = dict(ms=kernel_us / 1e3, plain_ms=plain_us / 1e3,
-                             bound_ms=bound_us / 1e3, bound_by=bound_by,
-                             library_ms=library_us / 1e3)
+                f"library_us(SDPA bwd)={library_us:.2f} bound_us={bound_us:.2f} ({bound_by}) "
+                f"bound_share={rows[row]['bound_share']:.3f} tflops={rows[row]['tflops']:.1f}")
     for row in rows:
         rows[row]["max_abs_err"] = worst[row]
     return rows
@@ -409,11 +436,12 @@ def check_fused_adamw(seed: int) -> dict:
         t_ops = ADAMW_FLOPS_PER_ELEMENT * n / PEAK_FLOPS["float32"]
         bound_us = max(t_bytes, t_ops) * 1e6
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        result = timed_row(kernel_us, plain_us, library_us, bound_us, bound_by,
+                           ADAMW_FLOPS_PER_ELEMENT * n)
         log(f"fused_adamw on {list(shape)} mu={_dname(mu_dtype)} ({nbytes / 1e6:.1f} MB): "
             f"kernel_us={kernel_us:.2f} plain_us={plain_us:.2f} "
-            f"library_us(torch AdamW fused)={library_us:.2f} bound_us={bound_us:.2f} ({bound_by})")
-        result = dict(ms=kernel_us / 1e3, plain_ms=plain_us / 1e3, bound_ms=bound_us / 1e3,
-                      bound_by=bound_by, library_ms=library_us / 1e3)
+            f"library_us(torch AdamW fused)={library_us:.2f} bound_us={bound_us:.2f} ({bound_by}) "
+            f"bound_share={result['bound_share']:.3f} tflops={result['tflops']:.3f}")
     result["max_abs_err"] = worst
     return result
 

@@ -21,44 +21,69 @@
 // per head, 2 * D operations per pair and product):
 //   dq:  3 products (s, dp, dq) = 5.2e10 FLOP -> 52 us; ~168 MB -> 50 us
 //   dkv: 4 products (s, dp, dv, dk) = 6.9e10 FLOP -> 70 us; ~201 MB -> 60 us
-// so both are bound by operations, barely.
+// so both are bound by operations, barely.  The serving path runs no
+// backward.
 //
-// What the design does about it.  Neither kernel writes a [Sq, Sk] tensor:
-// p, dp and ds live in registers in the mma.sync accumulator layout.
-// - dq: one CTA of four warps owns a 64-row q tile of one (batch, head) and
-//   walks 64-key tiles of K and V up to the causal diagonal, as flash_fwd.cu
-//   does; each warp owns 16 q rows and keeps its dq rows in f32 registers.
-// - dkv: one CTA owns a 64-row k tile of one (batch, KV head) and walks the
-//   H / Hkv q heads of its group and, in each, the 32-row q tiles from the
-//   diagonal on.  It computes the transposed products s^T = K.Q^T and
-//   dp^T = V.dO^T, so that p^T and ds^T come out as accumulators whose
-//   rows are this warp's keys; those turn straight into the A operand of
-//   dv += p^T.dO and dk += ds^T.Q.  No operand needs a transposed layout
-//   and the GQA group sum happens in the f32 accumulators: dk and dv are
-//   written once, in the kv-head layout, with no atomics and no repeated
-//   K/V.  (The JAX package casts each head's dk to the input dtype and then
-//   sums over the group; summing in f32 first differs from it by bf16
-//   rounding only.)
-// bf16 inputs run every product on the tensor cores through mma.sync
-// m16n8k16 (f32 accumulate); f32 inputs use plain FMAs, so f32 results stay
-// within f32 rounding of the plain version.  Tiles are loaded synchronously
-// and the A operands are read from shared memory at each step (not kept in
-// registers), which keeps a dkv thread at two D-wide f32 accumulators plus
-// the 16x32 score tiles; TMA, wgmma and load/compute overlap are left for a
-// later change.
+// What the designs do about it.  Neither kernel writes a [Sq, Sk] tensor:
+// p, dp and ds live in registers in the tensor cores' accumulator layout.
+// - dq (dtt_flash_bwd_dq): one CTA of four warps owns a 64-row q tile of one
+//   (batch, head) and walks 64-key tiles of K and V up to the causal
+//   diagonal; each warp owns 16 q rows and keeps its dq rows in f32
+//   registers.  bf16 runs mma.sync m16n8k16, f32 plain FMAs.  Tiles are
+//   loaded synchronously and B fragments read as 16-bit scalars: this kernel
+//   has not been redesigned for Hopper yet.
+// - dkv (dtt_flash_bwd_dkv): one CTA owns a key tile of one (batch, KV head)
+//   and walks the H / Hkv q heads of its group and, in each, the q tiles
+//   from the diagonal on.  It computes the transposed products
+//   s^T = K.Q^T and dp^T = V.dO^T, so that p^T and ds^T come out as
+//   accumulators whose rows are its keys; those turn straight into the A
+//   operand of dv += p^T.dO and dk += ds^T.Q.  The GQA group sum happens in
+//   the f32 accumulators: dk and dv are written once, in the kv-head layout,
+//   with no atomics and no repeated K/V.  (The JAX package casts each head's
+//   dk to the input dtype and then sums over the group; summing in f32 first
+//   differs from it by bf16 rounding only.)
+//   bf16 (flash_bwd_dkv_wgmma), 64 keys a CTA, two consumer warpgroups and
+//   a producer warpgroup of which one warp loads:
+//   * key tiles run heaviest first: key tile 0 walks every q tile, so the
+//     grid starts the key tile 0 of 16 (batch, KV head)s, then their tile
+//     1, and so on (hopper::group_order); those heads' Q and dO stay in L2;
+//   * loads overlap compute: the producer loads K and V once by TMA, then
+//     streams the 64-row Q and dO tiles (TMA) and their lse and delta rows
+//     (plain loads, zero past Sq, issued before the slot frees) into a
+//     two-stage ring on mbarriers; the consumers release each slot through
+//     an "empty" mbarrier.  3-D tensor maps ([B*H, Sq, D], [B*Hkv, Sk, D])
+//     keep a ragged tile in its head.
+//   * s^T and dp^T are wgmma with both operands K-major in 128-byte-swizzled
+//     shared memory; dv and dk take p^T and ds^T (cast to bf16, as the JAX
+//     kernel casts p and ds) as register A operands and dO and Q from shared
+//     memory with the transpose bit: no operand is rebuilt from 16-bit
+//     scalar loads.
+//   * every product is a wgmma, split between the two consumer warpgroups
+//     over the same keys: warpgroup 0 runs s^T = K.Q^T, p and
+//     dv += p^T.dO; warpgroup 1 runs dp^T = V.dO^T, ds = p (dp - delta)
+//     scale with the f32 p that warpgroup 0 hands over in shared memory (an
+//     mbarrier a ring stage), and dk += ds^T.Q.  Each holds one D-wide f32
+//     accumulator (64 registers a thread at D = 128) beside one score tile
+//     (32): holding dk and dv in one warpgroup needed more than the 240
+//     registers a thread that the producers' setmaxnreg release buys, and
+//     ptxas spilled and serialised every wgmma (PERF.md, Findings).
+//   * dk and dv leave through K's and V's shared memory and TMA stores.
+//   f32 (flash_bwd_dkv_kernel) keeps the FMA kernel: 64 keys a CTA, four
+//   warps, 32-row q tiles loaded synchronously (wgmma in tf32 would not hold
+//   the f32 tolerance).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using hopper::NEG_INF;
+using hopper::pack_bf16;
 
 constexpr int WARPS = 4;  // each warp owns 16 rows of the CTA's 64-row tile
 constexpr int THREADS = WARPS * 32;
 constexpr int BLOCK_M = 64;   // rows a CTA owns: q rows (dq), k rows (dkv)
 constexpr int BLOCK_KN = 64;  // key tile the dq kernel walks
 constexpr int BLOCK_QN = 32;  // q tile the dkv kernel walks
-constexpr float NEG_INF = -1e30f;
 
 // shared-memory row stride in elements: 16 bytes of padding per row keeps the
 // 32-bit fragment loads of a warp on distinct banks
@@ -69,11 +94,6 @@ struct Row {
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
 }
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
@@ -436,15 +456,279 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dv + koff * D, dv_acc, k0 + warp * 16, Sk, g, t);
 }
 
+// ---------------------------------------------------------------------------
+// dk, dv in bf16: TMA + wgmma, warp-specialised
+// ---------------------------------------------------------------------------
+
+constexpr int STAGES = 2;
+
+template <int D>
+struct DkvCfg {
+  static constexpr int BK = 64;  // keys of the CTA, shared by both consumer warpgroups
+  static constexpr int BQ = 64;  // q rows of one ring stage: two per producer lane
+  // two consumer warpgroups, then a producer warpgroup whose first warp
+  // loads: setmaxnreg moves registers only within the CTA, and the
+  // producers' 4 x 144 released registers a thread buy the consumers 240
+  static constexpr int THREADS = 3 * 128;
+  static constexpr int REG_PRODUCER = 24;
+  static constexpr int REG_CONSUMER = 240;
+  static constexpr int K_SUB = BK * 128;  // bytes of one 64-column sub-tile
+  static constexpr int Q_SUB = BQ * 128;
+  static constexpr int KV_BYTES = (D / 64) * K_SUB;  // all of K (or V)
+  static constexpr int QS_BYTES = (D / 64) * Q_SUB;  // one Q (or dO) stage
+  static constexpr int P_BYTES = BK * BQ * 4;        // one stage of f32 p
+  static_assert(K_SUB == Q_SUB, "the score products step A and B alike");
+  // shared memory: K | V | Q[STAGES] | dO[STAGES] | p[STAGES] |
+  //                lse, delta [STAGES][BQ] | mbarriers
+  static constexpr int OFF_V = KV_BYTES;
+  static constexpr int OFF_Q = 2 * KV_BYTES;
+  static constexpr int OFF_DO = OFF_Q + STAGES * QS_BYTES;
+  static constexpr int OFF_P = OFF_DO + STAGES * QS_BYTES;
+  static constexpr int OFF_ROWS = OFF_P + STAGES * P_BYTES;
+  static constexpr int OFF_BAR = OFF_ROWS + STAGES * 2 * BQ * 4;
+  static constexpr int SMEM = OFF_BAR + 64 + 1024;  // + 1 KB to align the base to 1024 bytes
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkvCfg<D>::THREADS, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_dk, const __grid_constant__ CUtensorMap tm_dv,
+                    const float* __restrict__ lse, const float* __restrict__ delta, int BHkv, int H,
+                    int Hkv, int Sq, int Sk, float scale_log2, float scale, int causal) {
+  using C = DkvCfg<D>;
+  constexpr int BQ = C::BQ;
+  using namespace hopper;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);  // generic pointer to `base`
+  const uint32_t sK = base, sV = base + C::OFF_V, sQ = base + C::OFF_Q, sDO = base + C::OFF_DO;
+  float* p_buf = reinterpret_cast<float*>(smem + C::OFF_P);     // [stage][32 / 4][128][4]
+  float* rows = reinterpret_cast<float*>(smem + C::OFF_ROWS);  // [stage][lse BQ | delta BQ]
+  const uint32_t kv_full = base + C::OFF_BAR;
+  auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8 * (1 + STAGES + s); };
+  auto p_full = [&](int s) { return kv_full + 8 * (1 + 2 * STAGES + s); };
+
+  // heaviest first: rank 0 is key tile 0, which walks every q tile
+  int bhk, kt;
+  group_order(blockIdx.x, BHkv, (Sk + C::BK - 1) / C::BK, bhk, kt);
+  const int b = bhk / Hkv;
+  const int n_rep = H / Hkv;
+  const int h_first = (bhk % Hkv) * n_rep;
+  const int k0 = kt * C::BK;
+  // causal: q rows before this key tile see none of its keys, and the first
+  // q tile walked (q0 = k0) holds the diagonal
+  const int q_begin = causal ? k0 : 0;
+  const int n_qt = q_begin < Sq ? (Sq - q_begin + BQ - 1) / BQ : 0;  // q tiles per head
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 32);     // every producer lane after its lse/delta stores, + TMA bytes
+      mbar_init(empty(s), 8);     // lane 0 of every consumer warp
+      mbar_init(p_full(s), 128);  // every thread of the p warpgroup after its p stores
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- producer: its first warp loads, the other three only give registers ------
+    regs_dealloc<C::REG_PRODUCER>();
+    if (warp > 8) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_3d(sK + c * C::K_SUB, &tm_k, kv_full, 64 * c, k0, bhk);
+        tma_load_3d(sV + c * C::K_SUB, &tm_v, kv_full, 64 * c, k0, bhk);
+      }
+    }
+    int it = 0;
+    for (int hh = 0; hh < n_rep; ++hh) {
+      const int bh = b * H + h_first + hh;
+      for (int i = 0; i < n_qt; ++i, ++it) {
+        const int q0 = q_begin + i * BQ;
+        const int s = it % STAGES;
+        // this tile's lse and delta rows (zero past Sq: those rows are
+        // computed, never stored), loaded while the slot is still in use
+        float l2[2], d2[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int row = q0 + 32 * j + lane;
+          l2[j] = row < Sq ? lse[(size_t)bh * Sq + row] : 0.f;
+          d2[j] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
+        }
+        mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * C::QS_BYTES);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_3d(sQ + s * C::QS_BYTES + c * C::Q_SUB, &tm_q, full(s), 64 * c, q0, bh);
+            tma_load_3d(sDO + s * C::QS_BYTES + c * C::Q_SUB, &tm_do, full(s), 64 * c, q0, bh);
+          }
+        }
+        float* lse_s = rows + s * 2 * BQ;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          lse_s[32 * j + lane] = l2[j];
+          lse_s[BQ + 32 * j + lane] = d2[j];
+        }
+        mbar_arrive(full(s));
+      }
+    }
+  } else {
+    // ---- consumers: both warpgroups on the CTA's 64 keys.  Warpgroup 0 computes
+    // s^T = K Q^T, p and dv += p^T dO; warpgroup 1 computes dp^T = V dO^T,
+    // ds = p (dp - delta) scale (p from warpgroup 0, in f32, through shared
+    // memory) and dk += ds^T Q.  Each holds one D-wide accumulator.
+    regs_alloc<C::REG_CONSUMER>();
+    const int wg = warp / 4;
+    const int wl = warp % 4;  // warp in the warpgroup: keys 16 wl .. 16 wl + 15
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int tid = threadIdx.x % 128;
+    const int kpos[2] = {k0 + 16 * wl + g, k0 + 16 * wl + g + 8};
+    // A operand of this warpgroup's score product: K (s^T) or V (dp^T)
+    const uint64_t da = desc_kmajor(wg == 0 ? sK : sV);
+
+    float acc[D / 2];  // dv (warpgroup 0) or dk (warpgroup 1)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    int it = 0;
+    for (int hh = 0; hh < n_rep; ++hh) {
+      for (int i = 0; i < n_qt; ++i, ++it) {
+        const int q0 = q_begin + i * BQ;
+        const int s = it % STAGES;
+        const uint32_t parity = (it / STAGES) & 1;
+        mbar_wait(full(s), parity);
+        const uint32_t sQs = sQ + s * C::QS_BYTES, sDOs = sDO + s * C::QS_BYTES;
+        const float* lse_s = rows + s * 2 * BQ;
+        float4* p_s = reinterpret_cast<float4*>(p_buf) + s * (BQ / 8) * 128;
+
+        // ---- s^T (warpgroup 0) or dp^T (warpgroup 1), both K-major ------------------
+        float sc[BQ / 2];
+        uint32_t pa[BQ / 16][4];
+        const uint64_t db = desc_kmajor(wg == 0 ? sQs : sDOs);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * C::K_SUB + (kk % 4) * 32;  // K_SUB == Q_SUB
+          wgmma_ss<BQ, 0>(sc, desc_add(da, off), desc_add(db, off), kk);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        if (wg == 0) {
+          // ---- p = exp2(s2 - lse) under the forward's mask; f32 p to warpgroup 1 ----
+          const bool masked = q0 + BQ > Sq || k0 + 64 > Sk || (causal && k0 + 63 > q0);
+#pragma unroll
+          for (int n = 0; n < BQ / 8; ++n) {
+            const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float x = sc[4 * n + e] * scale_log2;
+              if (masked) {
+                const int query = q0 + 8 * n + 2 * t + (e & 1);
+                const int key = kpos[e >> 1];
+                if (query >= Sq || key >= Sk || (causal && key > query)) x = NEG_INF;
+              }
+              sc[4 * n + e] = exp2f(x - ((e & 1) ? l2.y : l2.x));
+            }
+            p_s[n * 128 + tid] = make_float4(sc[4 * n], sc[4 * n + 1], sc[4 * n + 2], sc[4 * n + 3]);
+          }
+          mbar_arrive(p_full(s));
+          acc_to_a<BQ>(sc, pa);  // p^T cast to bf16, as the JAX kernel casts p
+        } else {
+          // ---- ds = p (dp - delta) scale, p in f32 from warpgroup 0 --------------------
+          const float* delta_s = lse_s + BQ;
+          mbar_wait(p_full(s), parity);
+#pragma unroll
+          for (int n = 0; n < BQ / 8; ++n) {
+            const float2 d2 = *reinterpret_cast<const float2*>(delta_s + 8 * n + 2 * t);
+            const float4 p4 = p_s[n * 128 + tid];
+            const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[4 * n + e] = p[e] * (sc[4 * n + e] - ((e & 1) ? d2.y : d2.x)) * scale;
+          }
+          acc_to_a<BQ>(sc, pa);  // ds^T cast to bf16, as the JAX kernel casts ds
+        }
+
+        // ---- dv += p^T dO or dk += ds^T Q: A from registers, B MN-major -----------------
+        const uint64_t db_t = desc_mnmajor(wg == 0 ? sDOs : sQs, C::Q_SUB);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BQ / 16; ++j) wgmma_rs<D, 1>(acc, pa[j], desc_add(db_t, j * 16 * 128));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pa);
+        if (lane == 0) mbar_arrive(empty(s));  // this warp is done with the stage
+      }
+    }
+
+    // ---- epilogue: dv into V's rows, dk into K's, once both warpgroups are done
+    // with K and V; then TMA stores
+    bar_sync(1, 256);
+    const uint32_t tile = wg == 0 ? sV : sK;
+    stage_acc_bf16<D>(smem + (tile - base), C::K_SUB, acc, wl, g, t);
+    fence_proxy_async();
+    bar_sync(2 + wg, 128);
+    if (tid == 0) {
+      for (int c = 0; c < D / 64; ++c)
+        tma_store_3d(wg == 0 ? &tm_dv : &tm_dk, tile + c * C::K_SUB, 64 * c, k0, bhk);
+      tma_store_wait();
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+                            int Hkv, int Sq, int Sk, float scale_log2, float scale, int causal,
+                            cudaStream_t stream) {
+  using C = DkvCfg<D>;
+  static std::atomic<unsigned long long> smem_set{0};
+  static std::atomic<int> regs_checked{0};
+  auto kernel = flash_bwd_dkv_wgmma<D>;
+  cudaError_t err = hopper::smem_limit_once((const void*)kernel, C::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  if (!hopper::reg_pool_ok((const void*)kernel, 128, C::REG_PRODUCER, 256, C::REG_CONSUMER,
+                           regs_checked))
+    return cudaErrorInvalidConfiguration;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv;
+  if ((err = hopper::make_tmap(&tm_q, q, B * H, Sq, D, C::BQ)) != cudaSuccess ||
+      (err = hopper::make_tmap(&tm_do, dout, B * H, Sq, D, C::BQ)) != cudaSuccess ||
+      (err = hopper::make_tmap(&tm_k, k, B * Hkv, Sk, D, C::BK)) != cudaSuccess ||
+      (err = hopper::make_tmap(&tm_v, v, B * Hkv, Sk, D, C::BK)) != cudaSuccess ||
+      (err = hopper::make_tmap(&tm_dk, dk, B * Hkv, Sk, D, 64)) != cudaSuccess ||
+      (err = hopper::make_tmap(&tm_dv, dv, B * Hkv, Sk, D, 64)) != cudaSuccess)
+    return err;
+  const int n_kt = (Sk + C::BK - 1) / C::BK;
+  kernel<<<n_kt * B * Hkv, C::THREADS, C::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), B * Hkv, H, Hkv, Sq, Sk, scale_log2, scale, causal);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int B, int H,
                       int Hkv, int Sq, int Sk, float scale_log2, float scale,
                       int causal, cudaStream_t stream) {
+  static std::atomic<unsigned long long> smem_set{0};
   auto kernel = flash_bwd_dq_kernel<T, D>;
   const size_t smem = DqSmem<T, D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = hopper::smem_limit_once((const void*)kernel, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
@@ -455,21 +739,21 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv, int B,
-                       int H, int Hkv, int Sq, int Sk, float scale_log2, float scale,
-                       int causal, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  const size_t smem = DkvSmem<T, D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int D>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dk, void* dv, int B,
+                           int H, int Hkv, int Sq, int Sk, float scale_log2, float scale,
+                           int causal, cudaStream_t stream) {
+  static std::atomic<unsigned long long> smem_set{0};
+  auto kernel = flash_bwd_dkv_kernel<float, D>;
+  const size_t smem = DkvSmem<float, D>::BYTES;
+  cudaError_t err = hopper::smem_limit_once((const void*)kernel, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sk + BLOCK_M - 1) / BLOCK_M, Hkv, B);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), H,
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), H,
       Hkv, Sq, Sk, scale_log2, scale, causal);
   return cudaGetLastError();
 }
@@ -480,8 +764,9 @@ bool valid_dims(int B, int H, int Hkv, int Sq, int Sk) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128.  Returns the launch's
-// cudaError_t (0 on success); the wrapper checks everything else.
+// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128.  All tensors contiguous
+// and 16-byte aligned.  Returns the launch's cudaError_t (0 on success); the
+// wrapper checks everything else.
 extern "C" int dtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta,
                                 void* dq, int dtype, int B, int H, int Hkv, int Sq,
@@ -506,10 +791,10 @@ extern "C" int dtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!valid_dims(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
 #define DKV_ARGS q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, scale_log2, scale, causal, s
-  if (dtype == 1 && D == 128) return (int)launch_dkv<__nv_bfloat16, 128>(DKV_ARGS);
-  if (dtype == 1 && D == 64) return (int)launch_dkv<__nv_bfloat16, 64>(DKV_ARGS);
-  if (dtype == 0 && D == 128) return (int)launch_dkv<float, 128>(DKV_ARGS);
-  if (dtype == 0 && D == 64) return (int)launch_dkv<float, 64>(DKV_ARGS);
+  if (dtype == 1 && D == 128) return (int)launch_dkv_bf16<128>(DKV_ARGS);
+  if (dtype == 1 && D == 64) return (int)launch_dkv_bf16<64>(DKV_ARGS);
+  if (dtype == 0 && D == 128) return (int)launch_dkv_f32<128>(DKV_ARGS);
+  if (dtype == 0 && D == 64) return (int)launch_dkv_f32<64>(DKV_ARGS);
 #undef DKV_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -3,9 +3,11 @@
 Each kernel source under ``determined_tpu_torch/csrc/`` is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
 loaded with ``ctypes``.  The library lands in ``determined_tpu_torch/_build/``
-(listed in ``.gitignore``) under a name keyed on a hash of the source and the
-compiler flags, so a changed source rebuilds and an unchanged one loads the
-library already there.  Nothing is built at import: the first launch builds.
+(listed in ``.gitignore``) under a name keyed on a hash of the source, the
+headers it includes from csrc/ (``#include "..."``, e.g. ``hopper.cuh``) and
+the compiler flags, so a changed source or header rebuilds and an unchanged
+one loads the library already there.  Nothing is built at import: the first
+launch builds.
 """
 
 from __future__ import annotations
@@ -13,10 +15,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -27,8 +30,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+#: a C function's ctypes ``(argtypes, restype)``, by function name
+Signatures = Dict[str, Tuple[list, type]]
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_bound: Set[str] = set()
 
 
 class NvccError(RuntimeError):
@@ -49,12 +58,26 @@ def find_nvcc() -> str:
     )
 
 
+def _hash_with_includes(name: str, digest, seen: Set[str]) -> None:
+    """Feed csrc/<name> and, depth first, every csrc/ header it includes
+    with quotes into ``digest``, each file once."""
+    if name in seen:
+        return
+    seen.add(name)
+    with open(os.path.join(CSRC_DIR, name), "rb") as f:
+        text = f.read()
+    digest.update(name.encode() + b"\0" + text)
+    for inc in _INCLUDE.findall(text):
+        _hash_with_includes(inc.decode(), digest, seen)
+
+
 def library_path(source: str) -> str:
     """Where ``source`` (a file name under csrc/) builds to."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256()
+    _hash_with_includes(source, digest, set())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
 def build(source: str) -> str:
@@ -95,13 +118,20 @@ def build_all(sources: Sequence[str]) -> List[str]:
     return outs
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Build (first use) and load the library of ``csrc/<source>``."""
+def load(source: str, signatures: Optional[Signatures] = None) -> ctypes.CDLL:
+    """Build (first use) and load the library of ``csrc/<source>``; the first
+    call that passes ``signatures`` sets those functions' ctypes argument
+    and result types, once for the library."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:
             lib = ctypes.CDLL(build(source))
             _libs[source] = lib
+        if signatures and source not in _bound:
+            for name, (argtypes, restype) in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
+            _bound.add(source)
         return lib
 
 

@@ -38,7 +38,24 @@ KERNEL_SOURCE = "flash_fwd.cu"
 BWD_KERNEL_SOURCE = "flash_bwd.cu"
 #: head dims and input dtypes the CUDA kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128)
+#: q rows of a bf16 forward CTA: 0 lets the launch pick (128, or 64 where
+#: 128-row tiles would leave SMs idle); f32 takes 0 only
+FWD_BLOCK_ROWS = (0, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# ctypes signatures, set once when each library is loaded
+_FWD_SIGNATURES = {
+    # q, k, v, out, lse; dtype, B, H, Hkv, Sq, Sk, D; scale_log2, causal, block_m, stream
+    "dtt_flash_fwd_rows": ([_P] * 5 + [_I] * 7 + [_F, _I, _I, _P], _I),
+}
+# q, k, v, do, lse, delta; the outputs; dtype, B, H, Hkv, Sq, Sk, D;
+# scale_log2, scale, causal, stream
+_BWD_TAIL = [_I] * 7 + [_F, _F, _I, _P]
+_BWD_SIGNATURES = {
+    "dtt_flash_bwd_dq": ([_P] * 7 + _BWD_TAIL, _I),
+    "dtt_flash_bwd_dkv": ([_P] * 8 + _BWD_TAIL, _I),
+}
 
 #: launches of each CUDA kernel since the last reset (the CPU path never
 #: touches them); ``chip_smoke.py`` reads them to show the serving and
@@ -111,18 +128,20 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
 
 
 def _launch_kernel(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float,
+    block_rows: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel alone; ``block_rows`` forces the bf16 tile (see
+    ``FWD_BLOCK_ROWS``), as ``chip_smoke.py`` does to time both."""
     global launches
     from determined_tpu_torch.ops import _build
 
     _check_kernel_inputs(q, k, v)
-    lib = _build.load(KERNEL_SOURCE)
-    fn = lib.dtt_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    if block_rows not in FWD_BLOCK_ROWS or (block_rows and q.dtype != torch.bfloat16):
+        raise ValueError(
+            f"block_rows {block_rows} not in {FWD_BLOCK_ROWS} (non-zero for bfloat16 only)"
+        )
+    fn = _build.load(KERNEL_SOURCE, _FWD_SIGNATURES).dtt_flash_fwd_rows
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -131,7 +150,7 @@ def _launch_kernel(
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _DTYPE_CODES[q.dtype], b, h, hkv, sq, sk, d,
-            float(scale * LOG2E), int(bool(causal)),
+            float(scale * LOG2E), int(bool(causal)), block_rows,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -222,13 +241,7 @@ def _check_bwd_inputs(q, k, v, out, lse, do) -> None:
 def _bwd_lib():
     from determined_tpu_torch.ops import _build
 
-    lib = _build.load(BWD_KERNEL_SOURCE)
-    ptrs = [ctypes.c_void_p] * 6
-    tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    lib.dtt_flash_bwd_dq.argtypes = ptrs + [ctypes.c_void_p] + tail
-    lib.dtt_flash_bwd_dkv.argtypes = ptrs + [ctypes.c_void_p] * 2 + tail
-    lib.dtt_flash_bwd_dq.restype = lib.dtt_flash_bwd_dkv.restype = ctypes.c_int
-    return lib
+    return _build.load(BWD_KERNEL_SOURCE, _BWD_SIGNATURES)
 
 
 def _bwd_args(q, k, v, do, lse, delta, causal: bool, scale: float):

@@ -79,16 +79,23 @@ def _check_leaf(p, m, v, g, scalars) -> None:
         raise ValueError("scalars must hold [lr, clip_scale, 1 - b1^t, 1 - b2^t]")
 
 
+# ctypes signature, set once when the library is loaded: p, m, v, g,
+# scalars; n, mu dtype; b1, 1 - b1, b2, 1 - b2, eps, wd; stream
+_SIGNATURES = {
+    "dtt_fused_adamw": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 6
+        + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
+
+
 def _launch_kernel(p, m, v, g, scalars, *, b1, b2, eps, wd) -> None:
     global launches
     from determined_tpu_torch.ops import _build
 
     _check_leaf(p, m, v, g, scalars)
-    fn = _build.load(KERNEL_SOURCE).dtt_fused_adamw
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int] + [
-        ctypes.c_float
-    ] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.load(KERNEL_SOURCE, _SIGNATURES).dtt_fused_adamw
     with torch.cuda.device(p.device):  # the launch goes to p's device
         err = fn(
             p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(), scalars.data_ptr(),

@@ -7,6 +7,9 @@ kernel itself is held against that plain version on the card by
 chip_smoke.py.  Inputs are made with numpy from a seed and handed to both.
 """
 
+import ctypes
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ import determined_tpu_torch.ops.flash_attention as port_flash_mod
 from determined_tpu_torch.ops.attention import dot_product_attention, reference_attention
 from determined_tpu_torch.ops.flash_attention import (
     _check_kernel_inputs,
+    _launch_kernel,
     flash_attention,
     flash_attention_fwd,
 )
@@ -160,3 +164,93 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(mutate, match):
     q, k, v = (torch.from_numpy(a) for a in _qkv(b=1, h=4, s=64, d=64))
     with pytest.raises(ValueError, match=match):
         _check_kernel_inputs(*mutate(q, k, v))
+
+
+@pytest.mark.parametrize(
+    "dtype, block_rows",
+    [(torch.bfloat16, 96), (torch.bfloat16, -1), (torch.float32, 64), (torch.float32, 128)],
+    ids=["bf16-96", "bf16-neg", "f32-64", "f32-128"],
+)
+def test_forward_tile_choice_is_checked_before_any_build(monkeypatch, dtype, block_rows):
+    """The bf16 kernel takes 64- or 128-row q tiles (0: its own pick); f32
+    has one tile.  A bad choice raises before nvcc or the loader is reached."""
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a refused tile choice must not build or load the kernel")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(b=1, h=2, s=64, d=64))
+    with pytest.raises(ValueError, match="block_rows"):
+        _launch_kernel(q, k, v, True, 0.125, block_rows)
+
+
+def _copy_csrc(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    return csrc
+
+
+def test_library_path_follows_the_included_header(tmp_path, monkeypatch):
+    """Each source builds to a name keyed on its text and on the csrc/
+    headers it includes, so editing hopper.cuh rebuilds both flash kernels
+    and leaves the AdamW library, which does not include it, alone."""
+    csrc = _copy_csrc(tmp_path, monkeypatch)
+    sources = ("flash_fwd.cu", "flash_bwd.cu", "fused_adamw.cu")
+    for source in sources[:2]:
+        assert '#include "hopper.cuh"' in (csrc / source).read_text()
+    assert "hopper.cuh" not in (csrc / "fused_adamw.cu").read_text()
+    before = {s: _build.library_path(s) for s in sources}
+    assert {s: _build.library_path(s) for s in sources} == before  # stable
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {s: _build.library_path(s) for s in sources}
+    assert after["flash_fwd.cu"] != before["flash_fwd.cu"]
+    assert after["flash_bwd.cu"] != before["flash_bwd.cu"]
+    assert after["fused_adamw.cu"] == before["fused_adamw.cu"]
+    for path in after.values():
+        assert path.startswith(_build.BUILD_DIR)
+
+
+def test_library_path_follows_the_source_and_the_flags(tmp_path, monkeypatch):
+    csrc = _copy_csrc(tmp_path, monkeypatch)
+    before = _build.library_path("flash_fwd.cu")
+    source = csrc / "flash_fwd.cu"
+    source.write_text(source.read_text() + "\n")
+    edited = _build.library_path("flash_fwd.cu")
+    assert edited != before
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build.library_path("flash_fwd.cu") != edited
+
+
+def test_load_binds_each_signature_once(monkeypatch):
+    """ctypes argument types are set when a library is first loaded with
+    its signatures, not on every launch."""
+
+    class FakeFn:
+        pass
+
+    class FakeLib:
+        def __init__(self):
+            self.fn = FakeFn()
+            self.sets = 0
+
+        def __getattr__(self, name):
+            if name != "dtt_probe":
+                raise AttributeError(name)
+            self.sets += 1
+            return self.fn
+
+    lib = FakeLib()
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_bound", set())
+    monkeypatch.setattr(_build, "build", lambda source: f"/nonexistent/{source}.so")
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: lib)
+    sig = {"dtt_probe": ([ctypes.c_void_p, ctypes.c_int], ctypes.c_int)}
+    assert _build.load("probe.cu") is lib  # loaded without signatures first
+    assert lib.sets == 0
+    for _ in range(3):
+        assert _build.load("probe.cu", sig) is lib
+    assert lib.sets == 1
+    assert lib.fn.argtypes == [ctypes.c_void_p, ctypes.c_int]
+    assert lib.fn.restype is ctypes.c_int
