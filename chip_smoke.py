@@ -12,9 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    card: flash_fwd (bf16: the launch's own tile and both the 64- and
    128-row tiles) and flash_bwd (dq, dk/dv) at the training and serving
    shapes and the ragged, GQA, head-dim-64, long-walk and f32 corners,
-   fused_adamw on flagship leaves and ragged tails.  Each kernel is timed at
-   its main-path shape beside its plain version, its bound (with the share
-   of it reached and the achieved TFLOP/s) and a library yardstick
+   fused_adamw on flagship leaves and ragged tails.  Fails if ptxas spilled
+   or serialised the wgmmas (C75xx) of a flash_bwd_dq_wgmma instance.  Each
+   kernel is timed at its main-path shape (the bf16 forward at each tile)
+   beside its plain version, its bound (with the share of it reached and
+   the achieved TFLOP/s) and a library yardstick
    (``scaled_dot_product_attention`` and its backward,
    ``torch.optim.AdamW(fused=True)``), which the port never calls.
 3. serve: the flagship LM (examples/transformer_lm/const.yaml: d2048, L8,
@@ -61,6 +63,9 @@ PEAK_BYTES = 3.35e12
 
 CSRC = "determined_tpu_torch/csrc/"
 KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "fused_adamw.cu")
+# kernels whose ptxas report must show no spill and no C75xx warning (every
+# instance), by source
+PTXAS_CLEAN = {"flash_bwd.cu": ("flash_bwd_dq_wgmma", 2)}  # D = 64, 128
 # kernels line: name -> (source in the repo, the TPU kernel it replaces)
 KERNELS = {
     "flash_fwd": (CSRC + "flash_fwd.cu", "determined_tpu/ops/flash_attention.py:150"),
@@ -243,8 +248,9 @@ def _max_err(got, want) -> float:
 
 
 def build_kernels() -> None:
-    """Build every kernel source at once (one nvcc each, in parallel) and
-    print each one's register and spill lines."""
+    """Build every kernel source at once (one nvcc each, in parallel),
+    print each one's register and spill lines, and fail if a kernel of
+    PTXAS_CLEAN spilled or had its wgmmas serialised."""
     from determined_tpu_torch.ops import _build
 
     t0 = time.monotonic()
@@ -252,10 +258,17 @@ def build_kernels() -> None:
     log(f"kernel build: {time.monotonic() - t0:.1f} s ({', '.join(KERNEL_SOURCES)})")
     for source in KERNEL_SOURCES:
         _build.load(source)
-        for line in (_build.ptxas_report(source) or "").splitlines():
+        report = _build.ptxas_report(source) or ""
+        for line in report.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "setmaxnreg",
                                        "wgmma", "Performance", "warning")):
                 log(f"  ptxas {source}: {line.strip()}")
+        if source in PTXAS_CLEAN:
+            kernel, instances = PTXAS_CLEAN[source]
+            seen = sum("Compiling entry" in line and kernel in line for line in report.splitlines())
+            assert seen == instances, f"ptxas report of {source} shows {seen} {kernel} instances"
+            faults = _build.ptxas_faults(report, kernel)
+            assert not faults, f"ptxas spilled or serialised {kernel}: {faults}"
 
 
 def check_flash_fwd(seed: int) -> dict:
@@ -321,9 +334,9 @@ def check_flash_fwd(seed: int) -> dict:
 
 
 def check_flash_bwd(seed: int) -> dict:
-    """flash_bwd's dq and dk/dv kernels against the plain backward on the
-    training shape and the five forward cases, timed at the training shape
-    beside the plain version, the bound and the SDPA backward."""
+    """flash_bwd's dq and dk/dv kernels against the plain backward on every
+    attention case, timed at the training shape beside the plain version,
+    the bound and the SDPA backward."""
     import torch
     import torch.nn.functional as F
 

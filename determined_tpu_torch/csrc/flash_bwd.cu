@@ -21,17 +21,46 @@
 // per head, 2 * D operations per pair and product):
 //   dq:  3 products (s, dp, dq) = 5.2e10 FLOP -> 52 us; ~168 MB -> 50 us
 //   dkv: 4 products (s, dp, dv, dk) = 6.9e10 FLOP -> 70 us; ~201 MB -> 60 us
-// so both are bound by operations, barely.  The serving path runs no
-// backward.
+// so both are bound by operations, barely: their products have to run near
+// the tensor cores' rate, with the loads and the elementwise work out of the
+// way.  The serving path runs no backward.
 //
 // What the designs do about it.  Neither kernel writes a [Sq, Sk] tensor:
 // p, dp and ds live in registers in the tensor cores' accumulator layout.
-// - dq (dtt_flash_bwd_dq): one CTA of four warps owns a 64-row q tile of one
-//   (batch, head) and walks 64-key tiles of K and V up to the causal
-//   diagonal; each warp owns 16 q rows and keeps its dq rows in f32
-//   registers.  bf16 runs mma.sync m16n8k16, f32 plain FMAs.  Tiles are
-//   loaded synchronously and B fragments read as 16-bit scalars: this kernel
-//   has not been redesigned for Hopper yet.
+// - dq, bf16 (flash_bwd_dq_wgmma): a CTA owns 64 q rows of one (batch,
+//   head): a consumer warpgroup, and a producer warp that issues every load:
+//   * loads overlap compute: the producer loads the CTA's Q and dO once by
+//     TMA, then streams 64-key K and V tiles of the kv head into a
+//     two-stage ring on full/empty mbarriers; 3-D tensor maps
+//     ([B*H, Sq, D], [B*Hkv, Sk, D]) zero-fill a ragged tile inside its
+//     head and clip dq's store.  Each consumer thread reads its rows' lse
+//     and delta once: the rows do not change across the walk.
+//   * every product is a wgmma: s = Q.K^T and dp = dO.V^T, both operands
+//     K-major in 128-byte-swizzled shared memory, are issued together and
+//     waited for once; p and ds run in the accumulator layout (masked only
+//     on tiles that cross the diagonal or a ragged edge); ds, cast to bf16
+//     as the JAX kernel casts it, is the register A operand of dq += ds.K,
+//     whose B is the same K tile read MN-major with the transpose bit.
+//   * a consumer thread holds dq (64 f32 at D = 128), s and dp (32 each)
+//     and ds as bf16 (16): 162 registers at D = 128, so two CTAs share an
+//     SM and one CTA's elementwise work runs beside the other's products.
+//     128-row CTAs (two consumer warpgroups given a producer warpgroup's
+//     registers by setmaxnreg, as the forward's) were 7% slower at the
+//     training shape (PERF.md, Findings).
+//   * the products run in series.  Keeping one tile's dq product in flight
+//     behind the next tile's s and dp holds 144 registers beside the
+//     addresses: at D = 128 ptxas serialised every wgmma (C7512) in the
+//     168 registers two CTAs an SM allow, and in a 128-row CTA's 240 alike;
+//     allowed more, the CTA took 182 and ran one an SM, slower still.
+//   * causal: a CTA walks key tiles up to its last real row's diagonal.
+//   * heaviest first: the last q tiles (which walk every key tile) of 16
+//     heads start together, then their next-to-last, and so on
+//     (hopper::group_order), so the group's K and V stay in L2.
+//   * dq leaves as bf16 through Q's tile and a TMA store.
+//   f32 (flash_bwd_dq_kernel) keeps the FMA kernel: four warps own a 64-row
+//   q tile, walk 64-key tiles loaded synchronously into padded shared
+//   memory, and each warp keeps its 16 dq rows in f32 registers (wgmma in
+//   tf32 would not hold the f32 tolerance).
 // - dkv (dtt_flash_bwd_dkv): one CTA owns a key tile of one (batch, KV head)
 //   and walks the H / Hkv q heads of its group and, in each, the q tiles
 //   from the diagonal on.  It computes the transposed products
@@ -77,7 +106,10 @@
 namespace {
 
 using hopper::NEG_INF;
-using hopper::pack_bf16;
+
+// ---------------------------------------------------------------------------
+// f32: FMA kernels
+// ---------------------------------------------------------------------------
 
 constexpr int WARPS = 4;  // each warp owns 16 rows of the CTA's 64-row tile
 constexpr int THREADS = WARPS * 32;
@@ -85,146 +117,86 @@ constexpr int BLOCK_M = 64;   // rows a CTA owns: q rows (dq), k rows (dkv)
 constexpr int BLOCK_KN = 64;  // key tile the dq kernel walks
 constexpr int BLOCK_QN = 32;  // q tile the dkv kernel walks
 
-// shared-memory row stride in elements: 16 bytes of padding per row keeps the
-// 32-bit fragment loads of a warp on distinct banks
-template <typename T, int D>
+// shared-memory row stride in floats: 16 bytes of padding per row keeps the
+// fragment loads of a warp on distinct banks
+template <int D>
 struct Row {
-  static constexpr int STRIDE = D + 16 / (int)sizeof(T);
+  static constexpr int STRIDE = D + 4;
 };
-
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Copy rows [row0, row0 + ROWS) of a [rows, D] matrix into a padded smem tile
 // with 16-byte vectors; rows at or past `rows` are zero-filled so that masked
 // rows multiply zeros, never stale memory.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int rows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = D / VEC;
-  constexpr int STRIDE = Row<T, D>::STRIDE;
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int rows) {
+  constexpr int PER_ROW = D / 4;
+  constexpr int STRIDE = Row<D>::STRIDE;
   for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
     const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * STRIDE + c) = val;
+    const int c = (i % PER_ROW) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < rows) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
+    *reinterpret_cast<float4*>(dst + r * STRIDE + c) = val;
   }
 }
 
-// Thread layout shared by both element types (the mma.sync m16n8k16
-// accumulator layout): in a warp, lane = 4 * g + t holds, for every 8-column
-// tile n, the elements (row g, cols 8n + 2t, 8n + 2t + 1) in slots 0, 1 and
-// (row g + 8, same cols) in slots 2, 3 of the warp's 16-row slab.
+// Thread layout (the mma.sync m16n8 accumulator layout): in a warp,
+// lane = 4 * g + t holds, for every 8-column tile n, the elements (row g,
+// cols 8n + 2t, 8n + 2t + 1) in slots 0, 1 and (row g + 8, same cols) in
+// slots 2, 3 of the warp's 16-row slab.
 
 // acc[16 x 8NT] += A[16 x D] . B[8NT x D]^T, with A the warp's 16 rows and B
 // 8NT rows of D-wide smem tiles (both row-major, padded stride).
-template <typename T, int D, int NT>
-__device__ __forceinline__ void warp_abt(float acc[NT][4], const T* A, const T* B,
-                                         int g, int t) {
-  constexpr int STRIDE = Row<T, D>::STRIDE;
-  if constexpr (sizeof(T) == 2) {
-    const T* a0 = A + g * STRIDE + 2 * t;
-    const T* a1 = a0 + 8 * STRIDE;
+template <int D, int NT>
+__device__ __forceinline__ void warp_abt(float acc[NT][4], const float* A, const float* B, int g,
+                                         int t) {
+  constexpr int STRIDE = Row<D>::STRIDE;
+  const float* a0 = A + g * STRIDE;
+  const float* a1 = a0 + 8 * STRIDE;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t af[4];
-      af[0] = ld32(a0 + kk * 16);
-      af[1] = ld32(a1 + kk * 16);
-      af[2] = ld32(a0 + kk * 16 + 8);
-      af[3] = ld32(a1 + kk * 16 + 8);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const T* br = B + (n * 8 + g) * STRIDE + kk * 16 + 2 * t;
-        mma_bf16(acc[n], af, ld32(br), ld32(br + 8));
-      }
-    }
-  } else {
-    const float* a0 = reinterpret_cast<const float*>(A) + g * STRIDE;
-    const float* a1 = a0 + 8 * STRIDE;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const float* b0 = reinterpret_cast<const float*>(B) + (n * 8 + 2 * t) * STRIDE;
-      const float* b1 = b0 + STRIDE;
-      for (int d = 0; d < D; ++d) {
-        const float x0 = a0[d], x1 = a1[d], y0 = b0[d], y1 = b1[d];
-        acc[n][0] = fmaf(x0, y0, acc[n][0]);
-        acc[n][1] = fmaf(x0, y1, acc[n][1]);
-        acc[n][2] = fmaf(x1, y0, acc[n][2]);
-        acc[n][3] = fmaf(x1, y1, acc[n][3]);
-      }
+  for (int n = 0; n < NT; ++n) {
+    const float* b0 = B + (n * 8 + 2 * t) * STRIDE;
+    const float* b1 = b0 + STRIDE;
+    for (int d = 0; d < D; ++d) {
+      const float x0 = a0[d], x1 = a1[d], y0 = b0[d], y1 = b1[d];
+      acc[n][0] = fmaf(x0, y0, acc[n][0]);
+      acc[n][1] = fmaf(x0, y1, acc[n][1]);
+      acc[n][2] = fmaf(x1, y0, acc[n][2]);
+      acc[n][3] = fmaf(x1, y1, acc[n][3]);
     }
   }
 }
 
-// o[16 x D] += P[16 x KN] . B[KN x D], with P this warp's accumulators (cast
-// to T on the way in, as the JAX kernels cast p and ds to the input dtype)
-// and B KN rows of a D-wide smem tile.  The f32 path stages P in the warp's
-// `pw` scratch (16 x KN floats) and runs FMAs.
-template <typename T, int D, int KN>
-__device__ __forceinline__ void warp_pb(float o[D / 8][4], float p[KN / 8][4],
-                                        const T* B, float* pw, int g, int t) {
-  constexpr int STRIDE = Row<T, D>::STRIDE;
-  if constexpr (sizeof(T) == 2) {
-    const uint16_t* Bh = reinterpret_cast<const uint16_t*>(B);
+// o[16 x D] += P[16 x KN] . B[KN x D], with P this warp's accumulators and B
+// KN rows of a D-wide smem tile; P is staged in the warp's `pw` scratch
+// (16 x KN floats).
+template <int D, int KN>
+__device__ __forceinline__ void warp_pb(float o[D / 8][4], float p[KN / 8][4], const float* B,
+                                        float* pw, int g, int t) {
+  constexpr int STRIDE = Row<D>::STRIDE;
 #pragma unroll
-    for (int j = 0; j < KN / 16; ++j) {
-      // the accumulators of column tiles 2j and 2j+1 are exactly the A
-      // fragment of k indices [16j, 16j + 16)
-      uint32_t pa[4];
-      pa[0] = pack_bf16(p[2 * j][0], p[2 * j][1]);
-      pa[1] = pack_bf16(p[2 * j][2], p[2 * j][3]);
-      pa[2] = pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]);
-      pa[3] = pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3]);
-      const int kr = 16 * j + 2 * t;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const int col = n * 8 + g;
-        const uint32_t b0 = (uint32_t)Bh[kr * STRIDE + col] |
-                            ((uint32_t)Bh[(kr + 1) * STRIDE + col] << 16);
-        const uint32_t b1 = (uint32_t)Bh[(kr + 8) * STRIDE + col] |
-                            ((uint32_t)Bh[(kr + 9) * STRIDE + col] << 16);
-        mma_bf16(o[n], pa, b0, b1);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int n = 0; n < KN / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      pw[g * KN + c] = p[n][0];
-      pw[g * KN + c + 1] = p[n][1];
-      pw[(g + 8) * KN + c] = p[n][2];
-      pw[(g + 8) * KN + c + 1] = p[n][3];
-    }
-    __syncwarp();
-    const float* Bf = reinterpret_cast<const float*>(B);
-    for (int kk = 0; kk < KN; ++kk) {
-      const float p0 = pw[g * KN + kk];
-      const float p1 = pw[(g + 8) * KN + kk];
-      const float* br = Bf + kk * STRIDE + 2 * t;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const float y0 = br[n * 8], y1 = br[n * 8 + 1];
-        o[n][0] = fmaf(p0, y0, o[n][0]);
-        o[n][1] = fmaf(p0, y1, o[n][1]);
-        o[n][2] = fmaf(p1, y0, o[n][2]);
-        o[n][3] = fmaf(p1, y1, o[n][3]);
-      }
-    }
-    __syncwarp();  // reads of pw done before the next product rewrites it
+  for (int n = 0; n < KN / 8; ++n) {
+    const int c = n * 8 + 2 * t;
+    pw[g * KN + c] = p[n][0];
+    pw[g * KN + c + 1] = p[n][1];
+    pw[(g + 8) * KN + c] = p[n][2];
+    pw[(g + 8) * KN + c + 1] = p[n][3];
   }
+  __syncwarp();
+  for (int kk = 0; kk < KN; ++kk) {
+    const float p0 = pw[g * KN + kk];
+    const float p1 = pw[(g + 8) * KN + kk];
+    const float* br = B + kk * STRIDE + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float y0 = br[n * 8], y1 = br[n * 8 + 1];
+      o[n][0] = fmaf(p0, y0, o[n][0]);
+      o[n][1] = fmaf(p0, y1, o[n][1]);
+      o[n][2] = fmaf(p1, y0, o[n][2]);
+      o[n][3] = fmaf(p1, y1, o[n][3]);
+    }
+  }
+  __syncwarp();  // reads of pw done before the next product rewrites it
 }
 
 template <int N>
@@ -234,56 +206,47 @@ __device__ __forceinline__ void zero(float a[N][4]) {
 }
 
 // Write this warp's 16 accumulator rows (row0 + g, row0 + g + 8) of a
-// [rows, D] output, cast to T; rows past `rows` are dropped.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, float acc[D / 8][4],
-                                           int row0, int rows, int g, int t) {
+// [rows, D] output; rows past `rows` are dropped.
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, float acc[D / 8][4], int row0, int rows,
+                                           int g, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= rows) continue;
-    T* orow = out + (size_t)row * D + 2 * t;
+    float* orow = out + (size_t)row * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const float x0 = acc[n][2 * r], x1 = acc[n][2 * r + 1];
-      if constexpr (sizeof(T) == 2) {
-        *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_bf16(x0, x1);
-      } else {
-        *reinterpret_cast<float2*>(orow + n * 8) = make_float2(x0, x1);
-      }
-    }
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 
-// ---------------------------------------------------------------------------
-// dq
-// ---------------------------------------------------------------------------
+// ---- dq ----------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 struct DqSmem {
-  static constexpr int TILE = BLOCK_M * Row<T, D>::STRIDE;  // 64 rows
-  // Q, dO, K, V tiles, then (f32 only) the warp-private ds rows
-  static constexpr int P_FLOATS = sizeof(T) == 4 ? WARPS * 16 * BLOCK_KN : 0;
-  static constexpr size_t BYTES = 4 * TILE * sizeof(T) + P_FLOATS * sizeof(float);
+  static constexpr int TILE = BLOCK_M * Row<D>::STRIDE;  // 64 rows
+  // Q, dO, K, V tiles, then the warp-private ds rows
+  static constexpr size_t BYTES = (4 * TILE + WARPS * 16 * BLOCK_KN) * sizeof(float);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int H, int Hkv, int Sq, int Sk,
-                    float scale_log2, float scale, int causal) {
-  using S = DqSmem<T, D>;
-  constexpr int STRIDE = Row<T, D>::STRIDE;
+                    float* __restrict__ dq, int H, int Hkv, int Sq, int Sk, float scale_log2,
+                    float scale, int causal) {
+  using S = DqSmem<D>;
+  constexpr int STRIDE = Row<D>::STRIDE;
   constexpr int NT_S = BLOCK_KN / 8;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + S::TILE;
-  T* Ks = dOs + S::TILE;
-  T* Vs = Ks + S::TILE;
-  float* Ps = reinterpret_cast<float*>(Vs + S::TILE);  // f32 path only
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* dOs = Qs + S::TILE;
+  float* Ks = dOs + S::TILE;
+  float* Vs = Ks + S::TILE;
+  float* Ps = Vs + S::TILE;
 
   const int q0 = blockIdx.x * BLOCK_M;
   const int h = blockIdx.y;
@@ -295,11 +258,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t = lane % 4;
 
   const size_t qoff = ((size_t)b * H + h) * Sq;
-  const T* kh = k + ((size_t)b * Hkv + hk) * Sk * D;
-  const T* vh = v + ((size_t)b * Hkv + hk) * Sk * D;
+  const float* kh = k + ((size_t)b * Hkv + hk) * Sk * D;
+  const float* vh = v + ((size_t)b * Hkv + hk) * Sk * D;
 
-  load_tile<T, D, BLOCK_M>(Qs, q + qoff * D, q0, Sq);
-  load_tile<T, D, BLOCK_M>(dOs, dout + qoff * D, q0, Sq);
+  load_tile<D, BLOCK_M>(Qs, q + qoff * D, q0, Sq);
+  load_tile<D, BLOCK_M>(dOs, dout + qoff * D, q0, Sq);
 
   const int qpos[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   float lse_r[2], delta_r[2];
@@ -309,8 +272,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lse_r[r] = in ? lse[qoff + qpos[r]] : 0.f;
     delta_r[r] = in ? delta[qoff + qpos[r]] : 0.f;
   }
-  const T* Qw = Qs + warp * 16 * STRIDE;
-  const T* dOw = dOs + warp * 16 * STRIDE;
+  const float* Qw = Qs + warp * 16 * STRIDE;
+  const float* dOw = dOs + warp * 16 * STRIDE;
   float* pw = Ps + warp * 16 * BLOCK_KN;
 
   float acc[D / 8][4];
@@ -326,15 +289,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BLOCK_KN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, D, BLOCK_KN>(Ks, kh, k0, Sk);
-    load_tile<T, D, BLOCK_KN>(Vs, vh, k0, Sk);
+    load_tile<D, BLOCK_KN>(Ks, kh, k0, Sk);
+    load_tile<D, BLOCK_KN>(Vs, vh, k0, Sk);
     __syncthreads();
 
     float s[NT_S][4], dp[NT_S][4];
     zero<NT_S>(s);
     zero<NT_S>(dp);
-    warp_abt<T, D, NT_S>(s, Qw, Ks, g, t);
-    warp_abt<T, D, NT_S>(dp, dOw, Vs, g, t);
+    warp_abt<D, NT_S>(s, Qw, Ks, g, t);
+    warp_abt<D, NT_S>(dp, dOw, Vs, g, t);
 
     // p = exp2(s2 - lse) under the forward's mask; ds overwrites s
 #pragma unroll
@@ -349,45 +312,42 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[n][e] = p * (dp[n][e] - delta_r[r]) * scale;
       }
     }
-    warp_pb<T, D, BLOCK_KN>(acc, s, Ks, pw, g, t);  // dq += ds . K
+    warp_pb<D, BLOCK_KN>(acc, s, Ks, pw, g, t);  // dq += ds . K
   }
-  store_rows<T, D>(dq + qoff * D, acc, q0 + warp * 16, Sq, g, t);
+  store_rows<D>(dq + qoff * D, acc, q0 + warp * 16, Sq, g, t);
 }
 
-// ---------------------------------------------------------------------------
-// dk, dv
-// ---------------------------------------------------------------------------
+// ---- dk, dv ------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 struct DkvSmem {
-  static constexpr int KTILE = BLOCK_M * Row<T, D>::STRIDE;   // 64 key rows
-  static constexpr int QTILE = BLOCK_QN * Row<T, D>::STRIDE;  // 32 q rows
-  // K, V, Q, dO tiles, lse and delta of the q tile, then (f32 only) the
-  // warp-private p^T / ds^T rows
-  static constexpr int P_FLOATS = sizeof(T) == 4 ? WARPS * 16 * BLOCK_QN : 0;
+  static constexpr int KTILE = BLOCK_M * Row<D>::STRIDE;   // 64 key rows
+  static constexpr int QTILE = BLOCK_QN * Row<D>::STRIDE;  // 32 q rows
+  // K, V, Q, dO tiles, lse and delta of the q tile, then the warp-private
+  // p^T / ds^T rows
   static constexpr size_t BYTES =
-      (2 * KTILE + 2 * QTILE) * sizeof(T) + (2 * BLOCK_QN + P_FLOATS) * sizeof(float);
+      (2 * KTILE + 2 * QTILE + 2 * BLOCK_QN + WARPS * 16 * BLOCK_QN) * sizeof(float);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int H, int Hkv, int Sq,
+                     float* __restrict__ dk, float* __restrict__ dv, int H, int Hkv, int Sq,
                      int Sk, float scale_log2, float scale, int causal) {
-  using S = DkvSmem<T, D>;
-  constexpr int STRIDE = Row<T, D>::STRIDE;
+  using S = DkvSmem<D>;
+  constexpr int STRIDE = Row<D>::STRIDE;
   constexpr int NT_S = BLOCK_QN / 8;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + S::KTILE;
-  T* Qs = Vs + S::KTILE;
-  T* dOs = Qs + S::QTILE;
-  float* lse_s = reinterpret_cast<float*>(dOs + S::QTILE);
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + S::KTILE;
+  float* Qs = Vs + S::KTILE;
+  float* dOs = Qs + S::QTILE;
+  float* lse_s = dOs + S::QTILE;
   float* delta_s = lse_s + BLOCK_QN;
-  float* Ps = delta_s + BLOCK_QN;  // f32 path only
+  float* Ps = delta_s + BLOCK_QN;
 
   const int k0 = blockIdx.x * BLOCK_M;
   const int hk = blockIdx.y;
@@ -399,12 +359,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t = lane % 4;
 
   const size_t koff = ((size_t)b * Hkv + hk) * Sk;
-  load_tile<T, D, BLOCK_M>(Ks, k + koff * D, k0, Sk);
-  load_tile<T, D, BLOCK_M>(Vs, v + koff * D, k0, Sk);
+  load_tile<D, BLOCK_M>(Ks, k + koff * D, k0, Sk);
+  load_tile<D, BLOCK_M>(Vs, v + koff * D, k0, Sk);
 
   const int kpos[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const T* Kw = Ks + warp * 16 * STRIDE;
-  const T* Vw = Vs + warp * 16 * STRIDE;
+  const float* Kw = Ks + warp * 16 * STRIDE;
+  const float* Vw = Vs + warp * 16 * STRIDE;
   float* pw = Ps + warp * 16 * BLOCK_QN;
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
@@ -419,8 +379,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t qoff = ((size_t)b * H + h) * Sq;
     for (int q0 = q_begin; q0 < Sq; q0 += BLOCK_QN) {
       __syncthreads();  // every warp is done with the previous q tile
-      load_tile<T, D, BLOCK_QN>(Qs, q + qoff * D, q0, Sq);
-      load_tile<T, D, BLOCK_QN>(dOs, dout + qoff * D, q0, Sq);
+      load_tile<D, BLOCK_QN>(Qs, q + qoff * D, q0, Sq);
+      load_tile<D, BLOCK_QN>(dOs, dout + qoff * D, q0, Sq);
       if (threadIdx.x < BLOCK_QN) {
         const int qi = q0 + threadIdx.x;
         lse_s[threadIdx.x] = qi < Sq ? lse[qoff + qi] : 0.f;
@@ -432,8 +392,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float sT[NT_S][4], dsT[NT_S][4];
       zero<NT_S>(sT);
       zero<NT_S>(dsT);
-      warp_abt<T, D, NT_S>(sT, Kw, Qs, g, t);
-      warp_abt<T, D, NT_S>(dsT, Vw, dOs, g, t);
+      warp_abt<D, NT_S>(sT, Kw, Qs, g, t);
+      warp_abt<D, NT_S>(dsT, Vw, dOs, g, t);
 #pragma unroll
       for (int n = 0; n < NT_S; ++n) {
 #pragma unroll
@@ -448,19 +408,152 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dsT[n][e] = p * (dsT[n][e] - delta_s[c]) * scale;
         }
       }
-      warp_pb<T, D, BLOCK_QN>(dv_acc, sT, dOs, pw, g, t);   // dv += p^T . dO
-      warp_pb<T, D, BLOCK_QN>(dk_acc, dsT, Qs, pw, g, t);   // dk += ds^T . Q
+      warp_pb<D, BLOCK_QN>(dv_acc, sT, dOs, pw, g, t);   // dv += p^T . dO
+      warp_pb<D, BLOCK_QN>(dk_acc, dsT, Qs, pw, g, t);   // dk += ds^T . Q
     }
   }
-  store_rows<T, D>(dk + koff * D, dk_acc, k0 + warp * 16, Sk, g, t);
-  store_rows<T, D>(dv + koff * D, dv_acc, k0 + warp * 16, Sk, g, t);
+  store_rows<D>(dk + koff * D, dk_acc, k0 + warp * 16, Sk, g, t);
+  store_rows<D>(dv + koff * D, dv_acc, k0 + warp * 16, Sk, g, t);
 }
 
 // ---------------------------------------------------------------------------
-// dk, dv in bf16: TMA + wgmma, warp-specialised
+// bf16: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
 constexpr int STAGES = 2;
+
+// ---- dq ----------------------------------------------------------------------
+
+// 64 q rows and 64 keys a ring stage (hopper::QTileCfg), a lone producer warp
+template <int D>
+struct DqCfg : hopper::QTileCfg<D, 1, 64> {
+  using Base = hopper::QTileCfg<D, 1, 64>;
+  // shared memory: Q | dO | K[STAGES] | V[STAGES] | mbarriers
+  static constexpr int OFF_DO = Base::Q_BYTES;
+  static constexpr int OFF_K = 2 * Base::Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * Base::KV_BYTES;
+  static constexpr int OFF_BAR = OFF_V + STAGES * Base::KV_BYTES;
+  static constexpr int SMEM = OFF_BAR + 64 + 1024;  // + 1 KB to align the base to 1024 bytes
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, DqCfg<D>::MIN_BLOCKS)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
+                   const float* __restrict__ delta, int BH, int H, int Hkv, int Sq, int Sk,
+                   float scale_log2, float scale, int causal) {
+  using C = DqCfg<D>;
+  constexpr int BN = C::BN;
+  using namespace hopper;
+
+  extern __shared__ unsigned char smem_raw[];
+  const SmemBase sm = align_smem_1024(smem_raw);
+  const uint32_t base = sm.addr;
+  const uint32_t sQ = base, sDO = base + C::OFF_DO, sK = base + C::OFF_K, sV = base + C::OFF_V;
+  const uint32_t q_full = base + C::OFF_BAR;
+  auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + STAGES + s); };
+  const QTileWalk w = q_tile_walk<C::BM, BN>(BH, H, Hkv, Sq, Sk, causal);
+  const int bh = w.bh, bhk = w.bhk, q0 = w.q0, n_kt = w.n_kt;
+  init_ring_barriers<1, STAGES>(q_full, 4);  // released by lane 0 of every consumer warp
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == 4) {
+    // ---- producer warp: lane 0 issues the TMA copies ------------------------------
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_3d(sQ + c * C::Q_SUB, &tm_q, q_full, 64 * c, q0, bh);
+        tma_load_3d(sDO + c * C::Q_SUB, &tm_do, q_full, 64 * c, q0, bh);
+      }
+      for (int kt = 0, s = 0, phase = 0; kt < n_kt; ++kt) {
+        mbar_wait(empty(s), phase ^ 1);
+        mbar_arrive_expect_tx(full(s), 2 * C::KV_BYTES);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_3d(sK + s * C::KV_BYTES + c * C::KV_SUB, &tm_k, full(s), 64 * c, kt * BN, bhk);
+          tma_load_3d(sV + s * C::KV_BYTES + c * C::KV_SUB, &tm_v, full(s), 64 * c, kt * BN, bhk);
+        }
+        if (++s == STAGES) s = 0, phase ^= 1;
+      }
+    }
+  } else {
+    // ---- consumer warpgroup: the CTA's 64 q rows, 16 a warp ------------------------
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int qpos[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = qpos[r] < Sq;  // rows past Sq are computed, never stored
+      lse_r[r] = in ? lse[(size_t)bh * Sq + qpos[r]] : 0.f;
+      delta_r[r] = in ? delta[(size_t)bh * Sq + qpos[r]] : 0.f;
+    }
+    const uint64_t da_q = desc_kmajor(sQ), da_do = desc_kmajor(sDO);  // K-major A operands
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % STAGES;
+      const int k0 = kt * BN;
+      const uint32_t sKs = sK + s * C::KV_BYTES, sVs = sV + s * C::KV_BYTES;
+      mbar_wait(full(s), (kt / STAGES) & 1);
+
+      // ---- s = Q K^T and dp = dO V^T, all operands K-major, one wait ----------------
+      float sc[BN / 2], dp[BN / 2];
+      uint32_t pa[BN / 16][4];
+      const uint64_t db_k = desc_kmajor(sKs), db_v = desc_kmajor(sVs);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;  // 16 columns along the swizzled row
+        const uint32_t a_off = (kk / 4) * C::Q_SUB + col, b_off = (kk / 4) * C::KV_SUB + col;
+        wgmma_ss<BN, 0>(sc, desc_add(da_q, a_off), desc_add(db_k, b_off), kk);
+        wgmma_ss<BN, 0>(dp, desc_add(da_do, a_off), desc_add(db_v, b_off), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // ---- p = exp2(s2 - lse) under the forward's mask, ds = p (dp - delta) scale --
+      const bool masked = k0 + BN > Sk || (causal && k0 + BN - 1 > q0);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float x = sc[i] * scale_log2;
+        if (masked) {
+          const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          if (key >= Sk || (causal && key > qpos[r])) x = NEG_INF;
+        }
+        sc[i] = exp2f(x - lse_r[r]) * (dp[i] - delta_r[r]) * scale;
+      }
+      acc_to_a<BN>(sc, pa);  // ds cast to bf16, as the JAX kernel casts it
+
+      // ---- dq += ds K: A from registers, K MN-major (transposed) ----------------------
+      const uint64_t db_kt = desc_mnmajor(sKs, C::KV_SUB);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) wgmma_rs<D, 1>(acc, pa[j], desc_add(db_kt, j * 16 * 128));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      if (lane == 0) mbar_arrive(empty(s));  // this warp is done with the stage
+    }
+
+    // ---- epilogue: dq as bf16 through Q's tile (free once the last s product
+    // has read it) and a TMA store -------------------------------------------------
+    bar_sync(1, 128);
+    store_acc_tma<D>(&tm_dq, sm.ptr, base, sQ, C::Q_SUB, acc, 1, q0, bh);
+  }
+}
+
+// ---- dk, dv ------------------------------------------------------------------
 
 template <int D>
 struct DkvCfg {
@@ -500,6 +593,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_const
   constexpr int BQ = C::BQ;
   using namespace hopper;
 
+  // aligned here, not by hopper::align_smem_1024: ptxas spills 4 bytes more
+  // a thread at D = 64 with the helper
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -677,15 +772,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     // ---- epilogue: dv into V's rows, dk into K's, once both warpgroups are done
     // with K and V; then TMA stores
     bar_sync(1, 256);
-    const uint32_t tile = wg == 0 ? sV : sK;
-    stage_acc_bf16<D>(smem + (tile - base), C::K_SUB, acc, wl, g, t);
-    fence_proxy_async();
-    bar_sync(2 + wg, 128);
-    if (tid == 0) {
-      for (int c = 0; c < D / 64; ++c)
-        tma_store_3d(wg == 0 ? &tm_dv : &tm_dk, tile + c * C::K_SUB, 64 * c, k0, bhk);
-      tma_store_wait();
-    }
+    store_acc_tma<D>(wg == 0 ? &tm_dv : &tm_dk, smem, base, wg == 0 ? sV : sK, C::K_SUB, acc,
+                     2 + wg, k0, bhk);
   }
 }
 
@@ -719,23 +807,49 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
 }
 
 // ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
 
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, int B, int H,
-                      int Hkv, int Sq, int Sk, float scale_log2, float scale,
-                      int causal, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dq, int B, int H, int Hkv,
+                          int Sq, int Sk, float scale_log2, float scale, int causal,
+                          cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  const size_t smem = DqSmem<T, D>::BYTES;
+  auto kernel = flash_bwd_dq_kernel<D>;
+  const size_t smem = DqSmem<D>::BYTES;
   cudaError_t err = hopper::smem_limit_once((const void*)kernel, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), H, Hkv, Sq, Sk,
-      scale_log2, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), H, Hkv, Sq, Sk, scale_log2,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dq, int B, int H, int Hkv,
+                           int Sq, int Sk, float scale_log2, float scale, int causal,
+                           cudaStream_t stream) {
+  using C = DqCfg<D>;
+  static std::atomic<unsigned long long> smem_set{0};
+  auto kernel = flash_bwd_dq_wgmma<D>;
+  cudaError_t err = hopper::smem_limit_once((const void*)kernel, C::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
+  if ((err = hopper::make_tmap(&tm_q, q, B * H, Sq, D, C::BM)) != cudaSuccess ||
+      (err = hopper::make_tmap(&tm_do, dout, B * H, Sq, D, C::BM)) != cudaSuccess ||
+      (err = hopper::make_tmap(&tm_k, k, B * Hkv, Sk, D, C::BN)) != cudaSuccess ||
+      (err = hopper::make_tmap(&tm_v, v, B * Hkv, Sk, D, C::BN)) != cudaSuccess ||
+      (err = hopper::make_tmap(&tm_dq, dq, B * H, Sq, D, 64)) != cudaSuccess)
+    return err;
+  const int n_qt = (Sq + C::BM - 1) / C::BM;
+  kernel<<<n_qt * B * H, C::THREADS, C::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), B * H, H, Hkv, Sq, Sk, scale_log2, scale, causal);
   return cudaGetLastError();
 }
 
@@ -745,8 +859,8 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
                            int H, int Hkv, int Sq, int Sk, float scale_log2, float scale,
                            int causal, cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
-  auto kernel = flash_bwd_dkv_kernel<float, D>;
-  const size_t smem = DkvSmem<float, D>::BYTES;
+  auto kernel = flash_bwd_dkv_kernel<D>;
+  const size_t smem = DkvSmem<D>::BYTES;
   cudaError_t err = hopper::smem_limit_once((const void*)kernel, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sk + BLOCK_M - 1) / BLOCK_M, Hkv, B);
@@ -775,10 +889,10 @@ extern "C" int dtt_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!valid_dims(B, H, Hkv, Sq, Sk)) return (int)cudaErrorInvalidValue;
 #define DQ_ARGS q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, scale_log2, scale, causal, s
-  if (dtype == 1 && D == 128) return (int)launch_dq<__nv_bfloat16, 128>(DQ_ARGS);
-  if (dtype == 1 && D == 64) return (int)launch_dq<__nv_bfloat16, 64>(DQ_ARGS);
-  if (dtype == 0 && D == 128) return (int)launch_dq<float, 128>(DQ_ARGS);
-  if (dtype == 0 && D == 64) return (int)launch_dq<float, 64>(DQ_ARGS);
+  if (dtype == 1 && D == 128) return (int)launch_dq_bf16<128>(DQ_ARGS);
+  if (dtype == 1 && D == 64) return (int)launch_dq_bf16<64>(DQ_ARGS);
+  if (dtype == 0 && D == 128) return (int)launch_dq_f32<128>(DQ_ARGS);
+  if (dtype == 0 && D == 64) return (int)launch_dq_f32<64>(DQ_ARGS);
 #undef DQ_ARGS
   return (int)cudaErrorInvalidValue;
 }

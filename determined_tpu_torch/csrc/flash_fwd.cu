@@ -270,33 +270,17 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, v
 
 constexpr int STAGES = 2;
 
+// 64 * NWG q rows and keys of one ring stage (hopper::QTileCfg).  With
+// 64-row tiles the consumers' o, s and p (112 registers) fit the registers
+// the launch gives, and a producer warpgroup would halve the CTAs an SM holds.
 template <int D, int NWG>
-struct FwdCfg {
-  static constexpr int BM = 64 * NWG;  // q rows of the CTA: 64 per consumer warpgroup
-  static constexpr int BN = 64 * NWG;  // keys of one ring stage
-  // Consumer warpgroups, then the producer, one of whose threads issues
-  // every copy.  With two consumer warpgroups the producer is a warpgroup
-  // that gives its registers to them: setmaxnreg moves registers only
-  // within the CTA and only a whole warpgroup at a time, and 4 x 144 released
-  // registers a thread buy the consumers 240.  With one (64-row tiles) the
-  // producer is a lone warp and nothing is moved: the consumers' o, s and p
-  // (112 registers) fit the registers the launch gives, and a producer
-  // warpgroup would halve the CTAs an SM holds.
-  static constexpr bool REBALANCE = NWG == 2;
-  static constexpr int PRODUCERS = REBALANCE ? 128 : 32;
-  static constexpr int THREADS = 128 * NWG + PRODUCERS;
-  static constexpr int REG_PRODUCER = 24;
-  static constexpr int REG_CONSUMER = 240;
-  static constexpr int Q_SUB = BM * 128;  // bytes of one 64-column sub-tile
-  static constexpr int KV_SUB = BN * 128;
-  static constexpr int Q_BYTES = (D / 64) * Q_SUB;
-  static constexpr int KV_BYTES = (D / 64) * KV_SUB;  // one K (or V) stage
+struct FwdCfg : hopper::QTileCfg<D, NWG, 64 * NWG> {
+  using Base = hopper::QTileCfg<D, NWG, 64 * NWG>;
   // shared memory: Q | K[STAGES] | V[STAGES] | mbarriers
-  static constexpr int OFF_K = Q_BYTES;
-  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
-  static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  static constexpr int OFF_K = Base::Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * Base::KV_BYTES;
+  static constexpr int OFF_BAR = OFF_V + STAGES * Base::KV_BYTES;
   static constexpr int SMEM = OFF_BAR + 64 + 1024;  // + 1 KB to align the base to 1024 bytes
-  static constexpr int MIN_BLOCKS = NWG == 2 ? 1 : 2;  // CTAs an SM
 };
 
 template <int D, int NWG>
@@ -310,38 +294,19 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   using namespace hopper;
 
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  unsigned char* smem = smem_raw + (base - raw);  // generic pointer to `base`
+  const SmemBase sm = align_smem_1024(smem_raw);
+  const uint32_t base = sm.addr;
   const uint32_t sQ = base, sK = base + C::OFF_K, sV = base + C::OFF_V;
   const uint32_t q_full = base + C::OFF_BAR;
   auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
   auto v_full = [&](int s) { return q_full + 8 * (1 + STAGES + s); };
   auto empty = [&](int s) { return q_full + 8 * (1 + 2 * STAGES + s); };
-
-  // heaviest first: rank 0 is the last q tile, which walks the most key tiles
-  const int n_qt = (Sq + C::BM - 1) / C::BM;
-  int bh, rank;
-  group_order(blockIdx.x, BH, n_qt, bh, rank);
-  const int qt = n_qt - 1 - rank;
-  const int bhk = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const int q0 = qt * C::BM;
-  int n_kt = (Sk + BN - 1) / BN;
-  if (causal) n_kt = min(n_kt, (min(q0 + C::BM, Sq) - 1) / BN + 1);
+  const QTileWalk w = q_tile_walk<C::BM, BN>(BH, H, Hkv, Sq, Sk, causal);
+  const int bh = w.bh, bhk = w.bhk, q0 = w.q0, n_kt = w.n_kt;
+  init_ring_barriers<2, STAGES>(q_full, 4 * NWG);  // released by lane 0 of every consumer warp
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(k_full(s), 1);
-      mbar_init(v_full(s), 1);
-      mbar_init(empty(s), 4 * NWG);  // lane 0 of every consumer warp
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
   if (warp >= 4 * NWG) {
     // ---- producer: lane 0 of its first warp issues the TMA copies ----------------
     if constexpr (C::REBALANCE) regs_dealloc<C::REG_PRODUCER>();
@@ -465,13 +430,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     for (int i = 0; i < D / 2; ++i) o[i] = o[i] / l_tot[(i >> 1) & 1];
     // the warpgroup's Q rows are free once its last product has read them
     bar_sync(1 + wg, 128);
-    stage_acc_bf16<D>(smem + (sQw - base), C::Q_SUB, o, wl, g, t);
-    fence_proxy_async();
-    bar_sync(1 + wg, 128);
-    if (threadIdx.x % 128 == 0) {
-      for (int c = 0; c < D / 64; ++c) tma_store_3d(&tm_o, sQw + c * C::Q_SUB, 64 * c, row0, bh);
-      tma_store_wait();
-    }
+    store_acc_tma<D>(&tm_o, sm.ptr, base, sQw, C::Q_SUB, o, 1 + wg, row0, bh);
   }
 }
 

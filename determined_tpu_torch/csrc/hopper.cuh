@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels:
 // mbarriers, TMA tile copies with 128-byte swizzle, wgmma descriptors and
-// instructions, register rebalancing between warpgroups, and the host-side
-// tensor-map encoder.  Each kernel source stays its own nvcc unit and
+// instructions, register rebalancing between warpgroups, the tile shape,
+// prologue and epilogue of the warp-specialised q-tile kernels, and the
+// host-side tensor-map encoder.  Each kernel source stays its own nvcc unit and
 // includes this header (ops/_build.py hashes it into the library's name).
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
@@ -401,6 +402,106 @@ __device__ __forceinline__ void stage_acc_bf16(unsigned char* tile, int sub_byte
       *reinterpret_cast<uint32_t*>(tile + sw128_offset(row, 8 * n + 2 * t, sub_bytes)) =
           pack_bf16(d[4 * n + 2 * r], d[4 * n + 2 * r + 1]);
     }
+  }
+}
+
+// --- warp-specialised kernels ----------------------------------------------------
+
+// Dynamic shared memory from its first 1024-byte boundary, which 128-byte-
+// swizzled tiles need (a kernel asks for 1 KB more than it uses): the
+// shared-space address and a generic pointer to the same byte.
+struct SmemBase {
+  uint32_t addr;
+  unsigned char* ptr;
+};
+__device__ __forceinline__ SmemBase align_smem_1024(unsigned char* raw) {
+  const uint32_t r = smem_u32(raw);
+  const uint32_t a = (r + 1023) & ~1023u;
+  return {a, raw + (a - r)};
+}
+
+// Shape of a CTA that owns BM = 64 * NWG q rows of one (batch, head) and
+// streams BN-key K and V tiles of its kv head through a ring
+// (flash_fwd_wgmma, flash_bwd_dq_wgmma): NWG consumer warpgroups of 64 rows,
+// then a producer, one of whose threads issues every copy.  With two
+// consumer warpgroups the producer is a warpgroup that gives its registers
+// to them: setmaxnreg moves registers only within the CTA and a whole
+// warpgroup at a time, and 4 x 144 released registers a thread buy the
+// consumers 240.  With one, the producer is a lone warp, nothing moves, and
+// two CTAs share an SM (168 registers a thread at most: 10 warps on the
+// SM's four 16,384-register quarters).
+template <int D, int NWG, int BN_>
+struct QTileCfg {
+  static constexpr int BM = 64 * NWG;
+  static constexpr int BN = BN_;
+  static constexpr bool REBALANCE = NWG == 2;
+  static constexpr int PRODUCERS = REBALANCE ? 128 : 32;
+  static constexpr int THREADS = 128 * NWG + PRODUCERS;
+  static constexpr int REG_PRODUCER = 24;
+  static constexpr int REG_CONSUMER = 240;
+  static constexpr int MIN_BLOCKS = REBALANCE ? 1 : 2;  // CTAs an SM
+  static constexpr int Q_SUB = BM * 128;                // bytes of one 64-column sub-tile
+  static constexpr int KV_SUB = BN * 128;
+  static constexpr int Q_BYTES = (D / 64) * Q_SUB;    // one tile of the CTA's rows
+  static constexpr int KV_BYTES = (D / 64) * KV_SUB;  // one K (or V) stage
+};
+
+// The q tile of this CTA and the key tiles it walks.  Heaviest first: rank
+// 0 of group_order is the last q tile, which walks the most key tiles.
+// Causal, the walk ends at the key tile of the last real row's diagonal.
+struct QTileWalk {
+  int bh;    // (batch, head) of the q rows
+  int bhk;   // (batch, kv head): head h reads kv head h / (H / Hkv)
+  int q0;    // first q row
+  int n_kt;  // key tiles walked
+};
+template <int BM, int BN>
+__device__ __forceinline__ QTileWalk q_tile_walk(int BH, int H, int Hkv, int Sq, int Sk,
+                                                 int causal) {
+  const int n_qt = (Sq + BM - 1) / BM;
+  QTileWalk w;
+  int rank;
+  group_order(blockIdx.x, BH, n_qt, w.bh, rank);
+  w.bhk = (w.bh / H) * Hkv + (w.bh % H) / (H / Hkv);
+  w.q0 = (n_qt - 1 - rank) * BM;
+  w.n_kt = (Sk + BN - 1) / BN;
+  if (causal) w.n_kt = min(w.n_kt, (min(w.q0 + BM, Sq) - 1) / BN + 1);
+  return w;
+}
+
+// Thread 0 sets up a q-tile kernel's mbarriers, 8 bytes apart from `bar`:
+// the one the Q-side loads complete, LOADS x STAGES that the ring's TMA
+// loads complete (one arrival each, the producer's expect_tx), then STAGES
+// "empty" barriers that `consumer_warps` warps release; then the CTA syncs.
+template <int LOADS, int STAGES>
+__device__ __forceinline__ void init_ring_barriers(uint32_t bar, int consumer_warps) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + LOADS * STAGES; ++i) mbar_init(bar + 8 * i, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(bar + 8 * (1 + LOADS * STAGES + s), consumer_warps);
+    fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// A consumer warpgroup's epilogue: its 64 x D accumulator, cast to bf16,
+// into the swizzled tile at shared address `tile` (64-column sub-tiles
+// `sub_bytes` apart; `smem` points at shared address `base`), then a TMA
+// store of it to rows row0 .. row0 + 63 of head `head`.  Call it once every
+// thread of the warpgroup is done with the tile; `bar` is a named barrier
+// for the warpgroup's 128 threads.
+template <int D>
+__device__ __forceinline__ void store_acc_tma(const CUtensorMap* map, unsigned char* smem,
+                                              uint32_t base, uint32_t tile, int sub_bytes,
+                                              const float (&acc)[D / 2], int bar, int row0,
+                                              int head) {
+  const int lane = threadIdx.x % 32;
+  stage_acc_bf16<D>(smem + (tile - base), sub_bytes, acc, (threadIdx.x / 32) % 4, lane / 4,
+                    lane % 4);
+  fence_proxy_async();
+  bar_sync(bar, 128);
+  if (threadIdx.x % 128 == 0) {
+    for (int c = 0; c < D / 64; ++c) tma_store_3d(map, tile + c * sub_bytes, 64 * c, row0, head);
+    tma_store_wait();
   }
 }
 

@@ -31,6 +31,13 @@ NVCC_FLAGS = (
 )
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+# lines of a ptxas -v report: the function the next lines are about, a
+# line that names its function, a spill count, a performance warning (C75xx:
+# wgmmas serialised, setmaxnreg ignored)
+_PTXAS_FUNCTION = re.compile(r"Compiling entry function '([^']+)'|Function properties for (\S+)")
+_PTXAS_NAMED = re.compile(r"function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_PERF = re.compile(r"\(C75\d\d\)")
 
 #: a C function's ctypes ``(argtypes, restype)``, by function name
 Signatures = Dict[str, Tuple[list, type]]
@@ -142,3 +149,22 @@ def ptxas_report(source: str) -> Optional[str]:
         return None
     with open(path, encoding="utf-8") as f:
         return f.read()
+
+
+def ptxas_faults(report: str, kernel: str) -> List[str]:
+    """The lines of a ptxas report that show a function whose (mangled)
+    name contains ``kernel`` spilling registers or losing performance
+    (C75xx: its wgmmas serialised, its setmaxnreg ignored)."""
+    faults, current = [], ""
+    for line in report.splitlines():
+        m = _PTXAS_FUNCTION.search(line)
+        if m:
+            current = m.group(1) or m.group(2)
+            continue
+        named = _PTXAS_NAMED.search(line)
+        if kernel not in (named.group(1) if named else current):
+            continue
+        spill = _PTXAS_SPILL.search(line)
+        if _PTXAS_PERF.search(line) or (spill and int(spill.group(1)) + int(spill.group(2))):
+            faults.append(line.strip())
+    return faults

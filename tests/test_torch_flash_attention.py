@@ -8,6 +8,8 @@ chip_smoke.py.  Inputs are made with numpy from a seed and handed to both.
 """
 
 import ctypes
+import pathlib
+import re
 import shutil
 
 import jax.numpy as jnp
@@ -23,7 +25,7 @@ from determined_tpu.ops.flash_attention import (
     _pick_block,
 )
 from determined_tpu.ops.flash_attention import flash_attention as jax_flash
-from determined_tpu_torch.ops import _build
+from determined_tpu_torch.ops import _build, fused_adamw
 import determined_tpu_torch.ops.flash_attention as port_flash_mod
 from determined_tpu_torch.ops.attention import dot_product_attention, reference_attention
 from determined_tpu_torch.ops.flash_attention import (
@@ -254,3 +256,32 @@ def test_load_binds_each_signature_once(monkeypatch):
     assert lib.sets == 1
     assert lib.fn.argtypes == [ctypes.c_void_p, ctypes.c_int]
     assert lib.fn.restype is ctypes.c_int
+
+
+# C parameter types of the kernels' extern "C" functions, as ctypes binds them
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize(
+    "source, name, signatures",
+    [
+        ("flash_fwd.cu", "dtt_flash_fwd_rows", port_flash_mod._FWD_SIGNATURES),
+        ("flash_bwd.cu", "dtt_flash_bwd_dq", port_flash_mod._BWD_SIGNATURES),
+        ("flash_bwd.cu", "dtt_flash_bwd_dkv", port_flash_mod._BWD_SIGNATURES),
+        ("fused_adamw.cu", "dtt_fused_adamw", fused_adamw._SIGNATURES),
+    ],
+    ids=["fwd_rows", "bwd_dq", "bwd_dkv", "fused_adamw"],
+)
+def test_ctypes_signatures_match_the_c_interface(source, name, signatures):
+    """Each wrapper binds the argument types of the extern "C" function in
+    its source, one for one: ctypes passes a missing or extra argument
+    without a word, so a changed C interface must change its binding."""
+    text = (pathlib.Path(_build.CSRC_DIR) / source).read_text()
+    match = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+    assert match, f"{name} is not an extern \"C\" function of {source}"
+    params = [re.sub(r"\bconst\b", "", p).strip().rsplit(None, 1)[0]
+              for p in match.group(1).split(",")]
+    argtypes, restype = signatures[name]
+    assert [_C_TYPES[p] for p in params] == argtypes
+    assert restype is ctypes.c_int

@@ -206,3 +206,41 @@ def test_bwd_wrapper_rejects_what_the_kernels_do_not_take(mutate, match):
     args = mutate(dict(q=q, k=k, v=v, out=out, lse=lse, do=do))
     with pytest.raises(ValueError, match=match):
         _check_bwd_inputs(args["q"], args["k"], args["v"], args["out"], args["lse"], args["do"])
+
+
+# a ptxas -v report in the shape nvcc prints it: the bf16 dq kernel's two
+# instances, one clean and one that spilled and had its wgmmas serialised,
+# beside a forward kernel that spilled
+_DQ = "_ZN12_GLOBAL__N_118flash_bwd_dq_wgmmaILi{}EEEv14CUtensorMap_stS1_"
+_FWD = "_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi64ELi1EEEv14CUtensorMap_stS1_"
+_PTXAS_REPORT = f"""\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{_DQ.format(64)}' for 'sm_90a'
+ptxas info    : Function properties for {_DQ.format(64)}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 544 bytes cmem[0]
+ptxas info    : Compiling entry function '{_DQ.format(128)}' for 'sm_90a'
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized due to non wgmma instructions defining accumulator registers of a wgmma between start and end of the pipeline stage in the function '{_DQ.format(128)}'
+ptxas info    : Function properties for {_DQ.format(128)}
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers, 544 bytes cmem[0]
+ptxas info    : Compiling entry function '{_FWD}' for 'sm_90a'
+ptxas info    : Function properties for {_FWD}
+    16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 528 bytes cmem[0]
+"""
+
+
+def test_ptxas_faults_name_the_spilling_or_serialised_instance():
+    """chip_smoke.py refuses a build whose dq kernel spilled or had its
+    wgmmas serialised; the report's lines are attributed to the function
+    they follow or name, so the forward's spill is not the dq kernel's."""
+    faults = _build.ptxas_faults(_PTXAS_REPORT, "flash_bwd_dq_wgmma")
+    assert len(faults) == 2
+    assert "(C7515)" in faults[0] and _DQ.format(128) in faults[0]
+    assert faults[1] == "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads"
+    assert _build.ptxas_faults(_PTXAS_REPORT, "flash_fwd_wgmma") == [
+        "16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads"
+    ]
+    clean = _PTXAS_REPORT.split("ptxas info    : Compiling entry function '" + _DQ.format(128))[0]
+    assert _build.ptxas_faults(clean, "flash_bwd_dq_wgmma") == []
