@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (determined_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--phases kernel,serve,parity,train,train_parity]
+    python3 chip_smoke.py [--seed N]
+        [--phases kernel,serve,parity,train,train_parity,experiment]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -35,6 +36,35 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. train_parity: a 2-layer f32 LM trains 3 steps on the card through the
    kernels and on the CPU through the plain versions, from the same weights
    and batches; losses, weight updates and moments are compared.
+7. experiment: the flagship's own experiment file
+   (examples/transformer_lm/const.yaml, mirrored in EXPERIMENT_CONST; f32
+   first moment as the file has it) through LocalExperiment(cfg, LMTrial),
+   cut only in length (EXPERIMENT_CUTS, each printed), its weights and data
+   from --seed.  Checkpoints go to a fresh temporary directory outside the
+   repo (its free space printed first), at most three flagship checkpoints
+   at once, deleted at the end.
+   C. the uninterrupted reference: checkpoint_policy none; its final state
+      is kept on the host and its trainer freed.
+   A. preempted run: the train.step hook calls request_preemption() before
+      step 18; the run ends "preempted" with a best checkpoint at step 12
+      (asynchronous, drained by the step-18 save) and a preemption
+      checkpoint at step 18, both manifest-verified.
+   B. resume(): steps 18 -> 24 from the step-18 checkpoint, whose manifest
+      is checked once (by the experiment; the restore reuses the verdict);
+      the launch counters are set to 0 just before and read just after, and
+      must show 6 x 75 fused_adamw and 6 x 8 of each flash backward kernel.
+   D. crash and restart: TrialSupervisor with the train.step hook raising at
+      step 15 and its own changes (CRASH_CUTS, printed: one restart, no
+      backoff, synchronous saves); the second attempt resumes from the
+      step-12 checkpoint and ends at step 24.
+   B's and D's final params, moments, step and last validation loss are
+   held against C's (the largest difference printed, and whether it is
+   bitwise) with the train_parity tolerance.  Printed: each save's bytes,
+   seconds and GB/s (sync; async dispatch, write with its copy to the host,
+   stall, finalize with its md5), the resume (from resume() to the first
+   step, the manifest check, the load), the host-clock step during the
+   writer's copy, during its torch.save and with no write in flight, and
+   each part's device memory at its start and its peak.
 
 Prints, before the last line, the kernels line (JSON) and the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.
@@ -45,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -169,7 +200,51 @@ N_REQUESTS = 12
 N_SHARED = 4
 SHARED_PREFIX = 512
 
-PHASES = ("kernel", "serve", "parity", "train", "train_parity")
+# phase 7: examples/transformer_lm/const.yaml as a dict (the card's machine
+# may lack yaml; a CPU test holds this to the file), then its cuts:
+# (dotted key, the file's value, this run's value, why)
+EXPERIMENT_CONST = {
+    "name": "lm-const",
+    "entrypoint": "model_def:Trial",
+    "hyperparameters": dict(
+        lr=0.0003, global_batch_size=8, seq_len=1024, vocab_size=32768, d_model=2048,
+        n_layers=8, n_heads=16, dataset_size=4096, bf16=True, attention="flash",
+    ),
+    "searcher": {"name": "single", "metric": "validation_loss",
+                 "max_length": {"batches": 1000}},
+    "min_validation_period": {"batches": 200},
+    "checkpoint_storage": {"type": "shared_fs", "host_path": "/tmp/dtpu-checkpoints"},
+}
+EXPERIMENT_CUTS = [
+    ("searcher.max_length", {"batches": 1000}, {"batches": 24},
+     "24 steps: preempted at 18, resumed to 24"),
+    ("min_validation_period", {"batches": 200}, {"batches": 12},
+     "validation (and the best checkpoint) at steps 12 and 24"),
+    ("min_checkpoint_period", None, {"batches": 18},
+     "makes step 18 a boundary: the Trainer reads the preemption flag at boundaries only"),
+    ("hyperparameters.dataset_size", 4096, 128,
+     "one validation pass is 16 full-width batches, not 512"),
+    ("checkpoint_storage.host_path", "/tmp/dtpu-checkpoints", "<temp dir>",
+     "a fresh temporary directory outside the repo, deleted at the end"),
+    ("reproducibility.experiment_seed", None, "<--seed>",
+     "the trial's weights and data from the run's --seed"),
+]
+# part D's own changes on top of those: (dotted key, the value the file
+# gets by default, D's value, why)
+CRASH_CUTS = [
+    ("max_restarts", 5, 1, "the crash at step 15 is the one failure: one restart"),
+    ("fault_tolerance.restart_backoff_base", 1.0, 0.0, "no backoff sleep before the restart"),
+    ("optimizations.async_checkpointing", True, False,
+     "the step-12 save is finalized before the crash at 15, so the restart takes it; an "
+     "async save is finalized only at the next drain point, and a crash before that restarts "
+     "from the last finalized checkpoint (on the CPU: test_torch_fault_tolerance.py"
+     "::test_crash_with_async_save_in_flight_resumes_from_finalized_only)"),
+]
+EXPERIMENT_STEPS = 24
+PREEMPT_AT = 18
+CRASH_AT = 15
+
+PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment")
 
 
 def log(msg: str) -> None:
@@ -878,6 +953,392 @@ def phase_train_parity(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the flagship experiment: preemption, resume, crash and restart
+# ---------------------------------------------------------------------------
+
+
+def _apply_cuts(raw: dict, cuts, placeholders: dict) -> dict:
+    """A copy of ``raw`` with each cut's value set at its dotted key (a
+    placeholder string replaced by this run's value)."""
+    raw = json.loads(json.dumps(raw))
+    for path, _const, value, _why in cuts:
+        *parents, leaf = path.split(".")
+        node = raw
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = placeholders.get(value, value) if isinstance(value, str) else value
+    return raw
+
+
+def experiment_raw_config(ckpt_dir: str, seed: int) -> dict:
+    """EXPERIMENT_CONST with EXPERIMENT_CUTS applied: checkpoints under
+    ``ckpt_dir``, the experiment seed ``seed``."""
+    return _apply_cuts(EXPERIMENT_CONST, EXPERIMENT_CUTS, {"<temp dir>": ckpt_dir,
+                                                          "<--seed>": seed})
+
+
+class _StepHook:
+    """A fault injector (``utils/faults.py``) that runs ``action`` when the
+    ``train.step`` site fires for ``step`` (before that step runs), ``times``
+    times."""
+
+    def __init__(self, step: int, action, times: int = 1) -> None:
+        self.step, self.action, self.left = step, action, times
+
+    def fire(self, site: str, **info) -> None:
+        if site == "train.step" and info.get("step") == self.step and self.left:
+            self.left -= 1
+            self.action()
+
+
+class _SimulatedCrash(RuntimeError):
+    """Stands in for a worker crash mid-step (a TRANSIENT failure)."""
+
+
+def _capturing_trial():
+    """LMTrial with a callback that keeps the Trainer of each run and the
+    time its training started (after any restore), so the phase can read
+    its final state and its time to resume."""
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.train import Callback
+
+    class Capture(Callback):
+        trainers: list = []
+        started: list = []
+
+        def on_training_start(self, trainer) -> None:
+            Capture.trainers.append(trainer)
+            Capture.started.append(time.monotonic())
+
+    class SmokeLMTrial(LMTrial):
+        def build_callbacks(self):
+            return {"capture": Capture()}
+
+    return SmokeLMTrial, Capture.trainers, Capture.started
+
+
+def _span_seconds(tracer, name: str) -> list:
+    return [s[3] for s in tracer.spans(name)]
+
+
+def _host_steps(tracer) -> dict:
+    """Host-clock time of each training step (from its data.wait start to
+    the next step's), split by what the asynchronous checkpoint writer was
+    doing meanwhile: its copy to the host (``checkpoint.copy``), the rest
+    of its write (``torch.save``), or nothing.  Intervals that hold a
+    boundary (report, validation, a save) are left out, and so is the first
+    step (the warm-up)."""
+    starts = [s[2] for s in tracer.spans("data.wait")]
+
+    def intervals(*names):
+        return [(s[2], s[2] + s[3]) for name in names for s in tracer.spans(name)]
+
+    copies, writes = intervals("checkpoint.copy"), intervals("checkpoint.write")
+    boundaries = intervals("step.boundary_block", "validate", "checkpoint.save",
+                           "checkpoint.dispatch", "checkpoint.stall", "checkpoint.finalize")
+    steps = {"during_copy": [], "during_save": [], "without_write": []}
+    for t0, t1 in zip(starts[1:], starts[2:]):
+        if any(a < t1 and t0 < b for a, b in boundaries):
+            continue
+        if any(a < t1 and t0 < b for a, b in copies):
+            steps["during_copy"].append(t1 - t0)
+        elif any(a < t1 and t0 < b for a, b in writes):
+            steps["during_save"].append(t1 - t0)
+        else:
+            steps["without_write"].append(t1 - t0)
+    out = {}
+    for k, v in steps.items():
+        out[f"steps_{k}"] = len(v)
+        out[f"mean_step_ms_{k}"] = 1e3 * statistics.mean(v) if v else None
+    return out
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _checkpoint_steps(root: str) -> dict:
+    """uuid -> steps_completed of every checkpoint under ``root``, and the
+    manifest verdict of each."""
+    import os
+
+    from determined_tpu_torch.core import verify_manifest
+
+    out = {}
+    for d, _, files in os.walk(root):
+        if "metadata.json" in files:
+            with open(os.path.join(d, "metadata.json")) as f:
+                steps = json.load(f)["steps_completed"]
+            out[os.path.basename(d)] = dict(
+                steps=steps, verified=verify_manifest(d, require_manifest=True),
+                bytes=_dir_bytes(d),
+            )
+    return out
+
+
+def _final_state(trainer) -> dict:
+    """A run's final params, moments, step counters, last validation loss
+    and loader position, copied to the host."""
+    opt = trainer.state.opt_state
+    return dict(
+        params={k: p.detach().cpu() for k, p in trainer.model.named_parameters()},
+        mu={k: v.cpu() for k, v in opt.mu.items()},
+        nu={k: v.cpu() for k, v in opt.nu.items()},
+        steps=(int(trainer.state.step), int(opt.count)),
+        validation_loss=trainer._last_val_metrics["validation_loss"],
+        loader=trainer.train_loader.state_dict(),
+    )
+
+
+def _compare_final(name: str, got, want: dict, init_params) -> dict:
+    """A run's final state (its trainer) against the reference's
+    (``_final_state``) with the train_parity tolerance; each reference
+    tensor goes to the device for its comparison only."""
+    import torch
+
+    tol = TRAIN_PARITY_TOL
+    worst = 0.0
+    bitwise = True
+    upd_rel = mom_rel = 0.0
+    opt = got.state.opt_state
+    for k, a in got.model.named_parameters():
+        a = a.detach()
+        b = want["params"][k].to(a.device)
+        bitwise &= torch.equal(a, b)
+        worst = max(worst, (a - b).abs().max().item())
+        upd = (b - init_params[k].to(b.device)).norm().item()
+        upd_rel = max(upd_rel, (a - b).norm().item() / max(upd, 1e-30))
+        for which in ("mu", "nu"):
+            m_a, m_b = getattr(opt, which)[k], want[which][k].to(a.device)
+            bitwise &= torch.equal(m_a, m_b)
+            worst = max(worst, (m_a.float() - m_b.float()).abs().max().item())
+            mom_rel = max(mom_rel, (m_a.float() - m_b.float()).norm().item()
+                          / max(m_b.float().norm().item(), 1e-30))
+    steps = (int(got.state.step), int(opt.count)) + want["steps"]
+    loss = (got._last_val_metrics["validation_loss"], want["validation_loss"])
+    out = dict(max_abs_diff=worst, bitwise=bool(bitwise and loss[0] == loss[1]),
+               max_rel_update_diff=upd_rel, max_rel_moment_diff=mom_rel,
+               steps=steps, validation_loss=loss,
+               loader=(got.train_loader.state_dict(), want["loader"]))
+    log(f"experiment {name} vs uninterrupted: " + json.dumps(out))
+    assert steps == (EXPERIMENT_STEPS,) * 4, steps
+    assert out["loader"][0] == out["loader"][1], out["loader"]
+    np.testing.assert_allclose(loss[0], loss[1], **tol["loss"])
+    assert upd_rel <= tol["update_rel"], upd_rel
+    assert mom_rel <= tol["moment_rel"], mom_rel
+    return out
+
+
+@contextlib.contextmanager
+def _device_memory(out: dict, part: str):
+    """Device memory allocated when a part starts and at its peak (GiB)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    try:
+        yield
+    finally:
+        out[part] = dict(start_gib=start / 2 ** 30,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        log(f"experiment {part} device memory: " + json.dumps(out[part]))
+
+
+def phase_experiment(seed: int) -> dict:
+    """Parts C, A, B and D of phase 7 (the docstring at the top)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from determined_tpu_torch import core, train
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.exec.run_trial import TrialSupervisor
+    from determined_tpu_torch.experiment import LocalExperiment
+    from determined_tpu_torch.observability import get_tracer
+    from determined_tpu_torch.utils import faults
+
+    root = tempfile.mkdtemp(prefix="dtt-chip-experiment-")
+    free = shutil.disk_usage(root).free
+    log(f"experiment: checkpoints under {root}, {free / 2**30:.1f} GiB free")
+    for path, const, value, why in EXPERIMENT_CUTS:
+        value = seed if value == "<--seed>" else value
+        log(f"experiment cut: {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
+    for path, const, value, why in CRASH_CUTS:
+        log(f"experiment D cut: {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
+    trial_cls, trainers, started = _capturing_trial()
+    tracer = get_tracer()
+    memory: dict = {}
+    out: dict = {}
+    try:
+        raw = experiment_raw_config(os.path.join(root, "ab"), seed)
+        cfg = ExperimentConfig.parse(raw)
+        init_params = _start_params(cfg, trial_cls)
+        # params, f32 first and second moments: 12 bytes a parameter, and at
+        # most three checkpoints on the disk at once
+        need = 3 * 12 * sum(p.numel() for p in init_params.values())
+        assert free > 1.1 * need, (
+            f"{free / 2**30:.1f} GiB free under {root}; the phase needs {need / 2**30:.1f} GiB"
+        )
+        # ---- C: the uninterrupted reference --------------------------------
+        ref_raw = dict(raw, checkpoint_policy="none")
+        ref_raw.pop("min_checkpoint_period")
+        t0 = time.monotonic()
+        with _device_memory(memory, "C"):
+            summary_c = LocalExperiment(ExperimentConfig.parse(ref_raw), trial_cls,
+                                        checkpoint_dir=os.path.join(root, "ref")).run()
+        ref = _final_state(trainers.pop())
+        log(f"experiment C (uninterrupted): {time.monotonic() - t0:.1f} s, "
+            + json.dumps(summary_c))
+        assert summary_c["status"] == "completed" and summary_c["total_steps"] == EXPERIMENT_STEPS
+
+        # ---- A: preempted at step 18 -----------------------------------------
+        exp = LocalExperiment(cfg, trial_cls, checkpoint_dir=raw["checkpoint_storage"]["host_path"])
+        faults.set_fault_injector(_StepHook(PREEMPT_AT - 1, exp.request_preemption))
+        t0 = time.monotonic()
+        try:
+            with _device_memory(memory, "A"):
+                summary_a = exp.run()
+        finally:
+            faults.set_fault_injector(None)
+        wall_a = time.monotonic() - t0
+        ckpts_a = _checkpoint_steps(cfg.checkpoint_storage.host_path)
+        steps_a = sorted(c["steps"] for c in ckpts_a.values())
+        spans = {name: _span_seconds(tracer, name) for name in (
+            "checkpoint.save", "checkpoint.dispatch", "checkpoint.write", "checkpoint.stall",
+            "checkpoint.finalize", "checkpoint.digest")}
+        host = _host_steps(tracer)
+        ckpt_bytes = max(c["bytes"] for c in ckpts_a.values())
+        log(f"experiment A (preempted): {wall_a:.1f} s, " + json.dumps(summary_a))
+        log("experiment A checkpoints: " + json.dumps(ckpts_a))
+        assert summary_a["status"] == "preempted" and summary_a["in_flight"] == [1], summary_a
+        assert steps_a == [12, PREEMPT_AT], steps_a
+        assert all(c["verified"] for c in ckpts_a.values())
+        (preempted,) = trainers
+        assert preempted.steps_completed == PREEMPT_AT
+        assert preempted._pending_save is None  # the async save drained
+        del preempted, trainers[:]
+        (dispatch_s,), (write_s,), (stall_s,), (finalize_s,) = (
+            spans["checkpoint.dispatch"], spans["checkpoint.write"], spans["checkpoint.stall"],
+            spans["checkpoint.finalize"])
+        (sync_s,) = spans["checkpoint.save"]
+        digest_async_s, digest_sync_s = spans["checkpoint.digest"]
+        saves = dict(
+            bytes_per_checkpoint=ckpt_bytes,
+            async_step12=dict(dispatch_s=dispatch_s, write_s=write_s,
+                              copy_to_host_s=_span_seconds(tracer, "checkpoint.copy"),
+                              stall_s=stall_s,
+                              finalize_s=finalize_s, finalize_md5_s=digest_async_s,
+                              write_gb_per_s=ckpt_bytes / write_s / 1e9),
+            sync_step18=dict(save_s=sync_s, md5_s=digest_sync_s,
+                             write_s=sync_s - digest_sync_s,
+                             gb_per_s=ckpt_bytes / sync_s / 1e9,
+                             write_gb_per_s=ckpt_bytes / (sync_s - digest_sync_s) / 1e9),
+            md5_gb_per_s=ckpt_bytes / digest_sync_s / 1e9,
+        )
+        log("experiment saves: " + json.dumps(saves))
+        log("experiment host-clock steps (A): " + json.dumps(host))
+
+        # ---- B: resume to step 24 ------------------------------------------------
+        exp_b = LocalExperiment(cfg, trial_cls, checkpoint_dir=cfg.checkpoint_storage.host_path)
+        _reset_launches()  # counts from here on are the resumed run's
+        t0 = time.monotonic()
+        with _device_memory(memory, "B"):
+            summary_b = exp_b.resume()
+            torch.cuda.synchronize()
+        wall_b = time.monotonic() - t0
+        launches = _launch_counts()
+        resumed = trainers.pop()
+        restore = dict(
+            resume_to_first_step_s=started[-1] - t0,
+            verify_s=_span_seconds(tracer, "checkpoint.verify"),
+            restore_s=_span_seconds(tracer, "checkpoint.restore"),
+            load_s=_span_seconds(tracer, "checkpoint.load"),
+        )
+        log(f"experiment B (resumed): {wall_b:.1f} s, " + json.dumps(summary_b))
+        log("experiment resume: " + json.dumps(restore))
+        log("experiment B launches: " + json.dumps(launches))
+        assert summary_b["status"] == "completed" and summary_b["total_steps"] == EXPERIMENT_STEPS
+        # one md5 pass: the experiment's check; the restore reuses its verdict
+        assert len(restore["verify_s"]) == 1 and len(restore["load_s"]) == 1, restore
+        n_leaves, layers = len(resumed._params), resumed.model.cfg.n_layers
+        n_val = resumed.val_loader.batches_per_epoch
+        resumed_steps = EXPERIMENT_STEPS - PREEMPT_AT
+        want = dict(flash_fwd=layers * (resumed_steps + n_val),
+                    flash_bwd_dq=layers * resumed_steps, flash_bwd_dkv=layers * resumed_steps,
+                    fused_adamw=n_leaves * resumed_steps)
+        assert launches == want, f"launches {launches} != expected {want}"
+        out["launches"] = launches
+        out["B_vs_C"] = _compare_final("B (preempted, resumed)", resumed, ref, init_params)
+        del resumed
+        shutil.rmtree(os.path.join(root, "ab"))
+
+        # ---- D: crash at step 15, restart from step 12 ---------------------------
+        d_cfg = ExperimentConfig.parse(_apply_cuts(raw, CRASH_CUTS, {}))
+        attempts = []
+
+        def factory():
+            trainers.clear()  # the crashed attempt's trainer goes with it
+            attempts.append(time.monotonic())
+            ctx = train.init(
+                exp_config=d_cfg, seed=d_cfg.reproducibility.experiment_seed + 1, device="cuda",
+                core_context=core._dummy_init(checkpoint_dir=os.path.join(root, "d")),
+            )
+            return train.Trainer(trial_cls(ctx))
+
+        def crash():
+            raise _SimulatedCrash(f"injected crash at step {CRASH_AT}")
+
+        supervisor = TrialSupervisor(factory, policy=train.RestartPolicy.from_exp_config(d_cfg))
+        faults.set_fault_injector(_StepHook(CRASH_AT, crash))
+        n_restores = len(tracer.spans("checkpoint.restore"))
+        t0 = time.monotonic()
+        try:
+            with _device_memory(memory, "D"):
+                summary_d = supervisor.run(
+                    d_cfg.searcher.max_length, validation_period=d_cfg.min_validation_period,
+                    checkpoint_period=d_cfg.min_checkpoint_period,
+                    report_period=d_cfg.min_validation_period,
+                )
+        finally:
+            faults.set_fault_injector(None)
+        wall_d = time.monotonic() - t0
+        restarted = trainers.pop()
+        d_restore = _span_seconds(tracer, "checkpoint.restore")[n_restores:]
+        log(f"experiment D (crash at {CRASH_AT}, restart): {wall_d:.1f} s, "
+            + json.dumps(summary_d) + f", restore {json.dumps(d_restore)}")
+        ckpts_d = _checkpoint_steps(os.path.join(root, "d"))
+        log("experiment D checkpoints: " + json.dumps(ckpts_d))
+        assert summary_d["restarts"] == 1 and summary_d["steps_completed"] == EXPERIMENT_STEPS
+        assert len(attempts) == 2 and len(d_restore) == 1, (attempts, d_restore)
+        out["D_vs_C"] = _compare_final("D (crashed, restarted)", restarted, ref, init_params)
+        del restarted
+        out.update(saves=saves, restore=restore, host_steps=host, device_memory_gib=memory,
+                   wall_s=dict(A=wall_a, B=wall_b, D=wall_d))
+        out["peak_memory_gib"] = max(m["peak_gib"] for m in memory.values())
+        log(f"experiment peak device memory: {out['peak_memory_gib']:.2f} GiB")
+    finally:
+        del trainers[:]
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _start_params(cfg, trial_cls) -> dict:
+    """The trial's initial weights (seed experiment_seed + 1, as the local
+    experiment's first trial), on the host."""
+    from determined_tpu_torch import train
+
+    hp = {k: v.val for k, v in cfg.hyperparameters.items()}
+    ctx = train.init(hparams=hp, seed=cfg.reproducibility.experiment_seed + 1, device="cuda")
+    model = trial_cls(ctx).build_model()
+    return {k: v.detach().cpu() for k, v in model.named_parameters()}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -934,6 +1395,11 @@ def main() -> int:
     trained = phase_train(args.seed) if "train" in phases else None
     if "train_parity" in phases:
         phase_train_parity(args.seed)
+    experiment = None
+    if "experiment" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        experiment = phase_experiment(args.seed)
 
     if kernel and serve is not None and trained is not None:
         rows = []
@@ -941,6 +1407,8 @@ def main() -> int:
             by_phase = {"train": trained["launches"][name]}
             if name == "flash_fwd":
                 by_phase["serve"] = serve["launches"]
+            if experiment is not None:
+                by_phase["experiment_resume"] = experiment["launches"][name]
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=trained["launches"][name], launches_by_phase=by_phase,

@@ -1,20 +1,41 @@
-"""Core services of the port: only the off-cluster ``_dummy_init`` the
-Trainer uses (the names follow ``determined_tpu/core/_context.py``)."""
+"""Core services of the port: the off-cluster ``_dummy_init`` with its
+checkpoint, preemption and report contexts (the names follow
+``determined_tpu/core``)."""
 
+from determined_tpu_torch.core._checkpoint import (
+    MANIFEST_FILE,
+    METADATA_FILE,
+    CheckpointContext,
+    DummyCheckpointContext,
+    build_manifest,
+    file_stats,
+    merge_metadata,
+    merge_resources,
+    verify_manifest,
+)
 from determined_tpu_torch.core._context import (
     Context,
     DummyDistributedContext,
-    DummyPreemptContext,
     DummyProfilerContext,
     DummyTrainContext,
     _dummy_init,
 )
+from determined_tpu_torch.core._preempt import PreemptContext
 
 __all__ = [
+    "MANIFEST_FILE",
+    "METADATA_FILE",
+    "CheckpointContext",
     "Context",
+    "DummyCheckpointContext",
     "DummyDistributedContext",
-    "DummyPreemptContext",
     "DummyProfilerContext",
     "DummyTrainContext",
+    "PreemptContext",
     "_dummy_init",
+    "build_manifest",
+    "file_stats",
+    "merge_metadata",
+    "merge_resources",
+    "verify_manifest",
 ]

@@ -235,12 +235,13 @@ class EpochFeed:
         prefetch_depth: int = 2,
         device_buffer: int = 2,
     ) -> None:
-        self._host_stage = PrefetchingIterator(
-            host_iter, depth=prefetch_depth, name="dtt-prefetch-epoch"
-        )
-        self._it = device_prefetch(
-            ((None, hb) for hb in self._host_stage), device, size=device_buffer
-        )
+        # prefetch_depth 0: the host fetch runs on the consumer's thread
+        self._host_stage: Optional[PrefetchingIterator] = None
+        if prefetch_depth > 0:
+            host_iter = self._host_stage = PrefetchingIterator(
+                host_iter, depth=prefetch_depth, name="dtt-prefetch-epoch"
+            )
+        self._it = device_prefetch(((None, hb) for hb in host_iter), device, size=device_buffer)
 
     def __iter__(self) -> "EpochFeed":
         return self
@@ -249,7 +250,8 @@ class EpochFeed:
         return next(self._it)[1]
 
     def close(self) -> None:
-        self._host_stage.close()
+        if self._host_stage is not None:
+            self._host_stage.close()
 
     def __enter__(self) -> "EpochFeed":
         return self
@@ -274,8 +276,11 @@ class InputPipeline:
         device_buffer: int = 2,
     ) -> None:
         self.loader = loader
-        self._host_stage = PrefetchingIterator(loader.iter_pairs(), depth=prefetch_depth)
-        self._it = device_prefetch(self._host_stage, device, size=device_buffer)
+        self._host_stage: Optional[PrefetchingIterator] = None
+        source: Iterable[Tuple[Any, Dict[str, np.ndarray]]] = loader.iter_pairs()
+        if prefetch_depth > 0:
+            source = self._host_stage = PrefetchingIterator(source, depth=prefetch_depth)
+        self._it = device_prefetch(source, device, size=device_buffer)
 
     def __iter__(self) -> "InputPipeline":
         return self
@@ -286,7 +291,8 @@ class InputPipeline:
         return batch
 
     def close(self) -> None:
-        self._host_stage.close()
+        if self._host_stage is not None:
+            self._host_stage.close()
 
     def __enter__(self) -> "InputPipeline":
         return self

@@ -1,0 +1,697 @@
+"""Local experiment runner: a searcher-driven search on one device.
+
+Port of ``determined_tpu/experiment/local.py``: the same ``Searcher`` /
+``SearchMethod`` machinery drives trials through the Trainer, with
+checkpoints and metrics flowing through the dummy core contexts, a
+write-ahead journal (``experiment/journal.py``) under ``checkpoint_dir``
+that ``resume()`` replays after a crash or a preemption, SIGTERM/SIGINT
+handlers that drain the running trial to a checkpoint, in-flight trials
+re-queued from their newest VERIFIED checkpoint, and checkpoint retention at
+journal-compaction points.
+
+The port runs on one device (``device=``, CUDA unless named), so trials run
+one after another: the serial path (``_run_serial``) is the whole runner.
+Waiting for later slices of the port, each raising ``NotImplementedError``
+when asked for: the concurrent gang scheduler (needs several devices), PBT
+clones, registry promotion, trace export (``observability.trace_export``)
+and the strict preflight lint; with ``lint.preflight`` on (the default) the
+runner logs once that the preflight lint is not ported and goes on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import signal
+import threading
+import time
+from typing import Any, Dict, Optional, Set, Tuple, Type
+
+from determined_tpu_torch import core
+from determined_tpu_torch._device import DeviceLike, resolve_device
+from determined_tpu_torch.config.experiment import ExperimentConfig, InvalidExperimentConfig, Length
+from determined_tpu_torch.experiment.journal import (
+    ExperimentJournal,
+    ExperimentJournalError,
+    JournaledSearcher,
+    journal_path,
+    read_journal,
+)
+from determined_tpu_torch.observability import get_tracer
+from determined_tpu_torch.searcher import Create, method_from_config
+from determined_tpu_torch.train import Trainer, init as train_init
+from determined_tpu_torch.train._trial import TorchTrial
+from determined_tpu_torch.utils.errors import CheckpointCorruptError
+
+logger = logging.getLogger("determined_tpu_torch.experiment")
+
+# exit code for "preempted, resumable" (EX_TEMPFAIL: rerun later)
+PREEMPTED_EXIT_CODE = 75
+
+_LATER = "it comes with a later slice of the port (ROADMAP.md, Queue 1)"
+
+
+class _PreemptFlag:
+    """Event-shaped flag that is safe to SET from a signal handler: a plain
+    attribute write holds no lock (``threading.Event.set`` takes one, and
+    the handler may interrupt the very frame that holds it)."""
+
+    __slots__ = ("_flag",)
+
+    def __init__(self) -> None:
+        self._flag = False
+
+    def set(self) -> None:
+        self._flag = True
+
+    def is_set(self) -> bool:
+        return self._flag
+
+
+@dataclasses.dataclass
+class TrialResult:
+    request_id: int
+    hparams: Dict[str, Any]
+    steps_completed: int
+    metrics: Dict[str, float]
+    checkpoint: Optional[str]
+    stopped_early: bool
+    # the trial exited because the EXPERIMENT is draining for preemption;
+    # its latest checkpoint is a resume point, not a final result
+    preempted: bool = False
+
+
+class LocalExperiment:
+    """Runs an ExperimentConfig's search against a TorchTrial class."""
+
+    def __init__(
+        self,
+        config: ExperimentConfig,
+        trial_cls: Type[TorchTrial],
+        *,
+        checkpoint_dir: Optional[str] = None,
+        seed: Optional[int] = None,
+        device: DeviceLike = None,
+        preflight: Optional[bool] = None,
+    ) -> None:
+        if config.registry.auto_promote:
+            raise NotImplementedError(
+                f"registry.auto_promote is not ported to determined_tpu_torch yet; {_LATER}"
+            )
+        lint = config.lint
+        if lint.strict or lint.thread_sentinel or lint.collective_sentinel:
+            raise NotImplementedError(
+                "lint.strict / thread_sentinel / collective_sentinel need the lint "
+                f"package, which is not ported to determined_tpu_torch yet; {_LATER}"
+            )
+        if config.observability.trace_export:
+            raise NotImplementedError(
+                f"observability.trace_export is not ported to determined_tpu_torch yet; {_LATER}"
+            )
+        self.config = config
+        self.trial_cls = trial_cls
+        self.device = resolve_device(device)
+        # None = follow config.lint.preflight (on by default)
+        self.preflight = preflight
+        self.checkpoint_dir = checkpoint_dir or os.path.join(
+            os.getcwd(), "local_experiment_checkpoints"
+        )
+        self.seed = seed if seed is not None else config.reproducibility.experiment_seed
+        self.searcher = JournaledSearcher(
+            method_from_config(config.searcher, config.hyperparameters),
+            config.hyperparameters,
+            seed=self.seed,
+        )
+        self.results: Dict[int, TrialResult] = {}
+        self.journal: Optional[ExperimentJournal] = None
+        self.status = "pending"  # pending|running|completed|preempted
+        self._resume_checkpoints: Dict[int, Optional[str]] = {}
+        # rid -> (storage_id, file_stats) of the resume point whose manifest
+        # _verified_resume_checkpoint checked: handed to the trial's
+        # checkpoint context, so the restore does not take a second md5
+        self._resume_verdicts: Dict[int, Tuple[str, Dict[str, Tuple[int, int]]]] = {}
+        self._journaled_ckpts: Dict[int, str] = {}
+        # registry-promoted checkpoint uuids (journaled by the JAX package's
+        # runner): pinned against the retention pass
+        self._registry_pinned: Set[str] = set()
+        # guards the checkpoint maps above: the GC thread iterates them
+        self._ckpt_lock = threading.Lock()
+        self._gc_thread: Optional[threading.Thread] = None
+        # rid -> core Context.  COPY-ON-WRITE: writers rebind a fresh dict
+        # under _active_lock; readers (the SIGTERM handler included, which
+        # must not block on any lock) iterate the current binding
+        self._active_trials: Dict[int, Any] = {}
+        self._active_lock = threading.Lock()
+        self._preempt = _PreemptFlag()
+        self._prev_handlers: Dict[int, Any] = {}
+
+    # -- single-trial execution -------------------------------------------
+
+    def _trial_checkpoint_dir(self, request_id: int) -> str:
+        """Per-trial namespace: a search's checkpoints stay attributable to
+        their trial."""
+        return os.path.join(self.checkpoint_dir, f"trial_{request_id}")
+
+    def _run_trial(self, create: Create) -> TrialResult:
+        """Train one trial; report validations into the searcher as they
+        happen."""
+        with get_tracer().span("trial.run", cat="trial", trial=create.request_id):
+            return self._run_trial_inner(create)
+
+    def _run_trial_inner(self, create: Create) -> TrialResult:
+        if create.source_trial_id is not None:
+            raise NotImplementedError(
+                f"PBT clones are not ported to determined_tpu_torch yet; {_LATER}"
+            )
+        cfg = self.config
+        scfg = cfg.searcher
+        max_length = scfg.max_length or Length.batches(scfg.max_time or 100)
+        rid = create.request_id
+        core_ctx = core._dummy_init(checkpoint_dir=self._trial_checkpoint_dir(rid))
+        orig_report = core_ctx.train.report_validation_metrics
+        searcher = self.searcher
+        runner = self
+        with self._active_lock:
+            actives = dict(self._active_trials)
+            actives[rid] = core_ctx
+            self._active_trials = actives  # COW: readers never lock
+        if self._preempt.is_set():
+            # the drain request landed before this trial registered
+            core_ctx.preempt.simulate()
+        with self._ckpt_lock:
+            resume_ckpt = self._resume_checkpoints.get(rid)
+            verdict = self._resume_verdicts.pop(rid, None)
+        if verdict is not None and verdict[0] == resume_ckpt:
+            core_ctx.checkpoint.accept_verified(*verdict)
+        try:
+            if self.journal is not None:
+                self.journal.append(
+                    "trial_running", rid=rid, devices=[str(self.device)],
+                    resume_checkpoint=resume_ckpt,
+                )
+            ctx = train_init(
+                hparams=create.hparams,
+                core_context=core_ctx,
+                exp_config=cfg,
+                seed=self.seed + rid,
+                device=self.device,
+            )
+            trial = self.trial_cls(ctx)
+            trainer = Trainer(trial)
+
+            def report_validation(steps_completed: int, metrics: Dict[str, Any]) -> None:
+                orig_report(steps_completed, metrics)
+                payload = dict(metrics)
+                payload.setdefault(scfg.time_metric or "batches", steps_completed)
+                searcher.on_validation(rid, payload)
+                # WAL the newest FINALIZED checkpoint so a driver crash
+                # knows this trial's resume point
+                runner._journal_trial_checkpoint(rid, trainer.latest_checkpoint)
+                if searcher.is_stopped(rid):
+                    # cooperative stop through the preemption path
+                    core_ctx.preempt.simulate()
+                searcher.set_trial_progress(
+                    rid, min(steps_completed / runner._max_steps(trainer, max_length), 1.0)
+                )
+
+            core_ctx.train.report_validation_metrics = report_validation
+
+            validation_period = cfg.min_validation_period or Length.batches(
+                max(1, (max_length.units if max_length.unit == "batches" else 100) // 4)
+            )
+            summary = trainer.fit(
+                max_length,
+                validation_period=validation_period,
+                checkpoint_period=cfg.min_checkpoint_period,
+                report_period=validation_period,
+                latest_checkpoint=resume_ckpt,
+                checkpoint_policy=cfg.checkpoint_policy,
+            )
+        finally:
+            # the hook must not outlive the trial, and a failed build must
+            # still close the context it was handed
+            core_ctx.train.report_validation_metrics = orig_report
+            core_ctx.close()
+            with self._active_lock:
+                actives = dict(self._active_trials)
+                actives.pop(rid, None)
+                self._active_trials = actives
+        preempted = bool(
+            self._preempt.is_set() and summary["stopped_early"] and not searcher.is_stopped(rid)
+        )
+        result = TrialResult(
+            request_id=rid,
+            hparams=create.hparams,
+            steps_completed=summary["steps_completed"],
+            metrics=summary["validation_metrics"],
+            checkpoint=summary["latest_checkpoint"],
+            stopped_early=summary["stopped_early"],
+            preempted=preempted,
+        )
+        # a drained trial's checkpoint is its resume point; a finished
+        # trial's is its final one
+        self._journal_trial_checkpoint(rid, result.checkpoint)
+        if not preempted:
+            with self._ckpt_lock:
+                self._resume_checkpoints.pop(rid, None)
+            if self.journal is not None:
+                self.journal.append(
+                    "trial_result",
+                    rid=rid,
+                    result={
+                        "hparams": result.hparams,
+                        "steps_completed": result.steps_completed,
+                        "metrics": result.metrics,
+                        "checkpoint": result.checkpoint,
+                        "stopped_early": result.stopped_early,
+                    },
+                )
+        return result
+
+    def _max_steps(self, trainer: Trainer, max_length: Length) -> int:
+        """Optimizer-step horizon for progress reporting."""
+        try:
+            return trainer._to_batches(max_length) or 1
+        except InvalidExperimentConfig:
+            raise
+        except (AttributeError, TypeError, ZeroDivisionError):
+            return max(max_length.units, 1)
+
+    # -- preflight ---------------------------------------------------------
+
+    def _preflight_check(self) -> None:
+        enabled = self.preflight if self.preflight is not None else self.config.lint.preflight
+        if enabled:
+            logger.warning(
+                "preflight lint of %s skipped: the lint package is not ported to "
+                "determined_tpu_torch yet (ROADMAP.md, Queue 1)",
+                self.trial_cls.__qualname__,
+            )
+
+    # -- the search loop ---------------------------------------------------
+
+    def run(self, max_trials: Optional[int] = None, *, resume: bool = False) -> Dict[str, Any]:
+        """Run the search to completion (or to a resumable preemption), one
+        trial at a time.
+
+        With ``fault_tolerance.journal`` (default on) every
+        searcher event and trial transition is journaled under
+        ``checkpoint_dir``; ``resume=True`` replays that journal instead of
+        starting fresh.  SIGTERM/SIGINT (or ``request_preemption()``) drain
+        the running trial to a checkpoint and the summary comes back with
+        ``status="preempted"`` (resumable).
+        """
+        self._preflight_check()
+        obs = self.config.observability
+        tracer = get_tracer()
+        tracer.reset()
+        tracer.enabled = obs.enabled
+        exp_t0 = time.monotonic()
+
+        ft = self.config.fault_tolerance
+        if ft.journal:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            self.journal = ExperimentJournal(
+                journal_path(self.checkpoint_dir),
+                compact_interval=ft.journal_compact_interval,
+                on_compact=self._schedule_gc_retention if ft.gc_on_compaction else None,
+            ).open(fresh=not resume)
+            self.searcher.journal = self.journal
+        try:
+            if resume:
+                self._load_resume_state()
+            elif self.journal is not None:
+                self.journal.append(
+                    "experiment_started",
+                    name=self.config.name,
+                    entrypoint=f"{self.trial_cls.__module__}:{self.trial_cls.__qualname__}",
+                    config=self.config.raw or None,
+                    seed=self.seed,
+                )
+            self.status = "running"
+            self._install_signal_handlers()
+            try:
+                self._run_serial(max_trials)
+            finally:
+                self._restore_signal_handlers()
+            self.status = "preempted" if self._preempt.is_set() else "completed"
+            if self.journal is not None:
+                if self.status == "preempted":
+                    with self._ckpt_lock:
+                        in_flight = sorted(self._resume_checkpoints)
+                    self.journal.append("experiment_preempted", in_flight=in_flight)
+                else:
+                    self.journal.append("experiment_completed")
+            return self.summary()
+        finally:
+            gc_thread = self._gc_thread
+            if gc_thread is not None:
+                gc_thread.join(timeout=60)
+            if self.journal is not None:
+                self.searcher.journal = None
+                self.journal.close()
+            tracer.record_span(
+                "experiment.run", "experiment", exp_t0, time.monotonic(),
+                {"name": self.config.name, "status": self.status},
+            )
+
+    def resume(self, max_trials: Optional[int] = None) -> Dict[str, Any]:
+        """Replay the experiment journal and continue the search."""
+        return self.run(max_trials, resume=True)
+
+    # -- preemption drain --------------------------------------------------
+
+    def request_preemption(self) -> None:
+        """Begin a graceful drain: the running trial's PreemptContext is
+        flagged so its Trainer checkpoints and exits at the next boundary;
+        no new trial starts; the run returns "preempted".  For callers on
+        normal threads (tests, callbacks, embedding orchestrators); the
+        signal handlers use ``_request_preemption_from_signal``."""
+        if self._preempt.is_set():
+            return
+        logger.warning(
+            "preemption requested: draining in-flight trials to checkpoints "
+            "(deadline %.0fs)",
+            self.config.fault_tolerance.preempt_drain_seconds,
+        )
+        self._flag_active_trials()
+
+    def _request_preemption_from_signal(self) -> None:
+        """Handler-safe drain trigger: flag writes and an ``os.write`` only
+        (the logging lock is not reentrant)."""
+        if self._preempt.is_set():
+            return
+        os.write(
+            2,
+            b"determined-tpu-torch: preemption signal received, draining in-flight "
+            b"trials to checkpoints\n",
+        )
+        self._flag_active_trials()
+
+    def _flag_active_trials(self) -> None:
+        self._preempt.set()
+        # COW snapshot: iterating the current binding needs no lock
+        for ctx in list(self._active_trials.values()):
+            ctx.preempt.simulate()
+
+    def _install_signal_handlers(self) -> None:
+        """SIGTERM/SIGINT -> graceful drain, chaining any prior handler.
+        Main-thread only; callers on other threads use
+        ``request_preemption``."""
+        if threading.current_thread() is not threading.main_thread():
+            return
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            prev = signal.getsignal(sig)
+
+            def handler(signum: int, frame: Any, _prev: Any = prev) -> None:
+                self._request_preemption_from_signal()
+                # chain a real prior handler; never the default SIGINT
+                # KeyboardInterrupt raiser, which would abort the drain
+                if callable(_prev) and _prev is not signal.default_int_handler:
+                    _prev(signum, frame)
+
+            self._prev_handlers[sig] = prev
+            try:
+                signal.signal(sig, handler)
+            except (ValueError, OSError):
+                self._prev_handlers.pop(sig, None)
+                return
+
+    def _restore_signal_handlers(self) -> None:
+        for sig, prev in list(self._prev_handlers.items()):
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, TypeError, OSError):
+                pass
+        self._prev_handlers.clear()
+
+    # -- resume ------------------------------------------------------------
+
+    def _load_resume_state(self) -> None:
+        """Rebuild searcher + results + resume points from the journal."""
+        if self.journal is None:
+            raise ExperimentJournalError("resume requires fault_tolerance.journal: true")
+        replay = read_journal(journal_path(self.checkpoint_dir))
+        if replay.clones:
+            raise NotImplementedError(f"resuming PBT clones is not ported yet; {_LATER}")
+        if replay.searcher_state is not None:
+            self.searcher.restore_json(json.dumps(replay.searcher_state))
+        # redeliver events orphaned between their append and the follow-up
+        # snapshot (at most the journal's final event)
+        for ev in replay.tail_events:
+            rid = int(ev["rid"])
+            rec = self.searcher.trials.get(rid)
+            if rec is None or rec.exited:
+                continue
+            if ev["type"] == "trial_validated":
+                self.searcher.on_validation(rid, ev.get("metrics") or {})
+            elif ev["type"] == "trial_exited":
+                self.searcher.on_trial_exited(rid)
+            else:
+                self.searcher.on_trial_exited_early(rid, ev.get("reason") or "errored")
+        # completed trials are skipped, not re-run; a result whose searcher
+        # exit event was lost in the crash gets the event redelivered
+        for rid, payload in replay.results.items():
+            self.results[rid] = TrialResult(
+                request_id=rid,
+                hparams=payload.get("hparams") or replay.created.get(rid, {}),
+                steps_completed=int(payload.get("steps_completed") or 0),
+                metrics=payload.get("metrics") or {},
+                checkpoint=payload.get("checkpoint"),
+                stopped_early=bool(payload.get("stopped_early")),
+            )
+            rec = self.searcher.trials.get(rid)
+            if rec is not None and not rec.exited:
+                self.searcher.on_trial_exited(rid)
+        with self._ckpt_lock:
+            self._registry_pinned.update(
+                reg["uuid"] for reg in replay.registered_models if reg.get("uuid")
+            )
+        # in-flight trials re-queue from their latest VERIFIED checkpoint
+        # (manifest check + parent-lineage fallback); with no usable
+        # checkpoint they restart from scratch
+        for rid in replay.in_flight:
+            sid = self._verified_resume_checkpoint(rid, replay.checkpoints.get(rid))
+            if sid:
+                with self._ckpt_lock:
+                    self._resume_checkpoints[rid] = sid
+                    self._journaled_ckpts[rid] = sid
+        # a trial the searcher had STOPPED but whose exit event was lost
+        # needs no re-training: its last reported state is its result
+        scfg = self.config.searcher
+        for rec in list(self.searcher.runnable_trials()):
+            rid = rec.request_id
+            if rid in self.results or not rec.stopped_by_searcher:
+                continue
+            metrics = dict(rec.metrics or {})
+            steps = int(metrics.get(scfg.time_metric or "batches", 0) or 0)
+            with self._ckpt_lock:
+                ckpt = self._resume_checkpoints.pop(rid, None)
+            result = TrialResult(
+                request_id=rid, hparams=rec.hparams, steps_completed=steps,
+                metrics=metrics, checkpoint=ckpt, stopped_early=True,
+            )
+            self.results[rid] = result
+            if self.journal is not None:
+                self.journal.append(
+                    "trial_result",
+                    rid=rid,
+                    result={
+                        "hparams": result.hparams,
+                        "steps_completed": result.steps_completed,
+                        "metrics": result.metrics,
+                        "checkpoint": result.checkpoint,
+                        "stopped_early": True,
+                    },
+                )
+            self.searcher.on_trial_exited(rid)
+        logger.info(
+            "resume: %d completed trial(s) restored, %d in-flight re-queued "
+            "(%d with verified checkpoints)",
+            len(self.results),
+            len([r for r in replay.in_flight if r not in self.results]),
+            len(self._resume_checkpoints),
+        )
+
+    def _verified_resume_checkpoint(self, rid: int, sid: Optional[str]) -> Optional[str]:
+        """Newest usable checkpoint in the trial's lineage, or None: walks
+        parent pointers rejecting any checkpoint that fails manifest
+        verification, then falls back to scanning the trial directory for
+        the newest checkpoint that verifies."""
+        trial_dir = self._trial_checkpoint_dir(rid)
+        verify = self.config.fault_tolerance.verify_checkpoints
+        tried: set = set()
+        while sid and sid not in tried:
+            tried.add(sid)
+            path = os.path.join(trial_dir, sid)
+            if os.path.isdir(path):
+                if not verify or self._verify_resume_point(rid, sid, path):
+                    return sid
+            sid = self._checkpoint_parent(path)
+
+        candidates = []
+        if os.path.isdir(trial_dir):
+            for uuid in os.listdir(trial_dir):
+                path = os.path.join(trial_dir, uuid)
+                if uuid in tried or not os.path.isdir(path):
+                    continue
+                try:
+                    with open(os.path.join(path, "metadata.json")) as f:
+                        steps = int(json.load(f).get("steps_completed") or 0)
+                except (OSError, ValueError, TypeError):
+                    continue
+                candidates.append((steps, uuid, path))
+        for steps, uuid, path in sorted(candidates, reverse=True):
+            if not verify or self._verify_resume_point(rid, uuid, path):
+                if verify:
+                    logger.info(
+                        "resume: trial %d using on-disk checkpoint %s (step %d) found "
+                        "outside the journaled lineage", rid, uuid, steps,
+                    )
+                return uuid
+        return None
+
+    def _verify_resume_point(self, rid: int, sid: str, path: str) -> bool:
+        """Whether the checkpoint at ``path`` passes manifest verification
+        (a manifest required).  A pass is kept with the files' sizes and
+        mtimes from before the check, for the trial's restore to reuse."""
+        stats = core.file_stats(path)
+        try:
+            with get_tracer().span("checkpoint.verify", cat="restore", trial=rid, storage_id=sid):
+                core.verify_manifest(path, require_manifest=True)
+        except CheckpointCorruptError as e:
+            logger.warning("resume: checkpoint %s of trial %d unusable (%s)", sid, rid, e)
+            return False
+        with self._ckpt_lock:
+            self._resume_verdicts[rid] = (sid, stats)
+        return True
+
+    @staticmethod
+    def _checkpoint_parent(path: str) -> Optional[str]:
+        from determined_tpu_torch.core._checkpoint import MANIFEST_FILE, METADATA_FILE
+
+        for name, key in ((MANIFEST_FILE, "parent"), (METADATA_FILE, "parent_storage_id")):
+            try:
+                with open(os.path.join(path, name)) as f:
+                    parent = json.load(f).get(key)
+                if parent:
+                    return parent
+            except (OSError, ValueError):
+                continue
+        return None
+
+    # -- journal helpers ---------------------------------------------------
+
+    def _journal_trial_checkpoint(self, rid: int, sid: Optional[str]) -> None:
+        if not sid:
+            return
+        with self._ckpt_lock:
+            if self._journaled_ckpts.get(rid) == sid:
+                return
+            self._journaled_ckpts[rid] = sid
+        if self.journal is not None:
+            self.journal.append("trial_checkpoint", rid=rid, uuid=sid)
+
+    def _schedule_gc_retention(self) -> None:
+        """Journal on_compact hook: the retention pass runs on its own
+        short-lived thread (seconds of file I/O must not stall searcher
+        calls); a pass still running is not doubled up."""
+        t = self._gc_thread
+        if t is not None and t.is_alive():
+            return
+        t = threading.Thread(target=self._apply_gc_retention, name="dtt-exp-gc", daemon=True)
+        self._gc_thread = t
+        t.start()
+
+    def _apply_gc_retention(self) -> None:
+        """Keep latest-per-trial + top-k by searcher metric; parents of kept
+        checkpoints, journaled resume points, and manifest-less (possibly
+        mid-write) directories are never deleted."""
+        try:
+            if self.config.checkpoint_policy == "none":
+                return
+            from determined_tpu_torch.exec import gc_checkpoints
+
+            scfg = self.config.searcher
+            store = self.config.checkpoint_storage
+            metric_by_trial: Dict[int, float] = {}
+            for rec in self.searcher.trial_records():
+                val = (rec.metrics or {}).get(scfg.metric)
+                if isinstance(val, (int, float)):
+                    metric_by_trial[rec.request_id] = float(val)
+            with self._ckpt_lock:
+                protected = set(self._journaled_ckpts.values()) | self._registry_pinned
+            outcome = gc_checkpoints.apply_retention(
+                self.checkpoint_dir,
+                policy=gc_checkpoints.RetentionPolicy(
+                    keep_trial_latest=max(store.save_trial_latest, 1),
+                    keep_experiment_best=store.save_experiment_best,
+                    smaller_is_better=scfg.smaller_is_better,
+                ),
+                metric_by_trial=metric_by_trial,
+                protected=protected,
+                protected_trials=set(self.searcher.clone_source_trials()),
+            )
+            if outcome["deleted"]:
+                logger.info(
+                    "checkpoint gc: deleted %d, kept %d",
+                    len(outcome["deleted"]), len(outcome["kept"]),
+                )
+        except Exception:  # noqa: BLE001 - GC must never kill the search
+            logger.exception("checkpoint gc pass failed")
+
+    def _run_serial(self, max_trials: Optional[int] = None) -> None:
+        """Sequential execution in the reference event order."""
+        self.searcher.start()
+        executed = 0
+        while self.searcher.shutdown is None and not self._preempt.is_set():
+            pending = [
+                t for t in self.searcher.runnable_trials() if t.request_id not in self.results
+            ]
+            if not pending:
+                break
+            rec = min(pending, key=lambda t: t.request_id)
+            if max_trials is not None and executed >= max_trials:
+                break
+            logger.info("trial %d starting with hparams %s", rec.request_id, rec.hparams)
+            result = self._run_trial(Create(rec.request_id, rec.hparams, rec.source_trial_id))
+            if result.preempted:
+                # drained, not done: the trial stays in flight, its
+                # checkpoint (None if no boundary was reached) is the
+                # resume point
+                with self._ckpt_lock:
+                    self._resume_checkpoints[rec.request_id] = result.checkpoint
+                break
+            self.results[rec.request_id] = result
+            executed += 1
+            self.searcher.on_trial_exited(rec.request_id)
+
+    def summary(self) -> Dict[str, Any]:
+        scfg = self.config.searcher
+        best: Optional[TrialResult] = None
+        for r in self.results.values():
+            val = (r.metrics or {}).get(scfg.metric)
+            if val is None:
+                continue
+            if best is None:
+                best = r
+                continue
+            bval = best.metrics.get(scfg.metric)
+            if (val < bval) == scfg.smaller_is_better:
+                best = r
+        out = {
+            "trials": len(self.results),
+            "best_trial": best.request_id if best else None,
+            "best_hparams": best.hparams if best else None,
+            "best_metrics": best.metrics if best else None,
+            "total_steps": sum(r.steps_completed for r in self.results.values()),
+            "progress": self.searcher.progress(),
+            "status": self.status,
+            "resumable": self.status == "preempted",
+        }
+        if self.status == "preempted":
+            with self._ckpt_lock:
+                out["in_flight"] = sorted(self._resume_checkpoints)
+        return out

@@ -1,0 +1,64 @@
+"""Rebuild a Trial and a Trainer from a stored checkpoint, no experiment
+needed (a port of ``determined_tpu/train/_load.py``).
+
+The Trainer writes ``trial_class``, ``hparams``, ``exp_config`` and ``seed``
+into ``trainer_state.json``, so inference or fine-tune scripts can do::
+
+    trial, trainer = train.load_trial_from_checkpoint("/ckpts/<uuid>")
+    model = trainer.model  # weights of the checkpoint's step
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Any, Optional, Tuple
+
+from determined_tpu_torch._device import DeviceLike
+from determined_tpu_torch.train import serialization
+from determined_tpu_torch.train._trainer import Trainer, init as train_init
+from determined_tpu_torch.train._trial import TorchTrial
+
+
+def load_trial_from_checkpoint(
+    path: str,
+    trial_class: Optional[type] = None,
+    core_context: Any = None,
+    device: DeviceLike = None,
+) -> Tuple[TorchTrial, Trainer]:
+    """Reconstruct the Trial and a ready Trainer from a local checkpoint
+    directory, on ``device`` (CUDA unless named).
+
+    ``trial_class`` overrides the recorded class (when the original module
+    is not importable).  The returned trainer has its params, optimizer
+    state and generator restored at the checkpoint's step; call
+    ``trainer.fit`` to continue training or use ``trainer.model``.
+    """
+    tstate = serialization.load_trainer_state(path)
+    if trial_class is None:
+        ref = tstate.get("trial_class")
+        if not ref or ":" not in ref:
+            raise ValueError("checkpoint does not record its trial class; pass trial_class=")
+        module_name, _, qualname = ref.partition(":")
+        obj: Any = importlib.import_module(module_name)
+        for part in qualname.split("."):
+            obj = getattr(obj, part)
+        trial_class = obj
+
+    from determined_tpu_torch import core
+    from determined_tpu_torch.config.experiment import ExperimentConfig
+
+    exp_config = (
+        ExperimentConfig.parse(tstate["exp_config"]) if tstate.get("exp_config") else None
+    )
+    ctx = train_init(
+        hparams=tstate.get("hparams") or {},
+        exp_config=exp_config,
+        core_context=core_context or core._dummy_init(),
+        seed=int(tstate.get("seed") or 0),
+        device=device,
+    )
+    trial = trial_class(ctx)
+    trainer = Trainer(trial)
+    trainer._setup()
+    trainer.restore_from_path(path)
+    return trial, trainer

@@ -22,23 +22,31 @@ class TrainState:
     model:         the trial's module (parameters on the device).
     opt_state:     the optimizer state (moments beside the params).
     metric_acc:    running per-metric f32 sums since the last report.
-    metric_count:  number of accumulated steps (device f32 scalar)."""
+    metric_count:  number of accumulated steps (device f32 scalar).
+    rng:           the step's generator on the device (the JAX state's
+                   ``rng``), saved and restored with the checkpoint."""
 
     step: torch.Tensor
     model: Any
     opt_state: Any
     metric_acc: Dict[str, torch.Tensor]
     metric_count: torch.Tensor
+    rng: torch.Generator
 
     @classmethod
-    def create(cls, model: Any, opt_state: Any, device: torch.device) -> "TrainState":
-        """A fresh state; the metric keys are added by the first step."""
+    def create(
+        cls, model: Any, opt_state: Any, device: torch.device, seed: int = 0
+    ) -> "TrainState":
+        """A fresh state; the metric keys are added by the first step.  The
+        step generator's seed is ``seed + 1``: the trial's weights are drawn
+        from a generator seeded with ``seed`` (``TrialContext.generator``)."""
         return cls(
             step=torch.zeros((), dtype=torch.int64, device=device),
             model=model,
             opt_state=opt_state,
             metric_acc={},
             metric_count=torch.zeros((), dtype=torch.float32, device=device),
+            rng=torch.Generator(device=device).manual_seed(seed + 1),
         )
 
     def reset_metrics(self) -> None:

@@ -2,25 +2,45 @@
 
 Port of ``determined_tpu/train/_trainer.py`` (``init``, ``Trainer``,
 ``_BoundarySchedule``) for one device.  The same contract: ``fit(max_length,
-periods)`` with TRAIN/VALIDATE/REPORT boundaries, callbacks, the
-``train.step`` fault site and the preemption check at each boundary.  The
-step is eager PyTorch where the JAX package jits one: forward, ``backward()``,
-the optimizer's ``apply_step`` (the fused AdamW kernel on CUDA), the ``lr``
-metric and the on-device metric sums.  The hot loop never waits for the
-device; metrics are fetched once per REPORT boundary.
+periods, latest_checkpoint, checkpoint_policy)`` with TRAIN / VALIDATE /
+CHECKPOINT / REPORT boundaries, callbacks, the ``train.step`` fault site, a
+preemption check at each boundary that saves a checkpoint and stops, and
+checkpoints with integrity manifests that a restore verifies, falling back
+along the parent lineage.  The step is eager PyTorch where the JAX package
+jits one: forward, ``backward()``, the optimizer's ``apply_step`` (the fused
+AdamW kernel on CUDA), the ``lr`` metric and the on-device metric sums.  The
+hot loop never waits for the device; metrics are fetched once per REPORT
+boundary.
 
-Not in this slice of the port (each raises ``NotImplementedError``):
-checkpoint save and restore (``fit`` takes ``checkpoint_policy="none"`` and
-no ``latest_checkpoint``), and the experiment configuration (``exp_config``,
-hence ``aggregation_frequency`` > 1, the input, overlap, quantisation and
-pipeline knobs and the jit-reuse cache).
+Checkpoints (``train/serialization.py``) hold the step, the params, the
+optimizer state and the step generator.  The asynchronous save
+(``optimizations.async_checkpointing``, on by default) differs from the JAX
+package's in one way: PyTorch updates the params and moments IN PLACE (the
+fused AdamW kernel writes p, m and v), where the JAX step donates its input
+and returns new buffers.  So the snapshot is a ``clone()`` of every tensor,
+queued on the training stream at the boundary before the next step is
+queued, and the writer thread reads only the snapshot: it waits on a CUDA
+event recorded after the clones and copies the snapshot into pinned host
+buffers on a stream of its own, never synchronising the device (which would
+wait for the training steps queued behind the clones too).  The pinned
+buffers are allocated once, at the first asynchronous save.
+
+Experiment-configuration knobs the JAX Trainer reads are honoured or raise
+``NotImplementedError``: ``aggregation_frequency`` > 1, a mesh over more
+than one device, ``fetch_workers``, ``compilation_cache_dir``, overlapped or
+hierarchical gradient sync, quantised matmuls, pipeline schedules, the
+retrace sentinel and profiling traces come with later slices of the port.
+``jit_cache`` has nothing to share in the port: its steps are eager and
+compile nothing per trial, so either value gives the same run.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable as TCallable, Dict, Optional
 
 import torch
 
@@ -29,14 +49,51 @@ from determined_tpu_torch._device import DeviceLike, resolve_device
 from determined_tpu_torch.config.experiment import Length
 from determined_tpu_torch.data._prefetch import EpochFeed, InputPipeline
 from determined_tpu_torch.observability import get_tracer
+from determined_tpu_torch.train import serialization
 from determined_tpu_torch.train._reducer import MEAN, get_reducer
 from determined_tpu_torch.train._state import TrainState
 from determined_tpu_torch.train._trial import Callback, TorchTrial, TrialContext
 from determined_tpu_torch.utils import faults
+from determined_tpu_torch.utils.errors import CheckpointCorruptError, CheckpointNotFoundError
 
 logger = logging.getLogger("determined_tpu_torch.train")
 
 _LATER = "it comes with a later slice of the port (ROADMAP.md, Queue 1)"
+
+
+def _later(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to determined_tpu_torch yet; {_LATER}")
+
+
+def check_exp_config(exp_config: Any) -> None:
+    """Raise for every knob the JAX Trainer reads that this port does not
+    run; what passes is honoured."""
+    opt = exp_config.optimizations
+    if opt.aggregation_frequency > 1:
+        raise _later(
+            f"optimizations.aggregation_frequency={opt.aggregation_frequency} "
+            "(gradient accumulation)"
+        )
+    mesh = exp_config.resources.mesh
+    if mesh.num_devices > 1:
+        raise _later(
+            f"resources.mesh {mesh.axes()} over {mesh.num_devices} devices (the port "
+            "trains on one device)"
+        )
+    if opt.fetch_workers:
+        raise _later("optimizations.fetch_workers (threaded per-item dataset reads)")
+    if opt.compilation_cache_dir is not None:
+        raise _later("optimizations.compilation_cache_dir (the XLA compilation cache)")
+    if opt.overlap_grad_sync or opt.hierarchical_collectives:
+        raise _later("optimizations.overlap_grad_sync / hierarchical_collectives")
+    if opt.quantized_matmul != "none":
+        raise _later(f"optimizations.quantized_matmul={opt.quantized_matmul!r}")
+    if opt.pipeline_schedule != "gpipe" or opt.virtual_stages != 1:
+        raise _later(f"optimizations.pipeline_schedule={opt.pipeline_schedule!r}")
+    if exp_config.lint.retrace_sentinel:
+        raise _later("lint.retrace_sentinel")
+    if (exp_config.profiling or {}).get("trace"):
+        raise _later("profiling.trace")
 
 
 def init(
@@ -48,14 +105,30 @@ def init(
     device: DeviceLike = None,
 ) -> TrialContext:
     """Build a TrialContext on ``device`` (CUDA unless named; raises without
-    a GPU).  Off-cluster the core services are ``core._dummy_init()``."""
+    a GPU).  Off-cluster the core services are ``core._dummy_init()``.  With
+    ``exp_config`` the hyperparameters (Consts collapsed) and the seed
+    default to the configuration's."""
     if exp_config is not None:
-        raise NotImplementedError(
-            f"exp_config is not ported to determined_tpu_torch yet; {_LATER}"
-        )
+        check_exp_config(exp_config)
+        if hparams is None:
+            hparams = {
+                k: _collapse(v) if isinstance(v, dict) else getattr(v, "val", v)
+                for k, v in exp_config.hyperparameters.items()
+            }
+        if seed is None:
+            seed = exp_config.reproducibility.experiment_seed
     dev = resolve_device(device)
     core = core_context or core_mod._dummy_init()
-    return TrialContext(core=core, device=dev, hparams=hparams, seed=seed or 0)
+    return TrialContext(
+        core=core, device=dev, hparams=hparams, seed=seed or 0, exp_config=exp_config
+    )
+
+
+def _collapse(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {
+        k: _collapse(v) if isinstance(v, dict) else getattr(v, "val", v)
+        for k, v in tree.items()
+    }
 
 
 class _BoundarySchedule:
@@ -76,6 +149,56 @@ class _BoundarySchedule:
         )
 
 
+@dataclasses.dataclass
+class _PendingSave:
+    """An in-flight background checkpoint: the writer thread serialises the
+    snapshot; ``finish`` (merge/manifest/report) runs on the main thread at
+    the next drain point."""
+
+    thread: threading.Thread
+    finish: TCallable[[], None]
+    storage_id: str
+    step: int
+    errors: list
+
+
+def _snapshot(tree: Any) -> Any:
+    """Clone of every tensor (a generator becomes its state bytes), queued
+    on the current stream."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, torch.Generator):
+        return tree.get_state()
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_snapshot(v) for v in tree))
+    raise TypeError(f"cannot snapshot a {type(tree).__name__}")
+
+
+def _pinned_like(tree: Any) -> Any:
+    """Pinned host buffers shaped like a snapshot's CUDA tensors (None for
+    the leaves already on the host)."""
+    if isinstance(tree, torch.Tensor):
+        if tree.device.type != "cuda":
+            return None
+        return torch.empty(tree.shape, dtype=tree.dtype, pin_memory=True)
+    if isinstance(tree, dict):
+        return {k: _pinned_like(v) for k, v in tree.items()}
+    return type(tree)(*(_pinned_like(v) for v in tree))
+
+
+def _to_host(tree: Any, pinned: Any) -> Any:
+    """The snapshot on the host: each CUDA tensor copied into its pinned
+    buffer by a non-blocking copy queued on the current stream (a
+    copy-engine transfer the caller waits for on that stream alone)."""
+    if isinstance(tree, torch.Tensor):
+        return tree if pinned is None else pinned.copy_(tree, non_blocking=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v, pinned[k]) for k, v in tree.items()}
+    return type(tree)(*(_to_host(v, b) for v, b in zip(tree, pinned)))
+
+
 class Trainer:
     """Drives a TorchTrial."""
 
@@ -92,24 +215,43 @@ class Trainer:
         self.state: Optional[TrainState] = None
         self.callbacks: Dict[str, Callback] = {}
         self.steps_completed = 0
+        self.best_validation: Optional[float] = None
+        self._searcher_metric: Optional[str] = None
+        self._smaller_is_better = True
         self._params: Dict[str, torch.nn.Parameter] = {}
         self._reducers: Dict[str, Any] = {}
         self._tokens_per_sample: Optional[int] = None
+        self._pending_save: Optional[_PendingSave] = None
+        # pinned host buffers the async writer copies the snapshot into,
+        # allocated at the first async save on CUDA and kept (at most one
+        # save is in flight): pinning memory stalls every thread's CUDA
+        # calls while it runs, so it happens once, inside the dispatch
+        self._pinned: Any = None
+        self._last_ckpt_sid: Optional[str] = None
+        self._last_val_metrics: Dict[str, float] = {}
+        self._stopped_early = False
+        # Newest FINALIZED checkpoint (manifest written).  An async save
+        # still in flight is excluded: until its drain-point finalize runs
+        # it has no manifest and must never be offered as a resume point.
+        self.latest_checkpoint: Optional[str] = None
 
     # -- setup -------------------------------------------------------------
 
     def _setup(self) -> None:
-        trial = self.trial
+        trial, cfg = self.trial, self.context.exp_config
         self.model = trial.build_model()
         self.tx = trial.build_optimizer()
         self.train_loader = trial.build_training_data_loader()
         self.val_loader = trial.build_validation_data_loader()
         self.callbacks = dict(trial.build_callbacks())
+        if cfg is not None:
+            self._searcher_metric = cfg.searcher.metric
+            self._smaller_is_better = cfg.searcher.smaller_is_better
         self._params = dict(self.model.named_parameters())
         opt_state = self.tx.init(self._params)
         # the metric keys come from the first step's loss (sorted, then
         # "loss" and, with an lr_schedule, "lr", as in the JAX Trainer)
-        self.state = TrainState.create(self.model, opt_state, self.device)
+        self.state = TrainState.create(self.model, opt_state, self.device, self.context.seed)
         self._reducers = {k: get_reducer(v) for k, v in trial.evaluation_reducers().items()}
         hp_seq = (self.context.hparams or {}).get("seq_len")
         self._tokens_per_sample = getattr(trial, "tokens_per_sample", None) or (
@@ -119,6 +261,14 @@ class Trainer:
         fpt = getattr(trial, "flops_per_token", None)
         if fpt:
             tracer.gauge("train.flops_per_token", float(fpt))
+
+    def _input_opts(self):
+        """(prefetch_depth, device_prefetch) from the configuration,
+        defaulting to the overlapped pipeline (2/2)."""
+        cfg = self.context.exp_config
+        if cfg is None:
+            return 2, 2
+        return cfg.optimizations.prefetch_depth, cfg.optimizations.device_prefetch
 
     # -- steps -------------------------------------------------------------
 
@@ -183,6 +333,187 @@ class Trainer:
             return max(1, length.units * self.train_loader.batches_per_epoch)
         return max(1, length.units // self.train_loader.sampler.global_batch)
 
+    # -- checkpoint --------------------------------------------------------
+
+    def _array_state(self) -> Dict[str, Any]:
+        return {
+            "step": self.state.step,
+            "params": self._params,
+            "opt_state": self.state.opt_state,
+            "rng": self.state.rng,
+        }
+
+    def _async_checkpointing(self) -> bool:
+        cfg = self.context.exp_config
+        return cfg.optimizations.async_checkpointing if cfg is not None else True
+
+    def _drain_pending_save(self) -> Optional[str]:
+        """Wait for the in-flight background save (if any) and run its
+        finalize.  Called on the main thread at the next save, preemption or
+        exit; a writer's failure raises here."""
+        p = self._pending_save
+        if p is None:
+            return None
+        self._pending_save = None
+        tracer = get_tracer()
+        stall_t0 = time.monotonic()
+        p.thread.join()
+        tracer.record_span(
+            "checkpoint.stall", "checkpoint", stall_t0, time.monotonic(),
+            {"storage_id": p.storage_id, "failed": bool(p.errors)},
+        )
+        if p.errors:
+            raise RuntimeError(f"async checkpoint {p.storage_id} failed") from p.errors[0]
+        with tracer.span("checkpoint.finalize", cat="checkpoint", storage_id=p.storage_id):
+            p.finish()
+        self.latest_checkpoint = p.storage_id
+        for cb in self.callbacks.values():
+            cb.on_checkpoint_write_end(p.storage_id)
+        logger.info("checkpoint %s at step %d", p.storage_id, p.step)
+        return p.storage_id
+
+    def _save_checkpoint(self, asynchronous: bool = True) -> str:
+        self._drain_pending_save()  # at most one save in flight
+        trainer_state = {
+            "steps_completed": self.steps_completed,
+            "train_loader": self.train_loader.state_dict(),
+            "callbacks": {k: cb.state_dict() for k, cb in self.callbacks.items()},
+            "best_validation": self.best_validation,
+            # enough to rebuild the trial without the experiment
+            # (train.load_trial_from_checkpoint)
+            "trial_class": f"{type(self.trial).__module__}:{type(self.trial).__qualname__}",
+            "hparams": dict(self.context.hparams),
+            "exp_config": self.context.exp_config.raw if self.context.exp_config else None,
+            "seed": self.context.seed,
+            "mesh_axes": {"data": 1},
+        }
+        metadata = {
+            "steps_completed": self.steps_completed,
+            "framework": "determined_tpu_torch",
+            # lineage pointer: a resume that finds THIS checkpoint corrupt
+            # falls back to the previous good one
+            "parent_storage_id": self.latest_checkpoint,
+        }
+        tracer = get_tracer()
+        if not (asynchronous and self._async_checkpointing()):
+            with tracer.span(
+                "checkpoint.save", cat="checkpoint", mode="sync", step=self.steps_completed
+            ):
+                with self.core.checkpoint.store_path(metadata) as (path, sid):
+                    for cb in self.callbacks.values():
+                        cb.on_checkpoint_write_start(path)
+                    serialization.save_arrays(path, self._array_state())
+                    serialization.save_trainer_state(path, trainer_state)
+            self.latest_checkpoint = sid
+            for cb in self.callbacks.values():
+                cb.on_checkpoint_write_end(sid)
+            logger.info("checkpoint %s at step %d", sid, self.steps_completed)
+            return sid
+
+        # overlapped save: snapshot on the device, serialise on a background
+        # thread, finalize at the next drain point
+        with tracer.span("checkpoint.dispatch", cat="checkpoint", step=self.steps_completed):
+            path, sid, finish = self.core.checkpoint.store_path_async(metadata)
+            for cb in self.callbacks.values():
+                cb.on_checkpoint_write_start(path)
+            snapshot = _snapshot(self._array_state())
+            ready = pinned = None
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+                if self._pinned is None:
+                    self._pinned = _pinned_like(snapshot)
+                pinned = self._pinned
+        device = self.device
+        errors: list = []
+
+        def work() -> None:
+            try:
+                with get_tracer().span("checkpoint.write", cat="checkpoint", storage_id=sid):
+                    host = snapshot
+                    if ready is not None:
+                        # a stream of its own: the copy waits for the clones
+                        # only, never for the steps queued after them
+                        with get_tracer().span("checkpoint.copy", cat="checkpoint"):
+                            side = torch.cuda.Stream(device)
+                            with torch.cuda.stream(side):
+                                side.wait_event(ready)
+                                host = _to_host(snapshot, pinned)
+                            side.synchronize()
+                    serialization.save_arrays(path, host)
+                    serialization.save_trainer_state(path, trainer_state)
+            except BaseException as e:  # surfaced at the drain point
+                errors.append(e)
+
+        thread = threading.Thread(target=work, name="dtt-ckpt-writer", daemon=True)
+        thread.start()
+        self._pending_save = _PendingSave(
+            thread=thread, finish=finish, storage_id=sid, step=self.steps_completed, errors=errors,
+        )
+        logger.info("async checkpoint %s started at step %d", sid, self.steps_completed)
+        return sid
+
+    def _verify_on_restore(self) -> bool:
+        cfg = self.context.exp_config
+        return cfg.fault_tolerance.verify_checkpoints if cfg is not None else True
+
+    def _restore_checkpoint(self, storage_id: str) -> None:
+        """Restore with manifest verification, walking the parent lineage
+        on corruption: a checkpoint whose writer died before its manifest,
+        or a truncated or bit-flipped file, is rejected and its recorded
+        parent tried instead."""
+        verify = self._verify_on_restore()
+        sid: Optional[str] = storage_id
+        tried = []
+        while sid:
+            try:
+                with self.core.checkpoint.restore_path(
+                    sid, verify=verify, require_manifest=verify
+                ) as path:
+                    self.restore_from_path(path)
+                self.latest_checkpoint = sid
+                if tried:
+                    logger.warning(
+                        "resumed from fallback checkpoint %s (rejected: %s)", sid, ", ".join(tried)
+                    )
+                logger.info("restored checkpoint %s at step %d", sid, self.steps_completed)
+                return
+            except (CheckpointCorruptError, CheckpointNotFoundError) as e:
+                logger.warning("checkpoint %s unusable for resume: %s", sid, e)
+                tried.append(sid)
+                parent = self.core.checkpoint.get_checkpoint_parent(sid)
+                if parent in tried:
+                    break  # a lineage cycle must not loop forever
+                sid = parent
+        raise CheckpointCorruptError(
+            f"no usable checkpoint in lineage of {storage_id} (tried: {', '.join(tried)}); "
+            "checkpoints without a manifest can be resumed by setting "
+            "fault_tolerance.verify_checkpoints: false"
+        )
+
+    def _restore_checkpoint_traced(self, storage_id: str) -> None:
+        with get_tracer().span("checkpoint.restore", cat="restore", storage_id=storage_id):
+            self._restore_checkpoint(storage_id)
+
+    def restore_from_path(self, path: str) -> None:
+        """Load the array state and the trainer state from a local
+        checkpoint directory, in place (also the tail of
+        ``train.load_trial_from_checkpoint``)."""
+        tstate = serialization.load_trainer_state(path)
+        stored_axes = tstate.get("mesh_axes")
+        if stored_axes is not None and {k: int(v) for k, v in stored_axes.items()} != {"data": 1}:
+            raise _later(f"restoring a checkpoint written on mesh {stored_axes} (elastic reshard)")
+        with get_tracer().span("checkpoint.load", cat="restore"):
+            serialization.restore_arrays(path, self._array_state())
+        self.state.reset_metrics()
+        self.steps_completed = int(tstate["steps_completed"])
+        self.train_loader.load_state_dict(tstate["train_loader"])
+        for k, cb in self.callbacks.items():
+            cb.load_state_dict(tstate.get("callbacks", {}).get(k, {}))
+        self.best_validation = tstate.get("best_validation")
+        for cb in self.callbacks.values():
+            cb.on_checkpoint_load(path)
+
     # -- validation --------------------------------------------------------
 
     def _validate(self) -> Dict[str, float]:
@@ -190,9 +521,13 @@ class Trainer:
             cb.on_validation_start()
         acc: Dict[str, torch.Tensor] = {}
         n = 0
+        prefetch_depth, device_buffer = self._input_opts()
         self.model.eval()
         try:
-            with EpochFeed(self.val_loader.iter_epoch(0), self.device) as feed:
+            with EpochFeed(
+                self.val_loader.iter_epoch(0), self.device,
+                prefetch_depth=prefetch_depth, device_buffer=device_buffer,
+            ) as feed:
                 for batch in feed:
                     acc = self._eval_step(batch, acc)
                     n += 1
@@ -212,6 +547,19 @@ class Trainer:
             cb.on_validation_end(metrics)
         return metrics
 
+    def _is_best(self, metrics: Dict[str, float]) -> bool:
+        name = self._searcher_metric or "validation_loss"
+        if name not in metrics:
+            return True  # nothing to compare on; treat as best
+        val = metrics[name]
+        if self.best_validation is None:
+            self.best_validation = val
+            return True
+        better = val < self.best_validation if self._smaller_is_better else val > self.best_validation
+        if better:
+            self.best_validation = val
+        return better
+
     # -- the loop ----------------------------------------------------------
 
     def fit(
@@ -226,28 +574,27 @@ class Trainer:
     ) -> Dict[str, Any]:
         """Train until ``max_length``; returns a summary dict.
 
-        ``checkpoint_policy`` defaults to "best", as in the JAX Trainer
-        without an experiment configuration; this slice of the port saves
-        no checkpoints, so it must be "none", with no ``checkpoint_period``
-        and no ``latest_checkpoint``."""
-        if checkpoint_policy is None:
-            checkpoint_policy = "best"
-        if checkpoint_policy != "none" or checkpoint_period is not None or latest_checkpoint:
-            raise NotImplementedError(
-                "checkpoint save and restore are not ported to determined_tpu_torch "
-                f"yet ({_LATER}); pass checkpoint_policy='none', no checkpoint_period "
-                "and no latest_checkpoint"
-            )
+        ``checkpoint_policy`` ("best", "all" or "none") defaults to the
+        experiment configuration's, else "best".  A final checkpoint is
+        saved unless the policy is "none"; ``latest_checkpoint`` resumes
+        from a stored checkpoint (verified, with the lineage fallback)."""
         tracer = get_tracer()
         with tracer.span("trainer.setup", cat="setup"):
             self._setup()
+        if checkpoint_policy is None:
+            cfg = self.context.exp_config
+            checkpoint_policy = cfg.checkpoint_policy if cfg is not None else "best"
 
         max_steps = self._to_batches(Length.parse(max_length))
         val_sched = _BoundarySchedule(self._to_batches(validation_period), max_steps)
+        ckpt_sched = _BoundarySchedule(self._to_batches(checkpoint_period), max_steps)
         rep_period = self._to_batches(report_period)
         if rep_period is None:
             rep_period = min(100, max(1, max_steps // 10))
         rep_sched = _BoundarySchedule(rep_period, max_steps)
+
+        if latest_checkpoint:
+            self._restore_checkpoint_traced(latest_checkpoint)
 
         for cb in self.callbacks.values():
             cb.on_training_start(self)
@@ -255,23 +602,37 @@ class Trainer:
         # overlapped input feed (the JAX Trainer's default depths): host
         # fetch on a background worker two batches ahead, the copy of batch
         # N+1 queued while step N runs; __next__ commits the loader's
-        # CONSUMED position
-        pipeline = InputPipeline(self.train_loader, self.device)
+        # CONSUMED position, so the state a checkpoint captures is exact
+        prefetch_depth, device_buffer = self._input_opts()
+        pipeline = InputPipeline(
+            self.train_loader, self.device,
+            prefetch_depth=prefetch_depth, device_buffer=device_buffer,
+        )
         gbs = self.train_loader.sampler.global_batch
         try:
-            self._fit_loop(pipeline, max_steps, val_sched, rep_sched, gbs)
+            self._fit_loop(
+                pipeline, max_steps, val_sched, ckpt_sched, rep_sched, checkpoint_policy, gbs
+            )
         finally:
             # the worker must die with the loop, on a clean exit and on a crash
             pipeline.close()
+
+        # a save still in flight must land before we exit or report completion
+        self._drain_pending_save()
+
+        # final: always leave at least one checkpoint unless policy is none
+        if checkpoint_policy != "none" and self._last_ckpt_sid is None:
+            self._last_ckpt_sid = self._save_checkpoint(asynchronous=False)
 
         for cb in self.callbacks.values():
             cb.on_trial_shutdown()
 
         return {
             "steps_completed": self.steps_completed,
-            "latest_checkpoint": None,
+            "latest_checkpoint": self._last_ckpt_sid,
             "validation_metrics": self._last_val_metrics,
             "stopped_early": self._stopped_early,
+            "best_validation": self.best_validation,
         }
 
     def _fit_loop(
@@ -279,19 +640,23 @@ class Trainer:
         pipeline: InputPipeline,
         max_steps: int,
         val_sched: _BoundarySchedule,
+        ckpt_sched: _BoundarySchedule,
         rep_sched: _BoundarySchedule,
+        checkpoint_policy: str,
         gbs: int,
     ) -> None:
         tracer = get_tracer()
         hot_time = 0.0  # train-segment wall time since the last report
         steps_since_report = 0
-        self._last_val_metrics: Dict[str, float] = {}
+        self._last_ckpt_sid = None
+        self._last_val_metrics = {}
         self._stopped_early = False
         epoch_seen = self.train_loader.epoch
 
         while self.steps_completed < max_steps:
             next_stop = min(
                 val_sched.next_after(self.steps_completed),
+                ckpt_sched.next_after(self.steps_completed),
                 rep_sched.next_after(self.steps_completed),
                 max_steps,
             )
@@ -345,15 +710,42 @@ class Trainer:
                     cb.on_training_workload_end(self.steps_completed, metrics)
 
             # ---- VALIDATE -------------------------------------------------
+            validated = False
             if val_sched.period is not None and (
                 val_sched.is_boundary(self.steps_completed) or at_end
             ):
                 with tracer.span("validate", cat="validate", step=self.steps_completed):
                     self._last_val_metrics = self._validate()
+                validated = True
 
+            # ---- CHECKPOINT -----------------------------------------------
+            want_ckpt = ckpt_sched.period is not None and ckpt_sched.is_boundary(
+                self.steps_completed
+            )
+            if validated and checkpoint_policy == "all":
+                want_ckpt = True
+            if validated and checkpoint_policy == "best" and self._is_best(self._last_val_metrics):
+                want_ckpt = True
             # ---- PREEMPT --------------------------------------------------
-            if self.core.preempt.should_preempt():
-                # no checkpoint to save in this slice: stop at the boundary
+            preempted = self.core.preempt.should_preempt()
+            if preempted:
+                want_ckpt = True
+            if want_ckpt:
+                pending = self._pending_save
+                if (
+                    preempted
+                    and pending is not None
+                    and pending.step == self.steps_completed
+                    and not pending.errors
+                ):
+                    # a save of this exact step is already in flight:
+                    # wait for it instead of writing a duplicate
+                    self._last_ckpt_sid = self._drain_pending_save()
+                else:
+                    # on preemption the save must be durable before exit,
+                    # so skip the overlap and write synchronously
+                    self._last_ckpt_sid = self._save_checkpoint(asynchronous=not preempted)
+            if preempted:
                 logger.info("preempted at step %d; exiting cleanly", self.steps_completed)
                 self._stopped_early = True
                 break

@@ -29,13 +29,13 @@ class TrialContext:
         device: torch.device,
         hparams: Optional[Dict[str, Any]] = None,
         seed: int = 0,
+        exp_config: Optional[Any] = None,
     ) -> None:
         self.core = core
         self.device = device
         self.hparams = dict(hparams or {})
         self.seed = seed
-        # the experiment configuration comes with a later slice of the port
-        self.exp_config = None
+        self.exp_config = exp_config
 
     # -- hyperparameters ---------------------------------------------------
 
@@ -68,17 +68,31 @@ class Callback:
 
     def on_training_start(self, trainer: Any) -> None: ...
 
+    def on_epoch_start(self, epoch: int) -> None: ...
+
     def on_epoch_end(self, epoch: int) -> None: ...
 
     def on_validation_start(self) -> None: ...
 
     def on_validation_end(self, metrics: Dict[str, float]) -> None: ...
 
+    def on_checkpoint_write_start(self, path: str) -> None: ...
+
+    def on_checkpoint_write_end(self, storage_id: str) -> None: ...
+
+    def on_checkpoint_load(self, path: str) -> None: ...
+
     def on_training_workload_end(
         self, steps_completed: int, metrics: Dict[str, float]
     ) -> None: ...
 
     def on_trial_shutdown(self) -> None: ...
+
+    # extra state carried through checkpoints (JSON-serialisable)
+    def state_dict(self) -> Dict[str, Any]:
+        return {}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None: ...
 
 
 class TorchTrial(abc.ABC):

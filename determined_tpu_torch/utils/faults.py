@@ -6,9 +6,21 @@ install an injector whose ``fire`` may raise to simulate the fault.
 
 Sites wired in the port:
 
-- ``serve.generate``  in the serving replica's /v1/generate handler, before
-                      admission; a raise answers 500 and bumps the
-                      ``http_5xx`` stat
+- ``train.step``          before each optimizer step (``step=``)
+- ``data.prefetch.fetch`` on the prefetch worker thread, before each host
+                          batch fetch (``batches=``); a raise surfaces at the
+                          consumer's next ``__next__``
+- ``storage.upload``      before a StorageManager upload (``manager=, src=,
+                          storage_id=, paths=``)
+- ``storage.upload.done`` after a successful upload (same info)
+- ``storage.download``    before a StorageManager download (``manager=,
+                          storage_id=, dst=``)
+- ``experiment.journal.append``
+                          before each experiment-journal record lands
+                          (``type=, seq=``)
+- ``serve.generate``      in the serving replica's /v1/generate handler, before
+                          admission; a raise answers 500 and bumps the
+                          ``http_5xx`` stat
 """
 
 from __future__ import annotations
@@ -30,6 +42,10 @@ def set_fault_injector(injector: Optional[Injector]) -> None:
     global _injector
     with _lock:
         _injector = injector
+
+
+def get_fault_injector() -> Optional[Injector]:
+    return _injector
 
 
 def fire(site: str, **info: Any) -> None:

@@ -1,6 +1,8 @@
 """The port stands alone: no module of determined_tpu_torch, nor
 chip_smoke.py, imports JAX, flax, optax, orbax or anything of the JAX
-package; and its entry points never fall back to the CPU on their own."""
+package, nor ``yaml`` at import time (a card's machine may lack it: the port
+imports it only where a file is read); and its entry points never fall back
+to the CPU on their own."""
 
 import os
 import subprocess
@@ -12,7 +14,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "determined_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "determined_tpu", "yaml")
 
 _PROBE = textwrap.dedent(
     """
@@ -53,8 +55,8 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    # every module of both slices was walked, not a stub of the package
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 35
+    # every module of the slices was walked, not a stub of the package
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 55
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -80,3 +82,22 @@ def test_decode_kernels_without_device_raises_instead_of_running_on_cpu(monkeypa
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DecodeKernels(model, ServeConfig())
+
+
+def test_run_local_without_a_gpu_raises_instead_of_training_on_cpu(tmp_path):
+    """``python -m determined_tpu_torch.cli run-local`` on a machine without
+    a GPU raises before it trains or writes a checkpoint."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    ckpt = tmp_path / "ckpts"
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, torch; torch.cuda.is_available = lambda: False; "
+         "from determined_tpu_torch.cli.main import main; sys.exit(main(sys.argv[1:]))",
+         "run-local", os.path.join(REPO, "examples/transformer_lm/const.yaml"),
+         "determined_tpu_torch.models.transformer:LMTrial", "--checkpoint-dir", str(ckpt)],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr
+    assert not ckpt.exists()

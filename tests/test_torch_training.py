@@ -8,11 +8,13 @@ against the JAX package's on the CPU.
   steps from the same weights (the JAX initial params loaded into the port
   through convert.py) on the same batches; losses, the ``lr`` metric,
   params and both Adam moments agree.
-- ``fit`` runs on the CPU and returns validation metrics; what this slice
-  does not port raises NotImplementedError.
+- ``fit`` runs on the CPU, returns validation metrics and saves and
+  restores checkpoints; what the port does not have yet raises
+  NotImplementedError.
 """
 
 import functools
+import os
 
 import jax
 import numpy as np
@@ -330,22 +332,65 @@ def test_fit_on_cpu_returns_validation_metrics():
 @pytest.mark.parametrize(
     "kwargs",
     [dict(checkpoint_policy="best"), dict(), dict(checkpoint_policy="none", checkpoint_period=2),
-     dict(checkpoint_policy="none", latest_checkpoint="/tmp/ckpt")],
+     dict(checkpoint_policy="none", latest_checkpoint=True)],
     ids=["best", "default", "period", "restore"],
 )
-def test_fit_without_checkpoint_support_raises(kwargs):
-    ctx = train.init(hparams=HP, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train.Trainer(LMTrial(ctx)).fit(max_length=2, **kwargs)
+def test_fit_checkpoint_options_work(kwargs, tmp_path):
+    """Every checkpoint option of ``fit`` runs on the CPU: "best" and the
+    default policy save (a validation's best and the final checkpoint), a
+    period of 2 saves at steps 2 and 4, and ``latest_checkpoint`` resumes."""
+    from determined_tpu_torch import core
+
+    hp = dict(HP, seq_len=32, dataset_size=8)
+
+    def trainer():
+        ctx = train.init(hparams=hp, seed=0, device="cpu",
+                         core_context=core._dummy_init(checkpoint_dir=str(tmp_path)))
+        return train.Trainer(LMTrial(ctx))
+
+    ckpt = core._dummy_init(checkpoint_dir=str(tmp_path)).checkpoint
+    if kwargs.get("latest_checkpoint"):
+        first = trainer().fit(max_length=2, checkpoint_policy="all", validation_period=2)
+        kwargs = dict(kwargs, latest_checkpoint=first["latest_checkpoint"])
+        resumed = trainer()
+        summary = resumed.fit(max_length=4, report_period=1, **kwargs)
+        assert summary["steps_completed"] == 4
+        # the resumed run started at step 2: its reports are of steps 3, 4
+        assert [s for s, _ in resumed.core.train.metrics("training")] == [3, 4]
+        return
+    summary = trainer().fit(max_length=4, validation_period=2, **kwargs)
+    sid = summary["latest_checkpoint"]
+    assert summary["steps_completed"] == 4 and sid is not None
+    assert ckpt.get_metadata(sid)["steps_completed"] == 4
+    if "checkpoint_period" in kwargs:
+        parent = ckpt.get_checkpoint_parent(sid)
+        assert ckpt.get_metadata(parent)["steps_completed"] == 2
+    with ckpt.restore_path(sid, require_manifest=True) as path:
+        assert set(os.listdir(os.path.join(path, "state"))) == {
+            "step.pt", "params.pt", "opt_state.pt", "rng.pt"
+        }
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="exp_config"):
-        train.init(hparams=HP, exp_config=object(), device="cpu")
     for extra in (dict(pipe_microbatches=2), dict(moe_experts=4), dict(quantized_matmul="int8")):
         ctx = train.init(hparams=dict(HP, **extra), device="cpu")
         with pytest.raises(NotImplementedError, match="later slice"):
             LMTrial(ctx).build_model()
+
+
+@pytest.mark.parametrize(
+    "raw",
+    [{"optimizations": {"aggregation_frequency": 2}},
+     {"resources": {"mesh": {"data": 2}}},
+     {"resources": {"mesh": {"fsdp": 2, "data": -1}}}],
+    ids=["aggregation_frequency", "mesh_data2", "mesh_fsdp2"],
+)
+def test_exp_config_knobs_of_later_slices_raise(raw):
+    from determined_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig.parse(dict(raw, hyperparameters=HP))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        train.init(exp_config=cfg, device="cpu")
 
 
 def test_init_without_a_gpu_raises_instead_of_running_on_cpu(monkeypatch):
