@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (determined_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--seed N]
-        [--phases kernel,serve,parity,train,train_parity,experiment]
+        [--phases kernel,serve,parity,train,train_parity,experiment,search]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -65,6 +65,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    step, the manifest check, the load), the host-clock step during the
    writer's copy, during its torch.save and with no write in flight, and
    each part's device memory at its start and its peak.
+8. search: three searches through LocalExperiment, each from its file's
+   dict with its changes (SEARCH_*_CUTS, each printed); checkpoints under a
+   fresh temporary directory (its free space checked first), deleted at the
+   end.  The launch counters are set to 0 just before each search and read
+   just after, and must equal the sum over its trials' steps and validation
+   passes.  Each trial's steps, seconds, synchronous (stop) save and clone
+   seconds and device memory at its start and peak are printed.
+   S1. ASHA over the flagship at full size (const.yaml's model; lr
+       log-uniform in [1e-5, 1e-3]; 4 trials, rungs at 16 and 32 batches):
+       a searcher stop reaches a trial as a preemption, whose synchronous
+       save is its checkpoint (deleted when the trial ends).  At least one
+       trial is stopped below 32 steps; the trial set (ids, hparams, steps,
+       stopped) equals a fresh port ASHASearch replaying the run's searcher
+       events in order, and the k-th trial's hparams are the searcher's k-th
+       draw at --seed, made without a device; no trial starts with device
+       memory of an earlier one.
+   S2. PBT over the flagship's width at 2 layers (2 members, 2 generations
+       of 8 batches, best checkpoints): at least one clone is materialized;
+       each restored child's parameters, moments and step equal its
+       parent's checkpoint bit for bit; a child ends at 16 steps; every
+       trial's lr metric follows its own lr (a perturbed child's is not its
+       parent's).
+   S3. examples/mnist/adaptive.yaml (MNIST_ADAPTIVE) through MnistTrial:
+       adaptive ASHA over 16 trials completes with at least one early stop,
+       its trial set equals the replay through a fresh port
+       make_adaptive_asha, every step launches fused_adamw on the MLP's 4
+       leaves, and the best validation accuracy is above 0.5.  After the
+       counts are read, fused_adamw is held against its plain version with
+       each optimizer the trials built (no decay, no clip, f32 first moment)
+       at every leaf shape they trained and at MNIST_ADAMW_SHAPES.
 
 Prints, before the last line, the kernels line (JSON) and the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.
@@ -152,6 +182,11 @@ ADAMW_CASES_SPEC = [
     ((2048,), "float32"),
 ]
 ADAMW_TIMED = ((2048, 8192), "bfloat16")
+# S3's MNIST MLP leaves (fc1 weight and bias, fc2 weight and bias) at the
+# widest and a narrow hidden size of adaptive.yaml's range [32, 256]: biases
+# smaller than one 256-thread block, ragged tails and an exact multiple;
+# held with the optimizer MnistTrial builds (no decay, no clip, f32 moment)
+MNIST_ADAMW_SHAPES = ((256, 784), (256,), (10, 256), (10,), (33, 784), (33,), (10, 33))
 # the kernel's operations per element: 2 multiplies for g and its square,
 # 2 + 3 for m and v, 2 divides for the bias corrections, a square root, an
 # add, a divide, a multiply-add for the decay and a multiply-subtract for p
@@ -244,7 +279,63 @@ EXPERIMENT_STEPS = 24
 PREEMPT_AT = 18
 CRASH_AT = 15
 
-PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment")
+# phase 8: searches.  S1 (ASHA) and S2 (PBT) are const.yaml (EXPERIMENT_CONST)
+# with these changes, S3 is examples/mnist/adaptive.yaml (MNIST_ADAPTIVE, a
+# dict for the same reason; a CPU test holds both to their files); each
+# change is (dotted key, the file's value, this run's value, why)
+_SEARCH_COMMON_CUTS = [
+    ("hyperparameters.lr", 0.0003, {"type": "log", "minval": -5, "maxval": -3},
+     "the searched hyperparameter: lr drawn log-uniformly in [1e-5, 1e-3]"),
+    ("hyperparameters.dataset_size", 4096, 128,
+     "one validation pass is 16 full-width batches, not 512"),
+    ("checkpoint_storage.host_path", "/tmp/dtpu-checkpoints", "<temp dir>",
+     "a fresh temporary directory outside the repo, deleted at the end"),
+    ("reproducibility.experiment_seed", None, "<--seed>",
+     "the searcher's draws, the weights and the data from the run's --seed"),
+]
+SEARCH_ASHA_CUTS = [
+    ("searcher", EXPERIMENT_CONST["searcher"],
+     {"name": "asha", "metric": "validation_loss", "max_trials": 4, "num_rungs": 2,
+      "divisor": 2, "max_length": {"batches": 32}},
+     "ASHA: 4 trials, rungs at 16 and 32 batches, the top half of a rung goes on"),
+    ("min_validation_period", {"batches": 200}, {"batches": 16}, "a validation at each rung"),
+    ("checkpoint_policy", None, "none",
+     "no best checkpoints: a searcher stop reaches the trial as a preemption, whose "
+     "synchronous save is the one checkpoint of a trial (deleted when the trial ends)"),
+] + _SEARCH_COMMON_CUTS
+SEARCH_PBT_CUTS = [
+    ("searcher", EXPERIMENT_CONST["searcher"],
+     {"name": "pbt", "metric": "validation_loss", "population_size": 2,
+      "num_generations": 2, "truncate_fraction": 0.5, "max_length": {"batches": 8}},
+     "PBT: 2 members, 2 generations of 8 batches; the worse member is replaced by a "
+     "perturbed clone of the better one"),
+    ("hyperparameters.n_layers", 8, 2,
+     "depth only: every clone saves, verifies and copies a checkpoint, 3.22 GB at 2 layers "
+     "and 8.05 GB at 8 (the width stays full)"),
+    ("min_validation_period", {"batches": 200}, {"batches": 8},
+     "a validation (and a best checkpoint) at the end of each generation"),
+] + _SEARCH_COMMON_CUTS
+MNIST_ADAPTIVE = {
+    "name": "mnist-adaptive",
+    "entrypoint": "model_def:Trial",
+    "hyperparameters": {
+        "lr": {"type": "log", "minval": -4, "maxval": -2},
+        "hidden": {"type": "int", "minval": 32, "maxval": 256},
+        "global_batch_size": 64,
+        "dataset_size": 4096,
+    },
+    "searcher": {"name": "adaptive_asha", "metric": "validation_accuracy",
+                 "smaller_is_better": False, "max_trials": 16, "max_length": {"batches": 400},
+                 "num_rungs": 3, "divisor": 4, "mode": "standard"},
+    "min_validation_period": {"batches": 25},
+    "checkpoint_storage": {"type": "shared_fs", "host_path": "/tmp/dtpu-checkpoints"},
+}
+SEARCH_MNIST_CUTS = [
+    ("checkpoint_storage.host_path", "/tmp/dtpu-checkpoints", "<temp dir>",
+     "a fresh temporary directory outside the repo, deleted at the end"),
+]
+
+PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search")
 
 
 def log(msg: str) -> None:
@@ -1339,6 +1430,428 @@ def _start_params(cfg, trial_cls) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: searches (ASHA and PBT over the flagship, adaptive ASHA over MNIST)
+# ---------------------------------------------------------------------------
+
+
+def search_raw_config(part: str, ckpt_dir: str, seed: int) -> dict:
+    """The configuration of search part ``part`` (S1, S2 or S3): its file's
+    dict with its cuts applied."""
+    base, cuts = {"S1": (EXPERIMENT_CONST, SEARCH_ASHA_CUTS),
+                  "S2": (EXPERIMENT_CONST, SEARCH_PBT_CUTS),
+                  "S3": (MNIST_ADAPTIVE, SEARCH_MNIST_CUTS)}[part]
+    return _apply_cuts(base, cuts, {"<temp dir>": ckpt_dir, "<--seed>": seed})
+
+
+def _lm_checkpoint_bytes(hp: dict) -> int:
+    """Bytes of an LMTrial checkpoint: f32 params, first and second moments
+    (embedding and head, per layer two norms, q/k/v/o and the 4x SwiGLU)."""
+    d, layers, vocab = hp["d_model"], hp["n_layers"], hp["vocab_size"]
+    return 12 * (2 * vocab * d + d + layers * (2 * d + 16 * d * d))
+
+
+# the checkpoint spans of a search trial, by the key its stats give them
+_TRIAL_SPANS = {"checkpoint.save": "sync_save", "checkpoint.write": "async_write",
+                "checkpoint.finalize": "async_finalize", "trial.clone": "clone",
+                "checkpoint.restore": "restore"}
+
+
+def _measured_experiment_cls():
+    """LocalExperiment that keeps, per trial, its steps, seconds, the
+    seconds of its checkpoint spans (synchronous stop saves, the
+    asynchronous save's write and finalize, the clone, the restore) and
+    device memory at its start and peak, and records the searcher's events
+    in order for the replay; ``delete_finished`` deletes a trial's
+    checkpoint directory when the trial ends."""
+    import copy
+    import shutil
+
+    import torch
+
+    from determined_tpu_torch.experiment import LocalExperiment
+    from determined_tpu_torch.observability import get_tracer
+
+    class MeasuredExperiment(LocalExperiment):
+        def __init__(self, *args, delete_finished: bool = False, **kwargs) -> None:
+            super().__init__(*args, **kwargs)
+            self.delete_finished = delete_finished
+            self.events: list = []
+            self.trial_stats: dict = {}
+            for name in ("on_validation", "on_trial_exited", "on_trial_exited_early"):
+                orig = getattr(self.searcher, name)
+
+                def record(*args, _orig=orig, _name=name):
+                    self.events.append((_name, copy.deepcopy(args)))
+                    return _orig(*args)
+
+                setattr(self.searcher, name, record)
+
+        def _run_trial(self, create):
+            tracer = get_tracer()
+            seen = {name: len(tracer.spans(name)) for name in _TRIAL_SPANS}
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            t0 = time.monotonic()
+            result = super()._run_trial(create)
+            torch.cuda.synchronize()
+            rid = create.request_id
+            self.trial_stats[rid] = dict(
+                steps=result.steps_completed, stopped_early=result.stopped_early,
+                hparams=result.hparams, seconds=time.monotonic() - t0,
+                **{f"{key}_s": _span_seconds(tracer, name)[seen[name]:]
+                   for name, key in _TRIAL_SPANS.items()},
+                start_gib=start / 2 ** 30, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            )
+            log(f"search trial {rid}: " + json.dumps(self.trial_stats[rid]))
+            if self.delete_finished:
+                shutil.rmtree(self._trial_checkpoint_dir(rid), ignore_errors=True)
+            return result
+
+    return MeasuredExperiment
+
+
+def _replay(cfg, seed: int, events):
+    """A fresh port Searcher for ``cfg`` fed the recorded events in order."""
+    from determined_tpu_torch.searcher import Searcher, method_from_config
+
+    replay = Searcher(method_from_config(cfg.searcher, cfg.hyperparameters),
+                      cfg.hyperparameters, seed=seed)
+    replay.start()
+    for name, args in events:
+        getattr(replay, name)(*args)
+    return replay
+
+
+def _check_trial_set(exp, cfg, seed: int, method_cls) -> int:
+    """The experiment's trials (request ids, hparams, steps, stopped or not)
+    against a fresh searcher replaying its searcher events in order; returns
+    the number of trials."""
+    replay = _replay(cfg, seed, exp.events)
+    assert isinstance(replay.method, method_cls), type(replay.method)
+    tm = cfg.searcher.time_metric or "batches"
+    got = sorted((rid, json.dumps(r.hparams, sort_keys=True), r.steps_completed,
+                  exp.searcher.is_stopped(rid)) for rid, r in exp.results.items())
+    want = sorted((rid, json.dumps(t.hparams, sort_keys=True), int((t.metrics or {}).get(tm, 0)),
+                   t.stopped_by_searcher) for rid, t in replay.trials.items())
+    assert got == want, f"trial set {got} != replay {want}"
+    assert replay.method.state_dict() == exp.searcher.method.state_dict()
+    return len(got)
+
+
+def _run_search(part: str, exp) -> tuple:
+    """Run ``exp`` with the launch counters set to 0 just before and read
+    just after; returns (summary, seconds, launches)."""
+    import torch
+
+    _reset_launches()
+    t0 = time.monotonic()
+    summary = exp.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    log(f"search {part}: {wall:.1f} s, " + json.dumps(summary))
+    assert summary["status"] == "completed", summary
+    return summary, wall, launches
+
+
+def _early_stops(exp) -> list:
+    """Trials the searcher stopped before their budget."""
+    max_steps = exp.config.searcher.max_length.units
+    return sorted(rid for rid, r in exp.results.items()
+                  if exp.searcher.is_stopped(rid) and r.steps_completed < max_steps)
+
+
+def _lm_launches(exp, steps: int) -> dict:
+    """Kernel launches of an LMTrial search that trained ``steps`` steps:
+    per layer a forward a step and a validation batch, a dq and a dk/dv a
+    step; AdamW on every leaf a step (embedding, head, final norm, 9 a
+    layer)."""
+    hp = {k: v.val for k, v in exp.config.hyperparameters.items() if hasattr(v, "val")}
+    layers, n_val = hp["n_layers"], hp["dataset_size"] // hp["global_batch_size"]
+    validations = sum(1 for name, _ in exp.events if name == "on_validation")
+    return dict(flash_fwd=layers * (steps + validations * n_val),
+                flash_bwd_dq=layers * steps, flash_bwd_dkv=layers * steps,
+                fused_adamw=(3 + 9 * layers) * steps)
+
+
+def _peak_gib(exp) -> float:
+    return max(t["peak_gib"] for t in exp.trial_stats.values())
+
+
+def _search_asha(seed: int, root: str) -> dict:
+    """S1: ASHA over the flagship at full size."""
+    import os
+
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.searcher import ASHASearch, SearcherContext
+
+    cfg = ExperimentConfig.parse(search_raw_config("S1", os.path.join(root, "asha"), seed))
+    exp = _measured_experiment_cls()(cfg, LMTrial, checkpoint_dir=cfg.checkpoint_storage.host_path,
+                                     delete_finished=True)
+    _summary, wall, launches = _run_search("S1 (asha)", exp)
+    n_trials = _check_trial_set(exp, cfg, seed, ASHASearch)
+    # the trials are created up front, in request-id order: the k-th one
+    # has the searcher's k-th draw, made here without a device
+    draws = SearcherContext(cfg.hyperparameters, seed)
+    for rid in sorted(exp.results):
+        assert exp.results[rid].hparams == draws.sample(), rid
+    stops = _early_stops(exp)
+    assert stops, f"no trial was stopped early: {exp.trial_stats}"
+    steps = sum(r.steps_completed for r in exp.results.values())
+    want = _lm_launches(exp, steps)
+    assert launches == want, f"launches {launches} != expected {want}"
+    # every trial starts with no other trial's state on the device
+    assert max(t["start_gib"] for t in exp.trial_stats.values()) < 1.0, exp.trial_stats
+    return dict(wall_s=wall, trials_replayed=n_trials, steps=steps, stopped_early=stops,
+                launches=launches, trials=exp.trial_stats, peak_memory_gib=_peak_gib(exp))
+
+
+def clone_restore_check(root: str, searcher: list, restores: list):
+    """A Callback class that holds each restored PBT child's parameters,
+    both moments and step against its parent's checkpoint files under
+    ``root`` (the parent named by the searcher in ``searcher[0]``) and
+    appends {trial, parent, uuid, steps, bitwise} to ``restores``."""
+    import os
+
+    import torch
+
+    from determined_tpu_torch.train import Callback, serialization
+
+    class RestoreCheck(Callback):
+        def on_training_start(self, trainer) -> None:
+            sid = trainer.latest_checkpoint
+            if not sid:
+                return
+            own = trainer.core.checkpoint._storage.base_path
+            rid = int(os.path.basename(own).split("_")[1])
+            src = searcher[0].trials[rid].source_trial_id
+            parent = os.path.join(root, f"trial_{src}", sid)
+            params = serialization.load_arrays(parent, "params")
+            opt = serialization.load_arrays(parent, "opt_state")
+            state = trainer.state.opt_state
+            bitwise = all(torch.equal(p.detach().cpu(), params[k])
+                          for k, p in trainer._params.items())
+            for which in ("mu", "nu"):
+                bitwise &= all(torch.equal(v.cpu(), opt[f"{which}/{k}"])
+                               for k, v in getattr(state, which).items())
+            bitwise &= int(state.count) == int(opt["count"]) == trainer.steps_completed
+            restores.append(dict(trial=rid, parent=src, uuid=sid, steps=trainer.steps_completed,
+                                 bitwise=bool(bitwise)))
+
+    return RestoreCheck
+
+
+def _pbt_capture(root: str, searcher: list):
+    """LMTrial whose callback holds each restored child against its
+    parent's checkpoint (``clone_restore_check``) and keeps every training
+    report's ``lr`` with the trial's own lr."""
+    import os
+
+    import torch
+
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.train._optim import warmup_cosine_decay_schedule
+
+    restores: list = []
+    lr_reports: list = []
+
+    class Capture(clone_restore_check(root, searcher, restores)):
+        def __init__(self, trial) -> None:
+            self.trial = trial
+
+        def on_training_workload_end(self, steps_completed, metrics) -> None:
+            g = self.trial.context.get_hparam
+            period = self.trial.context.exp_config.min_validation_period.units
+            own = warmup_cosine_decay_schedule(
+                0.0, float(g("lr")), int(g("warmup_steps", 100)), int(g("decay_steps", 10000)))
+            counts = torch.arange(steps_completed - period, steps_completed)
+            trial_dir = self.trial.context.core.checkpoint._storage.base_path
+            lr_reports.append(dict(trial=os.path.basename(trial_dir), lr=float(g("lr")),
+                                   steps=steps_completed, reported=metrics["lr"],
+                                   own_schedule=float(own(counts).float().mean())))
+
+    class PBTLMTrial(LMTrial):
+        def build_callbacks(self):
+            return {"capture": Capture(self)}
+
+    return PBTLMTrial, restores, lr_reports
+
+
+def _search_pbt(seed: int, root: str) -> dict:
+    """S2: PBT over the flagship's width at 2 layers."""
+    import os
+
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.observability import get_tracer
+    from determined_tpu_torch.searcher import PBTSearch
+
+    ckpt_dir = os.path.join(root, "pbt")
+    cfg = ExperimentConfig.parse(search_raw_config("S2", ckpt_dir, seed))
+    searcher: list = []
+    trial_cls, restores, lr_reports = _pbt_capture(ckpt_dir, searcher)
+    exp = _measured_experiment_cls()(cfg, trial_cls, checkpoint_dir=ckpt_dir)
+    searcher.append(exp.searcher)
+    _summary, wall, launches = _run_search("S2 (pbt)", exp)
+    clones = get_tracer().counters().get("searcher.clones_materialized", 0.0)
+    log("search S2 restores: " + json.dumps(restores))
+    log("search S2 lr reports: " + json.dumps(lr_reports))
+    assert isinstance(exp.searcher.method, PBTSearch)
+    assert clones >= 1 and len(restores) == clones, (clones, restores)
+    assert all(r["bitwise"] for r in restores), restores
+    gen = cfg.searcher.max_length.units
+    children = {rid: src for rid, src in exp.searcher.method.lineage.items() if src is not None}
+    assert children and all(exp.results[rid].steps_completed == 2 * gen for rid in children), (
+        children, {rid: r.steps_completed for rid, r in exp.results.items()})
+    # each trial's lr metric follows its own lr; a perturbed child's is not
+    # its parent's (the schedule is linear in its peak lr)
+    lrs = {f"trial_{rid}": r.hparams["lr"] for rid, r in exp.results.items()}
+    perturbed = [rid for rid, src in children.items() if lrs[f"trial_{rid}"] != lrs[f"trial_{src}"]]
+    for rep in lr_reports:
+        np.testing.assert_allclose(rep["reported"], rep["own_schedule"], rtol=1e-5)
+        assert rep["lr"] == lrs[rep["trial"]], rep
+    for rid in perturbed:
+        (rep,) = [r for r in lr_reports if r["trial"] == f"trial_{rid}"]
+        parents = rep["own_schedule"] * lrs[f"trial_{children[rid]}"] / rep["lr"]
+        assert not np.isclose(rep["reported"], parents, rtol=1e-3), (rep, parents)
+    # a child's steps_completed counts its parent's steps, which it did not run
+    steps = sum(r.steps_completed for r in exp.results.values()) - gen * len(children)
+    want = _lm_launches(exp, steps)
+    assert launches == want, f"launches {launches} != expected {want}"
+    hp = {k: v.val for k, v in cfg.hyperparameters.items() if hasattr(v, "val")}
+    return dict(wall_s=wall, steps=steps, clones_materialized=clones, children=children,
+                perturbed=perturbed, restores=restores, launches=launches,
+                checkpoint_bytes=_lm_checkpoint_bytes(hp), trials=exp.trial_stats,
+                peak_memory_gib=_peak_gib(exp))
+
+
+def _mnist_recorder():
+    """MnistTrial that records the shapes of every trial's parameters and
+    the optimizer each trial builds."""
+    from determined_tpu_torch.models import MnistTrial
+
+    leaves: set = set()
+    optimizers: list = []
+
+    class RecordedMnistTrial(MnistTrial):
+        def build_model(self):
+            model = super().build_model()
+            leaves.update(tuple(p.shape) for p in model.parameters())
+            return model
+
+        def build_optimizer(self):
+            optimizers.append(super().build_optimizer())
+            return optimizers[-1]
+
+    return RecordedMnistTrial, leaves, optimizers
+
+
+def check_mnist_adamw(seed: int, leaves, optimizers) -> float:
+    """fused_adamw against its plain version with each optimizer S3's
+    trials built (their lr, no decay, no clip) at every leaf shape they
+    trained and at MNIST_ADAMW_SHAPES; returns the largest difference."""
+    import torch
+
+    from determined_tpu_torch.ops import fused_adamw as fw
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    shapes = sorted(set(leaves) | set(MNIST_ADAMW_SHAPES))
+    # step 3 of a trial's run: lr, clip scale and bias corrections as the
+    # trial's own optimizer makes them
+    count = torch.tensor(2, dtype=torch.int32, device="cuda")
+    worst = 0.0
+    for tx in dict.fromkeys(optimizers):
+        kw = dict(b1=tx.b1, b2=tx.b2, eps=tx.eps, wd=tx.weight_decay)
+        for shape in shapes:
+            p = torch.randn(shape, generator=gen, device="cuda")
+            g = torch.randn(shape, generator=gen, device="cuda")
+            m = (0.1 * torch.randn(shape, generator=gen, device="cuda")).to(
+                tx.mu_dtype or torch.float32)
+            v = 0.01 * torch.rand(shape, generator=gen, device="cuda")
+            scalars = tx.scalars(count, {"g": g})
+            want = fw._leaf_reference(p, m, v, g, scalars, **kw)
+            got = [p.clone(), m.clone(), v.clone()]
+            fw.adamw_leaf_(*got, g, scalars, **kw)
+            torch.cuda.synchronize()
+            for what, a, b_ in zip("pmv", got, want):
+                torch.testing.assert_close(
+                    a.float(), b_.float(), **ADAMW_TOL[_dname(b_.dtype)],
+                    msg=lambda m_, what=what, shape=shape: f"fused_adamw S3 {what} {shape}: {m_}")
+                worst = max(worst, _max_err(a, b_))
+        log(f"fused_adamw S3 optimizer lr={tx.learning_rate:.3e} wd={tx.weight_decay} "
+            f"clip_norm={tx.clip_norm} clip_scale={float(scalars[1])} "
+            f"mu={_dname(tx.mu_dtype or torch.float32)}: {len(shapes)} leaf shapes agree")
+    log(f"fused_adamw S3: {len(shapes)} shapes {shapes}, max_abs_err {worst:.3e}")
+    return worst
+
+
+def _search_mnist(seed: int, root: str) -> dict:
+    """S3: examples/mnist/adaptive.yaml through MnistTrial (its own seed)."""
+    import os
+
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.searcher import TournamentSearch
+
+    cfg = ExperimentConfig.parse(search_raw_config("S3", os.path.join(root, "mnist"), seed))
+    trial_cls, leaves, optimizers = _mnist_recorder()
+    exp = _measured_experiment_cls()(cfg, trial_cls,
+                                     checkpoint_dir=cfg.checkpoint_storage.host_path)
+    _summary, wall, launches = _run_search("S3 (mnist adaptive_asha)", exp)
+    assert cfg.searcher.name == "adaptive_asha"
+    n_trials = _check_trial_set(exp, cfg, cfg.reproducibility.experiment_seed, TournamentSearch)
+    stops = _early_stops(exp)
+    assert stops, "adaptive ASHA stopped no trial early"
+    best = max(r.metrics["validation_accuracy"] for r in exp.results.values())
+    assert best > 0.5, best
+    steps = sum(r.steps_completed for r in exp.results.values())
+    # the MLP's 4 leaves (two weights, two biases) a step, no attention
+    want = dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0, fused_adamw=4 * steps)
+    assert launches == want, f"launches {launches} != expected {want}"
+    # the kernel at these leaves with these optimizers, after the counts
+    # were read
+    adamw_err = check_mnist_adamw(seed, leaves, optimizers)
+    return dict(wall_s=wall, trials_replayed=n_trials, steps=steps, stopped_early=stops,
+                best_validation_accuracy=best, launches=launches, peak_memory_gib=_peak_gib(exp),
+                adamw_max_abs_err=adamw_err)
+
+
+def phase_search(seed: int) -> dict:
+    """Parts S1, S2 and S3 of phase 8 (the docstring at the top)."""
+    import os
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="dtt-chip-search-")
+    free = shutil.disk_usage(root).free
+    log(f"search: checkpoints under {root}, {free / 2**30:.1f} GiB free")
+    for part, cuts in (("S1", SEARCH_ASHA_CUTS), ("S2", SEARCH_PBT_CUTS),
+                       ("S3", SEARCH_MNIST_CUTS)):
+        for path, const, value, why in cuts:
+            value = seed if value == "<--seed>" else value
+            log(f"search {part} cut: {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
+    hp1 = search_raw_config("S1", root, seed)["hyperparameters"]
+    hp2 = search_raw_config("S2", root, seed)["hyperparameters"]
+    # S1 keeps one checkpoint at a time; S2 its four members' checkpoints,
+    # two clone copies and one staging copy
+    need = max(_lm_checkpoint_bytes(hp1), 7 * _lm_checkpoint_bytes(hp2))
+    assert free > 1.1 * need, f"{free / 2**30:.1f} GiB free; the phase needs {need / 2**30:.1f}"
+    out: dict = {}
+    try:
+        for part, fn in (("S1", _search_asha), ("S2", _search_pbt), ("S3", _search_mnist)):
+            gc.collect()
+            out[part] = fn(seed, root)
+            log(f"search {part}: " + json.dumps(
+                {k: v for k, v in out[part].items() if k not in ("trials", "restores")}))
+            shutil.rmtree(os.path.join(root, {"S1": "asha", "S2": "pbt", "S3": "mnist"}[part]),
+                          ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in ("S1", "S2", "S3"))
+                       for k in out["S1"]["launches"]}
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1400,6 +1913,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         experiment = phase_experiment(args.seed)
+    search = None
+    if "search" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        search = phase_search(args.seed)
 
     if kernel and serve is not None and trained is not None:
         rows = []
@@ -1409,10 +1927,16 @@ def main() -> int:
                 by_phase["serve"] = serve["launches"]
             if experiment is not None:
                 by_phase["experiment_resume"] = experiment["launches"][name]
+            fields = dict(kernel[name])
+            if search is not None:
+                by_phase["search"] = search["launches"][name]
+                if name == "fused_adamw":  # also held at S3's leaves
+                    fields["max_abs_err"] = max(fields["max_abs_err"],
+                                                search["S3"]["adamw_max_abs_err"])
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=trained["launches"][name], launches_by_phase=by_phase,
-                **kernel[name],
+                **fields,
             ))
         print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)  # name and power limit, as nvidia-smi gives them

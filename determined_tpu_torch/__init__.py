@@ -11,5 +11,9 @@ Ported so far: the serving path of the flagship decoder-only LM
 (``train/``, ``data/``, ``core/``, ``config/``, ``LMTrial``), with the
 flash attention forward and backward kernels (``ops/flash_attention.py``,
 ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) and the fused AdamW kernel
-(``ops/fused_adamw.py``, ``csrc/fused_adamw.cu``).
+(``ops/fused_adamw.py``, ``csrc/fused_adamw.cu``); the local experiment
+(``experiment/``, checkpoints, preemption, restarts) and hyperparameter
+search (``searcher/``: ASHA, adaptive ASHA, Hyperband, PBT with clones
+restored from checkpoints, the simulator) with the MNIST trial
+(``models/mnist.py``).
 """

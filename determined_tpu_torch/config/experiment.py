@@ -6,8 +6,9 @@ package; the same YAML gives the same fields in both.  ``resources.mesh`` is
 this module's own ``MeshConfig``: the axis sizes and the one ``-1``
 wildcard, parsed and validated only (the port trains on one device, and the
 Trainer raises for a mesh over more than one).  ``yaml`` is imported only
-where a file or a YAML string is read.  ``lint.suppress`` is checked to be a
-list; its rule ids are not validated, since the lint package is not ported.
+where a file or a YAML string is read.  ``lint.suppress`` must name rule ids
+of the JAX package's lint registry (``LINT_RULE_IDS``, this module's own copy
+of the ids: the lint package itself is not ported).
 """
 
 from __future__ import annotations
@@ -104,11 +105,32 @@ class Length:
         return cls(n, "records")
 
 
+def clone_extended_length(max_length: Length, inherited_steps: int,
+                          logger: Any = None, context: str = "") -> Length:
+    """A clone-resumed trial's budget is ``max_length`` BEYOND the steps
+    inherited from its source checkpoint: the trainer's step horizon is
+    absolute and the restored state already carries the parent's count
+    (``experiment/local.py``; the JAX package's cluster harness applies the
+    same rule).  Only batch budgets extend; others stay absolute with a
+    warning."""
+    if not inherited_steps or inherited_steps <= 0:
+        return max_length
+    if max_length.unit != "batches":
+        if logger is not None:
+            logger.warning(
+                "%sclone budget extension needs a batches max_length; "
+                "%s budget left absolute", context, max_length.unit,
+            )
+        return max_length
+    return Length.batches(max_length.units + int(inherited_steps))
+
+
 @dataclasses.dataclass(frozen=True)
 class SearcherConfig:
     """Searcher section — reference ``schemas/expconf/v0/searcher.json``.
 
-    name: single | random | grid | asha | adaptive_asha | driver
+    name: single | random | grid | asha | adaptive_asha | hyperband | pbt |
+    driver
 
     ``driver`` is execution-only: the search loop lives in a remote
     cluster-experiment driver (``experiment/cluster.py``), which submits
@@ -545,6 +567,37 @@ class FaultToleranceConfig:
         return cls(**raw)
 
 
+#: the rule ids of the lint registry (``determined_tpu/lint/rules``), which
+#: ``lint.suppress`` may name; a CPU test holds this tuple to the registry
+LINT_RULE_IDS = (
+    "block-until-ready",
+    "blocking-under-lock",
+    "conditional-collective-escape",
+    "fake-master-conformance",
+    "host-sync",
+    "lock-order-cycle",
+    "metric-undocumented",
+    "mutable-default",
+    "python-rng",
+    "rank-dependent-collective",
+    "rank-guarded-io-missing-barrier",
+    "route-unbound",
+    "route-undocumented",
+    "signal-handler-unsafe",
+    "trace-side-effect",
+    "traced-control-flow",
+    "traced-print",
+    "unlocked-shared-state",
+    "unordered-iteration-feeding-collective",
+    "wal-fuzz-gap",
+    "wal-replay-gap",
+    "wal-snapshot-gap",
+    "wall-clock",
+    "wall-clock-divergence",
+    "wire-field-unread",
+)
+
+
 @dataclasses.dataclass(frozen=True)
 class LintConfig:
     """Trial preflight analyzer knobs (``determined_tpu/lint``).
@@ -578,6 +631,8 @@ class LintConfig:
     suppress: List[str] = dataclasses.field(default_factory=list)
 
     def __post_init__(self):
+        # validate rule ids at parse time: a typo'd suppression silently
+        # linting everything would defeat the audit
         suppress = self.suppress
         if suppress is None:  # YAML `suppress:` with no value
             suppress = []
@@ -585,6 +640,11 @@ class LintConfig:
         if isinstance(suppress, str) or not isinstance(suppress, (list, tuple)):
             raise InvalidExperimentConfig(
                 f"lint.suppress must be a list of rule ids, got {suppress!r}"
+            )
+        unknown = set(suppress) - set(LINT_RULE_IDS)
+        if unknown:
+            raise InvalidExperimentConfig(
+                f"lint.suppress names unknown rules: {sorted(unknown)}"
             )
 
     @classmethod

@@ -10,6 +10,12 @@ given as numpy arrays.  Layouts mapped:
   ``nn.Linear.weight`` ``[out, in]``;
 - ``Embed.embedding`` ``[V, d]`` as is; RMSNorm ``scale`` as ``weight``.
 
+The MNIST models (``models/mnist.py``) map through
+``mnist_state_dict_from_flax`` and its inverse: dense kernels ``[in, out]``
+against ``[out, in]``, conv kernels HWIO against OIHW, biases as they are.
+The port's CNN flattens its last feature map in NHWC order, as flax does,
+so ``fc1``'s rows need no permutation.
+
 Optimizer moments (``mu``/``nu`` trees of a ``FusedAdamWState`` or of the
 ``ScaleByAdamState`` inside an optax chain state) are param-shaped and map
 through the same transforms (``opt_state_from_flax``,
@@ -144,3 +150,39 @@ def flax_from_opt_state(
         "mu": flax_from_state_dict(state.mu, n_heads, n_kv_heads),
         "nu": flax_from_state_dict(state.nu, n_heads, n_kv_heads),
     }
+
+
+def _f32_or_f64(x: Any) -> np.ndarray:
+    a = np.asarray(x)
+    return a if a.dtype == np.float64 else a.astype(np.float32)
+
+
+def mnist_state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The state_dict (as numpy) of the port's ``MnistMLP`` or ``MnistCNN``
+    from the flax model's param tree (with or without ``"params"``); f32
+    leaves, f64 where the tree's are."""
+    if "params" in tree:
+        tree = tree["params"]
+    out = {}
+    for layer, leaves in tree.items():
+        kern = _f32_or_f64(leaves["kernel"])
+        # Dense [in, out] -> [out, in]; Conv HWIO -> OIHW
+        out[f"{layer}.weight"] = kern.T if kern.ndim == 2 else kern.transpose(3, 2, 0, 1)
+        out[f"{layer}.bias"] = _f32_or_f64(leaves["bias"])
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+def flax_from_mnist_state_dict(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse: the flax MNIST param tree (inner dict, numpy leaves)."""
+    tree: Dict[str, Any] = {}
+    for key, v in state.items():
+        layer, kind = key.rsplit(".", 1)
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            v = v.numpy() if v.dtype == torch.float64 else v.float().numpy()
+        v = np.asarray(v)
+        if kind == "weight":
+            tree.setdefault(layer, {})["kernel"] = v.T if v.ndim == 2 else v.transpose(2, 3, 1, 0)
+        else:
+            tree.setdefault(layer, {})["bias"] = v
+    return _contiguous(tree)

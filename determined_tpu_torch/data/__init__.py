@@ -2,7 +2,12 @@
 and the overlapped prefetch feed (copies of ``determined_tpu/data``, with
 ``to_device`` in place of ``to_global``)."""
 
-from determined_tpu_torch.data._dataset import Dataset, InMemoryDataset, SyntheticDataset
+from determined_tpu_torch.data._dataset import (
+    Dataset,
+    InMemoryDataset,
+    SyntheticDataset,
+    mnist_like,
+)
 from determined_tpu_torch.data._loader import DataLoader, to_device
 from determined_tpu_torch.data._prefetch import (
     EpochFeed,
@@ -23,5 +28,6 @@ __all__ = [
     "SamplerState",
     "SyntheticDataset",
     "device_prefetch",
+    "mnist_like",
     "to_device",
 ]

@@ -7,15 +7,22 @@ write-ahead journal (``experiment/journal.py``) under ``checkpoint_dir``
 that ``resume()`` replays after a crash or a preemption, SIGTERM/SIGINT
 handlers that drain the running trial to a checkpoint, in-flight trials
 re-queued from their newest VERIFIED checkpoint, and checkpoint retention at
-journal-compaction points.
+journal-compaction points.  Every search method runs here: an ASHA or
+Hyperband ``Stop`` reaches the running trial as a preemption (the Trainer
+saves and exits at its next boundary), and a PBT child (``Create`` with a
+``source_trial_id``) starts from its parent's newest verified checkpoint,
+copied into its own namespace through the storage manager and journaled as
+``trial_cloned``, with its budget extended past the inherited steps
+(``config.experiment.clone_extended_length``); a resume replays the clones.
+Live clone sources are kept by the retention pass.
 
 The port runs on one device (``device=``, CUDA unless named), so trials run
 one after another: the serial path (``_run_serial``) is the whole runner.
 Waiting for later slices of the port, each raising ``NotImplementedError``
-when asked for: the concurrent gang scheduler (needs several devices), PBT
-clones, registry promotion, trace export (``observability.trace_export``)
-and the strict preflight lint; with ``lint.preflight`` on (the default) the
-runner logs once that the preflight lint is not ported and goes on.
+when asked for: the concurrent gang scheduler (needs several devices),
+registry promotion, trace export (``observability.trace_export``) and the
+strict preflight lint; with ``lint.preflight`` on (the default) the runner
+logs once that the preflight lint is not ported and goes on.
 """
 
 from __future__ import annotations
@@ -24,14 +31,21 @@ import dataclasses
 import json
 import logging
 import os
+import shutil
 import signal
+import tempfile
 import threading
 import time
 from typing import Any, Dict, Optional, Set, Tuple, Type
 
 from determined_tpu_torch import core
 from determined_tpu_torch._device import DeviceLike, resolve_device
-from determined_tpu_torch.config.experiment import ExperimentConfig, InvalidExperimentConfig, Length
+from determined_tpu_torch.config.experiment import (
+    ExperimentConfig,
+    InvalidExperimentConfig,
+    Length,
+    clone_extended_length,
+)
 from determined_tpu_torch.experiment.journal import (
     ExperimentJournal,
     ExperimentJournalError,
@@ -133,6 +147,11 @@ class LocalExperiment:
         # checkpoint context, so the restore does not take a second md5
         self._resume_verdicts: Dict[int, Tuple[str, Dict[str, Tuple[int, int]]]] = {}
         self._journaled_ckpts: Dict[int, str] = {}
+        # rid -> steps_completed at its clone point (PBT exploit): the
+        # child's training budget is the generation length ON TOP of the
+        # inherited steps, and a crash-resume must re-derive the same
+        # horizon, so the value rides in the journal's trial_cloned record
+        self._clone_base_steps: Dict[int, int] = {}
         # registry-promoted checkpoint uuids (journaled by the JAX package's
         # runner): pinned against the retention pass
         self._registry_pinned: Set[str] = set()
@@ -161,10 +180,6 @@ class LocalExperiment:
             return self._run_trial_inner(create)
 
     def _run_trial_inner(self, create: Create) -> TrialResult:
-        if create.source_trial_id is not None:
-            raise NotImplementedError(
-                f"PBT clones are not ported to determined_tpu_torch yet; {_LATER}"
-            )
         cfg = self.config
         scfg = cfg.searcher
         max_length = scfg.max_length or Length.batches(scfg.max_time or 100)
@@ -185,6 +200,11 @@ class LocalExperiment:
             verdict = self._resume_verdicts.pop(rid, None)
         if verdict is not None and verdict[0] == resume_ckpt:
             core_ctx.checkpoint.accept_verified(*verdict)
+        if resume_ckpt is None and create.source_trial_id is not None:
+            # PBT exploit: materialize the parent's newest usable
+            # checkpoint into this trial's namespace and resume from it
+            resume_ckpt = self._materialize_clone(rid, create.source_trial_id)
+        max_length = self._clone_extended_length(max_length, rid)
         try:
             if self.journal is not None:
                 self.journal.append(
@@ -434,8 +454,6 @@ class LocalExperiment:
         if self.journal is None:
             raise ExperimentJournalError("resume requires fault_tolerance.journal: true")
         replay = read_journal(journal_path(self.checkpoint_dir))
-        if replay.clones:
-            raise NotImplementedError(f"resuming PBT clones is not ported yet; {_LATER}")
         if replay.searcher_state is not None:
             self.searcher.restore_json(json.dumps(replay.searcher_state))
         # redeliver events orphaned between their append and the follow-up
@@ -465,6 +483,11 @@ class LocalExperiment:
             rec = self.searcher.trials.get(rid)
             if rec is not None and not rec.exited:
                 self.searcher.on_trial_exited(rid)
+        # clone provenance: a resumed child's budget horizon must extend
+        # past its inherited steps exactly as the original run's did
+        for rid, clone in replay.clones.items():
+            with self._ckpt_lock:
+                self._clone_base_steps[rid] = int(clone.get("steps") or 0)
         with self._ckpt_lock:
             self._registry_pinned.update(
                 reg["uuid"] for reg in replay.registered_models if reg.get("uuid")
@@ -567,6 +590,92 @@ class LocalExperiment:
         with self._ckpt_lock:
             self._resume_verdicts[rid] = (sid, stats)
         return True
+
+    # -- PBT clone materialization -----------------------------------------
+
+    def _clone_source_checkpoint(self, src_rid: int) -> Optional[str]:
+        """The exploit parent's newest USABLE checkpoint uuid: its recorded
+        result/journal checkpoint, walked through the manifest lineage the
+        same way crash-resume walks it."""
+        res = self.results.get(src_rid)
+        sid = res.checkpoint if res is not None else None
+        if sid is None:
+            with self._ckpt_lock:
+                sid = self._journaled_ckpts.get(src_rid)
+        return self._verified_resume_checkpoint(src_rid, sid)
+
+    def _materialize_clone(self, rid: int, src_rid: int) -> Optional[str]:
+        """Copy the clone source's checkpoint into trial ``rid``'s namespace
+        (same uuid) THROUGH the storage manager, and journal the provenance.
+        Returns the uuid to resume from, or None (the child then starts from
+        scratch, which is degraded but legal: a GC'd or corrupt parent must
+        not kill the search)."""
+        from determined_tpu_torch.storage import from_string
+
+        with get_tracer().span("trial.clone", cat="searcher", trial=rid, source=src_rid):
+            sid = self._clone_source_checkpoint(src_rid)
+            if sid is None:
+                logger.warning(
+                    "trial %d: exploit source trial %d has no usable checkpoint; the "
+                    "child starts from scratch", rid, src_rid,
+                )
+                return None
+            dst = os.path.join(self._trial_checkpoint_dir(rid), sid)
+            steps = 0
+            try:
+                manager = from_string(self.checkpoint_dir)
+                with tempfile.TemporaryDirectory(prefix="dtt-clone-") as staging:
+                    local = os.path.join(staging, sid)
+                    if os.path.isdir(dst) and self._clone_dir_usable(dst):
+                        local = dst  # already materialized (resume re-run)
+                    else:
+                        # a dir that exists but fails verification is a
+                        # half-written copy from a crash mid-materialize:
+                        # re-copy rather than resume the child from poison
+                        if os.path.isdir(dst):
+                            shutil.rmtree(dst, ignore_errors=True)
+                        manager.download(f"trial_{src_rid}/{sid}", local)
+                        manager.upload(local, f"trial_{rid}/{sid}")
+                    try:
+                        with open(os.path.join(local, "metadata.json")) as f:
+                            steps = int(json.load(f).get("steps_completed") or 0)
+                    except (OSError, ValueError, TypeError):
+                        steps = 0
+            except Exception:  # noqa: BLE001 - degrade to fresh init
+                logger.exception(
+                    "trial %d: failed to materialize clone of trial %d checkpoint %s; the "
+                    "child starts from scratch", rid, src_rid, sid,
+                )
+                return None
+            with self._ckpt_lock:
+                self._clone_base_steps[rid] = steps
+                already = self._journaled_ckpts.get(rid) == sid
+                self._journaled_ckpts[rid] = sid
+            if self.journal is not None and not already:
+                self.journal.append("trial_cloned", rid=rid, source=src_rid, uuid=sid, steps=steps)
+            get_tracer().counter("searcher.clones_materialized", 1.0)
+            logger.info(
+                "trial %d: cloned from trial %d checkpoint %s (step %d)", rid, src_rid, sid, steps,
+            )
+            return sid
+
+    def _clone_dir_usable(self, path: str) -> bool:
+        """Manifest-verify an already-materialized clone, same contract as
+        the resume paths (a crash mid-copy leaves a manifest-less or
+        digest-failing dir)."""
+        if not self.config.fault_tolerance.verify_checkpoints:
+            return True
+        try:
+            core.verify_manifest(path, require_manifest=True)
+            return True
+        except CheckpointCorruptError as e:
+            logger.warning("clone at %s unusable (%s); re-copying", path, e)
+            return False
+
+    def _clone_extended_length(self, max_length: Length, rid: int) -> Length:
+        with self._ckpt_lock:
+            base = self._clone_base_steps.get(rid)
+        return clone_extended_length(max_length, base or 0, logger, context=f"trial {rid}: ")
 
     @staticmethod
     def _checkpoint_parent(path: str) -> Optional[str]:

@@ -1,5 +1,6 @@
 """Models of the port."""
 
+from determined_tpu_torch.models.mnist import MnistCNN, MnistMLP, MnistTrial
 from determined_tpu_torch.models.transformer import (
     LMTrial,
     TransformerConfig,
@@ -13,6 +14,9 @@ from determined_tpu_torch.models.transformer import (
 
 __all__ = [
     "LMTrial",
+    "MnistCNN",
+    "MnistMLP",
+    "MnistTrial",
     "TransformerConfig",
     "TransformerLM",
     "init_kv_cache",

@@ -2,13 +2,16 @@
 training paths.
 
 The part of ``determined_tpu/observability/_tracer.py`` the port uses:
-``get_tracer()``, ``Tracer.span``/``record_span``, ``gauge``, ``counter``
-and ``enabled``, under the same names.  Serving
+``get_tracer()``, ``Tracer.span``/``record_span``, ``instant``, ``gauge``,
+``counter`` and ``enabled``, under the same names.  Serving
 spans ``serve.admit``, ``serve.prefill``, ``serve.decode``,
 ``serve.kv_alloc`` and gauges ``serve.queue_depth``,
 ``serve.kv_utilization``; training spans ``data.wait``, ``step.dispatch``,
 ``step.boundary_block``, ``validate``, ``data.fetch``, ``data.h2d`` and
-counters ``train.steps``, ``train.samples``, ``train.tokens`` (summed).
+counters ``train.steps``, ``train.samples``, ``train.tokens`` (summed);
+search spans ``trial.run``, ``trial.clone``, the instant
+``searcher.pbt.generation`` and counters ``searcher.pbt.clones``,
+``searcher.clones_materialized``.
 Spans land in a bounded buffer (the oldest drop first) that ``spans()``
 reads; ``chip_smoke.py`` takes the decode-step time from it.  Span times are
 host wall-clock; a training step's span ends when its work is queued on the
@@ -70,6 +73,13 @@ class Tracer:
     def span(self, name: str, cat: str = "misc", **args: Any) -> "_Span":
         """Context-manager span."""
         return _Span(self, name, cat, args or None)
+
+    def instant(self, name: str, cat: str = "misc", **args: Any) -> None:
+        """A point event: a span of zero duration (``searcher.pbt.generation``)."""
+        if not self.enabled:
+            return
+        t = time.monotonic()
+        self.record_span(name, cat, t, t, args or None)
 
     def gauge(self, name: str, value: float) -> None:
         """Point-in-time gauge (the last value wins)."""

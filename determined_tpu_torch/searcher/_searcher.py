@@ -1,9 +1,10 @@
-"""Searcher driver: event dispatch and state tracking.
+"""The searcher: event dispatch, state tracking, simulation harness.
 
-A copy of ``determined_tpu/searcher/_searcher.py``.  ``method_from_config``
-builds ``single``, ``grid`` and ``random``; ``asha``, ``adaptive_asha``,
-``hyperband`` and ``pbt``, and the simulation harness, raise
-``NotImplementedError``: they come with a later slice of the port.
+A copy of ``determined_tpu/searcher/_searcher.py``: ``method_from_config``
+builds every method (single, grid, random, asha, adaptive_asha, hyperband,
+pbt); ``Searcher`` is the stateful wrapper the experiment drives;
+``simulate`` is the legacy dry run over a synthetic trial function
+(``searcher/simulate.py`` holds the full harness).
 """
 
 from __future__ import annotations
@@ -11,9 +12,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
-from determined_tpu_torch.config.experiment import InvalidExperimentConfig, SearcherConfig
+from determined_tpu_torch.config.experiment import (
+    ExperimentConfig,
+    InvalidExperimentConfig,
+    SearcherConfig,
+)
 from determined_tpu_torch.searcher._base import (
     Action,
     Create,
@@ -23,15 +28,20 @@ from determined_tpu_torch.searcher._base import (
     Shutdown,
     Stop,
 )
+from determined_tpu_torch.searcher._hyperband import HyperbandSearch
+from determined_tpu_torch.searcher._pbt import PBTSearch
+from determined_tpu_torch.searcher.adaptive import make_adaptive_asha
+from determined_tpu_torch.searcher.asha import ASHASearch
 from determined_tpu_torch.searcher.methods import GridSearch, RandomSearch, SingleSearch
-
-_LATER_METHODS = ("asha", "adaptive_asha", "hyperband", "pbt")
 
 
 def method_from_config(
     cfg: SearcherConfig, hparams: Dict[str, Any]
 ) -> SearchMethod:
     """Build the SearchMethod an experiment config asks for."""
+    max_time = cfg.max_time
+    if max_time is None and cfg.max_length is not None:
+        max_time = cfg.max_length.units
     if cfg.name == "driver":
         # the master-side stub for cluster-driven searches: the config the
         # master stores has its searcher REWRITTEN to this name; a driver
@@ -48,11 +58,50 @@ def method_from_config(
         return RandomSearch(cfg.max_trials, cfg.max_concurrent_trials)
     if cfg.name == "grid":
         return GridSearch(hparams, cfg.max_concurrent_trials)
-    if cfg.name in _LATER_METHODS:
-        raise NotImplementedError(
-            f"searcher {cfg.name!r} is not ported to determined_tpu_torch yet "
-            "(single, grid and random are); it comes with a later slice of the "
-            "port (ROADMAP.md, Queue 1)"
+    if cfg.name == "asha":
+        return ASHASearch(
+            metric=cfg.metric,
+            smaller_is_better=cfg.smaller_is_better,
+            max_time=max_time or 100,
+            time_metric=cfg.time_metric or "batches",
+            num_rungs=cfg.num_rungs,
+            divisor=cfg.divisor,
+            max_trials=cfg.max_trials,
+            max_concurrent_trials=cfg.max_concurrent_trials,
+        )
+    if cfg.name == "hyperband":
+        return HyperbandSearch(
+            metric=cfg.metric,
+            smaller_is_better=cfg.smaller_is_better,
+            max_time=max_time or 100,
+            time_metric=cfg.time_metric or "batches",
+            divisor=cfg.divisor,
+            max_trials=cfg.max_trials,
+            max_concurrent_trials=cfg.max_concurrent_trials,
+        )
+    if cfg.name == "pbt":
+        return PBTSearch(
+            metric=cfg.metric,
+            smaller_is_better=cfg.smaller_is_better,
+            population_size=cfg.population_size or max(cfg.max_trials, 2),
+            num_generations=cfg.num_generations,
+            truncate_fraction=cfg.truncate_fraction,
+            perturb_factor=cfg.perturb_factor,
+            resample_probability=cfg.resample_probability,
+            time_metric=cfg.time_metric or "batches",
+        )
+    if cfg.name == "adaptive_asha":
+        return make_adaptive_asha(
+            metric=cfg.metric,
+            smaller_is_better=cfg.smaller_is_better,
+            max_time=max_time or 100,
+            time_metric=cfg.time_metric or "batches",
+            max_trials=cfg.max_trials,
+            max_rungs=cfg.num_rungs,
+            divisor=cfg.divisor,
+            mode=cfg.mode,
+            max_concurrent_trials=cfg.max_concurrent_trials,
+            bracket_rungs=cfg.bracket_rungs,
         )
     raise ValueError(f"unknown searcher {cfg.name!r}")
 
@@ -238,3 +287,38 @@ class Searcher:
         sd = state["shutdown"]
         if sd:
             self.shutdown = Shutdown(**sd) if isinstance(sd, dict) else Shutdown()
+
+
+def simulate(
+    config: ExperimentConfig,
+    trial_fn: Callable[[Dict[str, Any], int], float],
+    *,
+    seed: int = 0,
+    report_period: int = 0,
+) -> Dict[str, Any]:
+    """Run a whole search synchronously against a synthetic trial function.
+
+    ``trial_fn(hparams, time_step) -> metric`` models a trial's validation
+    metric at a given step.  Back-compat wrapper over the full harness in
+    ``searcher/simulate.py`` (curve models, clone inheritance,
+    best-vs-budget reports); clone-based methods see ``time_step`` as the
+    trial's EFFECTIVE units including inherited progress.
+
+    Reference: ``master/pkg/searcher/simulate.go:65``.
+    """
+    from determined_tpu_torch.searcher.simulate import simulate_method
+
+    class _FnModel:
+        def metric(self, hparams: Dict[str, Any], units: float) -> float:
+            return trial_fn(hparams, int(units))
+
+    report = simulate_method(
+        config, _FnModel(), seed=seed, report_period=report_period
+    )
+    return {
+        "trials_created": report.trials_created,
+        "total_units": report.total_units,
+        "best_metric": report.best_metric,
+        "max_time": report.max_time,
+        "trial_units": dict(report.trial_units),
+    }

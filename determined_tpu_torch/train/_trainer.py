@@ -505,6 +505,12 @@ class Trainer:
             raise _later(f"restoring a checkpoint written on mesh {stored_axes} (elastic reshard)")
         with get_tracer().span("checkpoint.load", cat="restore"):
             serialization.restore_arrays(path, self._array_state())
+        # The JAX Trainer grafts freshly built optax ``hyperparams`` over the
+        # restored opt_state here (``_reinject_runtime_hparams``), so that a
+        # PBT child trains with its own perturbed lr, not its parent's.  The
+        # port's optimizer state is (count, mu, nu) alone: the lr lives in
+        # the schedule ``build_optimizer`` made from THIS trial's hparams,
+        # which a restore never touches, so there is nothing to graft.
         self.state.reset_metrics()
         self.steps_completed = int(tstate["steps_completed"])
         self.train_loader.load_state_dict(tstate["train_loader"])

@@ -6,7 +6,7 @@ package's on the CPU.
   of invalid configurations raises ``InvalidExperimentConfig`` in both.
 - ``single``, ``grid`` and ``random`` from one seed create the same trials,
   hyperparameters and request ids, in the same order, and snapshot alike;
-  the methods of later slices raise.
+  asha, adaptive_asha, hyperband and pbt build the JAX package's methods.
 - ``chip_smoke.py``'s experiment dict is ``examples/transformer_lm/const.yaml``
   apart from its listed cuts.
 """
@@ -123,10 +123,22 @@ def test_searchers_create_the_same_trials_as_jax(name):
 
 @pytest.mark.parametrize("name", ["asha", "adaptive_asha", "hyperband", "pbt"])
 def test_searchers_of_later_slices_raise(name):
-    cfg = ExperimentConfig.parse({"searcher": {"name": name, "max_trials": 4,
-                                               "max_length": {"batches": 8}}})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        method_from_config(cfg.searcher, cfg.hyperparameters)
+    """The searchers that once waited for a later slice of the port (and
+    raised, whence the test's name, kept so its history reads on) now
+    build: each is the JAX package's method with the same state
+    (tests/test_torch_searcher.py drives them); an unknown name raises in
+    both."""
+    raw = {"searcher": {"name": name, "max_trials": 4, "max_length": {"batches": 8}}}
+    cfg, jcfg = ExperimentConfig.parse(raw), JaxExperimentConfig.parse(raw)
+    got = method_from_config(cfg.searcher, cfg.hyperparameters)
+    want = jax_method_from_config(jcfg.searcher, jcfg.hyperparameters)
+    assert type(got).__name__ == type(want).__name__
+    assert got.state_dict() == want.state_dict()
+    bad = {"searcher": dict(raw["searcher"], name=name + "_x")}
+    with pytest.raises(InvalidExperimentConfig):
+        ExperimentConfig.parse(bad)
+    with pytest.raises(JaxInvalid):
+        JaxExperimentConfig.parse(bad)
 
 
 def test_chip_smoke_experiment_is_const_yaml_apart_from_its_cuts():
