@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (determined_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--seed N]
-        [--phases kernel,serve,parity,train,train_parity,experiment,search]
+        [--phases kernel,serve,parity,train,train_parity,experiment,search,observe]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -32,7 +32,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    moment) through init -> Trainer(LMTrial).fit for 25 steps with a
    validation pass; step time, tokens/s and MFU, the losses, the launch
    counts (set to 0 just before fit, read just after) and a profile of
-   three more steps.
+   three more steps, its device time grouped by the package's op table
+   (determined_tpu_torch/utils/kineto.py).
 6. train_parity: a 2-layer f32 LM trains 3 steps on the card through the
    kernels and on the CPU through the plain versions, from the same weights
    and batches; losses, weight updates and moments are compared.
@@ -95,6 +96,25 @@ Phases, in order; any failure raises and the script exits non-zero:
        counts are read, fused_adamw is held against its plain version with
        each optimizer the trials built (no decay, no clip, f32 first moment)
        at every leaf shape they trained and at MNIST_ADAMW_SHAPES.
+9. observe: const.yaml's flagship (OBSERVE_CUTS, each printed: 12 steps,
+   one validation pass at the end, no checkpoint) through LocalExperiment
+   with observability.trace_export and a torch.profiler window over its
+   first 3 steps, opened through the trial's core context.  The launch
+   counters are set to 0 just before the run and read just after.  Checks:
+   traces/events.jsonl, trace.json and goodput.json exist; the ledger has
+   one trial with 12 steps and 12 x 8 x 1024 tokens exactly, no dropped
+   events, and step, setup and validate rows; the window's op table
+   (utils/kineto.py) counts exactly 8 launches a step of each flash kernel
+   and 75 of fused_adamw; the profile metrics row holds an op table and
+   category totals; the system sampler (OBSERVE_SAMPLE_CUT: every 0.5 s)
+   reports at least one row, each with the host memory keys and the card's
+   device0_bytes_in_use/_bytes_limit/_hbm_util_pct, the limit equal to
+   mem_get_info's and the bytes in use within the run's peak, and a sample
+   taken after the run agrees with memory_allocated(); `experiment profile` (whose --json ledger equals
+   goodput.json) and `experiment status` (completed) exit 0 as
+   subprocesses.  Printed: the ledger's shares, seconds by category,
+   tokens/s and MFU (beside phase 5's), the traced steps' host time beside
+   the untraced ones, both traces' sizes and the phase's seconds.
 
 Prints, before the last line, the kernels line (JSON) and the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.
@@ -335,7 +355,36 @@ SEARCH_MNIST_CUTS = [
      "a fresh temporary directory outside the repo, deleted at the end"),
 ]
 
-PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search")
+# phase 9: const.yaml (EXPERIMENT_CONST) traced: the tracer's export and a
+# torch.profiler window; each change is (dotted key, the file's value, this
+# run's value, why)
+OBSERVE_STEPS = 12
+OBSERVE_WINDOW = 3
+# the profiler's system sampler: (its default interval, this run's, why)
+OBSERVE_SAMPLE_CUT = (10.0, 0.5, "the run is shorter than one default interval: a sample "
+                      "every 0.5 s holds the device memory keys on the card")
+OBSERVE_CUTS = [
+    ("searcher.max_length", {"batches": 1000}, {"batches": OBSERVE_STEPS},
+     f"{OBSERVE_STEPS} steps: a {OBSERVE_WINDOW}-step trace window, then untraced steps"),
+    ("min_validation_period", {"batches": 200}, {"batches": OBSERVE_STEPS},
+     "one validation pass, at the end (outside the trace window)"),
+    ("checkpoint_policy", None, "none",
+     "no checkpoint: a flagship save takes about 26.6 s, and phase 7 measures saves"),
+    ("hyperparameters.dataset_size", 4096, 128,
+     "one validation pass is 16 full-width batches, not 512"),
+    ("observability", None, {"enabled": True, "trace_export": True},
+     "the tracer's events exported: traces/events.jsonl, trace.json, goodput.json"),
+    ("profiling", None, {"enabled": True, "trace": True, "end_after_batch": OBSERVE_WINDOW},
+     f"a torch.profiler window over the first {OBSERVE_WINDOW} steps, opened through the "
+     "trial's core context"),
+    ("checkpoint_storage.host_path", "/tmp/dtpu-checkpoints", "<temp dir>",
+     "a fresh temporary directory outside the repo, deleted at the end"),
+    ("reproducibility.experiment_seed", None, "<--seed>",
+     "the trial's weights and data from the run's --seed"),
+]
+
+PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search",
+          "observe")
 
 
 def log(msg: str) -> None:
@@ -732,10 +781,10 @@ def phase_serve(seed: int, model) -> dict:
         f"{cfg.n_layers} layers"
     )
     generated = sum(len(b["tokens"]) for _, b in responses)
-    decode_s = [s[3] for s in tracer.spans("serve.decode")]
-    prefill = tracer.spans("serve.prefill")
-    cold_s = [s[3] for s in prefill if not s[4]["cached_tokens"]]
-    warm_s = [s[3] for s in prefill if s[4]["cached_tokens"]]
+    decode_s = _span_seconds(tracer, "serve.decode")
+    prefill = _spans(tracer, "serve.prefill")
+    cold_s = [s[1] for s in prefill if not s[2]["cached_tokens"]]
+    warm_s = [s[1] for s in prefill if s[2]["cached_tokens"]]
     summary = dict(
         requests=len(prompts),
         generated_tokens=generated,
@@ -928,13 +977,19 @@ def phase_train(seed: int) -> dict:
 
 
 def profile_train(trainer, steps: int = 3) -> dict:
-    """Device time by kernel over ``steps`` training steps, traced with
-    torch.profiler, and the device-busy share of the traced window (tracing
-    adds host time, so the share is a lower bound of the untraced one)."""
+    """Device time by kernel group over ``steps`` training steps, traced
+    with torch.profiler and folded by the package's op table
+    (``determined_tpu_torch/utils/kineto.py``), and the device-busy share of
+    the traced window (tracing adds host time, so the share is a lower
+    bound of the untraced one)."""
+    import os
+    import tempfile
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from determined_tpu_torch.data import to_device
+    from determined_tpu_torch.utils import kineto
 
     it = iter(trainer.train_loader)
     batches = [to_device(next(it), trainer.device) for _ in range(steps + 1)]
@@ -946,37 +1001,24 @@ def profile_train(trainer, steps: int = 3) -> dict:
             trainer._train_step(b)
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in cuda)
-    groups: dict = {}
-    for e in cuda:
-        name = e.key.lower()
-        if "flash_bwd_dq" in name:
-            g = "flash_bwd_dq"
-        elif "flash_bwd_dkv" in name:
-            g = "flash_bwd_dkv"
-        elif "flash_fwd" in name:
-            g = "flash_fwd"
-        elif "adamw" in name:
-            g = "fused_adamw"
-        elif any(t in name for t in ("gemm", "cutlass", "nvjet", "sm90_xmma", "cublas")):
-            g = "matmul (cuBLAS)"
-        elif "reduce" in name or "norm" in name:
-            g = "reductions"
-        else:
-            g = "elementwise, copies and casts"
-        groups[g] = groups.get(g, 0.0) + e.self_device_time_total
-    top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:12]
+    with tempfile.TemporaryDirectory(prefix="dtt-chip-profile-") as d:
+        path = os.path.join(d, "train.pt.trace.json")
+        prof.export_chrome_trace(path)
+        ops = kineto.op_table([path])
+    groups = kineto.category_totals(ops)
+    device_us = sum(groups.values())
     out = dict(
         traced_step_ms=wall_us / steps / 1e3,
         device_ms_per_step=device_us / steps / 1e3,
         device_busy_share=device_us / wall_us,
-        device_ops_per_step=sum(e.count for e in cuda) / steps,
-        device_ms_per_step_by_group={
-            k: v / steps / 1e3 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])
+        device_ops_per_step=sum(op["count"] for op in ops) / steps,
+        device_ms_per_step_by_group={k: v / steps / 1e3 for k, v in groups.items()},
+        launches_per_step_by_group={
+            k: v / steps for k, v in kineto.category_counts(ops).items()
         },
         top_kernels_ms_per_step=[
-            [e.key[:90], e.self_device_time_total / steps / 1e3, e.count // steps] for e in top
+            [op["name"][:90], op["time_us"] / steps / 1e3, op["count"] // steps]
+            for op in ops[:12]
         ],
     )
     log(f"train profile ({steps} steps): " + json.dumps(out))
@@ -1108,8 +1150,16 @@ def _capturing_trial():
     return SmokeLMTrial, Capture.trainers, Capture.started
 
 
+def _spans(tracer, name: str) -> list:
+    """(start, seconds, args) of every ``name`` span the tracer holds, by
+    start time (seconds from the tracer's epoch)."""
+    spans = [(e["ts"] / 1e6, e["dur"] / 1e6, e.get("args") or {})
+             for e in tracer.chrome_events() if e["ph"] == "X" and e["name"] == name]
+    return sorted(spans, key=lambda s: s[0])
+
+
 def _span_seconds(tracer, name: str) -> list:
-    return [s[3] for s in tracer.spans(name)]
+    return [s[1] for s in _spans(tracer, name)]
 
 
 def _host_steps(tracer) -> dict:
@@ -1119,10 +1169,10 @@ def _host_steps(tracer) -> dict:
     of its write (``torch.save``), or nothing.  Intervals that hold a
     boundary (report, validation, a save) are left out, and so is the first
     step (the warm-up)."""
-    starts = [s[2] for s in tracer.spans("data.wait")]
+    starts = [s[0] for s in _spans(tracer, "data.wait")]
 
     def intervals(*names):
-        return [(s[2], s[2] + s[3]) for name in names for s in tracer.spans(name)]
+        return [(s[0], s[0] + s[1]) for name in names for s in _spans(tracer, name)]
 
     copies, writes = intervals("checkpoint.copy"), intervals("checkpoint.write")
     boundaries = intervals("step.boundary_block", "validate", "checkpoint.save",
@@ -1386,7 +1436,7 @@ def phase_experiment(seed: int) -> dict:
 
         supervisor = TrialSupervisor(factory, policy=train.RestartPolicy.from_exp_config(d_cfg))
         faults.set_fault_injector(_StepHook(CRASH_AT, crash))
-        n_restores = len(tracer.spans("checkpoint.restore"))
+        n_restores = len(_spans(tracer, "checkpoint.restore"))
         t0 = time.monotonic()
         try:
             with _device_memory(memory, "D"):
@@ -1488,7 +1538,7 @@ def _measured_experiment_cls():
 
         def _run_trial(self, create):
             tracer = get_tracer()
-            seen = {name: len(tracer.spans(name)) for name in _TRIAL_SPANS}
+            seen = {name: len(_spans(tracer, name)) for name in _TRIAL_SPANS}
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.memory_allocated()
             t0 = time.monotonic()
@@ -1851,6 +1901,204 @@ def phase_search(seed: int) -> dict:
     return out
 
 
+
+
+# ---------------------------------------------------------------------------
+# phase 9: observe (the tracer's export, the ledger, a torch.profiler window)
+# ---------------------------------------------------------------------------
+
+
+def observe_raw_config(ckpt_dir: str, seed: int) -> dict:
+    """EXPERIMENT_CONST with OBSERVE_CUTS applied."""
+    return _apply_cuts(EXPERIMENT_CONST, OBSERVE_CUTS, {"<temp dir>": ckpt_dir,
+                                                       "<--seed>": seed})
+
+
+def _observed_trial():
+    """LMTrial that turns its core context's profiler on from the
+    experiment's ``profiling`` section (as the JAX package's cluster entry
+    point does; the local runner never does), and keeps that core context
+    and the seconds each trace window took to close."""
+    from determined_tpu_torch.models import LMTrial
+
+    class ObservedLMTrial(LMTrial):
+        cores: list = []
+        stop_s: list = []
+
+        def __init__(self, context) -> None:
+            super().__init__(context)
+            profiler = context.core.profiler
+            stop = profiler.stop_trace
+
+            def timed_stop() -> None:
+                if profiler.tracing:
+                    t0 = time.monotonic()
+                    stop()
+                    ObservedLMTrial.stop_s.append(time.monotonic() - t0)
+
+            profiler.stop_trace = timed_stop
+            ObservedLMTrial.cores.append(context.core)
+            prof = context.exp_config.profiling
+            if prof.get("enabled"):
+                profiler.on(sampling=True, trace=bool(prof.get("trace")))
+
+    return ObservedLMTrial
+
+
+def phase_observe(seed: int, train_mfu) -> dict:
+    """Phase 9: const.yaml's flagship through LocalExperiment with the
+    tracer exported and a torch.profiler window over its first steps; the
+    files, the ledger, the window's op table, the ``profile`` row and the
+    ``experiment profile`` / ``status`` verbs are checked."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.core import ProfilerContext
+    from determined_tpu_torch.core._profiler import _cuda_memory_stats
+    from determined_tpu_torch.experiment import LocalExperiment
+    from determined_tpu_torch.observability import get_tracer
+    from determined_tpu_torch.utils import kineto
+
+    root = tempfile.mkdtemp(prefix="dtt-chip-observe-")
+    for path, const, value, why in OBSERVE_CUTS:
+        value = seed if value == "<--seed>" else value
+        log(f"observe cut: {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
+    default_interval, interval, why = OBSERVE_SAMPLE_CUT
+    assert ProfilerContext.SAMPLE_INTERVAL == default_interval, ProfilerContext.SAMPLE_INTERVAL
+    log(f"observe cut: ProfilerContext.SAMPLE_INTERVAL {default_interval} -> {interval} ({why})")
+    trial_cls = _observed_trial()
+    t_phase = time.monotonic()
+    ProfilerContext.SAMPLE_INTERVAL = interval
+    try:
+        cfg = ExperimentConfig.parse(observe_raw_config(root, seed))
+        _reset_launches()  # counts from here on are the traced run's
+        t0 = time.monotonic()
+        summary = LocalExperiment(cfg, trial_cls, checkpoint_dir=root).run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = _launch_counts()
+        log(f"observe run: {wall:.1f} s, " + json.dumps(summary))
+        assert summary["status"] == "completed" and summary["total_steps"] == OBSERVE_STEPS
+
+        # ---- the tracer's files and the ledger --------------------------------
+        traces = os.path.join(root, "traces")
+        for name in ("events.jsonl", "trace.json", "goodput.json"):
+            assert os.path.isfile(os.path.join(traces, name)), f"traces/{name} missing"
+        with open(os.path.join(traces, "goodput.json")) as f:
+            ledger = json.load(f)
+        hp = cfg.hyperparameters
+        tokens = OBSERVE_STEPS * hp["global_batch_size"].val * hp["seq_len"].val
+        (rid, trial), = ledger["trials"].items()
+        assert trial.get("steps") == OBSERVE_STEPS, trial
+        assert trial.get("tokens") == tokens, (trial.get("tokens"), tokens)
+        assert ledger["dropped_events"] == 0, ledger["dropped_events"]
+        assert {"step", "setup", "validate"} <= set(trial["breakdown"]), trial["breakdown"]
+        exp = ledger["experiment"]
+        goodput = dict(
+            attributed_pct=exp["attributed_pct"], productive_pct=exp["productive_pct"],
+            seconds_by_category={k: v["seconds"] for k, v in exp["breakdown"].items()},
+            trial_wall_s=trial["wall_s"], trial_tokens_per_s=trial.get("tokens_per_s"),
+            trial_mfu=trial.get("mfu_estimate"), phase5_mfu=train_mfu,
+            experiment_wall_s=exp["wall_s"], events=len(get_tracer().chrome_events()),
+        )
+        log("observe ledger: " + json.dumps(goodput))
+
+        # ---- the profiler's window: its op table and the profile row ----------
+        files = kineto.trace_files(os.path.join(traces, "torch_profiler"))
+        assert len(files) == 1, files
+        ops = kineto.op_table(files)
+        counts = kineto.category_counts(ops)
+        (core_ctx,) = trial_cls.cores
+        layers, n_leaves = hp["n_layers"].val, 75
+        want_window = dict(flash_fwd=layers * OBSERVE_WINDOW, flash_bwd_dq=layers * OBSERVE_WINDOW,
+                           flash_bwd_dkv=layers * OBSERVE_WINDOW,
+                           fused_adamw=n_leaves * OBSERVE_WINDOW)
+        got_window = {k: counts.get(k, 0) for k in want_window}
+        log("observe window launches: " + json.dumps(got_window))
+        assert got_window == want_window, f"window launches {got_window} != {want_window}"
+        (_step, row), = core_ctx.train.metrics("profile")
+        assert row["op_table"] and all("time_us" in op for op in row["op_table"]), row
+        assert row["category_totals"], row
+        # the sampler's rows: host keys and the card's memory keys, the limit
+        # the card's own and the bytes in use never above the run's peak
+        samples = core_ctx.train.metrics("system_metrics")
+        assert samples, "the system sampler reported no row"
+        device_keys = ("device0_bytes_in_use", "device0_bytes_limit", "device0_hbm_util_pct")
+        _free, card_bytes = torch.cuda.mem_get_info(0)
+        peak = torch.cuda.max_memory_allocated(0)
+        for _, m in samples:
+            # cpu_util_pct is left out of a row when /proc/stat did not move
+            # between two samples, as in the JAX sampler
+            assert "memory_used_bytes" in m and all(k in m for k in device_keys), m
+            assert m["device0_bytes_limit"] == card_bytes, (m, card_bytes)
+            assert 0 < m["device0_bytes_in_use"] <= peak, (m, peak)
+            share = 100.0 * m["device0_bytes_in_use"] / card_bytes
+            assert abs(m["device0_hbm_util_pct"] - share) <= 1e-9, (m, share)
+        # and one sample taken now, against the allocator's own count
+        now = _cuda_memory_stats()
+        allocated = torch.cuda.memory_allocated(0)
+        assert abs(now["device0_bytes_in_use"] - allocated) <= 1 << 20, (now, allocated)
+        assert now["device0_bytes_limit"] == card_bytes, (now, card_bytes)
+        n_val = 16  # dataset_size 128 at a global batch of 8
+        want = dict(flash_fwd=layers * (OBSERVE_STEPS + n_val),
+                    flash_bwd_dq=layers * OBSERVE_STEPS, flash_bwd_dkv=layers * OBSERVE_STEPS,
+                    fused_adamw=n_leaves * OBSERVE_STEPS)
+        assert launches == want, f"launches {launches} != expected {want}"
+        window = dict(
+            trace_bytes=os.path.getsize(files[0]),
+            tracer_trace_bytes=os.path.getsize(os.path.join(traces, "trace.json")),
+            stop_s=trial_cls.stop_s,
+            device_ms_by_category={k: v / 1e3 for k, v in kineto.category_totals(ops).items()},
+            top_kernels=[[op["name"][:90], op["time_us"] / 1e3, op["count"]] for op in ops[:10]],
+            profile_row_ops=len(row["op_table"]), system_metrics_rows=len(samples),
+            device0_bytes_in_use_max=max(m["device0_bytes_in_use"] for _, m in samples),
+            device0_bytes_limit=card_bytes,
+        )
+        log("observe window: " + json.dumps(window))
+
+        # ---- host time of the traced steps against the untraced ones ----------
+        # step k's interval runs from its data.wait start to the next one's;
+        # the window closes inside step OBSERVE_WINDOW's interval
+        starts = [s[0] for s in _spans(get_tracer(), "data.wait")]
+        assert len(starts) == OBSERVE_STEPS, len(starts)
+        step_ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+        host = dict(
+            traced_steps_ms=step_ms[:OBSERVE_WINDOW - 1],
+            window_close_step_ms=step_ms[OBSERVE_WINDOW - 1],
+            untraced_steps_ms=step_ms[OBSERVE_WINDOW:],
+            mean_untraced_ms=statistics.mean(step_ms[OBSERVE_WINDOW:]),
+        )
+        log("observe host steps: " + json.dumps(host))
+
+        # ---- the CLI verbs, as a user runs them ----------------------------------
+        here = os.path.dirname(os.path.abspath(__file__))
+
+        def cli(*args):
+            proc = subprocess.run(
+                [sys.executable, "-m", "determined_tpu_torch.cli", "experiment", *args, root],
+                cwd=here, capture_output=True, text=True, timeout=300,
+            )
+            assert proc.returncode == 0, (args, proc.returncode, proc.stderr[-2000:])
+            return proc.stdout
+
+        log("observe `experiment profile`:\n" + cli("profile"))
+        cli_ledger = json.loads(cli("profile", "--json"))["ledger"]
+        assert cli_ledger == ledger, "the CLI's ledger (events.jsonl) differs from goodput.json"
+        log("observe `experiment status`:\n" + cli("status"))
+        assert json.loads(cli("status", "--json"))["status"] == "completed"
+    finally:
+        ProfilerContext.SAMPLE_INTERVAL = default_interval
+        shutil.rmtree(root, ignore_errors=True)
+    out = dict(wall_s=wall, phase_s=time.monotonic() - t_phase, launches=launches,
+               window_launches=got_window, goodput=goodput, window=window, host_steps=host)
+    log(f"observe: phase {out['phase_s']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1918,6 +2166,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         search = phase_search(args.seed)
+    observe = None
+    if "observe" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        observe = phase_observe(args.seed, trained and trained["mfu_vs_989_tflops"])
 
     if kernel and serve is not None and trained is not None:
         rows = []
@@ -1928,6 +2181,8 @@ def main() -> int:
             if experiment is not None:
                 by_phase["experiment_resume"] = experiment["launches"][name]
             fields = dict(kernel[name])
+            if observe is not None:
+                by_phase["observe"] = observe["launches"][name]
             if search is not None:
                 by_phase["search"] = search["launches"][name]
                 if name == "fused_adamw":  # also held at S3's leaves

@@ -5,6 +5,8 @@
         [--checkpoint-dir DIR]
     python -m determined_tpu_torch.cli experiment run CONFIG [ENTRYPOINT] [--checkpoint-dir DIR]
     python -m determined_tpu_torch.cli experiment resume DIR [--entrypoint E]
+    python -m determined_tpu_torch.cli experiment status DIR [--json]
+    python -m determined_tpu_torch.cli experiment profile DIR [--json] [--trace-dir DIR]
     python -m determined_tpu_torch.cli searcher simulate [-c CONFIG] [--methods M,...] \\
         [--seed N] [--period N] [--journal PATH] [--json]
     python -m determined_tpu_torch.cli preview-search CONFIG [--native]
@@ -12,7 +14,12 @@
 The search runs in this process on the GPU (it raises without one; the
 Python API takes ``device="cpu"`` for small runs).  Exit code 0: the
 experiment finished; 75: it was preempted and ``experiment resume`` carries
-it on.  ``searcher simulate`` and ``preview-search`` run no trial and need no
+it on.  ``experiment status`` digests a local experiment's journal and
+``experiment profile`` prints its goodput ledger (from the traces that
+``observability.trace_export`` writes) and the op table of a
+``torch.profiler`` window (``--trace-dir``, where the JAX CLI takes
+``--xplane``); both exit 2 when there is nothing to read.
+``searcher simulate`` and ``preview-search`` run no trial and need no
 device: they replay search methods against curve models (``--native`` asks
 the master's C++ searcher, ``dtpu-master --simulate``, built from
 ``native/``).  The cluster verbs (``--cluster``, the master's experiments)
@@ -26,11 +33,21 @@ import importlib
 import json
 import os
 import sys
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 
 def _print_json(obj: Any) -> None:
     print(json.dumps(obj, indent=2, sort_keys=True, default=str))
+
+
+def _table(rows: List[Dict[str, Any]], cols: List[str]) -> None:
+    if not rows:
+        print("(none)")
+        return
+    widths = {c: max(len(c), *(len(str(r.get(c, ""))) for r in rows)) for c in cols}
+    print("  ".join(c.upper().ljust(widths[c]) for c in cols))
+    for r in rows:
+        print("  ".join(str(r.get(c, "")).ljust(widths[c]) for c in cols))
 
 
 def _trial_class(entrypoint: str) -> type:
@@ -117,6 +134,108 @@ def exp_resume_local(args) -> int:
         return 2
     _print_json(summary)
     return PREEMPTED_EXIT_CODE if summary.get("status") == "preempted" else 0
+
+
+def exp_status_local(args) -> int:
+    """Digest a local experiment's journal: what completed, what is in
+    flight, whether the directory is resumable."""
+    from determined_tpu_torch.experiment import ExperimentJournalError, experiment_status
+
+    try:
+        st = experiment_status(args.checkpoint_dir)
+    except ExperimentJournalError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        _print_json(st)
+        return 0
+    print(f"experiment:  {st['name'] or '(unnamed)'}")
+    print(f"status:      {st['status']}" + ("  (resumable)" if st["resumable"] else ""))
+    print(f"entrypoint:  {st['entrypoint'] or '(unknown)'}")
+    if st.get("cluster"):
+        # a cluster experiment's journal: name the master it is attached to
+        print(
+            f"cluster:     experiment {st['cluster']['experiment_id']} "
+            f"at {st['cluster']['master_url']}"
+        )
+    print(
+        f"trials:      {st['trials_completed']} completed, "
+        f"{st['trials_in_flight']} in flight, {st['trials_created']} created"
+    )
+    _table(
+        [
+            {
+                "trial": t["request_id"],
+                "state": t["state"],
+                "steps": t["steps_completed"] if t["steps_completed"] is not None else "",
+                "checkpoint": t["checkpoint"] or "",
+            }
+            for t in st["trials"]
+        ],
+        ["trial", "state", "steps", "checkpoint"],
+    )
+    return 0
+
+
+def exp_profile_local(args) -> int:
+    """Goodput ledger of a local experiment directory: where every second
+    of wall-clock went.  Reads the Chrome trace events exported under
+    ``<dir>/traces/`` (``observability.trace_export: true``); the
+    ``torch.profiler`` windows under ``--trace-dir`` (default
+    ``<dir>/traces/torch_profiler``) add the device's op table, so the
+    host timeline can be checked against device truth."""
+    from determined_tpu_torch.observability import (
+        compute_ledger,
+        format_ledger_text,
+        load_trace_events,
+    )
+
+    traces_dir = os.path.join(args.checkpoint_dir, "traces")
+    events = load_trace_events(traces_dir)
+    if not events:
+        print(
+            f"error: no trace events under {traces_dir} (run the experiment "
+            "with observability.trace_export: true)",
+            file=sys.stderr,
+        )
+        return 2
+    ledger = compute_ledger(events)
+
+    # optional device-side cross-check: torch.profiler windows
+    # (profiling.trace) folded into an op table by utils/kineto.py
+    device_summary = None
+    trace_dir = args.trace_dir or os.path.join(traces_dir, "torch_profiler")
+    if args.trace_dir and not os.path.isdir(args.trace_dir):
+        # an explicit request that cannot be honoured must not be silent
+        # (the default-path probe, by contrast, is best-effort)
+        print(f"warning: --trace-dir {args.trace_dir} is not a directory", file=sys.stderr)
+    if os.path.isdir(trace_dir):
+        try:
+            from determined_tpu_torch.utils import kineto
+
+            ops = kineto.op_table(trace_dir)
+            coll, other = kineto.split_collectives(ops)
+            device_summary = {
+                "top_ops": ops[:10],
+                "category_totals": kineto.category_totals(ops),
+                "collective_us": coll,
+                "compute_us": other,
+            }
+        except Exception as e:  # noqa: BLE001 - best effort
+            device_summary = {"error": str(e)}
+
+    if args.json:
+        out = {"ledger": ledger}
+        if device_summary is not None:
+            out["torch_profiler"] = device_summary
+        _print_json(out)
+        return 0
+    print(format_ledger_text(ledger))
+    if device_summary and "category_totals" in device_summary:
+        print("\ntorch.profiler device-time categories (us):")
+        for cat, us in list(device_summary["category_totals"].items())[:8]:
+            print(f"  {cat:<24} {us:>12.1f}")
+    return 0
 
 
 # ---- searcher simulation (trial-free; no device) ------------------------------
@@ -286,6 +405,20 @@ def build_parser() -> argparse.ArgumentParser:
     rs.add_argument("checkpoint_dir")
     rs.add_argument("--entrypoint", help="pkg.module:TrialClass (default: from the journal)")
     rs.set_defaults(fn=exp_resume_local)
+    st = exp.add_parser("status", help="journal-backed status of a local experiment directory")
+    st.add_argument("checkpoint_dir")
+    st.add_argument("--json", action="store_true", help="machine-readable output")
+    st.set_defaults(fn=exp_status_local)
+    pf = exp.add_parser(
+        "profile", help="goodput ledger + phase breakdown from a local experiment's traces"
+    )
+    pf.add_argument("checkpoint_dir")
+    pf.add_argument("--json", action="store_true", help="machine-readable output")
+    pf.add_argument(
+        "--trace-dir",
+        help="directory holding torch.profiler windows (default: <dir>/traces/torch_profiler)",
+    )
+    pf.set_defaults(fn=exp_profile_local)
 
     srch = sub.add_parser("searcher").add_subparsers(dest="verb", required=True)
     sim = srch.add_parser(

@@ -1,5 +1,5 @@
 """Core services of the port: the off-cluster ``_dummy_init`` with its
-checkpoint, preemption and report contexts (the names follow
+checkpoint, preemption, metrics and profiler contexts (the names follow
 ``determined_tpu/core``)."""
 
 from determined_tpu_torch.core._checkpoint import (
@@ -16,11 +16,12 @@ from determined_tpu_torch.core._checkpoint import (
 from determined_tpu_torch.core._context import (
     Context,
     DummyDistributedContext,
-    DummyProfilerContext,
     DummyTrainContext,
     _dummy_init,
 )
+from determined_tpu_torch.core._metrics import MetricsContext
 from determined_tpu_torch.core._preempt import PreemptContext
+from determined_tpu_torch.core._profiler import ProfilerContext
 
 __all__ = [
     "MANIFEST_FILE",
@@ -29,9 +30,10 @@ __all__ = [
     "Context",
     "DummyCheckpointContext",
     "DummyDistributedContext",
-    "DummyProfilerContext",
     "DummyTrainContext",
+    "MetricsContext",
     "PreemptContext",
+    "ProfilerContext",
     "_dummy_init",
     "build_manifest",
     "file_stats",

@@ -1,19 +1,23 @@
 """The off-cluster core context: the part of
 ``determined_tpu/core/_context.py`` (``_dummy_init``) that a single-process
 trial needs.  One rank, checkpoints in a local directory
-(``DummyCheckpointContext``), reports kept in memory and logged, preemption
-by ``simulate()``, no profiler.  Cluster services (master
-session, heartbeats, log shipping, cloud storage) come with a later slice of
-the port."""
+(``DummyCheckpointContext``), reports through the local metrics shipper
+(``MetricsContext``: kept in memory and logged), preemption by ``simulate()``, and the profiler
+(``ProfilerContext``: a system sampler and a ``torch.profiler`` window).
+Cluster services (master session, heartbeats, log shipping, cloud storage)
+come with a later slice of the port."""
 
 from __future__ import annotations
 
 import logging
+import os
 import tempfile
 from typing import Any, Dict, List, Optional, Tuple
 
 from determined_tpu_torch.core._checkpoint import CheckpointContext, DummyCheckpointContext
+from determined_tpu_torch.core._metrics import MetricsContext
 from determined_tpu_torch.core._preempt import PreemptContext
+from determined_tpu_torch.core._profiler import ProfilerContext
 
 logger = logging.getLogger("determined_tpu_torch.core")
 
@@ -35,15 +39,15 @@ class DummyDistributedContext:
 
 
 class DummyTrainContext:
-    """Metric and progress reports, kept in memory (``reports``) and logged."""
+    """Metric and progress reports, through the metrics shipper (which
+    keeps every row in memory) and logged."""
 
-    def __init__(self) -> None:
-        #: (group, steps_completed, metrics) in report order
-        self.reports: List[Tuple[str, int, Dict[str, Any]]] = []
+    def __init__(self, metrics: MetricsContext) -> None:
+        self._metrics = metrics
         self.progress: float = 0.0
 
     def report_metrics(self, group: str, steps_completed: int, metrics: Dict[str, Any]) -> None:
-        self.reports.append((group, int(steps_completed), dict(metrics)))
+        self._metrics.report(group, int(steps_completed), metrics)
         logger.info("%s metrics at step %d: %s", group, steps_completed, metrics)
 
     def report_training_metrics(self, steps_completed: int, metrics: Dict[str, Any]) -> None:
@@ -55,18 +59,10 @@ class DummyTrainContext:
     def report_progress(self, progress: float) -> None:
         self.progress = float(progress)
 
-    def metrics(self, group: str) -> List[Tuple[int, Dict[str, Any]]]:
-        """The reports of one group as (steps_completed, metrics)."""
-        return [(step, m) for g, step, m in self.reports if g == group]
-
-
-class DummyProfilerContext:
-    """No profiler off-cluster: never tracing."""
-
-    tracing = False
-
-    def off(self) -> None:
-        return None
+    def metrics(self, group: str) -> List[Tuple[Optional[int], Dict[str, Any]]]:
+        """The rows of one group as (steps_completed, metrics), the
+        profiler's ``profile`` and ``system_metrics`` rows included."""
+        return [(step, m) for _g, step, m in self._metrics.rows(group)]
 
 
 class Context:
@@ -79,21 +75,25 @@ class Context:
         checkpoint: CheckpointContext,
         train: DummyTrainContext,
         preempt: PreemptContext,
-        profiler: DummyProfilerContext,
+        profiler: ProfilerContext,
+        metrics: MetricsContext,
     ) -> None:
         self.distributed = distributed
         self.checkpoint = checkpoint
         self.train = train
         self.preempt = preempt
         self.profiler = profiler
+        self._metrics = metrics
 
     def start(self) -> "Context":
+        self._metrics.start()
         self.preempt.start()
         return self
 
     def close(self) -> None:
         self.profiler.off()
         self.preempt.close()
+        self._metrics.close()
         self.distributed.close()
 
     def __enter__(self) -> "Context":
@@ -107,16 +107,24 @@ def _dummy_init(
     *,
     distributed: Optional[DummyDistributedContext] = None,
     checkpoint_dir: Optional[str] = None,
+    trace_dir: Optional[str] = None,
 ) -> Context:
     """Fully local Context with zero services; checkpoints go under
-    ``checkpoint_dir`` (a fresh temporary directory when None)."""
+    ``checkpoint_dir`` (a fresh temporary directory when None), metrics
+    are kept in memory, and a profiler window's trace goes under
+    ``trace_dir`` (``<checkpoint_dir>/traces/torch_profiler`` when None)."""
     distributed = distributed or DummyDistributedContext()
     checkpoint_dir = checkpoint_dir or tempfile.mkdtemp(prefix="dtt-dummy-ckpt-")
+    metrics = MetricsContext()
     ctx = Context(
         distributed=distributed,
         checkpoint=DummyCheckpointContext(distributed, checkpoint_dir),
-        train=DummyTrainContext(),
+        train=DummyTrainContext(metrics),
         preempt=PreemptContext(distributed),
-        profiler=DummyProfilerContext(),
+        profiler=ProfilerContext(
+            distributed, metrics,
+            trace_dir=trace_dir or os.path.join(checkpoint_dir, "traces", "torch_profiler"),
+        ),
+        metrics=metrics,
     )
     return ctx.start()

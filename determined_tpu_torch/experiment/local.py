@@ -18,11 +18,18 @@ Live clone sources are kept by the retention pass.
 
 The port runs on one device (``device=``, CUDA unless named), so trials run
 one after another: the serial path (``_run_serial``) is the whole runner.
+With ``observability.trace_export`` the tracer's events stream to
+``checkpoint_dir/traces/events.jsonl`` while the run goes, and the run ends
+by writing ``traces/trace.json`` (Perfetto) and ``traces/goodput.json``
+(the ledger that ``experiment profile`` prints); a trial's profiler window
+(``profiling.trace``) writes its ``torch.profiler`` trace under
+``traces/torch_profiler/trial_<id>/``.
+
 Waiting for later slices of the port, each raising ``NotImplementedError``
 when asked for: the concurrent gang scheduler (needs several devices),
-registry promotion, trace export (``observability.trace_export``) and the
-strict preflight lint; with ``lint.preflight`` on (the default) the runner
-logs once that the preflight lint is not ported and goes on.
+registry promotion and the strict preflight lint; with ``lint.preflight``
+on (the default) the runner logs once that the preflight lint is not
+ported and goes on.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from determined_tpu_torch.experiment.journal import (
     journal_path,
     read_journal,
 )
-from determined_tpu_torch.observability import get_tracer
+from determined_tpu_torch.observability import export_experiment_trace, get_tracer
 from determined_tpu_torch.searcher import Create, method_from_config
 from determined_tpu_torch.train import Trainer, init as train_init
 from determined_tpu_torch.train._trial import TorchTrial
@@ -120,10 +127,6 @@ class LocalExperiment:
                 "lint.strict / thread_sentinel / collective_sentinel need the lint "
                 f"package, which is not ported to determined_tpu_torch yet; {_LATER}"
             )
-        if config.observability.trace_export:
-            raise NotImplementedError(
-                f"observability.trace_export is not ported to determined_tpu_torch yet; {_LATER}"
-            )
         self.config = config
         self.trial_cls = trial_cls
         self.device = resolve_device(device)
@@ -173,6 +176,9 @@ class LocalExperiment:
         their trial."""
         return os.path.join(self.checkpoint_dir, f"trial_{request_id}")
 
+    def _traces_dir(self) -> str:
+        return os.path.join(self.checkpoint_dir, "traces")
+
     def _run_trial(self, create: Create) -> TrialResult:
         """Train one trial; report validations into the searcher as they
         happen."""
@@ -184,7 +190,10 @@ class LocalExperiment:
         scfg = cfg.searcher
         max_length = scfg.max_length or Length.batches(scfg.max_time or 100)
         rid = create.request_id
-        core_ctx = core._dummy_init(checkpoint_dir=self._trial_checkpoint_dir(rid))
+        core_ctx = core._dummy_init(
+            checkpoint_dir=self._trial_checkpoint_dir(rid),
+            trace_dir=os.path.join(self._traces_dir(), "torch_profiler", f"trial_{rid}"),
+        )
         orig_report = core_ctx.train.report_validation_metrics
         searcher = self.searcher
         runner = self
@@ -324,11 +333,27 @@ class LocalExperiment:
         ``status="preempted"`` (resumable).
         """
         self._preflight_check()
+        # observability: spans are on by default (obs.enabled) at ~zero
+        # hot-loop cost; the shipper thread drains the per-thread rings, and
+        # trace export (obs.trace_export) also writes Chrome trace events
+        # under checkpoint_dir/traces/ for Perfetto and `experiment profile`
         obs = self.config.observability
         tracer = get_tracer()
+        # reset BEFORE configure opens the export file: reset's drain must
+        # discard any stale pre-run events, not append them to this run's
+        # events.jsonl (the ledger prefers the JSONL over trace.json)
         tracer.reset()
-        tracer.enabled = obs.enabled
-        exp_t0 = time.monotonic()
+        tracer.configure(
+            enabled=obs.enabled,
+            ring_capacity=obs.ring_capacity,
+            flush_interval=obs.flush_interval_s,
+            max_events=obs.max_events,
+            out_dir=self._traces_dir() if obs.enabled and obs.trace_export else None,
+        )
+        exp_t0 = None
+        if obs.enabled:
+            tracer.start()
+            exp_t0 = time.monotonic()
 
         ft = self.config.fault_tolerance
         if ft.journal:
@@ -372,10 +397,27 @@ class LocalExperiment:
             if self.journal is not None:
                 self.searcher.journal = None
                 self.journal.close()
-            tracer.record_span(
-                "experiment.run", "experiment", exp_t0, time.monotonic(),
-                {"name": self.config.name, "status": self.status},
-            )
+            if exp_t0 is not None:
+                tracer.record_span(
+                    "experiment.run", "experiment", exp_t0, time.monotonic(),
+                    {"name": self.config.name, "status": self.status},
+                )
+                tracer.stop()
+                if obs.trace_export:
+                    try:
+                        ledger = export_experiment_trace(tracer, self._traces_dir())
+                        logger.info(
+                            "trace exported to %s (goodput: %.1f%% attributed, "
+                            "%.1f%% productive)",
+                            ledger.get("trace_path"),
+                            ledger["experiment"]["attributed_pct"],
+                            ledger["experiment"]["productive_pct"],
+                        )
+                    except Exception:  # noqa: BLE001 - export must not mask the run
+                        logger.exception("trace export failed")
+            # the drain thread stops and the export file closes with the run;
+            # the drained events stay readable (chrome_events, counters)
+            tracer.close()
 
     def resume(self, max_trials: Optional[int] = None) -> Dict[str, Any]:
         """Replay the experiment journal and continue the search."""

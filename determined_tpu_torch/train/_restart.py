@@ -149,10 +149,7 @@ def run_with_restarts(
             # checkpoint-restore of the next attempt land in their own
             # setup/restore buckets)
             tracer = get_tracer()
-            now = time.monotonic()
-            tracer.record_span(
-                "trial.failure", "restart", now, now, {"kind": kind.value, "restarts": restarts}
-            )
+            tracer.instant("trial.failure", "restart", kind=kind.value, restarts=restarts)
             if delay > 0:
                 with tracer.span("restart.backoff", cat="restart", restarts=restarts):
                     sleep(delay)

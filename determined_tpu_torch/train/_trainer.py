@@ -28,8 +28,11 @@ buffers are allocated once, at the first asynchronous save.
 Experiment-configuration knobs the JAX Trainer reads are honoured or raise
 ``NotImplementedError``: ``aggregation_frequency`` > 1, a mesh over more
 than one device, ``fetch_workers``, ``compilation_cache_dir``, overlapped or
-hierarchical gradient sync, quantised matmuls, pipeline schedules, the
-retrace sentinel and profiling traces come with later slices of the port.
+hierarchical gradient sync, quantised matmuls, pipeline schedules and the
+retrace sentinel come with later slices of the port.  ``profiling.trace``
+bounds a ``torch.profiler`` window that the core context's profiler opened
+(``core.profiler.on(trace=True)``) to ``profiling.end_after_batch`` steps,
+counted from the resume point.
 ``jit_cache`` has nothing to share in the port: its steps are eager and
 compile nothing per trial, so either value gives the same run.
 """
@@ -48,7 +51,7 @@ from determined_tpu_torch import core as core_mod
 from determined_tpu_torch._device import DeviceLike, resolve_device
 from determined_tpu_torch.config.experiment import Length
 from determined_tpu_torch.data._prefetch import EpochFeed, InputPipeline
-from determined_tpu_torch.observability import get_tracer
+from determined_tpu_torch.observability import chip_peak_flops, get_tracer
 from determined_tpu_torch.train import serialization
 from determined_tpu_torch.train._reducer import MEAN, get_reducer
 from determined_tpu_torch.train._state import TrainState
@@ -92,8 +95,6 @@ def check_exp_config(exp_config: Any) -> None:
         raise _later(f"optimizations.pipeline_schedule={opt.pipeline_schedule!r}")
     if exp_config.lint.retrace_sentinel:
         raise _later("lint.retrace_sentinel")
-    if (exp_config.profiling or {}).get("trace"):
-        raise _later("profiling.trace")
 
 
 def init(
@@ -221,6 +222,9 @@ class Trainer:
         self._params: Dict[str, torch.nn.Parameter] = {}
         self._reducers: Dict[str, Any] = {}
         self._tokens_per_sample: Optional[int] = None
+        # the step at which the profiler's trace window closes (None: no
+        # bounded window)
+        self._trace_stop_step: Optional[int] = None
         self._pending_save: Optional[_PendingSave] = None
         # pinned host buffers the async writer copies the snapshot into,
         # allocated at the first async save on CUDA and kept (at most one
@@ -257,10 +261,19 @@ class Trainer:
         self._tokens_per_sample = getattr(trial, "tokens_per_sample", None) or (
             hp_seq if isinstance(hp_seq, int) else None
         )
+        # goodput-ledger context (observability/_goodput.py): tokens/MFU
+        # need the device's peak and the trial's FLOPs a token
         tracer = get_tracer()
-        fpt = getattr(trial, "flops_per_token", None)
-        if fpt:
-            tracer.gauge("train.flops_per_token", float(fpt))
+        if tracer.enabled:
+            kind = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else ""
+            # default=0: an unknown device (the CPU) reports no roofline
+            # rather than an MFU against some other card's peak
+            peak = chip_peak_flops(kind, default=0.0)
+            if peak:
+                tracer.gauge("device.peak_flops_total", peak)
+            fpt = getattr(trial, "flops_per_token", None)
+            if fpt:
+                tracer.gauge("train.flops_per_token", float(fpt))
 
     def _input_opts(self):
         """(prefetch_depth, device_prefetch) from the configuration,
@@ -602,6 +615,18 @@ class Trainer:
         if latest_checkpoint:
             self._restore_checkpoint_traced(latest_checkpoint)
 
+        # bounded trace window: a whole-run capture grows without limit, so
+        # tracing stops after profiling.end_after_batch steps, counted from
+        # the RESUME point (after the restore, so a restart traces its own
+        # window, not an already-expired one)
+        prof_cfg = (self.context.exp_config.profiling
+                    if self.context.exp_config else None) or {}
+        self._trace_stop_step = (
+            self.steps_completed + int(prof_cfg.get("end_after_batch", 10))
+            if prof_cfg.get("trace")
+            else None
+        )
+
         for cb in self.callbacks.values():
             cb.on_training_start(self)
 
@@ -641,6 +666,9 @@ class Trainer:
             "best_validation": self.best_validation,
         }
 
+    def _trace_window_open(self) -> bool:
+        return self._trace_stop_step is not None and self.core.profiler.tracing
+
     def _fit_loop(
         self,
         pipeline: InputPipeline,
@@ -666,6 +694,10 @@ class Trainer:
                 rep_sched.next_after(self.steps_completed),
                 max_steps,
             )
+            if self._trace_window_open() and self._trace_stop_step > self.steps_completed:
+                # break the hot segment at the trace boundary so the window
+                # is end_after_batch steps, not rounded up to a report
+                next_stop = min(next_stop, self._trace_stop_step)
             # ---- hot segment: no host syncs ------------------------------
             seg_t0 = time.monotonic()
             while self.steps_completed < next_stop:
@@ -688,6 +720,8 @@ class Trainer:
                 epoch_seen = self.train_loader.epoch
 
             at_end = self.steps_completed >= max_steps
+            if self._trace_window_open() and self.steps_completed >= self._trace_stop_step:
+                self.core.profiler.stop_trace()
 
             # ---- REPORT ---------------------------------------------------
             if rep_sched.is_boundary(self.steps_completed) or at_end:

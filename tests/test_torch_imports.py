@@ -59,6 +59,46 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     assert int(proc.stdout.strip().splitlines()[-1]) >= 55
 
 
+@pytest.mark.parametrize("module", [
+    "determined_tpu_torch.observability",
+    "determined_tpu_torch.observability._tracer",
+    "determined_tpu_torch.observability._goodput",
+    "determined_tpu_torch.core._metrics",
+    "determined_tpu_torch.core._profiler",
+    "determined_tpu_torch.utils.kineto",
+])
+def test_observability_and_profiler_modules_import_nothing_of_jax(module):
+    """The tracer, the ledger, the metrics shipper, the profiler and the op
+    table are the port's own copies: each, imported alone, pulls in
+    nothing of JAX or the JAX package (nor torch.profiler: that is
+    imported when a window opens)."""
+    probe = textwrap.dedent(
+        """
+        import importlib, sys
+
+        BLOCKED = {blocked!r}
+
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                    raise ImportError("blocked import of " + name)
+                return None
+
+        sys.meta_path.insert(0, Blocker())
+        importlib.import_module({module!r})
+        assert "torch.profiler" not in sys.modules
+        print("ok")
+        """
+    ).format(blocked=BLOCKED, module=module)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_fails_without_cuda():
     """Without a GPU the smoke run prints no result and exits non-zero."""
     proc = subprocess.run(

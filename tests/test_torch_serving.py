@@ -280,9 +280,14 @@ def test_engine_spans_reach_the_tracer(kernels):
     tracer.reset()
     eng = port_serve.ServeEngine(kernels)
     _run(eng, [eng.submit([5, 6, 7], max_new_tokens=3)])
-    names = {s[0] for s in tracer.spans()}
-    assert {"serve.admit", "serve.kv_alloc", "serve.prefill", "serve.decode"} <= names
-    assert "serve.kv_utilization" in tracer.gauges()
+    spans = [e for e in tracer.chrome_events() if e["ph"] == "X"]
+    assert {"serve.admit", "serve.kv_alloc", "serve.prefill", "serve.decode"} <= {
+        e["name"] for e in spans
+    }
+    assert all(e["cat"] == "serve" for e in spans)
+    gauges = {e["name"] for e in tracer.chrome_events() if e.get("cat") == "gauge"}
+    assert {"serve.kv_utilization", "serve.queue_depth"} <= gauges
+    assert "serve.kv_utilization" in tracer.counters()
 
 
 def _http(url, path, body=None):
