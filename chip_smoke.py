@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (determined_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--seed N]
-        [--phases kernel,serve,parity,train,train_parity,experiment,search,observe]
+        [--phases kernel,serve,parity,train,train_parity,experiment,search,observe,
+                  knobs,serve_ckpt]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -115,6 +116,42 @@ Phases, in order; any failure raises and the script exits non-zero:
    subprocesses.  Printed: the ledger's shares, seconds by category,
    tokens/s and MFU (beside phase 5's), the traced steps' host time beside
    the untraced ones, both traces' sizes and the phase's seconds.
+10. knobs: the single-device step knobs on phase 5's workload at full
+   width and depth.
+   a. aggregation_frequency 4 (4 x 8 x 1024 tokens a step) through fit for
+      8 steps: the launch counters (0 just before fit, read just after)
+      must show 8 x 4 x 8 of each flash kernel and 75 x 8 fused_adamw, one
+      update a step; step time, tokens/s, MFU and peak memory beside phase
+      5's.  Then one agg-4 update from fixed weights (KNOBS_AGG_CMP_CUTS,
+      printed) against one global-batch-32 update over the same 32 samples:
+      loss, moments and update within KNOBS_AGG_TOL, and each step's peak
+      memory.
+   b. quantized_matmul none, int8 and fp8, 25 steps each from the same
+      weights and batches: each quantized loss within 2% of the bf16 one at
+      every step; 7 x 8 quantized products a step (the fused
+      cross-entropy head stays bf16); step time, device time a step by
+      group, and the int8 and fp8 gemm rows of the op table
+      (utils/kineto.py), which must be there.  Each quantized linear at the
+      flagship's shapes (q/k/v/o, gate/up, down) on the card against its
+      plain version (QUANT_LINEAR_TOL), timed (with its quantize passes and
+      its bare gemm) beside the bf16 F.linear; and the q/k/v/o one at an f32
+      compute dtype, where fp8 takes the other _scaled_mm call
+      (QUANT_LINEAR_F32_TOL).
+   c. compilation_cache_dir: a first subprocess builds every kernel into an
+      empty directory (its MISS line), a second loads them from there with
+      nvcc made unavailable (its HIT line); each launches the flash forward
+      from the cached library; both subprocesses' seconds are printed.
+11. serve_ckpt: const.yaml's flagship trains 4 steps and saves one
+   synchronous checkpoint (8.05 GB, under a fresh temporary directory whose
+   free space is checked first, deleted at the end).  A ServeWorker over
+   ServeEngine.from_checkpoint (manifest md5 check, load) answers 6 greedy
+   requests whose tokens must equal those of an engine over the trainer's
+   in-memory model; run_batch_inference then scores 8 batches of 8
+   synthetic sequences with the served model, preempted after 4 and
+   resumed from its progress checkpoint: every batch exactly once.  The
+   flash forward's launches (cold prefills and scored batches) are counted.
+   Printed: the save's and the load's seconds (verify, load), TTFT, the
+   scored batches a second.
 
 Prints, before the last line, the kernels line (JSON) and the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.
@@ -383,8 +420,59 @@ OBSERVE_CUTS = [
      "the trial's weights and data from the run's --seed"),
 ]
 
+# phase 10: the step knobs at the flagship's full width and depth, on phase
+# 5's workload (TRAIN_HPARAMS)
+KNOBS_AGG = 4
+KNOBS_AGG_STEPS = 8
+KNOBS_AGG_REPORT = 2
+# the one-update comparison's changes: (hparam, phase 5's value, this
+# comparison's, why)
+KNOBS_AGG_CMP_CUTS = [
+    ("warmup_steps", 10, 0,
+     "the first update at the full lr: in the warmup lr(0) is 0 and the update would be zero"),
+]
+# agg 4 x 8 samples against one batch of 32: the same 32 samples and loss,
+# but each microbatch's weight gradients are bf16 products rounded on their
+# own (2^-9 relative) and summed in f32, where the batch of 32 rounds once,
+# and cuBLAS may tile 8,192 and 32,768 rows differently; the first moment is
+# stored in bf16 on both sides.  Held: the loss to 1e-3 relative, each
+# leaf's moments to 2e-2 in relative norm, and Adam's first update, which
+# is lr * sign(g) wherever |g| >> eps, moves at most 1% of the weights the
+# other way (where |g| is within that noise of 0).
+KNOBS_AGG_TOL = dict(loss_rtol=1e-3, moment_rel=2e-2, moved_other_way=1e-2)
+KNOBS_QUANT_STEPS = 25
+# the JAX package's bound on a quantized loss curve against the unquantized
+# one (tests/test_step_optimizations.py)
+KNOBS_QUANT_LOSS_REL = 0.02
+# substrings of an int8 or fp8 gemm's kernel name (cuBLAS/CUTLASS)
+QUANT_GEMM_MARKERS = {"int8": ("i8", "s8", "int8", "imma"), "fp8": ("e4m3", "f8", "fp8")}
+# the flagship's quantized linears: name -> (K, N) at 8 x 1024 rows
+QUANT_LINEAR_SHAPES = {"q_k_v_o": (2048, 2048), "gate_up": (2048, 8192), "down": (8192, 2048)}
+# the card's quantized product against the plain version (the same
+# quantized operands multiplied in f32, rescaled in the same order): the
+# int8 sums are exact in int32 and within f32 rounding (2^-24 of the sum of
+# |terms|) on the plain side; the fp8 tensor cores accumulate in f32 with a
+# reduced-precision partial sum between promotions.  Both round the rescaled
+# f32 value to bf16, where an f32-level difference can flip one bf16 ulp
+# (2^-8 relative): rtol 2^-7, atol a fraction of the largest |output|.
+QUANT_LINEAR_TOL = {"int8": dict(rtol=2 ** -7, atol=1e-5), "fp8": dict(rtol=2 ** -7, atol=1e-3)}
+# the same at an f32 compute dtype (bf16: false), where fp8 takes unit
+# scales and an f32 output with the rescale after: no bf16 rounding, so
+# what is left is the plain side's f32 sums (int8) and the fp8 tensor
+# cores' reduced-precision partial sums (fp8)
+QUANT_LINEAR_F32_TOL = {"int8": dict(rtol=1e-5, atol=1e-5), "fp8": dict(rtol=2 ** -10, atol=1e-3)}
+
+# phase 11: train const.yaml's flagship, save, serve from the checkpoint
+SERVE_CKPT_STEPS = 4
+SERVE_CKPT_DATASET = 64
+SERVE_CKPT_REQUESTS = 6
+SERVE_CKPT_NEW_TOKENS = 16
+SERVE_CKPT_SCORE_BATCH = 8
+SERVE_CKPT_SCORE_BATCHES = 8
+SERVE_CKPT_SCORE_INTERVAL = 2
+
 PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search",
-          "observe")
+          "observe", "knobs", "serve_ckpt")
 
 
 def log(msg: str) -> None:
@@ -1022,6 +1110,7 @@ def profile_train(trainer, steps: int = 3) -> dict:
         ],
     )
     log(f"train profile ({steps} steps): " + json.dumps(out))
+    out["ops"] = ops  # the whole table, for callers that look rows up
     return out
 
 
@@ -2100,6 +2189,504 @@ def phase_observe(seed: int, train_mfu) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: knobs (gradient accumulation, quantized matmuls, the build cache)
+# ---------------------------------------------------------------------------
+
+
+def _lm_trainer(hp: dict, seed: int, **opt):
+    """Trainer(LMTrial) over ``hp`` with the experiment's ``optimizations``
+    knobs ``opt``, through init as a user calls it."""
+    from determined_tpu_torch import train
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.models import LMTrial
+
+    cfg = ExperimentConfig.parse({"hyperparameters": hp, "optimizations": opt})
+    return train.Trainer(LMTrial(train.init(exp_config=cfg, seed=seed)))
+
+
+def _fit_steps(trainer, steps: int, report: int) -> dict:
+    """``fit`` for ``steps`` steps, no validation or checkpoint; the launch
+    counters are set to 0 just before and read just after.  Returns the
+    reports' losses, the mean step time past the first report (the
+    warm-up), the wall time, the launches and the peak device memory."""
+    import torch
+
+    from determined_tpu_torch.train import _quant
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    _quant.reset_launches()
+    t0 = time.monotonic()
+    trainer.fit(max_length=steps, report_period=report, checkpoint_policy="none")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(_launch_counts(), **{f"quant_{k}": v for k, v in _quant.launches.items()})
+    reports = trainer.core.train.metrics("training")
+    assert [s for s, _ in reports] == list(range(report, steps + 1, report)), reports
+    gbs = trainer.train_loader.sampler.global_batch * trainer.agg
+    step_ms = [1e3 * gbs / m["samples_per_second"] for _, m in reports]
+    losses = [m["loss"] for _, m in reports]
+    assert all(np.isfinite(x) for x in losses), losses
+    return dict(losses=losses, step_ms=step_ms, mean_step_ms=statistics.mean(step_ms[1:]),
+                wall_s=wall, launches=launches,
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _free_cuda() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def knobs_agg(seed: int, train_peak_gib) -> dict:
+    """(a) aggregation_frequency 4 through fit, then one agg-4 update held
+    against one global-batch-32 update over the same 32 samples."""
+    import torch
+
+    from determined_tpu_torch.data import to_device
+
+    hp = dict(TRAIN_HPARAMS)
+    layers = hp["n_layers"]
+    trainer = _lm_trainer(hp, seed, aggregation_frequency=KNOBS_AGG)
+    run = _fit_steps(trainer, KNOBS_AGG_STEPS, KNOBS_AGG_REPORT)
+    steps, n_leaves = KNOBS_AGG_STEPS, len(trainer._params)
+    micro = KNOBS_AGG * steps
+    want = dict(flash_fwd=layers * micro, flash_bwd_dq=layers * micro,
+                flash_bwd_dkv=layers * micro, fused_adamw=n_leaves * steps,
+                quant_int8=0, quant_fp8=0)
+    assert n_leaves == 75 and run["launches"] == want, (run["launches"], want)
+    tokens = KNOBS_AGG * hp["global_batch_size"] * hp["seq_len"]
+    tokens_per_s = tokens / (run["mean_step_ms"] / 1e3)
+    mfu = trainer.trial.flops_per_token * tokens_per_s / PEAK_FLOPS["bfloat16"]
+    assert run["losses"][-1] < run["losses"][0], run["losses"]
+    del trainer
+    _free_cuda()
+
+    # one update from the same weights: agg 4 x 8 against 1 x 32
+    cmp_hp = dict(hp, **{k: v for k, _, v, _ in KNOBS_AGG_CMP_CUTS})
+    for key, const, value, why in KNOBS_AGG_CMP_CUTS:
+        log(f"knobs agg comparison cut: {key} {const} -> {value} ({why})")
+    agg = _lm_trainer(cmp_hp, seed, aggregation_frequency=KNOBS_AGG)
+    agg._setup()
+    start = {k: v.detach().to("cpu", copy=True) for k, v in agg._params.items()}
+    _, stacked = next(agg.train_loader.iter_pairs(agg=KNOBS_AGG))
+    torch.cuda.reset_peak_memory_stats()
+    agg._train_step(to_device(stacked, agg.device))
+    torch.cuda.synchronize()
+    peak_agg = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss_agg = agg.state.fetch_metrics()["loss"]
+    got = {k: tuple(t.detach().to("cpu", copy=True) for t in (
+        p, agg.state.opt_state.mu[k], agg.state.opt_state.nu[k])) for k, p in agg._params.items()}
+    del agg
+    _free_cuda()
+    big = _lm_trainer(dict(cmp_hp, global_batch_size=KNOBS_AGG * hp["global_batch_size"]), seed)
+    big._setup()
+    with torch.no_grad():
+        for k, p in big._params.items():
+            p.copy_(start[k])
+    flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in stacked.items()}
+    torch.cuda.reset_peak_memory_stats()
+    big._train_step(to_device(flat, big.device))
+    torch.cuda.synchronize()
+    peak_big = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss_big = big.state.fetch_metrics()["loss"]
+    tol = KNOBS_AGG_TOL
+    lr = float(cmp_hp["lr"])
+    worst = dict(mu=0.0, nu=0.0)
+    moved_other_way = 0
+    n_elems = 0
+    for k, p in big._params.items():
+        p_agg, mu_agg, nu_agg = (t.cuda() for t in got[k])
+        for name, a, b in (("mu", mu_agg, big.state.opt_state.mu[k]),
+                           ("nu", nu_agg, big.state.opt_state.nu[k])):
+            rel = float(torch.linalg.vector_norm(a.float() - b.float())
+                        / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+            worst[name] = max(worst[name], rel)
+        upd_agg, upd_big = p_agg - start[k].cuda(), p.detach() - start[k].cuda()
+        moved_other_way += int(((upd_agg - upd_big).abs() > lr).sum())
+        n_elems += p.numel()
+    del big
+    _free_cuda()
+    out = dict(
+        card=card_line(), agg=KNOBS_AGG, global_batch_size=hp["global_batch_size"],
+        steps=steps, step_ms_per_report=run["step_ms"], mean_step_ms=run["mean_step_ms"],
+        tokens_per_step=tokens, tokens_per_s=tokens_per_s, mfu_vs_989_tflops=mfu,
+        losses=run["losses"], peak_memory_gib=run["peak_memory_gib"],
+        phase5_peak_memory_gib=train_peak_gib, launches=run["launches"], wall_s=run["wall_s"],
+        update_vs_gbs32=dict(loss_agg4=loss_agg, loss_gbs32=loss_big,
+                             max_rel_mu=worst["mu"], max_rel_nu=worst["nu"],
+                             share_moved_other_way=moved_other_way / n_elems,
+                             step_peak_memory_gib_agg4=peak_agg,
+                             step_peak_memory_gib_gbs32=peak_big, tol=tol),
+    )
+    log("knobs agg: " + json.dumps(out))
+    np.testing.assert_allclose(loss_agg, loss_big, rtol=tol["loss_rtol"])
+    assert worst["mu"] <= tol["moment_rel"] and worst["nu"] <= tol["moment_rel"], worst
+    assert moved_other_way / n_elems <= tol["moved_other_way"], moved_other_way / n_elems
+    return out
+
+
+def _quant_gemm_rows(ops, plain_names, markers) -> list:
+    """The matmul rows of an op table that the unquantized run's table lacks
+    and whose names carry one of ``markers`` (the int8 or fp8 products)."""
+    from determined_tpu_torch.utils import kineto
+
+    return [[op["name"][:110], op["time_us"] / 1e3, op["count"]] for op in ops
+            if kineto.kernel_category(op["name"]) == "matmul" and op["name"] not in plain_names
+            and any(m in op["name"].lower() for m in markers)]
+
+
+def knobs_quant(seed: int) -> dict:
+    """(b) the flagship at quantized_matmul none, int8 and fp8 from the same
+    weights and batches: loss curves, step and device time, the op table's
+    int8 and fp8 gemm rows."""
+    hp = dict(TRAIN_HPARAMS)
+    layers = hp["n_layers"]
+    runs, profiles = {}, {}
+    for mode in ("none", "int8", "fp8"):
+        trainer = _lm_trainer(hp, seed, quantized_matmul=mode)
+        run = _fit_steps(trainer, KNOBS_QUANT_STEPS, 1)
+        assert trainer.model.cfg.quantized_matmul == mode
+        steps = KNOBS_QUANT_STEPS
+        want = dict(flash_fwd=layers * steps, flash_bwd_dq=layers * steps,
+                    flash_bwd_dkv=layers * steps, fused_adamw=75 * steps, quant_int8=0,
+                    quant_fp8=0)
+        if mode != "none":
+            # q, k, v, o, gate, up, down of every layer; the fused
+            # cross-entropy head stays bf16
+            want[f"quant_{mode}"] = 7 * layers * steps
+        assert run["launches"] == want, (mode, run["launches"], want)
+        prof = profile_train(trainer)
+        profiles[mode] = prof
+        runs[mode] = run
+        del trainer
+        _free_cuda()
+    plain_names = {op["name"] for op in profiles["none"]["ops"]}
+    ref = runs["none"]["losses"]
+    out = dict(card=card_line(), steps=KNOBS_QUANT_STEPS, modes={})
+    for mode in ("none", "int8", "fp8"):
+        run, prof = runs[mode], profiles[mode]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref))
+        entry = dict(losses=run["losses"], max_rel_loss_vs_bf16=rel,
+                     mean_step_ms=run["mean_step_ms"], peak_memory_gib=run["peak_memory_gib"],
+                     device_ms_per_step=prof["device_ms_per_step"],
+                     device_ms_per_step_by_group=prof["device_ms_per_step_by_group"],
+                     launches=run["launches"])
+        if mode != "none":
+            entry["gemm_rows"] = _quant_gemm_rows(
+                prof["ops"], plain_names, QUANT_GEMM_MARKERS[mode])
+        out["modes"][mode] = entry
+    log("knobs quant: " + json.dumps(out))
+    for mode in ("int8", "fp8"):
+        entry = out["modes"][mode]
+        assert entry["max_rel_loss_vs_bf16"] < KNOBS_QUANT_LOSS_REL, (mode, entry["losses"], ref)
+        assert entry["gemm_rows"], f"no {mode} gemm in the op table of the {mode} run"
+    return out
+
+
+def knobs_quant_linears(seed: int) -> dict:
+    """Each quantized linear of the flagship on the card (the int8 and fp8
+    tensor-core products) against its plain version, timed beside the bf16
+    ``F.linear``, at the training shapes (8 x 1024 rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from determined_tpu_torch.train import _quant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = TRAIN_HPARAMS["global_batch_size"] * TRAIN_HPARAMS["seq_len"]
+    out = {}
+    for name, (k, n) in QUANT_LINEAR_SHAPES.items():
+        x = torch.randn(rows, k, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5).bfloat16()
+        row = dict(x=[rows, k], w=[n, k],
+                   bf16_linear_ms=device_time_us(lambda: F.linear(x, w)) / 1e3)
+        for mode in ("int8", "fp8"):
+            _quant.reset_launches()
+            got = _quant.quantized_matmul(x, w, mode)
+            assert _quant.launches[mode] == 1
+            want = _quant.quantized_matmul_reference(x, w, mode)
+            tol = QUANT_LINEAR_TOL[mode]
+            scale = want.float().abs().max().item()
+            err = _max_err(got, want)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol["rtol"],
+                                       atol=tol["atol"] * scale)
+            qx, sx = _quant.quantize(x, mode)
+            qw, sw = _quant.quantize(w, mode)
+            if mode == "int8":
+                gemm = lambda: torch._int_mm(qx, qw.t())  # noqa: E731
+            else:
+                sa, sb = sx[:, None].contiguous(), sw[None, :].contiguous()
+                gemm = lambda: torch._scaled_mm(  # noqa: E731
+                    qx, qw.t(), scale_a=sa, scale_b=sb, out_dtype=torch.bfloat16)
+            row[mode] = dict(
+                max_abs_err=err, max_abs_want=scale, tol=tol,
+                ms=device_time_us(lambda: _quant.quantized_matmul(x, w, mode)) / 1e3,
+                gemm_ms=device_time_us(gemm) / 1e3,
+                plain_ms=device_time_us(lambda: _quant.quantized_matmul_reference(x, w, mode))
+                / 1e3,
+                quantize_ms=device_time_us(lambda: _quant.quantize(x, mode)) / 1e3,
+            )
+        out[name] = row
+        del x, w
+    # an f32 compute dtype takes the other _scaled_mm call (the q/k/v/o shape)
+    k, n = QUANT_LINEAR_SHAPES["q_k_v_o"]
+    x = torch.randn(rows, k, generator=gen, device="cuda")
+    w = torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5
+    row = dict(x=[rows, k], w=[n, k], f32_linear_ms=device_time_us(lambda: F.linear(x, w)) / 1e3)
+    for mode in ("int8", "fp8"):
+        _quant.reset_launches()
+        got = _quant.quantized_matmul(x, w, mode)
+        assert _quant.launches[mode] == 1 and got.dtype == torch.float32
+        want = _quant.quantized_matmul_reference(x, w, mode)
+        tol = QUANT_LINEAR_F32_TOL[mode]
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=tol["rtol"], atol=tol["atol"] * scale)
+        row[mode] = dict(max_abs_err=_max_err(got, want), max_abs_want=scale, tol=tol,
+                         ms=device_time_us(lambda: _quant.quantized_matmul(x, w, mode)) / 1e3)
+    out["q_k_v_o_f32"] = row
+    del x, w
+    log("knobs quantized linears: " + json.dumps(out))
+    return out
+
+
+_CACHE_PROBE = """
+import json, logging, sys, time
+t0 = time.monotonic()
+logging.basicConfig(level=logging.INFO, stream=sys.stderr, format="%(message)s")
+import torch
+from determined_tpu_torch import train
+from determined_tpu_torch.config import ExperimentConfig
+from determined_tpu_torch.ops import _build
+from determined_tpu_torch.ops.flash_attention import flash_attention_fwd
+if sys.argv[2] == "hit":
+    def no_nvcc():
+        raise RuntimeError("nvcc was called on a warm compilation cache")
+    _build.find_nvcc = no_nvcc
+cfg = ExperimentConfig.parse({"optimizations": {"compilation_cache_dir": sys.argv[1]}})
+train.init(exp_config=cfg)
+t1 = time.monotonic()
+sources = sys.argv[3].split(",")
+paths = _build.build_all(sources)
+for s in sources:
+    _build.load(s)
+t2 = time.monotonic()
+q = torch.randn(1, 4, 256, 128, device="cuda", dtype=torch.bfloat16)
+out, _lse = flash_attention_fwd(q, q, q, causal=True, scale=128 ** -0.5)
+torch.cuda.synchronize()
+assert bool(torch.isfinite(out).all())
+print(json.dumps(dict(build_dir=_build.BUILD_DIR, libraries=paths, import_s=t1 - t0,
+                      build_and_load_s=t2 - t1, total_s=time.monotonic() - t0)))
+"""
+
+
+def knobs_cache() -> dict:
+    """(c) compilation_cache_dir: a first process builds every kernel into
+    an empty directory (MISS), a second finds them there and never calls
+    nvcc (HIT); each launches the flash forward from the cached library."""
+    import os
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="dtt-chip-kernel-cache-") as cache:
+        for mode in ("miss", "hit"):
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [sys.executable, "-c", _CACHE_PROBE, cache, mode, ",".join(KERNEL_SOURCES)],
+                cwd=here, capture_output=True, text=True, timeout=600,
+            )
+            wall = time.monotonic() - t0
+            assert proc.returncode == 0, (mode, proc.stderr[-3000:])
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            lines = [ln for ln in proc.stderr.splitlines() if "compilation cache" in ln]
+            assert len(lines) == 1 and mode.upper() in lines[0], (mode, lines)
+            assert res["build_dir"] == cache and all(
+                os.path.dirname(p) == cache for p in res["libraries"]), res
+            out[mode] = dict(process_s=wall, log=lines[0], **{
+                k: res[k] for k in ("import_s", "build_and_load_s", "total_s")})
+    log("knobs compilation cache: " + json.dumps(out))
+    return out
+
+
+def phase_knobs(seed: int, train_peak_gib) -> dict:
+    """Phase 10 (the docstring at the top)."""
+    t0 = time.monotonic()
+    out = dict(agg=knobs_agg(seed, train_peak_gib))
+    out["quant"] = knobs_quant(seed)
+    out["quant_linears"] = knobs_quant_linears(seed)
+    out["cache"] = knobs_cache()
+    out["launches"] = out["agg"]["launches"]
+    out["phase_s"] = time.monotonic() - t0
+    log(f"knobs: phase {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: serve_ckpt (train, save, serve from the checkpoint, batch inference)
+# ---------------------------------------------------------------------------
+
+
+def _serve_tokens(worker, prompts) -> tuple:
+    """Greedy tokens of each prompt through the worker's HTTP entry point,
+    one request at a time; each response's TTFT and the engine's prefix
+    cache hits."""
+    url = worker.start()
+    try:
+        tokens, ttft = [], []
+        for p in prompts:
+            status, body = post(url, "/v1/generate", {
+                "prompt_tokens": p, "max_new_tokens": SERVE_CKPT_NEW_TOKENS, "temperature": 0.0})
+            assert status == 200, body
+            assert len(body["tokens"]) == SERVE_CKPT_NEW_TOKENS, body
+            tokens.append(body["tokens"])
+            ttft.append(body["ttft_ms"])
+        hits = worker.engine.stats()["prefix_hits"]
+    finally:
+        worker.shutdown()
+    return tokens, ttft, hits
+
+
+def _latest_progress(score_dir: str) -> str:
+    """The storage id of the batch-inference progress checkpoint with the
+    most batches done."""
+    import os
+
+    from determined_tpu_torch import inference
+
+    done = {}
+    for sid in os.listdir(score_dir):
+        marker = os.path.join(score_dir, sid, inference.PROGRESS_FILE)
+        if os.path.isfile(marker):
+            with open(marker) as f:
+                done[sid] = json.load(f)["batches_done"]
+    assert done, f"no progress checkpoint under {score_dir}"
+    return max(done, key=done.get)
+
+
+def phase_serve_ckpt(seed: int) -> dict:
+    """Phase 11 (the docstring at the top)."""
+    import os
+    import shutil
+    import tempfile
+    import types
+
+    import torch
+
+    from determined_tpu_torch import core, inference, train
+    from determined_tpu_torch.data import SyntheticDataset
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.observability import get_tracer
+    from determined_tpu_torch.serve import DecodeKernels, ServeEngine, ServeWorker
+
+    t_phase = time.monotonic()
+    root = tempfile.mkdtemp(prefix="dtt-chip-serve-ckpt-")
+    free = shutil.disk_usage(root).free
+    hp = dict(EXPERIMENT_CONST["hyperparameters"], dataset_size=SERVE_CKPT_DATASET)
+    log(f"serve_ckpt: checkpoints under {root}, {free / 2**30:.1f} GiB free")
+    tracer = get_tracer()
+    out: dict = {}
+    try:
+        need = _lm_checkpoint_bytes(hp)
+        assert free > 1.1 * need, (
+            f"{free / 2**30:.1f} GiB free under {root}; the phase needs {need / 2**30:.1f} GiB")
+        ctx = train.init(hparams=hp, seed=seed,
+                         core_context=core._dummy_init(checkpoint_dir=os.path.join(root, "ck")))
+        trainer = train.Trainer(LMTrial(ctx))
+        tracer.reset()
+        t0 = time.monotonic()
+        summary = trainer.fit(max_length=SERVE_CKPT_STEPS, checkpoint_policy="best")
+        train_s = time.monotonic() - t0
+        (save_s,) = _span_seconds(tracer, "checkpoint.save")  # the final, synchronous save
+        path = os.path.join(root, "ck", summary["latest_checkpoint"])
+        ckpt_bytes = _dir_bytes(path)
+        assert summary["steps_completed"] == SERVE_CKPT_STEPS
+
+        prompts = make_prompts(seed + 1, hp["vocab_size"])[:SERVE_CKPT_REQUESTS]
+        scfg = serve_config()
+        mem_tokens, _, _ = _serve_tokens(
+            ServeWorker(ServeEngine(DecodeKernels(trainer.model, scfg))), prompts)
+        del trainer, ctx
+        _free_cuda()
+
+        tracer.reset()
+        t0 = time.monotonic()
+        engine = ServeEngine.from_checkpoint(path, scfg)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        assert engine.model_label == "LMTrial", engine.model_label
+        (verify_s,), (restore_s,) = (_span_seconds(tracer, "checkpoint.verify"),
+                                     _span_seconds(tracer, "checkpoint.load"))
+        _free_cuda()
+        _reset_launches()
+        ckpt_tokens, ttft, hits = _serve_tokens(ServeWorker(engine), prompts)
+        assert ckpt_tokens == mem_tokens, "the checkpoint serves other tokens than the trainer"
+
+        # batch inference: score a prompt set with the served model,
+        # preempted midway and resumed
+        model = engine.kernels.model
+        data = SyntheticDataset(
+            {"tokens": ((hp["seq_len"] + 1,), np.int32, hp["vocab_size"])},
+            size=SERVE_CKPT_SCORE_BATCHES * SERVE_CKPT_SCORE_BATCH, seed=seed + 2)
+        scores: dict = {}
+        preempt_at = SERVE_CKPT_SCORE_BATCHES // 2
+
+        class Scorer(inference.BatchProcessor):
+            def process_batch(self, batch, batch_idx):
+                tokens = torch.from_numpy(batch["tokens"]).cuda().long()
+                with torch.no_grad():
+                    logp = torch.log_softmax(model(tokens[:, :-1]), dim=-1)
+                    nll = -logp.gather(-1, tokens[:, 1:, None])[..., 0].mean(dim=1)
+                assert batch_idx not in scores, f"batch {batch_idx} processed twice"
+                scores[batch_idx] = nll.cpu().tolist()
+                if batch_idx + 1 == preempt_at:
+                    self.core.preempt.simulate()
+
+        score_dir = os.path.join(root, "scores")
+        t0 = time.monotonic()
+        first = inference.run_batch_inference(
+            Scorer, data, SERVE_CKPT_SCORE_BATCH, checkpoint_interval=SERVE_CKPT_SCORE_INTERVAL,
+            core_context=core._dummy_init(checkpoint_dir=score_dir))
+        resumed = core._dummy_init(checkpoint_dir=score_dir)
+        resumed.info = types.SimpleNamespace(latest_checkpoint=_latest_progress(score_dir))
+        second = inference.run_batch_inference(
+            Scorer, data, SERVE_CKPT_SCORE_BATCH, checkpoint_interval=SERVE_CKPT_SCORE_INTERVAL,
+            core_context=resumed)
+        torch.cuda.synchronize()
+        score_s = time.monotonic() - t0
+        assert (first, second) == (preempt_at, SERVE_CKPT_SCORE_BATCHES - preempt_at), (
+            first, second)
+        assert sorted(scores) == list(range(SERVE_CKPT_SCORE_BATCHES)), sorted(scores)
+        flat = [x for i in sorted(scores) for x in scores[i]]
+        assert all(np.isfinite(flat)), flat
+        launches = dict(flash_fwd=_launch_counts()["flash_fwd"])
+        # a cold prefill and a scored batch each run the forward once
+        layers = hp["n_layers"]
+        want = layers * (len(prompts) - hits + SERVE_CKPT_SCORE_BATCHES)
+        assert launches["flash_fwd"] == want, (launches, want)
+        out = dict(
+            card=card_line(), steps=SERVE_CKPT_STEPS, train_s=train_s, save_s=save_s,
+            checkpoint_bytes=ckpt_bytes, save_gb_per_s=ckpt_bytes / save_s / 1e9,
+            from_checkpoint_s=load_s, verify_s=verify_s, load_s=restore_s,
+            requests=len(prompts), new_tokens=SERVE_CKPT_NEW_TOKENS,
+            mean_ttft_ms=statistics.mean(ttft), ttft_ms=ttft, prefix_hits=hits,
+            tokens_equal_in_memory=True,
+            score_batches=SERVE_CKPT_SCORE_BATCHES, preempted_after=first, resumed=second,
+            score_batches_per_s=SERVE_CKPT_SCORE_BATCHES / score_s,
+            mean_nll=statistics.mean(flat), launches=launches,
+        )
+        del engine, model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free_cuda()
+    out["phase_s"] = time.monotonic() - t_phase
+    log("serve_ckpt: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2171,6 +2758,16 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         observe = phase_observe(args.seed, trained and trained["mfu_vs_989_tflops"])
+    knobs = None
+    if "knobs" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        knobs = phase_knobs(args.seed, trained and trained["peak_memory_gib"])
+    serve_ckpt = None
+    if "serve_ckpt" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_ckpt = phase_serve_ckpt(args.seed)
 
     if kernel and serve is not None and trained is not None:
         rows = []
@@ -2183,6 +2780,10 @@ def main() -> int:
             fields = dict(kernel[name])
             if observe is not None:
                 by_phase["observe"] = observe["launches"][name]
+            if knobs is not None:
+                by_phase["knobs_agg"] = knobs["launches"][name]
+            if serve_ckpt is not None and name == "flash_fwd":
+                by_phase["serve_ckpt"] = serve_ckpt["launches"][name]
             if search is not None:
                 by_phase["search"] = search["launches"][name]
                 if name == "fused_adamw":  # also held at S3's leaves

@@ -1,15 +1,16 @@
 """DataLoader: deterministic, shard-aware, resumable batch stream.
 
 Port of ``determined_tpu/data/_loader.py``: the same state dict, resume
-rules, ``iter_pairs``/``commit_state`` contract and ``iter_epoch`` pass, over
-host batches of numpy arrays.  One process feeds the whole batch
+rules, ``iter_pairs``/``commit_state`` contract (with microbatches stacked
+for gradient accumulation), ``iter_epoch`` pass and ``fetch_workers`` thread
+pool, over host batches of numpy arrays.  One process feeds the whole batch
 (``shard_rank=0``, ``num_shards=1`` by default); ``to_device`` takes the
 place of ``to_global`` and copies a host batch to a torch device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,11 +19,19 @@ from determined_tpu_torch.data._dataset import Dataset, InMemoryDataset
 from determined_tpu_torch.data._sampler import IndexSampler, SamplerState
 
 
-def _fetch(dataset: Dataset, indices: np.ndarray) -> Dict[str, np.ndarray]:
+def _fetch(
+    dataset: Dataset, indices: np.ndarray, pool: Optional[Any] = None
+) -> Dict[str, np.ndarray]:
     if isinstance(dataset, InMemoryDataset):
         return dataset.gather(indices)
-    # map-style dataset: one item at a time, stacked per key
-    items = [dataset[int(i)] for i in indices]
+    # map-style dataset: the per-item loop is the slow path (disk reads,
+    # decode); a thread pool overlaps the item reads when the loader has a
+    # `fetch_workers` budget
+    idx = [int(i) for i in indices]
+    if pool is not None:
+        items = list(pool.map(dataset.__getitem__, idx))
+    else:
+        items = [dataset[i] for i in idx]
     return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
@@ -38,8 +47,11 @@ class DataLoader:
         seed: int = 0,
         shard_rank: int = 0,
         num_shards: int = 1,
+        fetch_workers: int = 0,
     ) -> None:
         self.dataset = dataset
+        self.fetch_workers = fetch_workers
+        self._pool: Optional[Any] = None
         self.sampler = IndexSampler(
             len(dataset),
             batch_size,
@@ -82,19 +94,58 @@ class DataLoader:
 
     # -- iteration ---------------------------------------------------------
 
+    def _fetch_pool(self) -> Optional[Any]:
+        """Lazily built thread pool for the map-style fetch path.  Only
+        non-InMemory datasets ever touch it (the columnar gather needs no
+        threads), so construction waits for the first such fetch."""
+        if self.fetch_workers > 0 and self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(
+                max_workers=int(self.fetch_workers), thread_name_prefix="dtpu-fetch"
+            )
+        return self._pool
+
+    def _fetch_batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        pool = None if isinstance(self.dataset, InMemoryDataset) else self._fetch_pool()
+        return _fetch(self.dataset, idx, pool)
+
+    def close(self) -> None:
+        """Release the fetch pool (if one was built).  The loader stays
+        usable: a later fetch builds it again."""
+        if self._pool is not None:
+            # cancel_futures: a preempted trial must not sit in the atexit
+            # join while queued slow item reads of an abandoned batch drain
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         """Infinite stream of host batches, advancing resume state."""
         for state, idx in self.sampler.iter_from(self._state):
-            batch = _fetch(self.dataset, idx)
+            batch = self._fetch_batch(idx)
             self._state = state
             yield batch
 
-    def iter_pairs(self) -> Iterator[Tuple[SamplerState, Dict[str, np.ndarray]]]:
+    def iter_pairs(self, agg: int = 1) -> Iterator[Tuple[SamplerState, Dict[str, np.ndarray]]]:
         """Infinite ``(state_after, batch)`` stream; does NOT advance the
         loader's resume state: the consumer commits with ``commit_state``
-        when it takes the batch (``data/_prefetch.py``)."""
-        for state, idx in self.sampler.iter_from(self._state):
-            yield state, _fetch(self.dataset, idx)
+        when it takes the batch (``data/_prefetch.py``).
+
+        ``agg`` > 1 groups that many microbatches into one stacked
+        ``[agg, batch, ...]`` batch (gradient accumulation); the state is
+        that after the LAST microbatch, so one optimizer step is one commit.
+        """
+        it = self.sampler.iter_from(self._state)
+        if agg <= 1:
+            for state, idx in it:
+                yield state, self._fetch_batch(idx)
+            return
+        while True:
+            micros = []
+            for _ in range(agg):
+                state, idx = next(it)
+                micros.append(self._fetch_batch(idx))
+            yield state, {k: np.stack([m[k] for m in micros]) for k in micros[0]}
 
     def commit_state(self, state: SamplerState) -> None:
         """Record that the consumer has taken every batch up to ``state``."""
@@ -104,7 +155,7 @@ class DataLoader:
         """One full pass (e.g. a validation sweep); resume state untouched."""
         batches = self.sampler.epoch_batches(epoch)
         for b in range(self.sampler.batches_per_epoch):
-            yield _fetch(self.dataset, batches[b])
+            yield self._fetch_batch(batches[b])
 
 
 def to_device(

@@ -263,8 +263,9 @@ class EpochFeed:
 class InputPipeline:
     """The full three-stage feed bound to one resumable DataLoader.
 
-    ``__next__`` returns a device batch and commits the loader's resume
-    state to the position *after* the consumed batch.
+    ``__next__`` returns a device batch (stacked ``[agg, batch, ...]``
+    microbatches when ``agg`` > 1) and commits the loader's resume state to
+    the position *after* the consumed batch.
     """
 
     def __init__(
@@ -272,12 +273,13 @@ class InputPipeline:
         loader: Any,
         device: torch.device,
         *,
+        agg: int = 1,
         prefetch_depth: int = 2,
         device_buffer: int = 2,
     ) -> None:
         self.loader = loader
         self._host_stage: Optional[PrefetchingIterator] = None
-        source: Iterable[Tuple[Any, Dict[str, np.ndarray]]] = loader.iter_pairs()
+        source: Iterable[Tuple[Any, Dict[str, np.ndarray]]] = loader.iter_pairs(agg=agg)
         if prefetch_depth > 0:
             source = self._host_stage = PrefetchingIterator(source, depth=prefetch_depth)
         self._it = device_prefetch(source, device, size=device_buffer)

@@ -5,7 +5,12 @@ Port of ``determined_tpu/models/transformer.py`` (dense): rotary position
 embeddings that pair even and odd lanes, GQA, RMSNorm with the variance
 taken in f32, SwiGLU, f32 parameters with compute in ``cfg.dtype``; per-block
 ``torch.utils.checkpoint`` under ``cfg.remat``.  ``LMTrial`` is the JAX
-``LMTrial`` without its pipeline branches.  The KV-cache serving functions (``transformer_prefill``,
+``LMTrial`` without its pipeline branches.  ``cfg.quantized_matmul`` (int8 or
+fp8, ``train/_quant.py``) quantizes the training forward's q, k, v, o,
+gate, up and down products and the logits head, as the JAX package's flax
+modules do; the fused cross-entropy head keeps its own bf16 contraction,
+and the KV-cache serving functions stay unquantized (their plain products
+are the JAX serving functions' ``@``).  The KV-cache serving functions (``transformer_prefill``,
 ``transformer_decode``, ``transformer_prefill_suffix``) take the
 ``TransformerLM`` module where the JAX functions take its param tree, and
 update the paged cache in place where JAX returns a donated copy.
@@ -30,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from determined_tpu_torch._device import DeviceLike, resolve_device
 from determined_tpu_torch.data import DataLoader, SyntheticDataset
 from determined_tpu_torch.ops.attention import NEG_INF, _repeat_kv, dot_product_attention
+from determined_tpu_torch.train._quant import check_mode, quant_linear, require_platform
 from determined_tpu_torch.train._trial import TorchTrial
 
 Cache = Dict[str, torch.Tensor]
@@ -66,7 +72,6 @@ class TransformerConfig:
         unported = [
             (self.moe_experts > 0, "moe_experts > 0 (the MoE slice)"),
             (self.attention_impl == "ring", "attention_impl='ring' (the sequence-parallel slice)"),
-            (self.quantized_matmul != "none", "quantized_matmul (the step-optimisation slice)"),
             (self.seq_axis_name is not None, "seq_axis_name (the pipeline slice)"),
             (self.expert_axis_name is not None, "expert_axis_name (the pipeline slice)"),
         ]
@@ -78,6 +83,7 @@ class TransformerConfig:
                 )
         if self.attention_impl not in ("auto", "reference", "flash"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
+        check_mode(self.quantized_matmul)
 
     @property
     def kv_heads(self) -> int:
@@ -155,12 +161,12 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        q, k, v = _attn_proj(self, x, cfg.dtype)
+        q, k, v = _attn_proj(self, x, cfg.dtype, cfg.quantized_matmul)
         positions = torch.arange(x.shape[1], device=x.device)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         out = dot_product_attention(q, k, v, causal=True, impl=cfg.attention_impl)
-        return _out_proj(self, out, cfg.dtype)
+        return _out_proj(self, out, cfg.dtype, cfg.quantized_matmul)
 
 
 class MLP(nn.Module):
@@ -172,7 +178,7 @@ class MLP(nn.Module):
         self.w_down = _linear(cfg.ff_dim, cfg.d_model, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _mlp_apply(self, x, self.cfg.dtype)
+        return _mlp_apply(self, x, self.cfg.dtype, self.cfg.quantized_matmul)
 
 
 class Block(nn.Module):
@@ -230,7 +236,9 @@ class TransformerLM(nn.Module):
         x = self.ln_f(x)
         if return_hidden:
             return x
-        return F.linear(x, self.lm_head.weight.to(self.cfg.dtype)).float()
+        return quant_linear(
+            x, self.lm_head.weight, self.cfg.dtype, self.cfg.quantized_matmul
+        ).float()
 
 
 # ---------------------------------------------------------------------------
@@ -255,28 +263,32 @@ def init_kv_cache(
 
 
 def _attn_proj(
-    attn: Attention, x: torch.Tensor, dtype: torch.dtype
+    attn: Attention, x: torch.Tensor, dtype: torch.dtype, quant: str = "none"
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q/k/v projections of x [b, s, d] to [b, heads, s, head_dim]."""
+    """q/k/v projections of x [b, s, d] to [b, heads, s, head_dim].
+    ``quant`` is the training forward's mode; the serving path leaves it
+    ``none``."""
     b, s, _ = x.shape
     hd = attn.cfg.head_dim
 
     def proj(lin: nn.Linear) -> torch.Tensor:
-        return F.linear(x, lin.weight.to(dtype)).view(b, s, -1, hd).transpose(1, 2)
+        return quant_linear(x, lin.weight, dtype, quant).view(b, s, -1, hd).transpose(1, 2)
 
     return proj(attn.wq), proj(attn.wk), proj(attn.wv)
 
 
-def _out_proj(attn: Attention, att: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _out_proj(
+    attn: Attention, att: torch.Tensor, dtype: torch.dtype, quant: str = "none"
+) -> torch.Tensor:
     """Output projection of attention [b, heads, s, head_dim] to [b, s, d]."""
     b, h, s, hd = att.shape
-    return F.linear(att.transpose(1, 2).reshape(b, s, h * hd), attn.wo.weight.to(dtype))
+    return quant_linear(att.transpose(1, 2).reshape(b, s, h * hd), attn.wo.weight, dtype, quant)
 
 
-def _mlp_apply(mlp: MLP, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    gate = F.linear(x, mlp.w_gate.weight.to(dtype))
-    up = F.linear(x, mlp.w_up.weight.to(dtype))
-    return F.linear(F.silu(gate) * up, mlp.w_down.weight.to(dtype))
+def _mlp_apply(mlp: MLP, x: torch.Tensor, dtype: torch.dtype, quant: str = "none") -> torch.Tensor:
+    gate = quant_linear(x, mlp.w_gate.weight, dtype, quant)
+    up = quant_linear(x, mlp.w_up.weight, dtype, quant)
+    return quant_linear(F.silu(gate) * up, mlp.w_down.weight, dtype, quant)
 
 
 def _check_decodable(cfg: TransformerConfig) -> None:
@@ -541,10 +553,22 @@ class LMTrial(TorchTrial):
     warmup_steps, decay_steps, dataset_size, fused_ce, ce_chunk,
     ce_bf16_residual, fused_adamw, adam_mu_bf16, weight_decay, grad_clip.
     ``fused_adamw: auto`` is the fused kernel on a CUDA device (the JAX
-    trial reads "on a TPU").  Pipeline, MoE and quantised-matmul
-    hyperparameters raise ``NotImplementedError``: they come with later
-    slices of the port.
+    trial reads "on a TPU").  ``quantized_matmul`` resolves as in the JAX
+    trial (``_quant_mode``).  Pipeline and MoE hyperparameters raise
+    ``NotImplementedError``: they come with later slices of the port.
     """
+
+    def _quant_mode(self) -> str:
+        """quantized_matmul resolution: a trial hparam wins, else the
+        experiment's ``optimizations.quantized_matmul``, else off.
+        Platform-gated here, at setup, so fp8 where the device has none
+        fails with a clear ``InvalidExperimentConfig``."""
+        mode = self.context.get_hparam("quantized_matmul", None)
+        if mode is None and self.context.exp_config is not None:
+            mode = self.context.exp_config.optimizations.quantized_matmul
+        mode = str(mode) if mode else "none"
+        require_platform(mode, self.context.device)
+        return mode
 
     def _cfg(self) -> TransformerConfig:
         g = self.context.get_hparam
@@ -567,7 +591,7 @@ class LMTrial(TorchTrial):
             dtype=torch.bfloat16 if bool(g("bf16", True)) else torch.float32,
             moe_experts=int(g("moe_experts", 0)),
             moe_every=int(g("moe_every", 2)),
-            quantized_matmul=str(g("quantized_matmul", None) or "none"),
+            quantized_matmul=self._quant_mode(),
         )
 
     @property

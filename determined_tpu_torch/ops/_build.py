@@ -2,8 +2,9 @@
 
 Each kernel source under ``determined_tpu_torch/csrc/`` is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
-loaded with ``ctypes``.  The library lands in ``determined_tpu_torch/_build/``
-(listed in ``.gitignore``) under a name keyed on a hash of the source, the
+loaded with ``ctypes``.  The library lands in ``BUILD_DIR``
+(``determined_tpu_torch/_build/``, listed in ``.gitignore``, or the
+directory given to ``set_build_dir``) under a name keyed on a hash of the source, the
 headers it includes from csrc/ (``#include "..."``, e.g. ``hopper.cuh``) and
 the compiler flags, so a changed source or header rebuilds and an unchanged
 one loads the library already there.  Nothing is built at import: the first
@@ -23,7 +24,8 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(PKG_DIR, "_build")
+DEFAULT_BUILD_DIR = os.path.join(PKG_DIR, "_build")
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -76,6 +78,16 @@ def _hash_with_includes(name: str, digest, seen: Set[str]) -> None:
     digest.update(name.encode() + b"\0" + text)
     for inc in _INCLUDE.findall(text):
         _hash_with_includes(inc.decode(), digest, seen)
+
+
+def set_build_dir(path: str) -> int:
+    """Build and load the libraries under ``path`` from now on (a cache that
+    outlives the process: ``optimizations.compilation_cache_dir``); returns
+    how many libraries are already there."""
+    global BUILD_DIR
+    os.makedirs(path, exist_ok=True)
+    BUILD_DIR = path
+    return sum(1 for e in os.scandir(path) if e.is_file() and e.name.endswith(".so"))
 
 
 def library_path(source: str) -> str:

@@ -513,6 +513,36 @@ class ServeEngine(_EngineBase):
             seq = self.lanes.retire(i)
             self._finish_error(seq.request, reason)
 
+    @classmethod
+    def from_checkpoint(
+        cls,
+        path: str,
+        serve_cfg: Optional[ServeConfig] = None,
+        trial_class: Optional[type] = None,
+        *,
+        device: DeviceLike = None,
+    ) -> "ServeEngine":
+        """Load a trial checkpoint (``train.load_trial_from_checkpoint``,
+        which checks the directory against its manifest first) and serve its
+        model on ``device`` (CUDA unless named).  The trial's
+        ``build_model()`` must return a module exposing ``cfg`` (a
+        TransformerConfig): the LMTrial contract.  The port writes no
+        pipeline-stage layout, so the JAX function's second check has
+        nothing to catch here."""
+        from determined_tpu_torch import train
+
+        trial, trainer = train.load_trial_from_checkpoint(
+            path, trial_class=trial_class, device=device
+        )
+        if getattr(trainer.model, "cfg", None) is None:
+            raise ValueError(
+                "checkpointed trial does not build a decoder-only transformer "
+                "(model has no .cfg); only TransformerLM-style trials serve"
+            )
+        engine = cls(DecodeKernels(trainer.model, serve_cfg or ServeConfig(), device=device))
+        engine.model_label = type(trial).__name__  # e.g. "LMTrial"
+        return engine
+
     def _admit_one(self) -> bool:
         """Try to move one queued request into a lane.  False when nothing
         was admitted (empty queue, or the head request must wait for cache

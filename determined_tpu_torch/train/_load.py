@@ -6,6 +6,10 @@ into ``trainer_state.json``, so inference or fine-tune scripts can do::
 
     trial, trainer = train.load_trial_from_checkpoint("/ckpts/<uuid>")
     model = trainer.model  # weights of the checkpoint's step
+
+Unlike the JAX function, the load first checks the directory against its
+integrity manifest (md5 and size of every file), as a Trainer's restore
+does: a serving replica must not load a truncated or bit-flipped file.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import importlib
 from typing import Any, Optional, Tuple
 
 from determined_tpu_torch._device import DeviceLike
+from determined_tpu_torch.core import verify_manifest
+from determined_tpu_torch.observability import get_tracer
 from determined_tpu_torch.train import serialization
 from determined_tpu_torch.train._trainer import Trainer, init as train_init
 from determined_tpu_torch.train._trial import TorchTrial
@@ -29,10 +35,14 @@ def load_trial_from_checkpoint(
     directory, on ``device`` (CUDA unless named).
 
     ``trial_class`` overrides the recorded class (when the original module
-    is not importable).  The returned trainer has its params, optimizer
-    state and generator restored at the checkpoint's step; call
-    ``trainer.fit`` to continue training or use ``trainer.model``.
+    is not importable).  The directory is checked against its manifest
+    first (``CheckpointCorruptError`` on a mismatch; a checkpoint without
+    one loads with a warning).  The returned trainer has
+    its params, optimizer state and generator restored at the checkpoint's
+    step; call ``trainer.fit`` to continue training or use ``trainer.model``.
     """
+    with get_tracer().span("checkpoint.verify", cat="restore"):
+        verify_manifest(path)
     tstate = serialization.load_trainer_state(path)
     if trial_class is None:
         ref = tstate.get("trial_class")

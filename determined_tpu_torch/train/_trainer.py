@@ -26,9 +26,14 @@ wait for the training steps queued behind the clones too).  The pinned
 buffers are allocated once, at the first asynchronous save.
 
 Experiment-configuration knobs the JAX Trainer reads are honoured or raise
-``NotImplementedError``: ``aggregation_frequency`` > 1, a mesh over more
-than one device, ``fetch_workers``, ``compilation_cache_dir``, overlapped or
-hierarchical gradient sync, quantised matmuls, pipeline schedules and the
+``NotImplementedError``.  Honoured: ``aggregation_frequency`` (gradient
+accumulation: each optimizer step runs forward and ``backward()`` over that
+many stacked microbatches, summing the gradients in ``.grad``, then one
+update), ``fetch_workers`` (passed to loaders that set none),
+``compilation_cache_dir`` (the kernels' build directory,
+``utils/compilation_cache.py``) and ``quantized_matmul`` (read by the
+trial's model, ``train/_quant.py``).  A mesh over more than one device,
+overlapped or hierarchical gradient sync, pipeline schedules and the
 retrace sentinel come with later slices of the port.  ``profiling.trace``
 bounds a ``torch.profiler`` window that the core context's profiler opened
 (``core.profiler.on(trace=True)``) to ``profiling.end_after_batch`` steps,
@@ -57,6 +62,7 @@ from determined_tpu_torch.train._reducer import MEAN, get_reducer
 from determined_tpu_torch.train._state import TrainState
 from determined_tpu_torch.train._trial import Callback, TorchTrial, TrialContext
 from determined_tpu_torch.utils import faults
+from determined_tpu_torch.utils.compilation_cache import setup_compilation_cache
 from determined_tpu_torch.utils.errors import CheckpointCorruptError, CheckpointNotFoundError
 
 logger = logging.getLogger("determined_tpu_torch.train")
@@ -72,25 +78,14 @@ def check_exp_config(exp_config: Any) -> None:
     """Raise for every knob the JAX Trainer reads that this port does not
     run; what passes is honoured."""
     opt = exp_config.optimizations
-    if opt.aggregation_frequency > 1:
-        raise _later(
-            f"optimizations.aggregation_frequency={opt.aggregation_frequency} "
-            "(gradient accumulation)"
-        )
     mesh = exp_config.resources.mesh
     if mesh.num_devices > 1:
         raise _later(
             f"resources.mesh {mesh.axes()} over {mesh.num_devices} devices (the port "
             "trains on one device)"
         )
-    if opt.fetch_workers:
-        raise _later("optimizations.fetch_workers (threaded per-item dataset reads)")
-    if opt.compilation_cache_dir is not None:
-        raise _later("optimizations.compilation_cache_dir (the XLA compilation cache)")
     if opt.overlap_grad_sync or opt.hierarchical_collectives:
         raise _later("optimizations.overlap_grad_sync / hierarchical_collectives")
-    if opt.quantized_matmul != "none":
-        raise _later(f"optimizations.quantized_matmul={opt.quantized_matmul!r}")
     if opt.pipeline_schedule != "gpipe" or opt.virtual_stages != 1:
         raise _later(f"optimizations.pipeline_schedule={opt.pipeline_schedule!r}")
     if exp_config.lint.retrace_sentinel:
@@ -108,7 +103,9 @@ def init(
     """Build a TrialContext on ``device`` (CUDA unless named; raises without
     a GPU).  Off-cluster the core services are ``core._dummy_init()``.  With
     ``exp_config`` the hyperparameters (Consts collapsed) and the seed
-    default to the configuration's."""
+    default to the configuration's.  The kernels' build cache is set up
+    from ``optimizations.compilation_cache_dir`` (or
+    ``DTPU_COMPILATION_CACHE``) as the JAX ``init`` sets up XLA's."""
     if exp_config is not None:
         check_exp_config(exp_config)
         if hparams is None:
@@ -118,6 +115,9 @@ def init(
             }
         if seed is None:
             seed = exp_config.reproducibility.experiment_seed
+    setup_compilation_cache(
+        exp_config.optimizations.compilation_cache_dir if exp_config is not None else None
+    )
     dev = resolve_device(device)
     core = core_context or core_mod._dummy_init()
     return TrialContext(
@@ -222,6 +222,9 @@ class Trainer:
         self._params: Dict[str, torch.nn.Parameter] = {}
         self._reducers: Dict[str, Any] = {}
         self._tokens_per_sample: Optional[int] = None
+        # microbatches per optimizer step (optimizations.aggregation_frequency)
+        self.agg = 1
+        self._average_grads = True
         # the step at which the profiler's trace window closes (None: no
         # bounded window)
         self._trace_stop_step: Optional[int] = None
@@ -251,6 +254,15 @@ class Trainer:
         if cfg is not None:
             self._searcher_metric = cfg.searcher.metric
             self._smaller_is_better = cfg.searcher.smaller_is_better
+            opt = cfg.optimizations
+            self.agg = opt.aggregation_frequency
+            self._average_grads = opt.average_aggregated_gradients
+            if opt.fetch_workers:
+                # config-level fetch_workers applies to loaders the trial
+                # built without a per-loader setting
+                for ld in (self.train_loader, self.val_loader):
+                    if ld is not None and not ld.fetch_workers:
+                        ld.fetch_workers = opt.fetch_workers
         self._params = dict(self.model.named_parameters())
         opt_state = self.tx.init(self._params)
         # the metric keys come from the first step's loss (sorted, then
@@ -287,18 +299,30 @@ class Trainer:
 
     def _train_step(self, batch: Dict[str, torch.Tensor]) -> None:
         """One optimizer step: forward, backward, update, metric sums; all
-        queued on the device, nothing waited for."""
+        queued on the device, nothing waited for.
+
+        Under gradient accumulation (``agg`` > 1) the batch holds ``agg``
+        stacked microbatches ``[agg, batch, ...]``: each one's forward and
+        ``backward()`` add its gradients into the f32 ``.grad`` in order, as
+        the JAX step's scan sums them; ``loss`` and the trial's metrics are
+        the microbatch sums over ``agg``, the gradients too when
+        ``average_aggregated_gradients`` is set, and then one update runs
+        (its clip on those gradients).  The port's ``loss`` takes no rng, so
+        there is no per-step key to share between microbatches."""
         state, params = self.state, self._params
         for p in params.values():
             p.grad = None
-        loss, metrics = self.trial.loss(state.model, batch)
-        loss.backward()
+        if self.agg == 1:
+            loss, metrics = self.trial.loss(state.model, batch)
+            loss.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["loss"] = loss.detach()
+        else:
+            metrics = self._accumulate(batch)
         grads = {
             k: p.grad if p.grad is not None else torch.zeros_like(p)
             for k, p in params.items()
         }
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
         # schedule-state surfacing: a trial exposing `lr_schedule` gets its
         # current learning rate (at the step before the update) reported
         schedule = getattr(self.trial, "lr_schedule", None)
@@ -319,6 +343,29 @@ class Trainer:
         state.metric_count.add_(1.0)
         state.step.add_(1)
 
+    def _accumulate(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Forward and backward over each stacked microbatch, gradients
+        summed in ``.grad``; returns the step's metrics (``loss`` and the
+        trial's, averaged over the microbatches)."""
+        agg = self.agg
+        loss_sum = None
+        sums: Dict[str, torch.Tensor] = {}
+        for i in range(agg):
+            loss, m = self.trial.loss(self.state.model, {k: v[i] for k, v in batch.items()})
+            loss.backward()
+            loss = loss.detach().float()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            for k, v in m.items():
+                v = v.detach().float()
+                sums[k] = v if k not in sums else sums[k] + v
+        if self._average_grads:
+            for p in self._params.values():
+                if p.grad is not None:
+                    p.grad.div_(agg)
+        metrics = {k: v / agg for k, v in sums.items()}
+        metrics["loss"] = loss_sum / agg
+        return metrics
+
     @torch.no_grad()
     def _eval_step(
         self, batch: Dict[str, torch.Tensor], acc: Dict[str, torch.Tensor]
@@ -336,15 +383,17 @@ class Trainer:
     # -- length arithmetic -------------------------------------------------
 
     def _to_batches(self, length: Any) -> Optional[int]:
-        """A Length in optimizer steps."""
+        """A Length in OPTIMIZER steps.  With gradient accumulation each
+        step consumes ``agg`` loader batches, so epoch and record lengths
+        divide by it (a 1-epoch run is one data pass whatever agg is)."""
         if length is None:
             return None
         length = Length.parse(length)
         if length.unit == "batches":
             return length.units
         if length.unit == "epochs":
-            return max(1, length.units * self.train_loader.batches_per_epoch)
-        return max(1, length.units // self.train_loader.sampler.global_batch)
+            return max(1, length.units * self.train_loader.batches_per_epoch // self.agg)
+        return max(1, length.units // (self.train_loader.sampler.global_batch * self.agg))
 
     # -- checkpoint --------------------------------------------------------
 
@@ -636,17 +685,21 @@ class Trainer:
         # CONSUMED position, so the state a checkpoint captures is exact
         prefetch_depth, device_buffer = self._input_opts()
         pipeline = InputPipeline(
-            self.train_loader, self.device,
+            self.train_loader, self.device, agg=self.agg,
             prefetch_depth=prefetch_depth, device_buffer=device_buffer,
         )
-        gbs = self.train_loader.sampler.global_batch
+        gbs = self.train_loader.sampler.global_batch * self.agg
         try:
             self._fit_loop(
                 pipeline, max_steps, val_sched, ckpt_sched, rep_sched, checkpoint_policy, gbs
             )
         finally:
-            # the worker must die with the loop, on a clean exit and on a crash
+            # the worker and the fetch pools must die with the loop, on a
+            # clean exit and on a crash: a restart builds a fresh Trainer
             pipeline.close()
+            for ld in (self.train_loader, self.val_loader):
+                if ld is not None:
+                    ld.close()
 
         # a save still in flight must land before we exit or report completion
         self._drain_pending_save()

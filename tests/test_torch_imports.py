@@ -56,7 +56,7 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     )
     assert proc.returncode == 0, proc.stderr
     # every module of the slices was walked, not a stub of the package
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 55
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 72
 
 
 @pytest.mark.parametrize("module", [
@@ -87,6 +87,43 @@ def test_observability_and_profiler_modules_import_nothing_of_jax(module):
         sys.meta_path.insert(0, Blocker())
         importlib.import_module({module!r})
         assert "torch.profiler" not in sys.modules
+        print("ok")
+        """
+    ).format(blocked=BLOCKED, module=module)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", [
+    "determined_tpu_torch.train._quant",
+    "determined_tpu_torch.utils.compilation_cache",
+    "determined_tpu_torch.inference",
+])
+def test_step_knob_and_train_to_serve_modules_import_nothing_of_jax(module):
+    """The quantized matmuls, the build cache and batch inference are the
+    port's own copies: each, imported alone, pulls in nothing of JAX or the
+    JAX package, and builds no kernel (nothing of ops/_build is loaded)."""
+    probe = textwrap.dedent(
+        """
+        import importlib, sys
+
+        BLOCKED = {blocked!r}
+
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                    raise ImportError("blocked import of " + name)
+                return None
+
+        sys.meta_path.insert(0, Blocker())
+        importlib.import_module({module!r})
+        assert "determined_tpu_torch.ops._build" not in sys.modules or not sys.modules[
+            "determined_tpu_torch.ops._build"]._libs
         print("ok")
         """
     ).format(blocked=BLOCKED, module=module)

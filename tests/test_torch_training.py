@@ -372,7 +372,7 @@ def test_fit_checkpoint_options_work(kwargs, tmp_path):
 
 
 def test_unported_options_raise():
-    for extra in (dict(pipe_microbatches=2), dict(moe_experts=4), dict(quantized_matmul="int8")):
+    for extra in (dict(pipe_microbatches=2), dict(moe_experts=4)):
         ctx = train.init(hparams=dict(HP, **extra), device="cpu")
         with pytest.raises(NotImplementedError, match="later slice"):
             LMTrial(ctx).build_model()
@@ -380,10 +380,10 @@ def test_unported_options_raise():
 
 @pytest.mark.parametrize(
     "raw",
-    [{"optimizations": {"aggregation_frequency": 2}},
+    [{"optimizations": {"overlap_grad_sync": True}},
      {"resources": {"mesh": {"data": 2}}},
      {"resources": {"mesh": {"fsdp": 2, "data": -1}}}],
-    ids=["aggregation_frequency", "mesh_data2", "mesh_fsdp2"],
+    ids=["overlap_grad_sync", "mesh_data2", "mesh_fsdp2"],
 )
 def test_exp_config_knobs_of_later_slices_raise(raw):
     from determined_tpu_torch.config import ExperimentConfig

@@ -252,7 +252,6 @@ def test_prefill_then_eight_decode_steps_match_full_forward(n_kv_heads):
     [
         ("moe_experts", 4),
         ("attention_impl", "ring"),
-        ("quantized_matmul", "int8"),
         ("seq_axis_name", "seq"),
         ("expert_axis_name", "expert"),
     ],
