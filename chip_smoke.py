@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--phases kernel,serve,parity,train,train_parity,experiment,search,observe,
-                  knobs,serve_ckpt]
+                  knobs,serve_ckpt,models]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -74,8 +74,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    just after, and must equal the sum over its trials' steps and validation
    passes.  Each trial's steps, seconds, synchronous (stop) save and clone
    seconds and device memory at its start and peak are printed.
-   S1. ASHA over the flagship at full size (const.yaml's model; lr
-       log-uniform in [1e-5, 1e-3]; 4 trials, rungs at 16 and 32 batches):
+   S1. ASHA over the flagship's width at 2 layers (const.yaml's model cut
+       in depth; lr log-uniform in [1e-5, 1e-3]; 4 trials, rungs at 16 and
+       32 batches):
        a searcher stop reaches a trial as a preemption, whose synchronous
        save is its checkpoint (deleted when the trial ends).  At least one
        trial is stopped below 32 steps; the trial set (ids, hparams, steps,
@@ -152,9 +153,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    flash forward's launches (cold prefills and scored batches) are counted.
    Printed: the save's and the load's seconds (verify, load), TTFT, the
    scored batches a second.
+12. models: the CIFAR ResNet and DDPM diffusion trials, each from its
+   example's const.yaml (CIFAR_CONST, DIFFUSION_CONST, dicts a CPU test
+   holds to the files) through LocalExperiment with the port's trial, at
+   full size; the cuts (MODELS_CUTS, printed) are the checkpoint directory
+   (a fresh temporary one, deleted at the end) and the seed.  The launch
+   counters are set to 0 just before each run and read just after.
+   C. cifar10: ResNet-20 (widths 16/32/64, 3 blocks a stage, GroupNorm,
+      bf16 compute), SGD with momentum, batch 128 over 8,192 samples, 4
+      epochs = 256 steps, a validation at each epoch: finite losses, the
+      last validation accuracy above 0.5, no kernel launched (convolutions,
+      GroupNorm and SGD are library calls, as in the JAX package).
+   D. diffusion: the DDPM UNet at base_channels 32 (82 leaves), fused
+      AdamW, batch 64, 500 steps, a validation every 100: exactly 82
+      fused_adamw launches a step and no flash launch, the last validation
+      loss below 1.0; then ddpm_sample over all 1,000 timesteps for 16
+      images from the trained weights: finite, [16, 28, 28, 1].
+   K. fused_adamw against its plain version at every leaf shape D trained,
+      with D's optimizer (lr 2e-4, decay 1e-4, no clip, f32 first moment),
+      and timed at the largest leaf beside its bound, its plain version and
+      torch's fused AdamW.
+   P. each trial trains 3 f32 steps on the card and on the CPU from the
+      same weights, batches and step seeds (MODELS_PARITY_CUTS, printed;
+      the diffusion steps draw t and eps on the host), TF32 off: losses,
+      updates and optimizer state held as phase 6 holds them.
+   Printed: each run's step time, images/s, validation metrics, peak device
+   memory and seconds; the sampler's seconds and ms a denoising step.
 
-Prints, before the last line, the kernels line (JSON) and the card's name
-and power limit, and as the last line {"ok": true, "device": {...}}.
+Prints, before the last line, the kernels line (JSON), the script's total
+seconds and the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 Imports nothing of JAX or determined_tpu.
 """
 
@@ -359,6 +387,9 @@ SEARCH_ASHA_CUTS = [
     ("checkpoint_policy", None, "none",
      "no best checkpoints: a searcher stop reaches the trial as a preemption, whose "
      "synchronous save is the one checkpoint of a trial (deleted when the trial ends)"),
+    ("hyperparameters.n_layers", 8, 2,
+     "depth only: four synchronous stop saves of 8.05 GB were 81% of S1's time; at 2 layers "
+     "each is 3.22 GB (the width stays full), and the time goes to the models phase"),
 ] + _SEARCH_COMMON_CUTS
 SEARCH_PBT_CUTS = [
     ("searcher", EXPERIMENT_CONST["searcher"],
@@ -471,8 +502,51 @@ SERVE_CKPT_SCORE_BATCH = 8
 SERVE_CKPT_SCORE_BATCHES = 8
 SERVE_CKPT_SCORE_INTERVAL = 2
 
+# phase 12: the CIFAR ResNet and DDPM trials, each its example's const.yaml
+# as a dict (a CPU test holds each to its file), then the cuts both take
+CIFAR_CONST = {
+    "name": "cifar10-resnet",
+    "entrypoint": "model_def:Trial",
+    "hyperparameters": dict(lr=0.05, momentum=0.9, global_batch_size=128, dataset_size=8192,
+                            depth_per_stage=3),
+    "searcher": {"name": "single", "metric": "validation_accuracy", "smaller_is_better": False,
+                 "max_length": {"epochs": 4}},
+    "min_validation_period": {"epochs": 1},
+    "checkpoint_storage": {"type": "shared_fs", "host_path": "/tmp/dtpu-checkpoints"},
+}
+DIFFUSION_CONST = {
+    "name": "diffusion-ddpm",
+    "entrypoint": "model_def:Trial",
+    "hyperparameters": dict(lr=2.0e-4, base_channels=32, timesteps=1000, global_batch_size=64,
+                            dataset_size=4096, bf16=True),
+    "searcher": {"name": "single", "metric": "validation_loss", "smaller_is_better": True,
+                 "max_length": {"batches": 500}},
+    "min_validation_period": {"batches": 100},
+    "checkpoint_storage": {"type": "shared_fs", "host_path": "/tmp/dtpu-checkpoints"},
+}
+MODELS_CUTS = [
+    ("checkpoint_storage.host_path", "/tmp/dtpu-checkpoints", "<temp dir>",
+     "a fresh temporary directory outside the repo, deleted at the end"),
+    ("reproducibility.experiment_seed", None, "<--seed>",
+     "the trial's weights and data from the run's --seed"),
+]
+MODELS_UNET_LEAVES = 82
+# D's sampler: ddpm_sample over every timestep of the trained model
+MODELS_SAMPLES = 16
+# part P, card against CPU: each trial's changes, (trial, hparam, the
+# file's value, P's value, why); None is the trial's default
+MODELS_PARITY_STEPS = 3
+MODELS_PARITY_CUTS = [
+    ("cifar10", "depth_per_stage", 3, 1,
+     "one block a stage (ResNet-8): the CPU side takes its 3 steps in seconds"),
+    ("cifar10", "global_batch_size", 128, 32, "the same, in batch"),
+    ("cifar10", "bf16", None, False, "f32 on both sides"),
+    ("diffusion", "global_batch_size", 64, 16, "the CPU side takes its 3 steps in seconds"),
+    ("diffusion", "bf16", True, False, "f32 on both sides"),
+]
+
 PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search",
-          "observe", "knobs", "serve_ckpt")
+          "observe", "knobs", "serve_ckpt", "models")
 
 
 def log(msg: str) -> None:
@@ -707,6 +781,17 @@ def check_flash_bwd(seed: int) -> dict:
     return rows
 
 
+def adamw_bound_us(n: int, mu_bytes: int) -> tuple:
+    """The least time of one AdamW leaf of ``n`` elements: p, v and g read,
+    p and v written (f32), m read and written (``mu_bytes`` each), the four
+    scalars read, against ADAMW_FLOPS_PER_ELEMENT f32 operations an element.
+    Returns (bytes, bound in us, "bytes" or "operations")."""
+    nbytes = n * (3 * 4 + 2 * mu_bytes + 2 * 4) + 16
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = ADAMW_FLOPS_PER_ELEMENT * n / PEAK_FLOPS["float32"]
+    return nbytes, max(t_bytes, t_ops) * 1e6, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def check_fused_adamw(seed: int) -> dict:
     """fused_adamw against its plain version on flagship leaves and ragged
     tails, timed on a [2048, 8192] SwiGLU leaf with a bf16 first moment."""
@@ -747,11 +832,7 @@ def check_fused_adamw(seed: int) -> dict:
         lib_opt = torch.optim.AdamW([lib_p], lr=3e-4, weight_decay=0.01, fused=True)
         library_us = device_time_us(lib_opt.step)
         n = p.numel()
-        nbytes = n * (3 * 4 + 2 * m.element_size() + 2 * 4) + 16  # p, v, g in; p, v out; m both
-        t_bytes = nbytes / PEAK_BYTES
-        t_ops = ADAMW_FLOPS_PER_ELEMENT * n / PEAK_FLOPS["float32"]
-        bound_us = max(t_bytes, t_ops) * 1e6
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        nbytes, bound_us, bound_by = adamw_bound_us(n, m.element_size())
         result = timed_row(kernel_us, plain_us, library_us, bound_us, bound_by,
                            ADAMW_FLOPS_PER_ELEMENT * n)
         log(f"fused_adamw on {list(shape)} mu={_dname(mu_dtype)} ({nbytes / 1e6:.1f} MB): "
@@ -1064,7 +1145,7 @@ def phase_train(seed: int) -> dict:
     return out
 
 
-def profile_train(trainer, steps: int = 3) -> dict:
+def profile_train(trainer, steps: int = 3, label: str = "train") -> dict:
     """Device time by kernel group over ``steps`` training steps, traced
     with torch.profiler and folded by the package's op table
     (``determined_tpu_torch/utils/kineto.py``), and the device-busy share of
@@ -1109,7 +1190,7 @@ def profile_train(trainer, steps: int = 3) -> dict:
             for op in ops[:12]
         ],
     )
-    log(f"train profile ({steps} steps): " + json.dumps(out))
+    log(f"{label} profile ({steps} steps): " + json.dumps(out))
     out["ops"] = ops  # the whole table, for callers that look rows up
     return out
 
@@ -1217,26 +1298,25 @@ class _SimulatedCrash(RuntimeError):
     """Stands in for a worker crash mid-step (a TRANSIENT failure)."""
 
 
-def _capturing_trial():
-    """LMTrial with a callback that keeps the Trainer of each run and the
-    time its training started (after any restore), so the phase can read
+def _capturing(trial_cls):
+    """``trial_cls`` with a callback that keeps the Trainer of each run and
+    the time its training started (after any restore), so a phase can read
     its final state and its time to resume."""
-    from determined_tpu_torch.models import LMTrial
     from determined_tpu_torch.train import Callback
 
+    trainers: list = []
+    started: list = []
+
     class Capture(Callback):
-        trainers: list = []
-        started: list = []
-
         def on_training_start(self, trainer) -> None:
-            Capture.trainers.append(trainer)
-            Capture.started.append(time.monotonic())
+            trainers.append(trainer)
+            started.append(time.monotonic())
 
-    class SmokeLMTrial(LMTrial):
+    class Captured(trial_cls):
         def build_callbacks(self):
             return {"capture": Capture()}
 
-    return SmokeLMTrial, Capture.trainers, Capture.started
+    return Captured, trainers, started
 
 
 def _spans(tracer, name: str) -> list:
@@ -1389,6 +1469,7 @@ def phase_experiment(seed: int) -> dict:
     from determined_tpu_torch.config import ExperimentConfig
     from determined_tpu_torch.exec.run_trial import TrialSupervisor
     from determined_tpu_torch.experiment import LocalExperiment
+    from determined_tpu_torch.models import LMTrial
     from determined_tpu_torch.observability import get_tracer
     from determined_tpu_torch.utils import faults
 
@@ -1400,7 +1481,7 @@ def phase_experiment(seed: int) -> dict:
         log(f"experiment cut: {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
     for path, const, value, why in CRASH_CUTS:
         log(f"experiment D cut: {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
-    trial_cls, trainers, started = _capturing_trial()
+    trial_cls, trainers, started = _capturing(LMTrial)
     tracer = get_tracer()
     memory: dict = {}
     out: dict = {}
@@ -1718,7 +1799,7 @@ def _peak_gib(exp) -> float:
 
 
 def _search_asha(seed: int, root: str) -> dict:
-    """S1: ASHA over the flagship at full size."""
+    """S1: ASHA over the flagship's width at 2 layers."""
     import os
 
     from determined_tpu_torch.config import ExperimentConfig
@@ -1885,18 +1966,16 @@ def _mnist_recorder():
     return RecordedMnistTrial, leaves, optimizers
 
 
-def check_mnist_adamw(seed: int, leaves, optimizers) -> float:
-    """fused_adamw against its plain version with each optimizer S3's
-    trials built (their lr, no decay, no clip) at every leaf shape they
-    trained and at MNIST_ADAMW_SHAPES; returns the largest difference."""
+def check_adamw_leaves(seed: int, shapes, optimizers, label: str) -> float:
+    """fused_adamw against its plain version with each of ``optimizers``
+    (their lr, decay, clip and first-moment dtype; the scalars of step 3 as
+    the optimizer makes them) at every leaf shape of ``shapes``; returns the
+    largest difference."""
     import torch
 
     from determined_tpu_torch.ops import fused_adamw as fw
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    shapes = sorted(set(leaves) | set(MNIST_ADAMW_SHAPES))
-    # step 3 of a trial's run: lr, clip scale and bias corrections as the
-    # trial's own optimizer makes them
     count = torch.tensor(2, dtype=torch.int32, device="cuda")
     worst = 0.0
     for tx in dict.fromkeys(optimizers):
@@ -1915,12 +1994,12 @@ def check_mnist_adamw(seed: int, leaves, optimizers) -> float:
             for what, a, b_ in zip("pmv", got, want):
                 torch.testing.assert_close(
                     a.float(), b_.float(), **ADAMW_TOL[_dname(b_.dtype)],
-                    msg=lambda m_, what=what, shape=shape: f"fused_adamw S3 {what} {shape}: {m_}")
+                    msg=lambda m_, what=what, shape=shape: f"fused_adamw {label} {what} {shape}: {m_}")
                 worst = max(worst, _max_err(a, b_))
-        log(f"fused_adamw S3 optimizer lr={tx.learning_rate:.3e} wd={tx.weight_decay} "
+        log(f"fused_adamw {label} optimizer lr={tx.learning_rate:.3e} wd={tx.weight_decay} "
             f"clip_norm={tx.clip_norm} clip_scale={float(scalars[1])} "
             f"mu={_dname(tx.mu_dtype or torch.float32)}: {len(shapes)} leaf shapes agree")
-    log(f"fused_adamw S3: {len(shapes)} shapes {shapes}, max_abs_err {worst:.3e}")
+    log(f"fused_adamw {label}: {len(shapes)} shapes {shapes}, max_abs_err {worst:.3e}")
     return worst
 
 
@@ -1948,7 +2027,8 @@ def _search_mnist(seed: int, root: str) -> dict:
     assert launches == want, f"launches {launches} != expected {want}"
     # the kernel at these leaves with these optimizers, after the counts
     # were read
-    adamw_err = check_mnist_adamw(seed, leaves, optimizers)
+    adamw_err = check_adamw_leaves(seed, sorted(set(leaves) | set(MNIST_ADAMW_SHAPES)),
+                                   optimizers, "S3")
     return dict(wall_s=wall, trials_replayed=n_trials, steps=steps, stopped_early=stops,
                 best_validation_accuracy=best, launches=launches, peak_memory_gib=_peak_gib(exp),
                 adamw_max_abs_err=adamw_err)
@@ -2689,7 +2769,296 @@ def phase_serve_ckpt(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the CIFAR ResNet and DDPM diffusion trials
+# ---------------------------------------------------------------------------
+
+
+def models_raw_config(part: str, ckpt_dir: str, seed: int) -> dict:
+    """The configuration of ``part`` (cifar10 or diffusion): its file's dict
+    with MODELS_CUTS applied."""
+    base = {"cifar10": CIFAR_CONST, "diffusion": DIFFUSION_CONST}[part]
+    return _apply_cuts(base, MODELS_CUTS, {"<temp dir>": ckpt_dir, "<--seed>": seed})
+
+
+def _models_experiment(part: str, trial_cls, root: str, seed: int) -> tuple:
+    """``part``'s const.yaml through LocalExperiment(cfg, trial_cls), the
+    launch counters set to 0 just before and read just after; returns the
+    measured fields and the run's Trainer."""
+    import os
+
+    import torch
+
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.experiment import LocalExperiment
+
+    cfg = ExperimentConfig.parse(models_raw_config(part, os.path.join(root, part), seed))
+    cls, trainers, _started = _capturing(trial_cls)
+    exp = LocalExperiment(cfg, cls, checkpoint_dir=cfg.checkpoint_storage.host_path)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.monotonic()
+    summary = exp.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    assert summary["status"] == "completed", summary
+    trainer = trainers[-1]
+    reports = trainer.core.train.metrics("training")
+    validations = trainer.core.train.metrics("validation")
+    gbs = trainer.train_loader.sampler.global_batch
+    step_ms = [1e3 * gbs / m["samples_per_second"] for _, m in reports]
+    losses = [m["loss"] for _, m in reports]
+    assert all(np.isfinite(x) for x in losses), losses
+    mean_step_ms = statistics.mean(step_ms[1:])  # the first report holds the warm-up
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # 3 more steps traced: device time and launches a step (not counted)
+    profile = profile_train(trainer, label=f"models {part}")
+    out = dict(
+        device_ms_per_step=profile["device_ms_per_step"],
+        device_busy_share=profile["device_busy_share"],
+        launches_per_step_by_group=profile["launches_per_step_by_group"],
+        wall_s=wall, steps=trainer.steps_completed, report_steps=[s for s, _ in reports],
+        losses=losses, step_ms_per_report=step_ms, mean_step_ms=mean_step_ms,
+        images_per_s=1e3 * gbs / mean_step_ms, validation_steps=[s for s, _ in validations],
+        validations=[m for _, m in validations], launches=launches, peak_memory_gib=peak_gib,
+    )
+    return out, trainer
+
+
+def models_cifar(seed: int, root: str) -> dict:
+    """C: examples/cifar10/const.yaml (ResNet-20, SGD) at full size."""
+    from determined_tpu_torch.models import CifarTrial
+
+    out, trainer = _models_experiment("cifar10", CifarTrial, root, seed)
+    hp = CIFAR_CONST["hyperparameters"]
+    per_epoch = hp["dataset_size"] // hp["global_batch_size"]
+    epochs = CIFAR_CONST["searcher"]["max_length"]["epochs"]
+    assert out["steps"] == epochs * per_epoch, out["steps"]
+    # a validation at each epoch
+    want = [per_epoch * (e + 1) for e in range(epochs)]
+    assert out["validation_steps"] == want, out["validation_steps"]
+    accuracies = [m["validation_accuracy"] for m in out["validations"]]
+    assert all(np.isfinite(m["validation_loss"]) for m in out["validations"]), out["validations"]
+    assert accuracies[-1] > 0.5, accuracies  # 10 classes: chance is 0.1
+    # SGD with momentum, convolutions, GroupNorm: library calls, as the JAX
+    # package computes them outside any Pallas kernel
+    assert not any(out["launches"].values()), out["launches"]
+    out["validation_accuracy"] = accuracies
+    out["params"] = sum(p.numel() for p in trainer._params.values())
+    log("models C (cifar10): " + json.dumps(out))
+    return out
+
+
+def models_diffusion(seed: int, root: str) -> tuple:
+    """D: examples/diffusion/const.yaml (the DDPM UNet, AdamW) at full size,
+    then ddpm_sample over every timestep; returns the fields and the run's
+    Trainer (for K)."""
+    import torch
+
+    from determined_tpu_torch.models import DiffusionTrial, ddpm_sample
+
+    out, trainer = _models_experiment("diffusion", DiffusionTrial, root, seed)
+    steps = out["steps"]
+    assert steps == DIFFUSION_CONST["searcher"]["max_length"]["batches"], steps
+    assert len(trainer._params) == MODELS_UNET_LEAVES, len(trainer._params)
+    want = dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+                fused_adamw=MODELS_UNET_LEAVES * steps)
+    assert out["launches"] == want, f"launches {out['launches']} != expected {want}"
+    losses = [m["validation_loss"] for m in out["validations"]]
+    period = DIFFUSION_CONST["min_validation_period"]["batches"]
+    assert out["validation_steps"] == list(range(period, steps + 1, period)), \
+        out["validation_steps"]
+    # the bar of tests/test_diffusion.py::test_training_reduces_loss (eps ~
+    # N(0, 1) gives 1.0)
+    assert losses[-1] < 1.0, losses
+    timesteps = int(trainer.context.get_hparam("timesteps"))
+    shape = (MODELS_SAMPLES, 28, 28, 1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    x = ddpm_sample(trainer.model, shape, timesteps, generator=gen)
+    torch.cuda.synchronize()
+    sample_s = time.monotonic() - t0
+    assert tuple(x.shape) == shape and bool(torch.isfinite(x).all()), (x.shape, x.abs().max())
+    out.update(validation_loss=losses, sampler_s=sample_s,
+               sampler_ms_per_step=1e3 * sample_s / timesteps, samples_std=float(x.std()),
+               params=sum(p.numel() for p in trainer._params.values()))
+    log("models D (diffusion): " + json.dumps(out))
+    return out, trainer
+
+
+def models_adamw(seed: int, trainer) -> dict:
+    """K: fused_adamw against its plain version at every leaf shape D
+    trained, with D's optimizer, and timed at the largest leaf beside its
+    bound, its plain version and torch's fused AdamW."""
+    import torch
+
+    from determined_tpu_torch.ops import fused_adamw as fw
+
+    tx = trainer.tx
+    shapes = sorted({tuple(p.shape) for p in trainer._params.values()})
+    err = check_adamw_leaves(seed, shapes, [tx], "models K (UNet)")
+    shape = max(shapes, key=lambda sh: int(np.prod(sh)))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    p, g = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
+    m = 0.1 * torch.randn(shape, generator=gen, device="cuda")
+    v = 0.01 * torch.rand(shape, generator=gen, device="cuda")
+    scalars = tx.scalars(torch.tensor(2, dtype=torch.int32, device="cuda"), {"g": g})
+    kw = dict(b1=tx.b1, b2=tx.b2, eps=tx.eps, wd=tx.weight_decay)
+    kernel_us = device_time_us(lambda: fw.adamw_leaf_(p, m, v, g, scalars, **kw))
+    plain_us = device_time_us(lambda: fw._leaf_reference(p, m, v, g, scalars, **kw))
+    lib_p = torch.nn.Parameter(p.clone())
+    lib_p.grad = g.clone()
+    lib_opt = torch.optim.AdamW([lib_p], lr=tx.learning_rate, weight_decay=tx.weight_decay,
+                                fused=True)
+    library_us = device_time_us(lib_opt.step)
+    n = p.numel()
+    nbytes, bound_us, bound_by = adamw_bound_us(n, m.element_size())
+    out = dict(shapes=len(shapes), max_abs_err=err, timed_shape=list(shape),
+               **timed_row(kernel_us, plain_us, library_us, bound_us, bound_by,
+                           ADAMW_FLOPS_PER_ELEMENT * n))
+    log(f"models K: fused_adamw on the largest UNet leaf {list(shape)} ({nbytes / 1e6:.3f} MB): "
+        + json.dumps(out))
+    return out
+
+
+def _host_drawn_diffusion_trial():
+    """DiffusionTrial whose step draws t and eps on the host, from a CPU
+    generator seeded as the step's generator: the card's Philox and the
+    CPU's Mersenne Twister draw different numbers from one seed, so both
+    sides train on the host's draws."""
+    import torch
+
+    from determined_tpu_torch.models import DiffusionTrial
+    from determined_tpu_torch.models.diffusion import noised_loss
+
+    class HostDrawnDiffusionTrial(DiffusionTrial):
+        def loss(self, model, batch, rng):
+            host = torch.Generator().manual_seed(rng.initial_seed())
+            img = batch["image"].float() * 2.0 - 1.0
+            t = torch.randint(0, int(self._hp("timesteps", 1000)), (img.shape[0],),
+                              generator=host).to(img.device)
+            eps = torch.randn(tuple(img.shape), generator=host).to(img.device)
+            loss = noised_loss(model, img, t, eps, self.schedule)
+            return loss, {"mse": loss}
+
+    return HostDrawnDiffusionTrial
+
+
+def models_parity(seed: int) -> dict:
+    """P: each trial trains MODELS_PARITY_STEPS f32 steps on the card and on
+    the CPU from the same weights, batches and step seeds; losses, updates
+    and optimizer state compared as phase 6 compares them."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.data import to_device
+    from determined_tpu_torch.models import CifarTrial
+
+    # full-f32 products on both sides: cuDNN's f32 convolutions default to
+    # TF32 (torch.backends.cudnn.allow_tf32), which keeps 10 mantissa bits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("models P: TF32 off (torch.backends.cudnn.allow_tf32 and cuda.matmul.allow_tf32 "
+        "False): the card's f32 convolutions and products keep f32")
+    out = {}
+    for part, trial_cls, const in (("cifar10", CifarTrial, CIFAR_CONST),
+                                   ("diffusion", _host_drawn_diffusion_trial(), DIFFUSION_CONST)):
+        hp = dict(const["hyperparameters"])
+        for which, key, _file, value, why in MODELS_PARITY_CUTS:
+            if which == part:
+                hp[key] = value
+        trainers = {}
+        for dev in ("cuda", "cpu"):
+            t = train.Trainer(trial_cls(train.init(hparams=hp, seed=seed, device=dev)))
+            t._setup()
+            trainers[dev] = t
+        card, host = trainers["cuda"], trainers["cpu"]
+        host.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+        start = {k: v.detach().cpu().clone() for k, v in host.model.state_dict().items()}
+        _reset_launches()
+        losses = {"cuda": [], "cpu": []}
+        its = {dev: iter(t.train_loader) for dev, t in trainers.items()}
+        for step in range(MODELS_PARITY_STEPS):
+            batches = {dev: next(it) for dev, it in its.items()}
+            np.testing.assert_array_equal(batches["cuda"]["image"], batches["cpu"]["image"])
+            assert card.state.step_seed(step) == host.state.step_seed(step)
+            for dev, t in trainers.items():
+                t.steps_completed = step  # the step generator's step, as fit counts it
+                t._train_step(to_device(batches[dev], t.device))
+                losses[dev].append(t.state.fetch_metrics()["loss"])
+                t.state.reset_metrics()
+        launches = _launch_counts()
+        tol = TRAIN_PARITY_TOL
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], **tol["loss"])
+
+        def rel(a, b) -> float:
+            return float(torch.linalg.vector_norm(a - b)
+                         / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+        upd_err = max(
+            rel(card.model.state_dict()[k].cpu() - start[k], host.model.state_dict()[k] - start[k])
+            for k in start)
+        moments = {}
+        for name, got in card.state.opt_state._asdict().items():
+            if isinstance(got, dict):
+                want = getattr(host.state.opt_state, name)
+                moments[name] = max(rel(got[k].cpu(), want[k]) for k in got)
+        out[part] = dict(cuts={k: v for w, k, _f, v, _ in MODELS_PARITY_CUTS if w == part},
+                         losses_card=losses["cuda"], losses_cpu=losses["cpu"],
+                         max_rel_update_err=upd_err, max_rel_state_err=moments,
+                         launches=launches)
+        log(f"models P ({part}, card vs CPU): " + json.dumps(out[part]))
+        assert upd_err <= tol["update_rel"], upd_err
+        assert max(moments.values()) <= tol["moment_rel"], moments
+        kernel_steps = MODELS_PARITY_STEPS * len(card._params) if part == "diffusion" else 0
+        assert launches == dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+                                fused_adamw=kernel_steps), launches
+    return out
+
+
+def phase_models(seed: int) -> dict:
+    """Parts C, D, K and P of phase 12 (the docstring at the top)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.monotonic()
+    root = tempfile.mkdtemp(prefix="dtt-chip-models-")
+    for path, const, value, why in MODELS_CUTS:
+        value = seed if value == "<--seed>" else value
+        log(f"models cut (C and D): {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
+    for part, key, const, value, why in MODELS_PARITY_CUTS:
+        log(f"models P cut ({part}): hyperparameters.{key} {json.dumps(const)} -> "
+            f"{json.dumps(value)} ({why})")
+    out: dict = {}
+    try:
+        t0 = time.monotonic()
+        out["C"] = models_cifar(seed, root)
+        out["C"]["part_s"] = time.monotonic() - t0
+        _free_cuda()
+        t0 = time.monotonic()
+        out["D"], trainer = models_diffusion(seed, root)
+        out["D"]["part_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        out["K"] = models_adamw(seed, trainer)
+        out["K"]["part_s"] = time.monotonic() - t0
+        del trainer
+        _free_cuda()
+        t0 = time.monotonic()
+        out["P"] = models_parity(seed)
+        out["P"]["part_s"] = time.monotonic() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = out["D"]["launches"]
+    out["phase_s"] = time.monotonic() - t_phase
+    log("models: " + json.dumps({k: (v["part_s"] if isinstance(v, dict) and "part_s" in v else v)
+                                 for k, v in out.items()}))
+    return out
+
+
 def main() -> int:
+    t_start = time.monotonic()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     # a subset (e.g. --phases kernel) makes a new kernel's first call on the
@@ -2768,6 +3137,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         serve_ckpt = phase_serve_ckpt(args.seed)
+    models = None
+    if "models" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        models = phase_models(args.seed)
 
     if kernel and serve is not None and trained is not None:
         rows = []
@@ -2789,12 +3163,17 @@ def main() -> int:
                 if name == "fused_adamw":  # also held at S3's leaves
                     fields["max_abs_err"] = max(fields["max_abs_err"],
                                                 search["S3"]["adamw_max_abs_err"])
+            if models is not None:
+                by_phase["models"] = models["launches"][name]
+                if name == "fused_adamw":  # also held at the UNet's leaves
+                    fields["max_abs_err"] = max(fields["max_abs_err"], models["K"]["max_abs_err"])
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=trained["launches"][name], launches_by_phase=by_phase,
                 **fields,
             ))
         print(json.dumps({"kernels": rows}), flush=True)
+    log(f"chip_smoke: {time.monotonic() - t_start:.1f} s")
     print(card, flush=True)  # name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

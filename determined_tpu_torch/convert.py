@@ -10,11 +10,15 @@ given as numpy arrays.  Layouts mapped:
   ``nn.Linear.weight`` ``[out, in]``;
 - ``Embed.embedding`` ``[V, d]`` as is; RMSNorm ``scale`` as ``weight``.
 
-The MNIST models (``models/mnist.py``) map through
-``mnist_state_dict_from_flax`` and its inverse: dense kernels ``[in, out]``
-against ``[out, in]``, conv kernels HWIO against OIHW, biases as they are.
-The port's CNN flattens its last feature map in NHWC order, as flax does,
-so ``fc1``'s rows need no permutation.
+The MNIST models, the ResNet and the diffusion UNet (``models/mnist.py``,
+``models/resnet.py``, ``models/diffusion.py``) name every submodule as
+flax does, so their trees map leaf by leaf through one mapping
+(``mnist_state_dict_from_flax``, ``resnet_state_dict_from_flax``,
+``unet_state_dict_from_flax`` and the inverses): conv kernels HWIO against
+OIHW, dense kernels ``[in, out]`` against ``[out, in]``, GroupNorm
+``scale``/``bias`` as ``weight``/``bias``, biases as they are.  The port's
+CNN flattens its last feature map in NHWC order, as flax does, so
+``fc1``'s rows need no permutation.
 
 Optimizer moments (``mu``/``nu`` trees of a ``FusedAdamWState`` or of the
 ``ScaleByAdamState`` inside an optax chain state) are param-shaped and map
@@ -157,32 +161,60 @@ def _f32_or_f64(x: Any) -> np.ndarray:
     return a if a.dtype == np.float64 else a.astype(np.float32)
 
 
-def mnist_state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """The state_dict (as numpy) of the port's ``MnistMLP`` or ``MnistCNN``
-    from the flax model's param tree (with or without ``"params"``); f32
-    leaves, f64 where the tree's are."""
+def _conv_net_state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The state_dict (as numpy) of a port module named as its flax module
+    (the MNIST models, ``ResNet``, ``UNet``): each leaf at its flax path joined by ".";
+    ``kernel`` becomes ``weight`` (Conv HWIO -> OIHW, Dense transposed),
+    ``scale`` becomes ``weight``; f32 leaves, f64 where the tree's are."""
     if "params" in tree:
         tree = tree["params"]
-    out = {}
-    for layer, leaves in tree.items():
-        kern = _f32_or_f64(leaves["kernel"])
-        # Dense [in, out] -> [out, in]; Conv HWIO -> OIHW
-        out[f"{layer}.weight"] = kern.T if kern.ndim == 2 else kern.transpose(3, 2, 0, 1)
-        out[f"{layer}.bias"] = _f32_or_f64(leaves["bias"])
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node: Mapping[str, Any], prefix: str) -> None:
+        for key, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{key}.")
+                continue
+            a = _f32_or_f64(v)
+            if key == "kernel":
+                a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+            out[prefix + ("weight" if key in ("kernel", "scale") else key)] = a
+
+    walk(tree, "")
     return {k: np.ascontiguousarray(v) for k, v in out.items()}
 
 
-def flax_from_mnist_state_dict(state: Mapping[str, Any]) -> Dict[str, Any]:
-    """The inverse: the flax MNIST param tree (inner dict, numpy leaves)."""
+def _flax_from_conv_net_state_dict(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse: the flax param tree (inner dict, numpy leaves).  A 1-D
+    ``weight`` is a GroupNorm ``scale``, a 2-D or 4-D one a kernel."""
     tree: Dict[str, Any] = {}
     for key, v in state.items():
-        layer, kind = key.rsplit(".", 1)
+        *path, kind = key.split(".")
         if isinstance(v, torch.Tensor):
             v = v.detach().cpu()
             v = v.numpy() if v.dtype == torch.float64 else v.float().numpy()
         v = np.asarray(v)
-        if kind == "weight":
-            tree.setdefault(layer, {})["kernel"] = v.T if v.ndim == 2 else v.transpose(2, 3, 1, 0)
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        if kind != "weight":
+            node[kind] = v
+        elif v.ndim == 1:
+            node["scale"] = v
         else:
-            tree.setdefault(layer, {})["bias"] = v
+            node["kernel"] = v.T if v.ndim == 2 else v.transpose(2, 3, 1, 0)
     return _contiguous(tree)
+
+
+#: ``models/mnist.py``'s MnistMLP and MnistCNN: fc1, fc2 (and conv1, conv2)
+mnist_state_dict_from_flax = _conv_net_state_dict_from_flax
+flax_from_mnist_state_dict = _flax_from_conv_net_state_dict
+#: ``models/resnet.py``'s ResNet: stem, gn_stem, s{stage}b{block}.{conv1, gn1,
+#: conv2, gn2, proj, gn_proj}, head
+resnet_state_dict_from_flax = _conv_net_state_dict_from_flax
+flax_from_resnet_state_dict = _flax_from_conv_net_state_dict
+#: ``models/diffusion.py``'s UNet: stem, temb1, temb2, down{i}, mid1, mid_attn,
+#: mid2, up{i}, GroupNorm_0, head, each ResBlock with conv1, temb_proj, conv2,
+#: skip and its GroupNorm_0 / GroupNorm_1
+unet_state_dict_from_flax = _conv_net_state_dict_from_flax
+flax_from_unet_state_dict = _flax_from_conv_net_state_dict

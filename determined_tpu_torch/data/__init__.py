@@ -6,6 +6,7 @@ from determined_tpu_torch.data._dataset import (
     Dataset,
     InMemoryDataset,
     SyntheticDataset,
+    cifar_like,
     mnist_like,
 )
 from determined_tpu_torch.data._loader import DataLoader, to_device
@@ -27,6 +28,7 @@ __all__ = [
     "PrefetchingIterator",
     "SamplerState",
     "SyntheticDataset",
+    "cifar_like",
     "device_prefetch",
     "mnist_like",
     "to_device",

@@ -3,7 +3,7 @@
 A copy of ``determined_tpu/data/_dataset.py`` (the port imports nothing of
 the JAX package): map-style datasets whose items are **dicts of numpy
 arrays**, so batches stack into host arrays that the loader copies to the
-device.  ``SyntheticDataset`` and ``mnist_like`` draw from
+device.  ``SyntheticDataset``, ``mnist_like`` and ``cifar_like`` draw from
 ``np.random.default_rng(seed)`` exactly as the JAX package does, so both
 packages see the same data for the same seed.  Batching always drops ragged
 tails (``drop_last`` semantics).
@@ -97,6 +97,30 @@ def mnist_like(
     templates = np.random.default_rng(1234).standard_normal((10, 28, 28)).astype(np.float32)
     images = templates[labels] + 0.3 * rng.standard_normal((size, 28, 28)).astype(np.float32)
     return InMemoryDataset({image_key: images[..., None], label_key: labels})
+
+
+def cifar_like(size: int = 4096, num_classes: int = 10, seed: int = 0) -> InMemoryDataset:
+    """Class-separable synthetic 32x32x3 dataset (the JAX package's
+    ``determined_tpu/models/resnet.py`` ``cifar_like``; loads nothing): each
+    class a low-frequency template, plus noise."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, size).astype(np.int32)
+    yy, xx = np.mgrid[0:32, 0:32].astype(np.float32) / 32.0
+    templates = np.stack(
+        [
+            np.stack(
+                [
+                    np.sin((c + 1) * np.pi * xx),
+                    np.cos((c + 2) * np.pi * yy),
+                    np.sin((c + 1) * np.pi * (xx + yy)),
+                ],
+                axis=-1,
+            )
+            for c in range(num_classes)
+        ]
+    )
+    images = templates[labels] + rng.normal(0, 0.4, (size, 32, 32, 3)).astype(np.float32)
+    return InMemoryDataset({"image": images.astype(np.float32), "label": labels})
 
 
 def _load_idx_mnist(

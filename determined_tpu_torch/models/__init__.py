@@ -1,6 +1,14 @@
 """Models of the port."""
 
+from determined_tpu_torch.models.diffusion import (
+    DiffusionTrial,
+    UNet,
+    cosine_schedule,
+    ddpm_sample,
+    timestep_embedding,
+)
 from determined_tpu_torch.models.mnist import MnistCNN, MnistMLP, MnistTrial
+from determined_tpu_torch.models.resnet import CifarTrial, ResidualBlock, ResNet
 from determined_tpu_torch.models.transformer import (
     LMTrial,
     TransformerConfig,
@@ -13,14 +21,22 @@ from determined_tpu_torch.models.transformer import (
 )
 
 __all__ = [
+    "CifarTrial",
+    "DiffusionTrial",
     "LMTrial",
     "MnistCNN",
     "MnistMLP",
     "MnistTrial",
+    "ResNet",
+    "ResidualBlock",
     "TransformerConfig",
     "TransformerLM",
+    "UNet",
+    "cosine_schedule",
+    "ddpm_sample",
     "init_kv_cache",
     "kv_cache_shape",
+    "timestep_embedding",
     "transformer_decode",
     "transformer_prefill",
     "transformer_prefill_suffix",

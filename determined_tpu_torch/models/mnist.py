@@ -23,16 +23,8 @@ from torch import nn
 
 from determined_tpu_torch._device import DeviceLike, resolve_device
 from determined_tpu_torch.data import DataLoader, mnist_like
+from determined_tpu_torch.models._layers import init_weights
 from determined_tpu_torch.train._trial import TorchTrial
-
-
-@torch.no_grad()
-def _init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    for mod in module.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
-            fan_in = mod.weight[0].numel()
-            mod.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
-            mod.bias.zero_()
 
 
 class MnistMLP(nn.Module):
@@ -50,7 +42,7 @@ class MnistMLP(nn.Module):
         dev = resolve_device(device)
         self.fc1 = nn.Linear(28 * 28, hidden, device=dev)
         self.fc2 = nn.Linear(hidden, num_classes, device=dev)
-        _init_weights(self, generator or torch.Generator(device=dev).manual_seed(0))
+        init_weights(self, generator or torch.Generator(device=dev).manual_seed(0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
@@ -74,7 +66,7 @@ class MnistCNN(nn.Module):
         self.conv2 = nn.Conv2d(32, 64, 3, padding=1, device=dev)
         self.fc1 = nn.Linear(7 * 7 * 64, 128, device=dev)
         self.fc2 = nn.Linear(128, num_classes, device=dev)
-        _init_weights(self, generator or torch.Generator(device=dev).manual_seed(0))
+        init_weights(self, generator or torch.Generator(device=dev).manual_seed(0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW

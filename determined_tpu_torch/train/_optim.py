@@ -7,13 +7,16 @@
 - ``ClipAdamW`` is ``optax.chain(clip_by_global_norm(c), adamw(...))`` in
   plain torch, step for step.  ``LMTrial`` uses it only when a trial asks
   for ``fused_adamw: false``; the main path runs ``ops/fused_adamw.py``.
+- ``sgd`` is ``optax.sgd(learning_rate, momentum=m)`` (heavy-ball momentum,
+  no Nesterov), ``CifarTrial``'s optimizer.  The JAX package computes it
+  in optax, outside any Pallas kernel, so here it is plain torch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -122,3 +125,36 @@ class ClipAdamW:
             state.mu[k].copy_(mu)
             state.nu[k].copy_(nu)
         return params, FusedAdamWState(count_inc, state.mu, state.nu)
+
+
+class SGDState(NamedTuple):
+    trace: Tree  # the momentum buffers (optax's ``TraceState.trace``), param-shaped
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    """``optax.sgd(learning_rate, momentum)``: ``trace = g + momentum * trace``,
+    ``p += -learning_rate * trace``, in place, in the params' dtype."""
+
+    learning_rate: float
+    momentum: float = 0.0
+
+    def init(self, params: Tree) -> SGDState:
+        return SGDState({k: torch.zeros_like(p) for k, p in params.items()})
+
+    @torch.no_grad()
+    def apply_step(self, grads: Tree, state: SGDState, params: Tree) -> Tuple[Tree, SGDState]:
+        keys = list(params)
+        trace = [state.trace[k] for k in keys]
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, [grads[k] for k in keys])
+        # optax scales the trace by -lr, then adds: two roundings, not one fma
+        updates = torch._foreach_mul(trace, -self.learning_rate)
+        torch._foreach_add_([params[k] for k in keys], updates)
+        return params, state
+
+
+def sgd(learning_rate: float, momentum: Optional[float] = None) -> SGD:
+    """``optax.sgd(learning_rate, momentum=momentum)`` (``None``: no trace,
+    which a zero momentum computes alike)."""
+    return SGD(learning_rate=learning_rate, momentum=momentum or 0.0)

@@ -15,6 +15,8 @@ from typing import Any, Dict
 
 import torch
 
+_MASK64 = (1 << 64) - 1
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -23,8 +25,10 @@ class TrainState:
     opt_state:     the optimizer state (moments beside the params).
     metric_acc:    running per-metric f32 sums since the last report.
     metric_count:  number of accumulated steps (device f32 scalar).
-    rng:           the step's generator on the device (the JAX state's
-                   ``rng``), saved and restored with the checkpoint."""
+    rng:           the state's generator on the device (the JAX state's
+                   ``rng``), saved and restored with the checkpoint; each
+                   step's generator is seeded from its seed
+                   (``step_seed``)."""
 
     step: torch.Tensor
     model: Any
@@ -48,6 +52,16 @@ class TrainState:
             metric_count=torch.zeros((), dtype=torch.float32, device=device),
             rng=torch.Generator(device=device).manual_seed(seed + 1),
         )
+
+    def step_seed(self, step: int) -> int:
+        """The seed of step ``step``'s generator, the JAX step's
+        ``fold_in(state.rng, state.step)``: the state generator's seed and the
+        step mixed by splitmix64, on the host, so a step draws the same
+        numbers in an uninterrupted, a resumed and a restarted run."""
+        z = (self.rng.initial_seed() * 0x9E3779B97F4A7C15 + step) & _MASK64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+        return (z ^ (z >> 31)) >> 1  # 63 bits: every device's generator takes it
 
     def reset_metrics(self) -> None:
         for v in self.metric_acc.values():

@@ -60,7 +60,7 @@ from determined_tpu_torch.observability import chip_peak_flops, get_tracer
 from determined_tpu_torch.train import serialization
 from determined_tpu_torch.train._reducer import MEAN, get_reducer
 from determined_tpu_torch.train._state import TrainState
-from determined_tpu_torch.train._trial import Callback, TorchTrial, TrialContext
+from determined_tpu_torch.train._trial import Callback, TorchTrial, TrialContext, takes_rng
 from determined_tpu_torch.utils import faults
 from determined_tpu_torch.utils.compilation_cache import setup_compilation_cache
 from determined_tpu_torch.utils.errors import CheckpointCorruptError, CheckpointNotFoundError
@@ -264,6 +264,9 @@ class Trainer:
                     if ld is not None and not ld.fetch_workers:
                         ld.fetch_workers = opt.fetch_workers
         self._params = dict(self.model.named_parameters())
+        # a trial whose loss takes a third argument gets the step's generator
+        # (the JAX trial's rng); one taking (model, batch) gets none
+        self._step_gen = torch.Generator(device=self.device) if takes_rng(trial) else None
         opt_state = self.tx.init(self._params)
         # the metric keys come from the first step's loss (sorted, then
         # "loss" and, with an lr_schedule, "lr", as in the JAX Trainer)
@@ -307,13 +310,13 @@ class Trainer:
         the JAX step's scan sums them; ``loss`` and the trial's metrics are
         the microbatch sums over ``agg``, the gradients too when
         ``average_aggregated_gradients`` is set, and then one update runs
-        (its clip on those gradients).  The port's ``loss`` takes no rng, so
-        there is no per-step key to share between microbatches."""
+        (its clip on those gradients).  A trial whose ``loss`` takes a
+        generator gets the step's (``_loss``), every microbatch the same."""
         state, params = self.state, self._params
         for p in params.values():
             p.grad = None
         if self.agg == 1:
-            loss, metrics = self.trial.loss(state.model, batch)
+            loss, metrics = self._loss(batch)
             loss.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["loss"] = loss.detach()
@@ -343,6 +346,14 @@ class Trainer:
         state.metric_count.add_(1.0)
         state.step.add_(1)
 
+    def _loss(self, batch: Dict[str, torch.Tensor]):
+        """The trial's loss on ``batch``; with the step's generator, reseeded
+        here (``TrainState.step_seed``), where the trial's loss takes one."""
+        if self._step_gen is None:
+            return self.trial.loss(self.state.model, batch)
+        self._step_gen.manual_seed(self.state.step_seed(self.steps_completed))
+        return self.trial.loss(self.state.model, batch, self._step_gen)
+
     def _accumulate(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Forward and backward over each stacked microbatch, gradients
         summed in ``.grad``; returns the step's metrics (``loss`` and the
@@ -351,7 +362,7 @@ class Trainer:
         loss_sum = None
         sums: Dict[str, torch.Tensor] = {}
         for i in range(agg):
-            loss, m = self.trial.loss(self.state.model, {k: v[i] for k, v in batch.items()})
+            loss, m = self._loss({k: v[i] for k, v in batch.items()})
             loss.backward()
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss

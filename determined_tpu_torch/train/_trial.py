@@ -13,11 +13,17 @@ axes have size 1).
 from __future__ import annotations
 
 import abc
+import inspect
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 Metrics = Dict[str, torch.Tensor]
+
+
+def takes_rng(trial: "TorchTrial") -> bool:
+    """Whether ``trial.loss`` declares the generator parameter."""
+    return len(inspect.signature(trial.loss).parameters) >= 3
 
 
 class TrialContext:
@@ -128,12 +134,20 @@ class TorchTrial(abc.ABC):
     @abc.abstractmethod
     def loss(self, model: torch.nn.Module, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Metrics]:
         """Scalar loss (differentiable) + auxiliary metric dict for one
-        training batch."""
+        training batch.  A trial that draws random numbers declares a third
+        parameter, ``loss(model, batch, rng)``: the Trainer then passes the
+        step's ``torch.Generator`` (the JAX trial's per-step rng), seeded
+        from the state's generator and the step."""
 
     def evaluate_batch(self, model: torch.nn.Module, batch: Dict[str, torch.Tensor]) -> Metrics:
-        """Validation metrics for one batch; defaults to the loss.  Runs
-        under ``torch.no_grad()``."""
-        loss, metrics = self.loss(model, batch)
+        """Validation metrics for one batch; defaults to the loss (with a
+        generator seeded with 0 where the loss takes one, as the JAX trial's
+        ``jax.random.key(0)``).  Runs under ``torch.no_grad()``."""
+        if takes_rng(self):
+            rng = torch.Generator(device=self.context.device).manual_seed(0)
+            loss, metrics = self.loss(model, batch, rng)
+        else:
+            loss, metrics = self.loss(model, batch)
         return {"validation_loss": loss, **{f"val_{k}": v for k, v in metrics.items()}}
 
     def evaluation_reducers(self) -> Dict[str, Any]:

@@ -56,7 +56,7 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     )
     assert proc.returncode == 0, proc.stderr
     # every module of the slices was walked, not a stub of the package
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 72
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 75
 
 
 @pytest.mark.parametrize("module", [
@@ -103,11 +103,17 @@ def test_observability_and_profiler_modules_import_nothing_of_jax(module):
     "determined_tpu_torch.train._quant",
     "determined_tpu_torch.utils.compilation_cache",
     "determined_tpu_torch.inference",
+    "determined_tpu_torch.models.resnet",
+    "determined_tpu_torch.models.diffusion",
+    "determined_tpu_torch.models._layers",
+    "determined_tpu_torch.train._optim",
 ])
 def test_step_knob_and_train_to_serve_modules_import_nothing_of_jax(module):
-    """The quantized matmuls, the build cache and batch inference are the
-    port's own copies: each, imported alone, pulls in nothing of JAX or the
-    JAX package, and builds no kernel (nothing of ops/_build is loaded)."""
+    """The quantized matmuls, the build cache, batch inference, and the
+    ResNet, the DDPM UNet and sampler, their layers and the SGD optimizer
+    are the port's own copies: each, imported alone, pulls in nothing of JAX
+    or the JAX package, and builds no kernel (nothing of ops/_build is
+    loaded)."""
     probe = textwrap.dedent(
         """
         import importlib, sys
