@@ -20,6 +20,16 @@ OIHW, dense kernels ``[in, out]`` against ``[out, in]``, GroupNorm
 CNN flattens its last feature map in NHWC order, as flax does, so
 ``fc1``'s rows need no permutation.
 
+The HuggingFace families (``models/hf_gpt2.py``, ``models/hf_bert.py``)
+take the parameter names of transformers' torch classes, which are the flax
+paths joined by "." (``gpt2_state_dict_from_flax``,
+``bert_state_dict_from_flax``): ``embedding`` and LayerNorm ``scale``
+become ``weight``, and every 2-D ``kernel`` becomes a transposed
+``weight``.  The transpose is right for both layouts: flax GPT-2's
+``FlaxConv1D`` stores its kernel (out, in) and torch GPT-2's ``Conv1D``
+weight is (in, out); a flax ``nn.Dense`` kernel is (in, out) and a torch
+``nn.Linear`` weight (out, in).
+
 Optimizer moments (``mu``/``nu`` trees of a ``FusedAdamWState`` or of the
 ``ScaleByAdamState`` inside an optax chain state) are param-shaped and map
 through the same transforms (``opt_state_from_flax``,
@@ -218,3 +228,42 @@ flax_from_resnet_state_dict = _flax_from_conv_net_state_dict
 #: skip and its GroupNorm_0 / GroupNorm_1
 unet_state_dict_from_flax = _conv_net_state_dict_from_flax
 flax_from_unet_state_dict = _flax_from_conv_net_state_dict
+
+
+def _hf_state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The state_dict (as f32 numpy) of a port HF module from the flax
+    param tree of transformers' Flax class (with or without the outer
+    ``"params"`` key): each leaf at its flax path joined by "."; ``kernel``
+    becomes ``weight`` transposed, ``scale`` and ``embedding`` become
+    ``weight``."""
+    if "params" in tree:
+        tree = tree["params"]
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node: Mapping[str, Any], prefix: str) -> None:
+        for key, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{key}.")
+                continue
+            a = np.asarray(v, dtype=np.float32)
+            if key == "kernel":
+                if a.ndim != 2:
+                    raise ValueError(f"{prefix}{key} is {a.ndim}-D; an HF kernel is 2-D")
+                a = a.T
+            out[prefix + ("weight" if key in ("kernel", "scale", "embedding") else key)] = a
+
+    walk(tree, "")
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+#: ``models/hf_gpt2.py``'s GPT2LMHeadModel from a ``FlaxGPT2LMHeadModel`` tree:
+#: ``transformer.{wte, wpe}.weight``, ``transformer.h.{i}.{ln_1, attn.c_attn,
+#: attn.c_proj, ln_2, mlp.c_fc, mlp.c_proj}``, ``transformer.ln_f``; the
+#: ``FlaxConv1D`` kernels (out, in) become ``Conv1D`` weights (in, out); a tied
+#: head has no leaf of its own (it reads ``wte``), as in flax
+gpt2_state_dict_from_flax = _hf_state_dict_from_flax
+#: ``models/hf_bert.py``'s BertForSequenceClassification from a
+#: ``FlaxBertForSequenceClassification`` tree: ``bert.embeddings.*``,
+#: ``bert.encoder.layer.{i}.*``, ``bert.pooler.dense``, ``classifier``; the
+#: ``nn.Dense`` kernels (in, out) become ``nn.Linear`` weights (out, in)
+bert_state_dict_from_flax = _hf_state_dict_from_flax

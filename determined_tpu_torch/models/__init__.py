@@ -7,6 +7,18 @@ from determined_tpu_torch.models.diffusion import (
     ddpm_sample,
     timestep_embedding,
 )
+from determined_tpu_torch.models.hf_bert import (
+    BertClassifyTrial,
+    BertConfig,
+    BertForSequenceClassification,
+    synthetic_classification,
+)
+from determined_tpu_torch.models.hf_gpt2 import (
+    GPT2Config,
+    GPT2FinetuneTrial,
+    GPT2LMHeadModel,
+    synthetic_lm,
+)
 from determined_tpu_torch.models.mnist import MnistCNN, MnistMLP, MnistTrial
 from determined_tpu_torch.models.resnet import CifarTrial, ResidualBlock, ResNet
 from determined_tpu_torch.models.transformer import (
@@ -21,8 +33,14 @@ from determined_tpu_torch.models.transformer import (
 )
 
 __all__ = [
+    "BertClassifyTrial",
+    "BertConfig",
+    "BertForSequenceClassification",
     "CifarTrial",
     "DiffusionTrial",
+    "GPT2Config",
+    "GPT2FinetuneTrial",
+    "GPT2LMHeadModel",
     "LMTrial",
     "MnistCNN",
     "MnistMLP",
@@ -36,6 +54,8 @@ __all__ = [
     "ddpm_sample",
     "init_kv_cache",
     "kv_cache_shape",
+    "synthetic_classification",
+    "synthetic_lm",
     "timestep_embedding",
     "transformer_decode",
     "transformer_prefill",

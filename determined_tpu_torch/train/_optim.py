@@ -5,8 +5,11 @@
   decay at ``warmup_steps``) in the same f32 arithmetic, on a device step
   counter, so reading the learning rate never waits for the host.
 - ``ClipAdamW`` is ``optax.chain(clip_by_global_norm(c), adamw(...))`` in
-  plain torch, step for step.  ``LMTrial`` uses it only when a trial asks
-  for ``fused_adamw: false``; the main path runs ``ops/fused_adamw.py``.
+  plain torch, step for step, and ``optax.adamw(...)`` itself with
+  ``clip_norm=None``.  ``LMTrial`` uses it only when a trial asks for
+  ``fused_adamw: false``; the main path runs ``ops/fused_adamw.py``.  The HF
+  trials (``models/hf_gpt2.py``, ``models/hf_bert.py``) use it unclipped
+  by default, as the JAX trials use ``optax.adamw``.
 - ``sgd`` is ``optax.sgd(learning_rate, momentum=m)`` (heavy-ball momentum,
   no Nesterov), ``CifarTrial``'s optimizer.  The JAX package computes it
   in optax, outside any Pallas kernel, so here it is plain torch.
@@ -85,10 +88,12 @@ class ClipAdamW:
     """``optax.chain(clip_by_global_norm(clip_norm), adamw(learning_rate, b1,
     b2, eps, weight_decay=weight_decay, mu_dtype=mu_dtype))`` in plain
     torch, updating params and state in place.  The state is optax's
-    ``ScaleByAdamState`` (count, mu, nu); the schedule reads the same count."""
+    ``ScaleByAdamState`` (count, mu, nu); the schedule reads the same count.
+    With ``clip_norm=None`` it is ``optax.adamw(...)`` alone: no global norm
+    is computed, and the decay applies to every leaf (optax's mask is None)."""
 
     learning_rate: Union[float, Schedule]
-    clip_norm: float = 1.0
+    clip_norm: Optional[float] = 1.0
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
@@ -105,15 +110,18 @@ class ClipAdamW:
     def apply_step(
         self, grads: Tree, state: FusedAdamWState, params: Tree
     ) -> Tuple[Tree, FusedAdamWState]:
-        g_norm = global_norm(grads)
-        trigger = g_norm < self.clip_norm
+        if self.clip_norm is not None:
+            g_norm = global_norm(grads)
+            trigger = g_norm < self.clip_norm
         count_inc = state.count + 1
         bc1 = 1 - self.b1 ** count_inc
         bc2 = 1 - self.b2 ** count_inc
         lr = self.learning_rate
         step_size = -(lr(state.count) if callable(lr) else torch.as_tensor(lr))
         for k, p in params.items():
-            g = torch.where(trigger, grads[k], (grads[k] / g_norm) * self.clip_norm)
+            g = grads[k]
+            if self.clip_norm is not None:
+                g = torch.where(trigger, g, (g / g_norm) * self.clip_norm)
             # optax multiplies the stored moment by b1 in the moment's dtype
             # (JAX casts the Python scalar to bf16 under mu_dtype=bf16)
             b1 = torch.tensor(self.b1, dtype=state.mu[k].dtype)

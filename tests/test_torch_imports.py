@@ -1,6 +1,6 @@
 """The port stands alone: no module of determined_tpu_torch, nor
-chip_smoke.py, imports JAX, flax, optax, orbax or anything of the JAX
-package, nor ``yaml`` at import time (a card's machine may lack it: the port
+chip_smoke.py, imports JAX, flax, optax, orbax, transformers, msgpack or
+anything of the JAX package, nor ``yaml`` at import time (a card's machine may lack it: the port
 imports it only where a file is read); and its entry points never fall back
 to the CPU on their own."""
 
@@ -14,7 +14,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "determined_tpu", "yaml")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "determined_tpu", "yaml",
+           "transformers", "msgpack")
 
 _PROBE = textwrap.dedent(
     """
@@ -107,11 +108,16 @@ def test_observability_and_profiler_modules_import_nothing_of_jax(module):
     "determined_tpu_torch.models.diffusion",
     "determined_tpu_torch.models._layers",
     "determined_tpu_torch.train._optim",
+    "determined_tpu_torch.models.hf_gpt2",
+    "determined_tpu_torch.models.hf_bert",
+    "determined_tpu_torch.models._hf_common",
+    "determined_tpu_torch.models._flax_msgpack",
 ])
 def test_step_knob_and_train_to_serve_modules_import_nothing_of_jax(module):
-    """The quantized matmuls, the build cache, batch inference, and the
-    ResNet, the DDPM UNet and sampler, their layers and the SGD optimizer
-    are the port's own copies: each, imported alone, pulls in nothing of JAX
+    """The quantized matmuls, the build cache, batch inference, the ResNet,
+    the DDPM UNet and sampler, their layers and the SGD optimizer, and the
+    GPT-2 and BERT modules with their Flax weight reader are the port's own
+    copies: each, imported alone, pulls in nothing of JAX
     or the JAX package, and builds no kernel (nothing of ops/_build is
     loaded)."""
     probe = textwrap.dedent(
