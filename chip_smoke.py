@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--phases kernel,serve,parity,train,train_parity,experiment,search,observe,
-                  knobs,serve_ckpt,models,hf]
+                  knobs,serve_ckpt,models,hf,moe]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -226,6 +226,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    Printed: G's and B's step time, tokens/s, device time a step and busy
    share (a 3-step torch.profiler window), validation metrics, peak
    memory and seconds; each part's seconds and the phase's.
+14. moe: examples/transformer_lm/moe_ep.yaml (MOE_EP_CONST, a dict a CPU
+   test holds to the file): top-2 routed experts (8, every second block) at
+   the file's full width (d 2048, 16 heads of 128, vocab 32768, d_ff 8192,
+   seq 2048, bf16, flash), cut as MOE_CUTS prints.
+   M. 25 steps through train.init -> Trainer(LMTrial).fit at one rank's
+      share of the batch (8 sequences), 4 layers, and a validation pass:
+      step time, tokens/s and MFU (moe_step_flops: the dense dispatch and
+      combine and every capacity slot counted), moe_aux_loss (finite) and
+      the loss falling from the first report to the last, peak memory, the
+      launch counts (set to 0 just before fit, read just after: a layer's
+      flash forward, dq and dk/dv once a step, fused_adamw once a leaf, 41
+      leaves), device time a step by op-table group and busy share over a
+      3-step profiler window, and one MoE layer's routing, dispatch einsum,
+      expert products and combine einsum timed alone (forward + backward)
+      with their share of the device step, and the PyTorch ops whose own
+      kernels take the most device time (key_averages over 2 steps).
+   K. flash_fwd, dq, dk/dv at [8, 16, 2048, 128] bf16 causal and fused_adamw
+      at the [8, 2048, 8192] expert leaf with M's optimizer, each held
+      against its plain version and timed beside its bound and its library
+      call; the kernels line carries them as each row's moe_shape.
+   E. _top2_dispatch on the card equal to the CPU's on the same gates; an
+      MoE layer at d 256, e 8, f32, TF32 off, card against CPU from host
+      draws: routing equal, output and gradients within TRAIN_PARITY_TOL.
+   W. DistributedContext.from_torch() over NCCL as a world of one and
+      train.init(mesh_config=MeshConfig(data=-1)): FSDP2 on a one-rank mesh,
+      fused_adamw on to_local() shards; 5 steps of M's config against 5
+      without a mesh, from the same weights and batches (losses within
+      TRAIN_PARITY_TOL, the same launch counts a step); a checkpoint
+      written on the mesh (MOE_W_CKPT_CUTS, printed) that the no-mesh
+      Trainer restores bitwise.
+   Printed: each part's seconds and the phase's.
 
 Prints, before the last line, the kernels line (JSON), the script's total
 seconds and the card's name and power limit, and as the last line
@@ -677,8 +708,48 @@ HF_NO_DROPOUT = {"gpt2": dict(attn_pdrop=0.0, resid_pdrop=0.0, embd_pdrop=0.0),
 # P's parts: (part, family, the file whose hparams it cuts)
 HF_PARITY_PARTS = (("gpt2", "gpt2"), ("gpt2_base", "gpt2"), ("bert", "bert"))
 
+# phase 14: examples/transformer_lm/moe_ep.yaml as a dict (a CPU test holds
+# it to the file), then its cuts for M: (key, the file's value, this run's
+# value, why)
+MOE_EP_CONST = {
+    "name": "lm-moe-ep",
+    "entrypoint": "model_def:Trial",
+    "hyperparameters": dict(
+        lr=0.0003, global_batch_size=32, seq_len=2048, vocab_size=32768, d_model=2048,
+        n_layers=16, n_heads=16, dataset_size=65536, bf16=True, attention="flash",
+        moe_experts=8, moe_every=2, moe_aux_weight=0.01,
+    ),
+    "resources": {"mesh": {"data": 2, "fsdp": 2, "expert": 8}},
+    "searcher": {"name": "single", "metric": "validation_loss",
+                 "max_length": {"batches": 10000}},
+    "min_validation_period": {"batches": 500},
+    "checkpoint_storage": {"type": "shared_fs", "host_path": "/tmp/dtpu-checkpoints"},
+}
+MOE_CUTS = [
+    ("resources.mesh", {"data": 2, "fsdp": 2, "expert": 8}, None,
+     "the card's machine has one H100: M runs without a mesh, W as a world of one"),
+    ("global_batch_size", 32, 8, "one rank's share of the batch: 32 / (data 2 x fsdp 2)"),
+    ("n_layers", 16, 4,
+     "2 MoE blocks: the f32 params, grads and both AdamW moments of 16 layers (~4.3B params) "
+     "do not fit 80 GB"),
+    ("dataset_size", 65536, 64,
+     "25 steps of 8 read 200 samples; the validation pass reads its 8 batches"),
+]
+MOE_STEPS = 25
+MOE_REPORT = 5
+MOE_GROUP = 4096  # models/moe.py's group_size, the JAX layer's default
+MOE_W_STEPS = 5
+# W's checkpoint round trip at a small width: the full-width state is 13 GB
+MOE_W_CKPT_CUTS = [
+    ("d_model", 2048, 256, "the round trip, not the size, is what W's checkpoint shows"),
+    ("n_heads", 16, 2, "head dim 128 at width 256"),
+    ("n_layers", 4, 2, "one dense and one MoE block"),
+    ("vocab_size", 32768, 4096, "the same, in the head"),
+    ("seq_len", 2048, 256, "the same, in length"),
+]
+
 PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search",
-          "observe", "knobs", "serve_ckpt", "models", "hf")
+          "observe", "knobs", "serve_ckpt", "models", "hf", "moe")
 
 
 def log(msg: str) -> None:
@@ -3546,6 +3617,462 @@ def phase_hf(seed: int) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 14: MoE language models, and the mesh path as a world of one
+# ---------------------------------------------------------------------------
+
+
+def _moe_hparams() -> dict:
+    """M's hyperparameters: MOE_EP_CONST's with MOE_CUTS."""
+    hp = dict(MOE_EP_CONST["hyperparameters"])
+    for key, _file, value, _why in MOE_CUTS:
+        if not key.startswith("resources"):
+            hp[key] = value
+    return hp
+
+
+def moe_step_flops(hp: dict) -> float:
+    """Matmul FLOPs of one training step of the MoE LM at ``hp`` (forward
+    x 3): q, k, v, o and the causal score and value products a layer, the
+    dense SwiGLU of the dense blocks, and in the MoE blocks the f32 router,
+    the dense dispatch and combine einsums ([groups, group, e x c] against
+    [groups, group, d]) and the three expert products over every slot of
+    every group; the lm head.  This is what the card computes, the slots
+    that capacity leaves empty included."""
+    d, L, V = hp["d_model"], hp["n_layers"], hp["vocab_size"]
+    s, b = hp["seq_len"], hp["global_batch_size"]
+    f = hp.get("d_ff") or 4 * d
+    e, every = hp["moe_experts"], hp["moe_every"]
+    tokens = b * s
+    grp = min(MOE_GROUP, tokens)
+    groups = -(-tokens // grp)
+    cap = max(int(hp.get("moe_capacity_factor", 1.25) * grp * 2 / e), 1)
+    fwd = 0.0
+    for i in range(L):
+        fwd += 2 * tokens * 4 * d * d + 2 * 2 * b * d * s * (s + 1) / 2
+        if i % every == every - 1:
+            fwd += 2 * tokens * d * e                        # router
+            fwd += 2 * 2 * groups * grp * e * cap * d        # dispatch + combine
+            fwd += 3 * 2 * groups * e * cap * d * f          # w_in, w_gate, w_out
+        else:
+            fwd += 3 * 2 * tokens * d * f
+    fwd += 2 * tokens * d * V
+    return 3 * fwd
+
+
+def _moe_leaves(n_layers: int, every: int) -> int:
+    """Parameter leaves of the MoE LM: embed, ln_f, lm_head; 9 a dense
+    block (2 norms, 4 attention, 3 SwiGLU), 10 an MoE block (2 norms, 4
+    attention, the router and 3 stacked expert leaves)."""
+    n_moe = sum(1 for i in range(n_layers) if i % every == every - 1)
+    return 3 + 9 * (n_layers - n_moe) + 10 * n_moe
+
+
+def moe_breakdown(seed: int, hp: dict) -> dict:
+    """One MoE layer's parts at M's shapes, forward and backward each,
+    timed alone with CUDA events: the routing (softmax gates to dispatch
+    and combine, ``_top2_dispatch``'s elementwise work), the dispatch
+    einsum, the three expert products with the SwiGLU, and the combine
+    einsum.  Per step: these times the MoE layers."""
+    import torch
+
+    from determined_tpu_torch.models.moe import _top2_dispatch
+
+    d, e = hp["d_model"], hp["moe_experts"]
+    f = hp.get("d_ff") or 4 * d
+    tokens = hp["global_batch_size"] * hp["seq_len"]
+    grp = min(MOE_GROUP, tokens)
+    n = tokens // grp
+    cap = max(int(1.25 * grp * 2 / e), 1)
+    cd = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    logits = torch.randn((n, grp, e), generator=gen, device="cuda")
+    gates = torch.softmax(logits, dim=-1).requires_grad_()
+    dispatch, combine, _ = _top2_dispatch(gates.detach(), cap)
+    dispatch, combine = dispatch.to(cd), combine.to(cd).requires_grad_()
+    x = torch.randn((n, grp, d), generator=gen, device="cuda").to(cd).requires_grad_()
+    w = [(torch.randn(shape, generator=gen, device="cuda") * 0.02).to(cd).requires_grad_()
+         for shape in ((e, d, f), (e, d, f), (e, f, d))]
+    xin = torch.randn((n, e, cap, d), generator=gen, device="cuda").to(cd).requires_grad_()
+    eout = torch.randn((n, e, cap, d), generator=gen, device="cuda").to(cd).requires_grad_()
+
+    def routing():
+        _, c, aux = _top2_dispatch(gates, cap)
+        torch.autograd.grad((c.sum() + aux.sum()), gates)
+
+    def dispatch_einsum():
+        y = torch.einsum("ngec,ngd->necd", dispatch, x)
+        torch.autograd.grad(y, x, y)
+
+    def experts():
+        h = torch.einsum("necd,edf->necf", xin, w[0])
+        g = torch.einsum("necd,edf->necf", xin, w[1])
+        y = torch.einsum("necf,efd->necd", torch.nn.functional.silu(g) * h, w[2])
+        torch.autograd.grad(y, [xin] + w, y)
+
+    def combine_einsum():
+        y = torch.einsum("ngec,necd->ngd", combine, eout)
+        torch.autograd.grad(y, (combine, eout), y)
+
+    parts = {name: device_time_us(fn, reps=3, trials=5) / 1e3 for name, fn in (
+        ("routing", routing), ("dispatch_einsum", dispatch_einsum),
+        ("expert_products", experts), ("combine_einsum", combine_einsum))}
+    log("moe breakdown (one MoE layer, forward + backward, ms): " + json.dumps(parts))
+    return parts
+
+
+def moe_aten_ops(trainer, steps: int = 2, top: int = 12) -> list:
+    """The PyTorch ops whose own kernels take the most device time over
+    ``steps`` training steps (torch.profiler's ``key_averages``), to say
+    which ops the elementwise group's kernels belong to: [op, ms a step,
+    calls a step]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from determined_tpu_torch.data import to_device
+
+    it = iter(trainer.train_loader)
+    batches = [to_device(next(it), trainer.device) for _ in range(steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            trainer._train_step(b)
+        torch.cuda.synchronize()
+
+    def device_us(e) -> float:
+        return float(getattr(e, "self_device_time_total", 0.0)
+                     or getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = sorted(prof.key_averages(), key=device_us, reverse=True)[:top]
+    out = [[e.key[:60], device_us(e) / steps / 1e3, e.count // steps] for e in rows]
+    log("moe M ops by own device time a step (ms, calls): " + json.dumps(out))
+    return out
+
+
+def moe_kernel_rows(seed: int) -> dict:
+    """flash_fwd, both flash backward kernels and fused_adamw at M's shapes
+    ([8, 16, 2048, 128] bf16 causal; the [8, 2048, 8192] expert leaf with
+    M's optimizer), each held against its plain version and timed beside
+    its bound and its library call."""
+    import torch
+    import torch.nn.functional as F
+
+    import determined_tpu_torch.ops.flash_attention as fa
+    from determined_tpu_torch.ops import fused_adamw as fw
+    from determined_tpu_torch.ops.fused_adamw import fused_adamw
+
+    hp = _moe_hparams()
+    b, h, s = hp["global_batch_size"], hp["n_heads"], hp["seq_len"]
+    dh = hp["d_model"] // h
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    q, k, v, do = (torch.randn((b, h, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    rows: dict = {}
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = KERNEL_TOL["bfloat16"]
+    torch.testing.assert_close(out.float(), ref_out.float(), **tol["out"])
+    torch.testing.assert_close(lse, ref_lse, **tol["lse"])
+    kernel_us = device_time_us(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    plain_us = device_time_us(lambda: fa.flash_attention_fwd_reference(q, k, v, causal=True),
+                              reps=5)
+    library_us = device_time_us(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    bound_us, bound_by, flops = attention_bound_us(
+        b, h, h, s, s, dh, "bfloat16", True, products=2, q_side=2, kv_side=2, rows=1)
+    rows["flash_fwd"] = dict(shape=[b, h, s, dh], max_abs_err=_max_err(out, ref_out),
+                             **timed_row(kernel_us, plain_us, library_us, bound_us, bound_by,
+                                         flops))
+    del ref_out, ref_lse
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for grad, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        scale_ = w_.float().abs().max().item()
+        errs[grad] = _max_err(g_, w_)
+        torch.testing.assert_close(g_.float(), w_.float(), rtol=BWD_TOL["bfloat16"]["rtol"],
+                                   atol=BWD_TOL["bfloat16"]["atol"] * scale_)
+    del got, want
+    delta = fa._delta(out, do)
+    dq_us = device_time_us(lambda: fa._launch_dq(q, k, v, do, lse, delta, True, dh ** -0.5))
+    dkv_us = device_time_us(lambda: fa._launch_dkv(q, k, v, do, lse, delta, True, dh ** -0.5))
+    plain_us = device_time_us(
+        lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True), reps=3)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_fwd_us = device_time_us(lambda: F.scaled_dot_product_attention(qg, kg, vg,
+                                                                         is_causal=True))
+    sdpa_both_us = device_time_us(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True), (qg, kg, vg), do))
+    library_us = sdpa_both_us - sdpa_fwd_us
+    for row, kernel_us, products, q_side, kv_side, err in (
+        ("flash_bwd_dq", dq_us, 3, 3, 2, errs["dq"]),
+        ("flash_bwd_dkv", dkv_us, 4, 2, 4, max(errs["dk"], errs["dv"])),
+    ):
+        bound_us, bound_by, flops = attention_bound_us(
+            b, h, h, s, s, dh, "bfloat16", True, products=products, q_side=q_side,
+            kv_side=kv_side, rows=2)
+        rows[row] = dict(shape=[b, h, s, dh], max_abs_err=err,
+                         **timed_row(kernel_us, plain_us, library_us, bound_us, bound_by, flops))
+    del q, k, v, do, out, lse, qg, kg, vg, delta
+    _free_cuda()
+    # M's optimizer: LMTrial's fused AdamW (decay 0.01, clip 1.0, f32 mu)
+    tx = fused_adamw(hp["lr"], weight_decay=0.01, clip_norm=1.0)
+    shape = (hp["moe_experts"], hp["d_model"], 4 * hp["d_model"])
+    err = check_adamw_leaves(seed, [shape], [tx], "moe expert leaf")
+    rows["fused_adamw"] = dict(shape=list(shape), max_abs_err=err,
+                               **time_adamw_leaf(seed, tx, shape))
+    for name, row in rows.items():
+        log(f"moe kernel {name} at {row['shape']}: kernel {row['ms'] * 1e3:.2f} us, plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, share "
+            f"{row['bound_share']:.3f}), max_abs_err {row['max_abs_err']:.3e}")
+    _free_cuda()
+    return rows
+
+
+def moe_main(seed: int) -> dict:
+    """M: MOE_EP_CONST's LM, cut (MOE_CUTS), 25 steps through
+    train.init -> Trainer(LMTrial).fit with a validation at the end."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.models import LMTrial
+
+    hp = _moe_hparams()
+    ctx = train.init(hparams=hp, seed=seed)
+    trial = LMTrial(ctx)
+    trainer = train.Trainer(trial)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # counts from here on are M's
+    t0 = time.monotonic()
+    summary = trainer.fit(max_length=MOE_STEPS, report_period=MOE_REPORT,
+                          validation_period=MOE_STEPS, checkpoint_policy="none")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    reports = ctx.core.train.metrics("training")
+    gbs, seq = hp["global_batch_size"], hp["seq_len"]
+    assert [s for s, _ in reports] == list(range(MOE_REPORT, MOE_STEPS + 1, MOE_REPORT))
+    step_ms = [1e3 * gbs / m["samples_per_second"] for _, m in reports]
+    mean_step_ms = statistics.mean(step_ms[1:])  # the first report holds the warm-up
+    tokens_per_s = gbs * seq / (mean_step_ms / 1e3)
+    flops = moe_step_flops(hp)
+    mfu = flops / (mean_step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    first, last = reports[0][1], reports[-1][1]
+    val = summary["validation_metrics"]
+    for name, x in (("first loss", first["loss"]), ("last loss", last["loss"]),
+                    ("validation loss", val["validation_loss"]),
+                    ("moe_aux_loss", last["moe_aux_loss"])):
+        assert np.isfinite(x), f"{name} is not finite: {x}"
+    assert last["loss"] < first["loss"], f"loss did not fall: {first['loss']} -> {last['loss']}"
+    cfg = trial._cfg()
+    n_leaves = len(trainer._params)
+    assert n_leaves == _moe_leaves(cfg.n_layers, cfg.moe_every) == 41, n_leaves
+    n_val = trainer.val_loader.batches_per_epoch
+    want = dict(flash_fwd=cfg.n_layers * (MOE_STEPS + n_val),
+                flash_bwd_dq=cfg.n_layers * MOE_STEPS, flash_bwd_dkv=cfg.n_layers * MOE_STEPS,
+                fused_adamw=n_leaves * MOE_STEPS)
+    assert launches == want, f"launches {launches} != expected {want}"
+    n_params = sum(p.numel() for p in trainer._params.values())
+    out = dict(card=card_line(), params=n_params, leaves=n_leaves, steps=MOE_STEPS,
+               wall_s=wall, step_ms_per_report=step_ms, mean_step_ms=mean_step_ms,
+               tokens_per_s=tokens_per_s, step_tflop=flops / 1e12,
+               mfu_vs_989_tflops=mfu, first_report_loss=first["loss"],
+               last_report_loss=last["loss"], moe_aux_loss=[m["moe_aux_loss"] for _, m in reports],
+               validation_loss=val["validation_loss"], peak_memory_gib=peak_gib,
+               launches=launches, launches_per_step=dict(
+                   flash_fwd=cfg.n_layers, flash_bwd_dq=cfg.n_layers,
+                   flash_bwd_dkv=cfg.n_layers, fused_adamw=n_leaves))
+    log("moe M: " + json.dumps(out))
+    prof = profile_train(trainer, label="moe M")
+    prof.pop("ops")
+    out["ops_by_own_device_time"] = moe_aten_ops(trainer)
+    parts = moe_breakdown(seed, hp)
+    n_moe = sum(1 for blk in trainer.model.blocks if hasattr(blk, "moe"))
+    per_step = {k: v * n_moe for k, v in parts.items()}
+    step_dev = prof["device_ms_per_step"]
+    out["profile"] = prof
+    out["moe_parts_ms_per_step"] = per_step
+    out["dispatch_combine_share_of_device_step"] = (
+        (per_step["dispatch_einsum"] + per_step["combine_einsum"]) / step_dev)
+    out["routing_share_of_device_step"] = per_step["routing"] / step_dev
+    log("moe M parts a step (alone, x %d MoE layers): %s; dispatch+combine %.3f and routing "
+        "%.3f of the device step" % (n_moe, json.dumps(per_step),
+                                     out["dispatch_combine_share_of_device_step"],
+                                     out["routing_share_of_device_step"]))
+    del trainer, trial, ctx
+    _free_cuda()
+    return out
+
+
+def moe_layer_parity(seed: int) -> dict:
+    """E: ``_top2_dispatch`` on the card equal to the CPU's on the same
+    gates; an MoE layer (d 256, e 8, f 1024, f32, 4,500 tokens: two groups
+    of 4,096, the second padded) card against CPU from host draws, TF32
+    off: the routing equal, output and aux within TRAIN_PARITY_TOL's loss
+    tolerance, every gradient within its moment norm."""
+    import torch
+
+    from determined_tpu_torch.models.moe import MoE, _top2_dispatch
+
+    rng = np.random.default_rng(seed + 16)
+    gates = torch.softmax(torch.from_numpy(
+        rng.standard_normal((2, 4096, 8)).astype(np.float32)), dim=-1)
+    cap = max(int(1.25 * 4096 * 2 / 8), 1)
+    for a, b_ in zip(_top2_dispatch(gates.cuda(), cap)[:2], _top2_dispatch(gates, cap)[:2]):
+        assert torch.equal(a.cpu(), b_), "_top2_dispatch differs between the card and the CPU"
+    d, e, f = 256, 8, 1024
+    x = rng.standard_normal((3, 1500, d)).astype(np.float32)
+    weights = {"router": rng.standard_normal((d, e)) * d ** -0.5,
+               "w_in": rng.standard_normal((e, d, f)) * (e * d) ** -0.5,
+               "w_gate": rng.standard_normal((e, d, f)) * (e * d) ** -0.5,
+               "w_out": rng.standard_normal((e, f, d)) * (e * f) ** -0.5}
+    runs = {}
+    with _tf32_off("moe E"):
+        for dev in ("cuda", "cpu"):
+            layer = MoE(d, e, f, dtype=torch.float32, device=dev)
+            layer.load_state_dict({k: torch.tensor(v, dtype=torch.float32)
+                                   for k, v in weights.items()})
+            xt = torch.tensor(x, device=dev, requires_grad=True)
+            y, aux = layer(xt)
+            ((y ** 2).mean() + 0.01 * aux).backward()
+            xg = torch.cat([xt.detach().reshape(-1, d),
+                            torch.zeros((8192 - 4500, d), device=dev)]).reshape(2, 4096, d)
+            route = _top2_dispatch(torch.softmax(xg @ layer.router.detach(), dim=-1), cap)[0]
+            runs[dev] = dict(y=y.detach().cpu(), aux=float(aux), route=route.cpu(),
+                             x=xt.grad.cpu(),
+                             **{n: p.grad.cpu() for n, p in layer.named_parameters()})
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert torch.equal(card["route"], cpu["route"]), "the layer routed tokens differently"
+    tol = TRAIN_PARITY_TOL["loss"]
+    torch.testing.assert_close(card["y"], cpu["y"], **tol)
+    assert abs(card["aux"] - cpu["aux"]) <= tol["atol"] + tol["rtol"] * abs(cpu["aux"])
+    rel = {}
+    for name in ("x", "router", "w_in", "w_gate", "w_out"):
+        rel[name] = float((card[name] - cpu[name]).norm() / cpu[name].norm())
+        assert rel[name] <= TRAIN_PARITY_TOL["moment_rel"], (name, rel[name])
+    out = dict(y_max_abs_err=_max_err(card["y"], cpu["y"]),
+               aux_abs_err=abs(card["aux"] - cpu["aux"]), grad_rel_norm=rel)
+    log("moe E: " + json.dumps(out))
+    return out
+
+
+def _moe_world_of_one(seed: int, root: str) -> dict:
+    """W: the mesh path over NCCL as a world of one, against the single-
+    device path, from the same weights and batches."""
+    import os
+
+    import torch
+
+    from determined_tpu_torch import core, train
+    from determined_tpu_torch.core import DistributedContext, allocate_port
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.parallel import MeshConfig
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(allocate_port()))
+    dist = DistributedContext.from_torch()
+    out: dict = dict(backend=dist.backend)
+    try:
+        def run(hp, mesh, steps, ckpt_dir, **fit):
+            core_ctx = core._dummy_init(distributed=dist if mesh else None,
+                                        checkpoint_dir=ckpt_dir)
+            ctx = train.init(hparams=hp, seed=seed, core_context=core_ctx,
+                             mesh_config=MeshConfig(data=-1) if mesh else None)
+            assert (ctx.mesh is not None) == mesh
+            trainer = train.Trainer(LMTrial(ctx))
+            _reset_launches()
+            summary = trainer.fit(max_length=steps, report_period=1, **fit)
+            torch.cuda.synchronize()
+            losses = [m["loss"] for _, m in ctx.core.train.metrics("training")]
+            return trainer, summary, losses, _launch_counts()
+
+        hp = _moe_hparams()
+        got = {}
+        for mesh in (True, False):
+            trainer, _, losses, launches = run(hp, mesh, MOE_W_STEPS,
+                                               os.path.join(root, "w1"),
+                                               checkpoint_policy="none")
+            leaves = len(trainer._params)
+            if mesh:
+                from torch.distributed.tensor import DTensor
+
+                assert all(isinstance(p, DTensor) for p in trainer._params.values())
+            got[mesh] = losses
+            layers = hp["n_layers"]
+            want = dict(flash_fwd=layers * MOE_W_STEPS, flash_bwd_dq=layers * MOE_W_STEPS,
+                        flash_bwd_dkv=layers * MOE_W_STEPS, fused_adamw=leaves * MOE_W_STEPS)
+            assert launches == want, (mesh, launches, want)
+            out["mesh_launches" if mesh else "single_launches"] = launches
+            del trainer
+            _free_cuda()
+        tol = TRAIN_PARITY_TOL["loss"]
+        np.testing.assert_allclose(got[True], got[False], **tol)
+        out.update(mesh_losses=got[True], single_losses=got[False],
+                   max_loss_diff=max(abs(a - b) for a, b in zip(got[True], got[False])))
+        # a checkpoint written on the mesh, restored without one (MOE_W_CKPT_CUTS)
+        small = dict(hp)
+        for key, _old, value, _why in MOE_W_CKPT_CUTS:
+            small[key] = value
+        ck = os.path.join(root, "w2")
+        mesh_trainer, summary, _, _ = run(small, True, 3, ck, checkpoint_policy="all",
+                                          validation_period=3)
+        sid = summary["latest_checkpoint"]
+        tstate = train.serialization.load_trainer_state(os.path.join(ck, sid))
+        assert tstate["mesh_axes"]["data"] == 1 and set(tstate["mesh_axes"]) == {
+            "dcn", "data", "fsdp", "tensor", "seq", "expert", "pipe"}
+        full = mesh_trainer._full_array_state()
+        single, summary2, _, _ = run(small, False, 3, ck, latest_checkpoint=sid,
+                                     checkpoint_policy="none")
+        assert summary2["steps_completed"] == 3
+        for name, p in single._params.items():
+            assert torch.equal(p.detach().cpu(), full["params"][name]), name
+        for which in ("mu", "nu"):
+            for name, t in getattr(single.state.opt_state, which).items():
+                assert torch.equal(t.cpu(), getattr(full["opt_state"], which)[name]), name
+        out["checkpoint"] = dict(storage_id=sid, leaves=len(single._params), restored="bitwise")
+        del mesh_trainer, single, full
+    finally:
+        dist.close()
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                    "MASTER_PORT"):
+            os.environ.pop(key, None)
+        _free_cuda()
+    log("moe W: " + json.dumps(out))
+    return out
+
+
+def phase_moe(seed: int) -> dict:
+    """Parts M, K, E and W of phase 14 (the docstring at the top)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.monotonic()
+    for key, old, value, why in MOE_CUTS:
+        log(f"moe cut (M): {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    for key, old, value, why in MOE_W_CKPT_CUTS:
+        log(f"moe cut (W's checkpoint): {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    root = tempfile.mkdtemp(prefix="dtt-chip-moe-")
+    out: dict = {}
+    try:
+        for part, fn in (("M", lambda: moe_main(seed)), ("K", lambda: moe_kernel_rows(seed)),
+                         ("E", lambda: moe_layer_parity(seed)),
+                         ("W", lambda: _moe_world_of_one(seed, root))):
+            t0 = time.monotonic()
+            out[part] = fn()
+            log(f"moe {part}: {time.monotonic() - t0:.1f} s")
+            _free_cuda()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = out["M"]["launches"]
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"moe: phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.monotonic()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3636,6 +4163,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         hf = phase_hf(args.seed)
+    moe = None
+    if "moe" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe = phase_moe(args.seed)
 
     if kernel and serve is not None and trained is not None:
         rows = []
@@ -3665,6 +4197,11 @@ def main() -> int:
                 by_phase["hf"] = hf["launches"][name]
                 if name == "fused_adamw":  # also held at the GPT-2 and BERT-base leaves
                     fields["max_abs_err"] = max(fields["max_abs_err"], hf["K"]["max_abs_err"])
+            if moe is not None:
+                # held and timed at the MoE LM's shapes too
+                by_phase["moe"] = moe["launches"][name]
+                fields["moe_shape"] = moe["K"][name]
+                fields["max_abs_err"] = max(fields["max_abs_err"], moe["K"][name]["max_abs_err"])
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=trained["launches"][name], launches_by_phase=by_phase,

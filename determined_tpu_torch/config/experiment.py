@@ -4,8 +4,8 @@ Typed dataclasses with explicit validation are both the schema and the
 parser of the versioned experiment YAML, section by section, as in the JAX
 package; the same YAML gives the same fields in both.  ``resources.mesh`` is
 this module's own ``MeshConfig``: the axis sizes and the one ``-1``
-wildcard, parsed and validated only (the port trains on one device, and the
-Trainer raises for a mesh over more than one).  ``yaml`` is imported only
+wildcard, resolved against the world size by ``train.init`` (the Trainer
+runs the data, fsdp and expert axes; the others raise).  ``yaml`` is imported only
 where a file or a YAML string is read.  ``lint.suppress`` must name rule ids
 of the JAX package's lint registry (``LINT_RULE_IDS``, this module's own copy
 of the ids: the lint package itself is not ported).
@@ -14,6 +14,7 @@ of the ids: the lint package itself is not ported).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 from determined_tpu_torch.config.hyperparameters import parse_hyperparameters
@@ -35,7 +36,8 @@ class MeshConfig:
     """Parallelism topology of one trial: the axis sizes of
     ``determined_tpu/parallel/mesh.py``'s ``MeshConfig``.  A size of -1 for
     exactly one axis means "absorb all remaining devices"; ``num_slices``
-    multiplies on top.  Parsing only: the port builds no device mesh."""
+    multiplies on top.  ``parallel/mesh.py`` builds the device mesh from
+    it (``make_mesh``)."""
 
     data: int = 1
     fsdp: int = 1
@@ -60,6 +62,38 @@ class MeshConfig:
             if s != -1:
                 n *= s
         return n
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size under the JAX mesh's names (``dcn`` is
+        ``num_slices``), what ``parallel.sharding`` reads."""
+        return {
+            "dcn": self.num_slices, "data": self.data, "fsdp": self.fsdp,
+            "tensor": self.tensor, "seq": self.seq, "expert": self.expert, "pipe": self.pipe,
+        }
+
+    def resolve(self, total_devices: int) -> "MeshConfig":
+        """Fill in a single -1 axis from the total device count."""
+        if self.num_slices < 1:
+            raise ValueError("num_slices must be >= 1 (it is never a wildcard)")
+        sizes = list(self.sizes())
+        wild = [i for i, s in enumerate(sizes) if s == -1]
+        if len(wild) > 1:
+            raise ValueError("at most one mesh axis may be -1")
+        if wild:
+            fixed = self.num_slices * math.prod(s for s in sizes if s != -1)
+            if total_devices % fixed:
+                raise ValueError(
+                    f"{total_devices} devices not divisible by fixed axes {fixed}"
+                )
+            sizes[wild[0]] = total_devices // fixed
+        resolved = MeshConfig(*sizes, num_slices=self.num_slices)
+        if resolved.num_devices != total_devices:
+            raise ValueError(
+                f"mesh {resolved.sizes()} x {resolved.num_slices} slice(s) needs "
+                f"{resolved.num_devices} devices, got {total_devices}"
+            )
+        return resolved
 
 
 _LENGTH_UNITS = ("batches", "epochs", "records")

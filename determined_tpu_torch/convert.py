@@ -8,7 +8,10 @@ given as numpy arrays.  Layouts mapped:
   ``[h, hd, d]`` against ``nn.Linear.weight`` ``[h*hd, d]`` and ``[d, h*hd]``;
 - ``nn.Dense`` kernels ``[in, out]`` (MLP, ``lm_head`` ``[d, V]``) against
   ``nn.Linear.weight`` ``[out, in]``;
-- ``Embed.embedding`` ``[V, d]`` as is; RMSNorm ``scale`` as ``weight``.
+- ``Embed.embedding`` ``[V, d]`` as is; RMSNorm ``scale`` as ``weight``;
+- an MoE block's ``moe/{router, w_in, w_gate, w_out}`` (``[d, e]``,
+  ``[e, d, f]``, ``[e, d, f]``, ``[e, f, d]``) as ``moe.<name>``, as they
+  are: ``models/moe.py`` keeps flax's layout.
 
 The MNIST models, the ResNet and the diffusion UNet (``models/mnist.py``,
 ``models/resnet.py``, ``models/diffusion.py``) name every submodule as
@@ -48,6 +51,7 @@ from determined_tpu_torch.ops.fused_adamw import FusedAdamWState
 
 _ATTN = ("wq", "wk", "wv")
 _MLP = ("w_gate", "w_up", "w_down")
+_MOE = ("router", "w_in", "w_gate", "w_out")
 
 
 def state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
@@ -70,6 +74,10 @@ def state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             out[pre + f"attn.{name}.weight"] = kern.reshape(kern.shape[0], -1).T
         wo = arr(blk["attn"]["wo"]["kernel"])  # [h, hd, d]
         out[pre + "attn.wo.weight"] = wo.reshape(-1, wo.shape[-1]).T
+        if "moe" in blk:
+            for name in _MOE:
+                out[pre + f"moe.{name}"] = arr(blk["moe"][name])
+            continue
         for name in _MLP:
             out[pre + f"mlp.{name}.weight"] = arr(blk["mlp"][name]["kernel"]).T
     return {k: np.ascontiguousarray(v) for k, v in out.items()}
@@ -102,11 +110,13 @@ def flax_from_state_dict(
             "ln1": {"scale": arr(state[pre + "ln1.weight"])},
             "ln2": {"scale": arr(state[pre + "ln2.weight"])},
             "attn": attn,
-            "mlp": {
-                name: {"kernel": arr(state[pre + f"mlp.{name}.weight"]).T}
-                for name in _MLP
-            },
         }
+        if pre + "moe.router" in state:
+            tree[f"block_{i}"]["moe"] = {name: arr(state[pre + f"moe.{name}"]) for name in _MOE}
+        else:
+            tree[f"block_{i}"]["mlp"] = {
+                name: {"kernel": arr(state[pre + f"mlp.{name}.weight"]).T} for name in _MLP
+            }
     return {k: _contiguous(v) for k, v in tree.items()}
 
 

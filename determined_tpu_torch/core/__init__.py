@@ -1,6 +1,6 @@
-"""Core services of the port: the off-cluster ``_dummy_init`` with its
-checkpoint, preemption, metrics and profiler contexts (the names follow
-``determined_tpu/core``)."""
+"""Core services of the port: ``init`` and the off-cluster ``_dummy_init``
+with their distributed, checkpoint, preemption, metrics and profiler
+contexts (the names follow ``determined_tpu/core``)."""
 
 from determined_tpu_torch.core._checkpoint import (
     MANIFEST_FILE,
@@ -13,11 +13,11 @@ from determined_tpu_torch.core._checkpoint import (
     merge_resources,
     verify_manifest,
 )
-from determined_tpu_torch.core._context import (
-    Context,
+from determined_tpu_torch.core._context import Context, DummyTrainContext, _dummy_init, init
+from determined_tpu_torch.core._distributed import (
+    DistributedContext,
     DummyDistributedContext,
-    DummyTrainContext,
-    _dummy_init,
+    allocate_port,
 )
 from determined_tpu_torch.core._metrics import MetricsContext
 from determined_tpu_torch.core._preempt import PreemptContext
@@ -28,6 +28,7 @@ __all__ = [
     "METADATA_FILE",
     "CheckpointContext",
     "Context",
+    "DistributedContext",
     "DummyCheckpointContext",
     "DummyDistributedContext",
     "DummyTrainContext",
@@ -35,8 +36,10 @@ __all__ = [
     "PreemptContext",
     "ProfilerContext",
     "_dummy_init",
+    "allocate_port",
     "build_manifest",
     "file_stats",
+    "init",
     "merge_metadata",
     "merge_resources",
     "verify_manifest",

@@ -1,15 +1,17 @@
 """CheckpointContext: durable checkpoint upload and restore with integrity
 manifests.
 
-A copy of ``determined_tpu/core/_checkpoint.py`` for one rank: upload /
+A copy of ``determined_tpu/core/_checkpoint.py``'s chief path: upload /
 store_path / store_path_async / restore_path / delete against a
 StorageManager, and the manifest (per-file sizes and md5 digests, written as
 the last step of finalize, with a parent pointer for the fallback walk).
-The merge helpers of a sharded checkpoint (``merge_resources``,
-``merge_metadata``) are copied with the JAX semantics; the sharded paths
-that use them (``shard=True``) raise ``NotImplementedError`` until a later
-slice of the port trains over several ranks.  The array files themselves
-are written by ``determined_tpu_torch.train.serialization``.
+On a mesh the Trainer gathers the whole state and the chief alone writes
+it through this path.  The merge helpers of a sharded checkpoint
+(``merge_resources``, ``merge_metadata``) are copied with the JAX
+semantics; the sharded paths that use them (``shard=True``: every rank
+writes its own files) raise ``NotImplementedError`` until a later slice of
+the port.  The array files themselves are written by
+``determined_tpu_torch.train.serialization``.
 """
 
 from __future__ import annotations
@@ -175,9 +177,9 @@ def file_stats(path: str) -> Dict[str, Tuple[int, int]]:
 
 
 class CheckpointContext:
-    """Checkpoints of one rank.  The port trains on one device, so every
-    call takes the JAX package's chief, non-sharded path; ``shard=True``
-    raises ``NotImplementedError`` (a later slice of the port)."""
+    """Checkpoints written by one rank, the chief: every call takes the JAX
+    package's non-sharded path; ``shard=True`` raises
+    ``NotImplementedError`` (a later slice of the port)."""
 
     def __init__(
         self,

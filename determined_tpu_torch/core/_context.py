@@ -1,6 +1,9 @@
 """The off-cluster core context: the part of
-``determined_tpu/core/_context.py`` (``_dummy_init``) that a single-process
-trial needs.  One rank, checkpoints in a local directory
+``determined_tpu/core/_context.py`` (``init``, ``_dummy_init``) that a
+trial needs without a master.  ``init`` takes a ``DistributedContext`` over
+torch.distributed when torchrun's environment names more than one rank
+(``DistributedContext.from_torch``), the single-rank one otherwise;
+checkpoints in a local directory
 (``DummyCheckpointContext``), reports through the local metrics shipper
 (``MetricsContext``: kept in memory and logged), preemption by ``simulate()``, and the profiler
 (``ProfilerContext``: a system sampler and a ``torch.profiler`` window).
@@ -15,6 +18,7 @@ import tempfile
 from typing import Any, Dict, List, Optional, Tuple
 
 from determined_tpu_torch.core._checkpoint import CheckpointContext, DummyCheckpointContext
+from determined_tpu_torch.core._distributed import DistributedContext, DummyDistributedContext
 from determined_tpu_torch.core._metrics import MetricsContext
 from determined_tpu_torch.core._preempt import PreemptContext
 from determined_tpu_torch.core._profiler import ProfilerContext
@@ -23,19 +27,6 @@ logger = logging.getLogger("determined_tpu_torch.core")
 
 TRAINING = "training"
 VALIDATION = "validation"
-
-
-class DummyDistributedContext:
-    """Single-rank context for off-cluster runs (the JAX package's size-1
-    star).  The port trains on one device, so nothing of it exchanges
-    values between ranks."""
-
-    rank = 0
-    size = 1
-    is_chief = True
-
-    def close(self) -> None:
-        return None
 
 
 class DummyTrainContext:
@@ -71,7 +62,7 @@ class Context:
 
     def __init__(
         self,
-        distributed: DummyDistributedContext,
+        distributed: DistributedContext,
         checkpoint: CheckpointContext,
         train: DummyTrainContext,
         preempt: PreemptContext,
@@ -105,7 +96,7 @@ class Context:
 
 def _dummy_init(
     *,
-    distributed: Optional[DummyDistributedContext] = None,
+    distributed: Optional[DistributedContext] = None,
     checkpoint_dir: Optional[str] = None,
     trace_dir: Optional[str] = None,
 ) -> Context:
@@ -128,3 +119,27 @@ def _dummy_init(
         metrics=metrics,
     )
     return ctx.start()
+
+
+def init(
+    *,
+    distributed: Optional[DistributedContext] = None,
+    checkpoint_dir: Optional[str] = None,
+    trace_dir: Optional[str] = None,
+    device: Any = None,
+) -> Context:
+    """The core context of a trial launched without a master.  Under
+    torchrun (``WORLD_SIZE`` > 1) the distributed context is
+    ``DistributedContext.from_torch(device=device)``, else the single-rank
+    one; checkpoints go under ``checkpoint_dir`` (``./checkpoints`` when
+    None, shared by every rank as the JAX ``init``'s default)."""
+    if distributed is None:
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            distributed = DistributedContext.from_torch(device=device)
+        else:
+            distributed = DummyDistributedContext()
+    return _dummy_init(
+        distributed=distributed,
+        checkpoint_dir=checkpoint_dir or os.path.join(os.getcwd(), "checkpoints"),
+        trace_dir=trace_dir,
+    )

@@ -3,10 +3,11 @@
 The off-cluster part of ``determined_tpu/core/_preempt.py``: a flag that
 ``simulate()`` sets (the local experiment's drain on SIGTERM/SIGINT or
 ``request_preemption()``, tests), read by the Trainer at each boundary
-through ``should_preempt()``.  The port runs one rank, so the flag needs no
-exchange between ranks.  The watcher thread that long-polls the master for
-the preemption signal, and the trial-level SIGTERM latch, come with the
-cluster slice of the port.
+through ``should_preempt()``.  Over several ranks the read is the JAX
+package's ``WorkersAskChief`` vote: an allgather of every rank's flag, so a
+signal that reached any rank stops every rank at the same step.  The
+watcher thread that long-polls the master for the preemption signal, and
+the trial-level SIGTERM latch, come with the cluster slice of the port.
 """
 
 from __future__ import annotations
@@ -31,7 +32,10 @@ class PreemptContext:
         """Read at batch boundaries: True once preemption was requested."""
         if not self._started:
             raise RuntimeError("PreemptContext not started")
-        out = self._local_flag
+        if self._dist.size > 1:
+            out = any(self._dist.allgather(self._local_flag))
+        else:
+            out = self._local_flag
         if out and auto_ack:
             self.acknowledge_preemption_signal()
         return out

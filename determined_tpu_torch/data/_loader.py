@@ -3,9 +3,10 @@
 Port of ``determined_tpu/data/_loader.py``: the same state dict, resume
 rules, ``iter_pairs``/``commit_state`` contract (with microbatches stacked
 for gradient accumulation), ``iter_epoch`` pass and ``fetch_workers`` thread
-pool, over host batches of numpy arrays.  One process feeds the whole batch
-(``shard_rank=0``, ``num_shards=1`` by default); ``to_device`` takes the
-place of ``to_global`` and copies a host batch to a torch device.
+pool, over host batches of numpy arrays.  A loader feeds the whole batch
+(``shard_rank=0``, ``num_shards=1`` by default) or, on a mesh, its rank's
+slice of it (``shard``); ``to_device`` takes the place of ``to_global`` and
+copies a host batch to a torch device.
 """
 
 from __future__ import annotations
@@ -61,6 +62,16 @@ class DataLoader:
             seed=seed,
         )
         self._state = SamplerState()
+
+    def shard(self, shard_rank: int, num_shards: int) -> None:
+        """Read shard ``shard_rank`` of ``num_shards`` of every global batch
+        from now on (the Trainer's rank on a mesh); the global batch, the
+        order and the resume state stay as they are."""
+        s = self.sampler
+        self.sampler = IndexSampler(
+            s.dataset_len, s.global_batch, shard_rank=shard_rank, num_shards=num_shards,
+            shuffle=s.shuffle, seed=s.seed,
+        )
 
     # -- resume state ------------------------------------------------------
 

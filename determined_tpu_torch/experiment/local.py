@@ -26,7 +26,8 @@ by writing ``traces/trace.json`` (Perfetto) and ``traces/goodput.json``
 ``traces/torch_profiler/trial_<id>/``.
 
 Waiting for later slices of the port, each raising ``NotImplementedError``
-when asked for: the concurrent gang scheduler (needs several devices),
+when asked for: a mesh over more than one device and the concurrent gang
+scheduler (both launch gangs of ranks),
 registry promotion and the strict preflight lint; with ``lint.preflight``
 on (the default) the runner logs once that the preflight lint is not
 ported and goes on.
@@ -120,6 +121,13 @@ class LocalExperiment:
         if config.registry.auto_promote:
             raise NotImplementedError(
                 f"registry.auto_promote is not ported to determined_tpu_torch yet; {_LATER}"
+            )
+        mesh = config.resources.mesh
+        if mesh.num_devices > 1:
+            raise NotImplementedError(
+                f"resources.mesh {mesh.axes()} over {mesh.num_devices} devices in a local "
+                "experiment (launching a gang of ranks comes with the scheduler) is not "
+                f"ported to determined_tpu_torch yet; {_LATER}"
             )
         lint = config.lint
         if lint.strict or lint.thread_sentinel or lint.collective_sentinel:

@@ -1,7 +1,7 @@
 """Flagship model: decoder-only transformer LM, its training trial and its
 serving path.
 
-Port of ``determined_tpu/models/transformer.py`` (dense): rotary position
+Port of ``determined_tpu/models/transformer.py``: rotary position
 embeddings that pair even and odd lanes, GQA, RMSNorm with the variance
 taken in f32, SwiGLU, f32 parameters with compute in ``cfg.dtype``; per-block
 ``torch.utils.checkpoint`` under ``cfg.remat``.  ``LMTrial`` is the JAX
@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from determined_tpu_torch._device import DeviceLike, resolve_device
 from determined_tpu_torch.data import DataLoader, SyntheticDataset
+from determined_tpu_torch.models.moe import MoE
 from determined_tpu_torch.ops.attention import NEG_INF, _repeat_kv, dot_product_attention
 from determined_tpu_torch.train._quant import check_mode, quant_linear, require_platform
 from determined_tpu_torch.train._trial import TorchTrial
@@ -70,7 +71,6 @@ class TransformerConfig:
                 f"(got moe_every={self.moe_every})"
             )
         unported = [
-            (self.moe_experts > 0, "moe_experts > 0 (the MoE slice)"),
             (self.attention_impl == "ring", "attention_impl='ring' (the sequence-parallel slice)"),
             (self.seq_axis_name is not None, "seq_axis_name (the pipeline slice)"),
             (self.expert_axis_name is not None, "expert_axis_name (the pipeline slice)"),
@@ -182,23 +182,38 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device) -> None:
+    """Attention then the feed-forward: a dense ``mlp``, or with ``use_moe``
+    the ``moe`` experts.  Returns ``(x, aux)``, aux None without experts."""
+
+    def __init__(self, cfg: TransformerConfig, device: torch.device, use_moe: bool = False) -> None:
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, device=device)
         self.attn = Attention(cfg, device)
         self.ln2 = RMSNorm(cfg.d_model, device=device)
-        self.mlp = MLP(cfg, device)
+        if use_moe:
+            self.moe = MoE(
+                cfg.d_model, cfg.moe_experts, cfg.ff_dim,
+                capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype, device=device,
+            )
+        else:
+            self.mlp = MLP(cfg, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        if hasattr(self, "moe"):
+            y, aux = self.moe(self.ln2(x))
+            return x + y, aux
+        return x + self.mlp(self.ln2(x)), None
 
 
 class TransformerLM(nn.Module):
     """The flagship decoder-only LM.  Parameters are f32 on ``device``
     (CUDA unless named), initialised from ``generator`` (seed 0 when
     omitted): dense kernels normal with std ``fan_in ** -0.5``, the
-    embedding normal with std 0.02, norms one."""
+    embedding normal with std 0.02, norms one, the experts as ``MoE``
+    scales them.  Every ``moe_every``-th block (``i % moe_every ==
+    moe_every - 1``) takes ``MoE`` experts in place of its MLP when
+    ``cfg.moe_experts > 0``."""
 
     def __init__(
         self,
@@ -211,7 +226,10 @@ class TransformerLM(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=dev)
-        self.blocks = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, dev, cfg.moe_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1)
+            for i in range(cfg.n_layers)
+        )
         self.ln_f = RMSNorm(cfg.d_model, device=dev)
         self.lm_head = _linear(cfg.d_model, cfg.vocab_size, dev)
         if generator is None:
@@ -224,21 +242,33 @@ class TransformerLM(nn.Module):
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 mod.weight.normal_(0.0, mod.in_features ** -0.5, generator=generator)
+            elif isinstance(mod, MoE):
+                mod.reset_parameters(generator)
 
-    def forward(self, tokens: torch.Tensor, return_hidden: bool = False) -> torch.Tensor:
+    def forward(
+        self, tokens: torch.Tensor, return_hidden: bool = False, return_aux: bool = False
+    ) -> Any:
         """Logits [b, s, vocab] in f32, or with ``return_hidden`` the final
-        normed hidden states [b, s, d] in ``cfg.dtype``."""
+        normed hidden states [b, s, d] in ``cfg.dtype``; with ``return_aux``
+        also the MoE blocks' aux losses summed (f32 zero without experts)."""
         x = self.embed.weight[tokens].to(self.cfg.dtype)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        aux_total = None
         for blk in self.blocks:
             # remat: keep only each block's input; the backward reruns it
-            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+            x, aux = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
         x = self.ln_f(x)
-        if return_hidden:
+        if not return_hidden:
+            x = quant_linear(
+                x, self.lm_head.weight, self.cfg.dtype, self.cfg.quantized_matmul
+            ).float()
+        if not return_aux:
             return x
-        return quant_linear(
-            x, self.lm_head.weight, self.cfg.dtype, self.cfg.quantized_matmul
-        ).float()
+        if aux_total is None:
+            aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -554,8 +584,11 @@ class LMTrial(TorchTrial):
     ce_bf16_residual, fused_adamw, adam_mu_bf16, weight_decay, grad_clip.
     ``fused_adamw: auto`` is the fused kernel on a CUDA device (the JAX
     trial reads "on a TPU").  ``quantized_matmul`` resolves as in the JAX
-    trial (``_quant_mode``).  Pipeline and MoE hyperparameters raise
-    ``NotImplementedError``: they come with later slices of the port.
+    trial (``_quant_mode``).  ``moe_experts``, ``moe_every``,
+    ``moe_capacity_factor`` and ``moe_aux_weight`` put MoE blocks in the
+    model; the loss then adds ``moe_aux_weight * aux`` and reports
+    ``moe_aux_loss``.  Pipeline hyperparameters raise
+    ``NotImplementedError``: they come with a later slice of the port.
     """
 
     def _quant_mode(self) -> str:
@@ -591,6 +624,8 @@ class LMTrial(TorchTrial):
             dtype=torch.bfloat16 if bool(g("bf16", True)) else torch.float32,
             moe_experts=int(g("moe_experts", 0)),
             moe_every=int(g("moe_every", 2)),
+            moe_capacity_factor=float(g("moe_capacity_factor", 1.25)),
+            moe_aux_weight=float(g("moe_aux_weight", 0.01)),
             quantized_matmul=self._quant_mode(),
         )
 
@@ -669,7 +704,7 @@ class LMTrial(TorchTrial):
         if fused:
             from determined_tpu_torch.ops.cross_entropy import fused_cross_entropy
 
-            hidden = model(inputs, return_hidden=True)
+            hidden, moe_aux = model(inputs, return_hidden=True, return_aux=True)
             chunk = g("ce_chunk", None)
             loss = fused_cross_entropy(
                 hidden,
@@ -677,13 +712,19 @@ class LMTrial(TorchTrial):
                 targets,
                 chunk_size=None if chunk in (None, "auto") else int(chunk),
                 compute_dtype=model.cfg.dtype,
-                batch_shards=self.context.batch_axis_size,
+                # hidden already holds this rank's shard of the batch (the
+                # JAX trial divides the global batch by its shards here)
+                batch_shards=1,
                 bf16_residual=bool(g("ce_bf16_residual", False)),
             )
         else:
-            logits = model(inputs)
+            logits, moe_aux = model(inputs, return_aux=True)
             loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
-        return loss, {"perplexity": torch.exp(loss)}
+        metrics = {"perplexity": torch.exp(loss)}
+        if model.cfg.moe_experts > 0:
+            metrics["moe_aux_loss"] = moe_aux
+            loss = loss + model.cfg.moe_aux_weight * moe_aux
+        return loss, metrics
 
     def evaluate_batch(
         self, model: TransformerLM, batch: Dict[str, torch.Tensor]

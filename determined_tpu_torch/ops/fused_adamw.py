@@ -149,14 +149,19 @@ class FusedAdamW:
         device = next(iter(params.values())).device
         return FusedAdamWState(torch.zeros((), dtype=torch.int32, device=device), mu, nu)
 
-    def scalars(self, count: torch.Tensor, grads: Tree) -> torch.Tensor:
+    def scalars(
+        self, count: torch.Tensor, grads: Tree,
+        norm: Optional[Callable[[Tree], torch.Tensor]] = None,
+    ) -> torch.Tensor:
         """``[lr, clip_scale, 1 - b1^t, 1 - b2^t]`` at ``t = count + 1`` as a
-        [4] f32 tensor on count's device."""
+        [4] f32 tensor on count's device.  ``norm`` takes the global norm of
+        ``grads`` (``global_norm`` when None; on a mesh the Trainer's, over
+        every rank's shards)."""
         t = (count + 1).float()
         lr = self.learning_rate(count) if callable(self.learning_rate) else self.learning_rate
         lr = torch.as_tensor(lr, dtype=torch.float32, device=count.device)
         if self.clip_norm is not None:
-            gn = global_norm(grads)
+            gn = (norm or global_norm)(grads)
             cs = torch.clamp(self.clip_norm / torch.clamp(gn, min=1e-16), max=1.0)
         else:
             cs = torch.ones((), device=count.device)
@@ -166,9 +171,10 @@ class FusedAdamW:
 
     @torch.no_grad()
     def apply_step(
-        self, grads: Tree, state: FusedAdamWState, params: Tree
+        self, grads: Tree, state: FusedAdamWState, params: Tree,
+        norm: Optional[Callable[[Tree], torch.Tensor]] = None,
     ) -> Tuple[Tree, FusedAdamWState]:
-        scalars = self.scalars(state.count, grads)
+        scalars = self.scalars(state.count, grads, norm)
         kw = dict(b1=self.b1, b2=self.b2, eps=self.eps, wd=self.weight_decay)
         for k, p in params.items():
             adamw_leaf_(p, state.mu[k], state.nu[k], grads[k], scalars, **kw)

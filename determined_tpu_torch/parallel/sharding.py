@@ -1,0 +1,329 @@
+"""Logical-axis sharding rules, and how the Trainer places a model on a mesh.
+
+Port of ``determined_tpu/parallel/sharding.py``.  ``DEFAULT_RULES`` and
+``logical_to_mesh_spec`` are the JAX package's: a logical spec (one logical
+axis name a dim) becomes a tuple of mesh axes (the ``PartitionSpec``'s
+entries), size-1 and absent axes dropped and no mesh axis used twice.
+``batch_sharding`` is the batch's spec: over ``(data, fsdp)``.
+
+Where XLA places the arrays from those specs in the JAX package, the port
+places them itself (``shard_model``), one process per device:
+
+- ``expert``: every module with ``shard_experts`` (``models/moe.py``'s
+  ``MoE``) keeps its ``e / n`` experts of the stacked leaves (the rule
+  ``expert -> expert`` on their leading dim) and all-reduces its combine
+  over the expert group; every other parameter is replicated over it.
+  Modules with ``shard_batch`` learn their slice of the global batch and
+  the group of the ranks that hold the others (``batch_group``);
+- ``data`` and ``fsdp``: FSDP2 ``fully_shard`` on the ``(data, fsdp)``
+  submesh, each block and then the root (HSDP, replicated over ``data`` and
+  sharded over ``fsdp``, when both are over 1; one flat shard group
+  otherwise).  Each parameter is sharded on the dim the JAX Trainer's
+  auto-FSDP would choose (``fsdp_shard_dim``, its ``_infer_fsdp_specs``:
+  the largest dim the shard count divides), else on dim 0, which FSDP2 pads.
+
+``ShardPlan`` carries what the Trainer needs of that placement: each
+rank's local shards for the optimizer (``local``), the global gradient norm
+(``global_norm``), and the full tensors of a checkpoint both ways (``full``
+gathers a leaf, ``local_slice`` cuts this rank's part from one).  The mesh
+axes ``tensor``, ``seq``, ``pipe`` and ``dcn`` raise ``NotImplementedError``
+(``check_ported``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Sequence, Set, Tuple, Union
+
+import torch
+
+from determined_tpu_torch.parallel.mesh import MeshAxes
+
+# A logical spec is a tuple of logical axis names (or None), one per dim.
+LogicalSpec = Tuple[Optional[str], ...]
+
+# Rules: logical axis name -> mesh axis (str), tuple of mesh axes, or None.
+LogicalAxisRules = Dict[str, Union[str, Tuple[str, ...], None]]
+
+# Default rules: batch over (data, fsdp); params sharded over fsdp on their
+# largest dim; tensor-parallel on heads/mlp; sequence activations over seq.
+DEFAULT_RULES: LogicalAxisRules = {
+    "batch": (MeshAxes.DCN, MeshAxes.DATA, MeshAxes.FSDP),
+    "length": MeshAxes.SEQUENCE,
+    "embed": None,
+    "mlp": MeshAxes.TENSOR,
+    "heads": MeshAxes.TENSOR,
+    "kv": None,
+    "head_dim": None,
+    "vocab": MeshAxes.TENSOR,
+    "expert": MeshAxes.EXPERT,
+    "stage": MeshAxes.PIPELINE,
+    # FSDP: weight dims tagged "fsdp_shard" get scattered over the fsdp axis.
+    "fsdp_shard": MeshAxes.FSDP,
+}
+
+# the mesh axes the port does not run yet, and the slice each comes with
+_LATER_AXES = {
+    MeshAxes.TENSOR: "the tensor-parallel slice",
+    MeshAxes.SEQUENCE: "the sequence-parallel slice",
+    MeshAxes.PIPELINE: "the pipeline slice",
+    MeshAxes.DCN: "the multislice slice",
+}
+
+
+def _axis_sizes(mesh: Any) -> Optional[Dict[str, int]]:
+    if mesh is None:
+        return None
+    return dict(mesh.shape if hasattr(mesh, "shape") else mesh)
+
+
+def logical_to_mesh_spec(
+    logical: Optional[LogicalSpec],
+    rules: LogicalAxisRules,
+    mesh: Any = None,
+) -> Tuple[Any, ...]:
+    """Translate a logical spec into mesh axes, one entry a dim (a name, a
+    tuple of names, or None).  ``mesh`` is anything with a ``shape`` axis
+    dict (``Mesh``, ``MeshConfig``) or the dict itself; mesh axes that are
+    absent or of size 1 are dropped, so the same model and rules run on any
+    topology."""
+    if logical is None:
+        return ()
+    axis_sizes = _axis_sizes(mesh)
+
+    def resolve(name: Optional[str]):
+        if name is None:
+            return None
+        target = rules.get(name, None)
+        if target is None:
+            return None
+        targets = target if isinstance(target, tuple) else (target,)
+        if axis_sizes is not None:
+            targets = tuple(t for t in targets if axis_sizes.get(t, 1) > 1)
+        if not targets:
+            return None
+        return targets if len(targets) > 1 else targets[0]
+
+    resolved = [resolve(n) for n in logical]
+    # a mesh axis shards at most one dim; keep the first occurrence
+    seen: Set[str] = set()
+    out = []
+    for r in resolved:
+        flat = r if isinstance(r, tuple) else (r,) if r else ()
+        if any(f in seen for f in flat):
+            out.append(None)
+            continue
+        seen.update(flat)
+        out.append(r)
+    return tuple(out)
+
+
+def batch_sharding(
+    mesh: Any, rules: Optional[LogicalAxisRules] = None, extra_dims: int = 1
+) -> Tuple[Any, ...]:
+    """The spec of an input batch: ``('batch', None, ...)`` resolved."""
+    logical: LogicalSpec = ("batch",) + (None,) * extra_dims
+    return logical_to_mesh_spec(logical, rules if rules is not None else DEFAULT_RULES, mesh)
+
+
+def batch_axes(mesh: Any) -> Tuple[str, ...]:
+    """The mesh axes the batch is split over, outermost first."""
+    first = batch_sharding(mesh, extra_dims=0)[0]
+    if first is None:
+        return ()
+    return first if isinstance(first, tuple) else (first,)
+
+
+def batch_shard(mesh: Any) -> Tuple[int, int]:
+    """``(shard_rank, num_shards)`` of this rank's slice of a global batch:
+    its row-major index over the batch axes (data outer, fsdp inner), the
+    order in which JAX's ``to_global`` lays a batch over a mesh's devices."""
+    sizes = _axis_sizes(mesh)
+    idx, n = 0, 1
+    for axis in batch_axes(mesh):
+        idx = idx * sizes[axis] + mesh.coordinate(axis)
+        n *= sizes[axis]
+    return idx, n
+
+
+def batch_group(mesh: Any) -> Any:
+    """The process group of the ranks that hold the other slices of this
+    rank's global batch, ranked in batch order (None: one slice)."""
+    import torch.distributed as tdist
+
+    axes = batch_axes(mesh)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.group(axes[0])
+    dm = mesh.device_mesh
+    names = list(dm.mesh_dim_names)
+    keep = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in keep]
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    mine = None
+    # every rank creates every group, in the same order (new_group's rule)
+    for row in dm.mesh.permute(*rest, *keep).reshape(-1, n).tolist():
+        group = tdist.new_group(row)  # ascending rank order is batch order
+        if tdist.get_rank() in row:
+            mine = group
+    return mine
+
+
+def fsdp_shard_dim(shape: Sequence[int], n: int) -> Optional[int]:
+    """Auto-FSDP (the JAX Trainer's ``_infer_fsdp_specs``): the largest dim
+    of ``shape`` that ``n`` shards divide, None when none does or ``n`` is
+    1."""
+    if n <= 1 or not len(shape):
+        return None
+    divisible = [d for d in range(len(shape)) if shape[d] % n == 0 and shape[d] >= n]
+    if not divisible:
+        return None
+    return max(divisible, key=lambda i: shape[i])
+
+
+def check_ported(axis_sizes: Mapping[str, int]) -> None:
+    """Raise ``NotImplementedError`` for a mesh axis of size > 1 that the
+    port does not run yet."""
+    for axis, what in _LATER_AXES.items():
+        if int(axis_sizes.get(axis, 1)) > 1:
+            name = "num_slices" if axis == MeshAxes.DCN else f"the {axis!r} mesh axis"
+            raise NotImplementedError(
+                f"{name} ({what}) is not ported to determined_tpu_torch yet; it comes "
+                "with a later slice of the port (ROADMAP.md, Queue 1)"
+            )
+
+
+class ShardPlan:
+    """Where each parameter of a sharded model lives (``shard_model``)."""
+
+    def __init__(self, model: torch.nn.Module, mesh: Any, expert_params: Set[str]) -> None:
+        self.mesh = mesh
+        self.params: Dict[str, torch.nn.Parameter] = dict(model.named_parameters())
+        self.expert_params = expert_params
+        self.expert_size = mesh.shape[MeshAxes.EXPERT]
+        self.expert_group = mesh.group(MeshAxes.EXPERT) if self.expert_size > 1 else None
+        self.expert_rank = mesh.coordinate(MeshAxes.EXPERT)
+
+    @staticmethod
+    def local(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each DTensor's local shard (a view of its storage), others as
+        they are."""
+        from torch.distributed.tensor import DTensor
+
+        with torch.no_grad():
+            return {k: v.to_local() if isinstance(v, DTensor) else v for k, v in tree.items()}
+
+    def _shard_group(self, name: str) -> Any:
+        """The process group a parameter's shards span (None: unsharded)."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        p = self.params[name]
+        if not isinstance(p, DTensor):
+            return None
+        dims = [i for i, pl in enumerate(p.placements) if isinstance(pl, Shard)]
+        if not dims or p.device_mesh.size(dims[0]) == 1:
+            return None
+        return p.device_mesh.get_group(dims[0])
+
+    @torch.no_grad()
+    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The f32 global norm of the local gradient shards ``grads``: the
+        sum of squares over every leaf's shards, and over the expert group
+        for the expert leaves alone (the replicated leaves are the same on
+        every rank of it)."""
+        import torch.distributed as tdist
+
+        first = next(iter(grads.values()))
+        sq = torch.zeros(2, dtype=torch.float32, device=first.device)
+        for k, g in grads.items():
+            sq[int(k in self.expert_params)] += g.float().square().sum()
+        group = self._shard_group(next(iter(grads)))
+        if group is not None:
+            tdist.all_reduce(sq, group=group)
+        if self.expert_group is not None:
+            expert = sq[1:].clone()
+            tdist.all_reduce(expert, group=self.expert_group)
+            sq[1:] = expert
+        return torch.sqrt(sq.sum())
+
+    @torch.no_grad()
+    def full(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of a parameter-shaped leaf (the parameter, or a
+        moment kept beside its shard) from this rank's shard ``local``:
+        FSDP shards gathered, then expert slices in expert order.  A
+        collective: every rank calls it, leaf for leaf."""
+        import torch.distributed as tdist
+        from torch.distributed.tensor import DTensor
+
+        p = self.params[name]
+        t = local
+        if isinstance(p, DTensor):
+            t = DTensor.from_local(
+                local.contiguous(), p.device_mesh, p.placements, run_check=False,
+                shape=p.shape, stride=p.stride(),
+            ).full_tensor()
+        if name in self.expert_params and self.expert_group is not None:
+            parts = [torch.empty_like(t) for _ in range(self.expert_size)]
+            tdist.all_gather(parts, t.contiguous(), group=self.expert_group)
+            t = torch.cat(parts, dim=0)
+        return t
+
+    def local_slice(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole leaf: its experts' rows, then its
+        FSDP chunk (``torch.chunk`` along each sharded dim, as FSDP2 cuts)."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        t = full
+        if name in self.expert_params and self.expert_group is not None:
+            t = t.chunk(self.expert_size, dim=0)[self.expert_rank]
+        p = self.params[name]
+        if isinstance(p, DTensor):
+            for mesh_dim, pl in enumerate(p.placements):
+                if isinstance(pl, Shard):
+                    n = p.device_mesh.size(mesh_dim)
+                    coord = p.device_mesh.get_local_rank(mesh_dim)
+                    chunks = t.chunk(n, dim=pl.dim)
+                    t = chunks[coord] if coord < len(chunks) else t.narrow(pl.dim, 0, 0)
+        return t
+
+
+def shard_model(model: torch.nn.Module, mesh: Any) -> ShardPlan:
+    """Place ``model`` on ``mesh`` in place: expert parallelism over
+    ``expert``, then FSDP2 over ``(data, fsdp)`` (module docstring)."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    from determined_tpu_torch.models.moe import EXPERT_PARAMS
+
+    sizes = mesh.shape
+    check_ported(sizes)
+    expert_params: Set[str] = set()
+    n_exp = sizes[MeshAxes.EXPERT]
+    if n_exp > 1:
+        group, idx = mesh.group(MeshAxes.EXPERT), mesh.coordinate(MeshAxes.EXPERT)
+        for name, mod in model.named_modules():
+            if hasattr(mod, "shard_experts"):
+                mod.shard_experts(group, n_exp, idx)
+                expert_params.update(f"{name}.{p}" if name else p for p in EXPERT_PARAMS)
+    b_rank, b_shards = batch_shard(mesh)
+    if b_shards > 1:
+        group = batch_group(mesh)
+        for mod in model.modules():
+            if hasattr(mod, "shard_batch"):
+                mod.shard_batch(group, b_shards, b_rank)
+    data, fsdp = sizes[MeshAxes.DATA], sizes[MeshAxes.FSDP]
+    if data > 1 and fsdp > 1:
+        dp_mesh, n_shard = mesh.submesh(MeshAxes.DATA, MeshAxes.FSDP), fsdp
+    else:
+        axis = MeshAxes.DATA if data > 1 else MeshAxes.FSDP
+        dp_mesh, n_shard = mesh.submesh(axis), data * fsdp
+
+    def placement(param: torch.nn.Parameter) -> Any:
+        return Shard(fsdp_shard_dim(param.shape, n_shard) or 0)
+
+    for blk in getattr(model, "blocks", ()):
+        fully_shard(blk, mesh=dp_mesh, shard_placement_fn=placement)
+    fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
+    return ShardPlan(model, mesh, expert_params)

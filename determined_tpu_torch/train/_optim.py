@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -108,10 +108,11 @@ class ClipAdamW:
 
     @torch.no_grad()
     def apply_step(
-        self, grads: Tree, state: FusedAdamWState, params: Tree
+        self, grads: Tree, state: FusedAdamWState, params: Tree,
+        norm: Optional[Callable[[Tree], torch.Tensor]] = None,
     ) -> Tuple[Tree, FusedAdamWState]:
         if self.clip_norm is not None:
-            g_norm = global_norm(grads)
+            g_norm = (norm or global_norm)(grads)
             trigger = g_norm < self.clip_norm
         count_inc = state.count + 1
         bc1 = 1 - self.b1 ** count_inc
@@ -151,7 +152,10 @@ class SGD:
         return SGDState({k: torch.zeros_like(p) for k, p in params.items()})
 
     @torch.no_grad()
-    def apply_step(self, grads: Tree, state: SGDState, params: Tree) -> Tuple[Tree, SGDState]:
+    def apply_step(
+        self, grads: Tree, state: SGDState, params: Tree, norm: Any = None
+    ) -> Tuple[Tree, SGDState]:
+        """``norm`` is unused: plain SGD clips nothing."""
         keys = list(params)
         trace = [state.trace[k] for k in keys]
         torch._foreach_mul_(trace, self.momentum)

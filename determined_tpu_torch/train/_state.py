@@ -11,7 +11,7 @@ mutated rather than replaced.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -68,10 +68,15 @@ class TrainState:
             v.zero_()
         self.metric_count.zero_()
 
-    def fetch_metrics(self) -> Dict[str, float]:
-        """One host sync: mean of each accumulated metric."""
+    def fetch_metrics(
+        self, reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    ) -> Dict[str, float]:
+        """One host sync: mean of each accumulated metric.  ``reduce`` maps
+        the stacked sums and count across ranks first (the Trainer's mean
+        over a mesh)."""
         keys = list(self.metric_acc)
-        host = torch.stack([self.metric_acc[k] for k in keys] + [self.metric_count]).cpu()
+        stacked = torch.stack([self.metric_acc[k] for k in keys] + [self.metric_count])
+        host = (stacked if reduce is None else reduce(stacked)).cpu()
         count = float(host[-1])
         if count == 0:
             return {}

@@ -1,7 +1,7 @@
 """Trainer: the boundary-driven training loop.
 
 Port of ``determined_tpu/train/_trainer.py`` (``init``, ``Trainer``,
-``_BoundarySchedule``) for one device.  The same contract: ``fit(max_length,
+``_BoundarySchedule``).  The same contract: ``fit(max_length,
 periods, latest_checkpoint, checkpoint_policy)`` with TRAIN / VALIDATE /
 CHECKPOINT / REPORT boundaries, callbacks, the ``train.step`` fault site, a
 preemption check at each boundary that saves a checkpoint and stops, and
@@ -25,6 +25,18 @@ buffers on a stream of its own, never synchronising the device (which would
 wait for the training steps queued behind the clones too).  The pinned
 buffers are allocated once, at the first asynchronous save.
 
+On a mesh (``train.init(mesh_config=...)`` or ``resources.mesh``, resolved
+against the world of the torch.distributed process group, one process a
+device) the Trainer places the model with ``parallel.sharding.shard_model``:
+experts over ``expert``, FSDP2 over ``(data, fsdp)``.  Each rank reads its
+``(data, fsdp)`` slice of every global batch, the optimizer updates each
+rank's local shards (the clip's norm global over the mesh), the reported
+training and validation metrics are averaged over the ranks, and the
+preemption vote and the checkpoint's storage id go through the
+``DistributedContext``.  A checkpoint holds the whole state in the
+single-device format (gathered leaf by leaf, the chief writes), so any
+data/fsdp/expert mesh, or none, restores it.
+
 Experiment-configuration knobs the JAX Trainer reads are honoured or raise
 ``NotImplementedError``.  Honoured: ``aggregation_frequency`` (gradient
 accumulation: each optimizer step runs forward and ``backward()`` over that
@@ -32,9 +44,10 @@ many stacked microbatches, summing the gradients in ``.grad``, then one
 update), ``fetch_workers`` (passed to loaders that set none),
 ``compilation_cache_dir`` (the kernels' build directory,
 ``utils/compilation_cache.py``) and ``quantized_matmul`` (read by the
-trial's model, ``train/_quant.py``).  A mesh over more than one device,
-overlapped or hierarchical gradient sync, pipeline schedules and the
-retrace sentinel come with later slices of the port.  ``profiling.trace``
+trial's model, ``train/_quant.py``).  The tensor, sequence and pipeline
+mesh axes and ``num_slices``, overlapped or hierarchical gradient sync,
+pipeline schedules and the retrace sentinel come with later slices of the
+port.  ``profiling.trace``
 bounds a ``torch.profiler`` window that the core context's profiler opened
 (``core.profiler.on(trace=True)``) to ``profiling.end_after_batch`` steps,
 counted from the resume point.
@@ -54,9 +67,11 @@ import torch
 
 from determined_tpu_torch import core as core_mod
 from determined_tpu_torch._device import DeviceLike, resolve_device
-from determined_tpu_torch.config.experiment import Length
+from determined_tpu_torch.config.experiment import Length, MeshConfig
 from determined_tpu_torch.data._prefetch import EpochFeed, InputPipeline
 from determined_tpu_torch.observability import chip_peak_flops, get_tracer
+from determined_tpu_torch.parallel.mesh import resolve_mesh
+from determined_tpu_torch.parallel.sharding import batch_shard, check_ported, shard_model
 from determined_tpu_torch.train import serialization
 from determined_tpu_torch.train._reducer import MEAN, get_reducer
 from determined_tpu_torch.train._state import TrainState
@@ -78,12 +93,7 @@ def check_exp_config(exp_config: Any) -> None:
     """Raise for every knob the JAX Trainer reads that this port does not
     run; what passes is honoured."""
     opt = exp_config.optimizations
-    mesh = exp_config.resources.mesh
-    if mesh.num_devices > 1:
-        raise _later(
-            f"resources.mesh {mesh.axes()} over {mesh.num_devices} devices (the port "
-            "trains on one device)"
-        )
+    check_ported(exp_config.resources.mesh.shape)
     if opt.overlap_grad_sync or opt.hierarchical_collectives:
         raise _later("optimizations.overlap_grad_sync / hierarchical_collectives")
     if opt.pipeline_schedule != "gpipe" or opt.virtual_stages != 1:
@@ -99,13 +109,20 @@ def init(
     core_context: Optional[Any] = None,
     seed: Optional[int] = None,
     device: DeviceLike = None,
+    mesh_config: Optional[MeshConfig] = None,
 ) -> TrialContext:
     """Build a TrialContext on ``device`` (CUDA unless named; raises without
     a GPU).  Off-cluster the core services are ``core._dummy_init()``.  With
-    ``exp_config`` the hyperparameters (Consts collapsed) and the seed
-    default to the configuration's.  The kernels' build cache is set up
+    ``exp_config`` the hyperparameters (Consts collapsed), the seed and the
+    mesh default to the configuration's.  The kernels' build cache is set up
     from ``optimizations.compilation_cache_dir`` (or
-    ``DTPU_COMPILATION_CACHE``) as the JAX ``init`` sets up XLA's."""
+    ``DTPU_COMPILATION_CACHE``) as the JAX ``init`` sets up XLA's.
+
+    ``mesh_config`` (or ``resources.mesh``) is resolved against the world
+    of the process group (``core.init`` under torchrun opens it; each rank
+    then runs on its own device, the core context's ``distributed.device``).
+    Without a process group a mesh of one device is the single-device path."""
+    check_ported((mesh_config or MeshConfig()).shape)
     if exp_config is not None:
         check_exp_config(exp_config)
         if hparams is None:
@@ -118,10 +135,15 @@ def init(
     setup_compilation_cache(
         exp_config.optimizations.compilation_cache_dir if exp_config is not None else None
     )
-    dev = resolve_device(device)
     core = core_context or core_mod._dummy_init()
+    rank_device = getattr(core.distributed, "device", None)
+    dev = resolve_device(device if device is not None or rank_device is None else rank_device)
+    if mesh_config is None and exp_config is not None:
+        mesh_config = exp_config.resources.mesh
+    mesh = resolve_mesh(mesh_config, dev.type)
     return TrialContext(
-        core=core, device=dev, hparams=hparams, seed=seed or 0, exp_config=exp_config
+        core=core, device=dev, hparams=hparams, seed=seed or 0, exp_config=exp_config,
+        mesh=mesh,
     )
 
 
@@ -156,7 +178,7 @@ class _PendingSave:
     snapshot; ``finish`` (merge/manifest/report) runs on the main thread at
     the next drain point."""
 
-    thread: threading.Thread
+    thread: Optional[threading.Thread]  # None on a mesh's non-chief rank
     finish: TCallable[[], None]
     storage_id: str
     step: int
@@ -208,6 +230,10 @@ class Trainer:
         self.context = context or trial.context
         self.core = self.context.core
         self.device = self.context.device
+        self.mesh = self.context.mesh
+        # where the parameters live on the mesh (parallel/sharding.py), None
+        # without one; set by _setup
+        self._plan: Any = None
         # populated by _setup
         self.model: Any = None
         self.tx: Any = None
@@ -220,6 +246,9 @@ class Trainer:
         self._searcher_metric: Optional[str] = None
         self._smaller_is_better = True
         self._params: Dict[str, torch.nn.Parameter] = {}
+        # what the optimizer updates in place: the params, or on a mesh
+        # each one's local shard
+        self._opt_params: Dict[str, torch.Tensor] = {}
         self._reducers: Dict[str, Any] = {}
         self._tokens_per_sample: Optional[int] = None
         # microbatches per optimizer step (optimizations.aggregation_frequency)
@@ -247,9 +276,19 @@ class Trainer:
     def _setup(self) -> None:
         trial, cfg = self.trial, self.context.exp_config
         self.model = trial.build_model()
+        if self.mesh is not None:
+            # experts over `expert`, FSDP2 over (data, fsdp); every rank
+            # built the same full model from the trial's seed first
+            self._plan = shard_model(self.model, self.mesh)
         self.tx = trial.build_optimizer()
         self.train_loader = trial.build_training_data_loader()
         self.val_loader = trial.build_validation_data_loader()
+        if self.mesh is not None:
+            # each rank reads its (data, fsdp) slice of every global batch
+            rank, shards = batch_shard(self.mesh)
+            for ld in (self.train_loader, self.val_loader):
+                if ld is not None:
+                    ld.shard(rank, shards)
         self.callbacks = dict(trial.build_callbacks())
         if cfg is not None:
             self._searcher_metric = cfg.searcher.metric
@@ -264,10 +303,11 @@ class Trainer:
                     if ld is not None and not ld.fetch_workers:
                         ld.fetch_workers = opt.fetch_workers
         self._params = dict(self.model.named_parameters())
+        self._opt_params = self._plan.local(self._params) if self._plan else self._params
         # a trial whose loss takes a third argument gets the step's generator
         # (the JAX trial's rng); one taking (model, batch) gets none
         self._step_gen = torch.Generator(device=self.device) if takes_rng(trial) else None
-        opt_state = self.tx.init(self._params)
+        opt_state = self.tx.init(self._opt_params)
         # the metric keys come from the first step's loss (sorted, then
         # "loss" and, with an lr_schedule, "lr", as in the JAX Trainer)
         self.state = TrainState.create(self.model, opt_state, self.device, self.context.seed)
@@ -326,12 +366,20 @@ class Trainer:
             k: p.grad if p.grad is not None else torch.zeros_like(p)
             for k, p in params.items()
         }
+        norm_kw = {}
+        if self._plan is not None:
+            # the update runs on each rank's shards; the clip's norm is
+            # global over the mesh
+            grads = self._plan.local(grads)
+            norm_kw = {"norm": self._plan.global_norm}
         # schedule-state surfacing: a trial exposing `lr_schedule` gets its
         # current learning rate (at the step before the update) reported
         schedule = getattr(self.trial, "lr_schedule", None)
         if schedule is not None:
             metrics["lr"] = schedule(state.step).float()
-        _, state.opt_state = self.tx.apply_step(grads, state.opt_state, params)
+        _, state.opt_state = self.tx.apply_step(
+            grads, state.opt_state, self._opt_params, **norm_kw
+        )
         for p in params.values():
             p.grad = None
         if not state.metric_acc:
@@ -362,6 +410,10 @@ class Trainer:
         loss_sum = None
         sums: Dict[str, torch.Tensor] = {}
         for i in range(agg):
+            if self._plan is not None:
+                # one gradient reduction a step: FSDP syncs on the last
+                # microbatch only, over the summed gradients
+                self.model.set_requires_gradient_sync(i == agg - 1)
             loss, m = self._loss({k: v[i] for k, v in batch.items()})
             loss.backward()
             loss = loss.detach().float()
@@ -382,6 +434,12 @@ class Trainer:
         self, batch: Dict[str, torch.Tensor], acc: Dict[str, torch.Tensor]
     ) -> Dict[str, torch.Tensor]:
         metrics = self.trial.evaluate_batch(self.state.model, batch)
+        if self.mesh is not None:
+            # each batch's metrics over the whole global batch: the ranks'
+            # means averaged (the expert group's ranks hold equal values)
+            keys = list(metrics)
+            metrics = dict(zip(keys, self._mean_over_ranks(
+                torch.stack([metrics[k].float() for k in keys]))))
         out = dict(acc)
         for k, v in metrics.items():
             red = self._reducers.get(k, MEAN)
@@ -390,6 +448,14 @@ class Trainer:
                 carry = torch.full((), red.init, dtype=torch.float32, device=self.device)
             out[k] = red.accumulate(carry, v.float())
         return out
+
+    def _mean_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` averaged over every rank of the mesh (one all-reduce)."""
+        import torch.distributed as tdist
+
+        t = t.clone()
+        tdist.all_reduce(t)
+        return t / self.mesh.size
 
     # -- length arithmetic -------------------------------------------------
 
@@ -411,10 +477,120 @@ class Trainer:
     def _array_state(self) -> Dict[str, Any]:
         return {
             "step": self.state.step,
-            "params": self._params,
+            "params": self._opt_params,
             "opt_state": self.state.opt_state,
             "rng": self.state.rng,
         }
+
+    def _full_array_state(self) -> Dict[str, Any]:
+        """The whole array state of a mesh, gathered leaf by leaf (every
+        rank takes part) onto the chief's host; None leaves elsewhere."""
+        plan, chief = self._plan, self.core.distributed.is_chief
+
+        def gather(name: str, local: torch.Tensor) -> Optional[torch.Tensor]:
+            full = plan.full(name, local)
+            return full.detach().to("cpu", copy=True) if chief else None
+
+        names = set(self._params)
+
+        def walk(node: Any) -> Any:
+            if isinstance(node, dict):
+                if node and set(node) <= names:
+                    return {k: gather(k, v) for k, v in node.items()}
+                return {k: walk(v) for k, v in node.items()}
+            if hasattr(node, "_fields"):
+                return type(node)(*(walk(v) for v in node))
+            if isinstance(node, torch.Tensor):
+                return node.detach().to("cpu", copy=True)
+            return node
+
+        return {
+            "step": self.state.step.detach().cpu(),
+            "params": walk(self._opt_params),
+            "opt_state": walk(self.state.opt_state),
+            "rng": self.state.rng.get_state(),
+        }
+
+    def _local_slice(self, part: str, name: str, value: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a checkpoint leaf (``serialization.
+        restore_arrays``' ``reshape``): a parameter or a parameter-shaped
+        moment is cut to its shard, anything else is whole."""
+        key = name if part == "params" else name.split(serialization.SEP, 1)[-1]
+        if part in ("params", "opt_state") and key in self._params and value.dim():
+            return self._plan.local_slice(key, value)
+        return value
+
+    def _save_on_mesh(self, trainer_state: Dict[str, Any], metadata: Dict[str, Any],
+                      asynchronous: bool) -> str:
+        """A mesh's checkpoint: the state gathered whole (a collective), the
+        chief writes it in the single-device format, and every rank learns
+        its storage id.  Asynchronously, the chief's writer thread
+        serialises the gathered host copy while training goes on."""
+        dist = self.core.distributed
+        with get_tracer().span("checkpoint.gather", cat="checkpoint", step=self.steps_completed):
+            full = self._full_array_state()
+        sid: Optional[str] = None
+        pending: Optional[_PendingSave] = None
+        if dist.is_chief:
+            if asynchronous:
+                path, sid, finish = self.core.checkpoint.store_path_async(metadata)
+                for cb in self.callbacks.values():
+                    cb.on_checkpoint_write_start(path)
+                pending = self._start_writer(path, sid, finish, lambda: full, trainer_state)
+            else:
+                sid = self._write_sync(metadata, full, trainer_state)
+        sid = dist.broadcast(sid)
+        if not asynchronous:
+            return self._saved(sid)
+        # a worker's placeholder: the chief reports the outcome at the
+        # drain point
+        self._pending_save = pending or _PendingSave(
+            None, lambda: None, sid, self.steps_completed, []
+        )
+        logger.info("async checkpoint %s started at step %d", sid, self.steps_completed)
+        return sid
+
+    def _write_sync(self, metadata: Dict[str, Any], arrays: Dict[str, Any],
+                    trainer_state: Dict[str, Any]) -> str:
+        """Write a checkpoint now; returns its storage id."""
+        with get_tracer().span(
+            "checkpoint.save", cat="checkpoint", mode="sync", step=self.steps_completed
+        ):
+            with self.core.checkpoint.store_path(metadata) as (path, sid):
+                for cb in self.callbacks.values():
+                    cb.on_checkpoint_write_start(path)
+                serialization.save_arrays(path, arrays)
+                serialization.save_trainer_state(path, trainer_state)
+        return sid
+
+    def _saved(self, sid: str) -> str:
+        """Record a finished synchronous save."""
+        self.latest_checkpoint = sid
+        for cb in self.callbacks.values():
+            cb.on_checkpoint_write_end(sid)
+        logger.info("checkpoint %s at step %d", sid, self.steps_completed)
+        return sid
+
+    def _start_writer(self, path: str, sid: str, finish: TCallable[[], None],
+                      host_arrays: TCallable[[], Any],
+                      trainer_state: Dict[str, Any]) -> _PendingSave:
+        """The background writer of an overlapped save: serialises
+        ``host_arrays()`` and the trainer state into ``path``; a failure is
+        surfaced at the drain point."""
+        errors: list = []
+
+        def work() -> None:
+            try:
+                with get_tracer().span("checkpoint.write", cat="checkpoint", storage_id=sid):
+                    serialization.save_arrays(path, host_arrays())
+                    serialization.save_trainer_state(path, trainer_state)
+            except BaseException as e:  # surfaced at the drain point
+                errors.append(e)
+
+        thread = threading.Thread(target=work, name="dtt-ckpt-writer", daemon=True)
+        thread.start()
+        return _PendingSave(thread=thread, finish=finish, storage_id=sid,
+                            step=self.steps_completed, errors=errors)
 
     def _async_checkpointing(self) -> bool:
         cfg = self.context.exp_config
@@ -430,11 +606,16 @@ class Trainer:
         self._pending_save = None
         tracer = get_tracer()
         stall_t0 = time.monotonic()
-        p.thread.join()
+        if p.thread is not None:
+            p.thread.join()
         tracer.record_span(
             "checkpoint.stall", "checkpoint", stall_t0, time.monotonic(),
             {"storage_id": p.storage_id, "failed": bool(p.errors)},
         )
+        if self._plan is not None and self.core.distributed.size > 1:
+            # the chief's writer decides for every rank
+            if not self.core.distributed.broadcast(not p.errors):
+                p.errors.append(RuntimeError("the chief's writer failed"))
         if p.errors:
             raise RuntimeError(f"async checkpoint {p.storage_id} failed") from p.errors[0]
         with tracer.span("checkpoint.finalize", cat="checkpoint", storage_id=p.storage_id):
@@ -458,7 +639,7 @@ class Trainer:
             "hparams": dict(self.context.hparams),
             "exp_config": self.context.exp_config.raw if self.context.exp_config else None,
             "seed": self.context.seed,
-            "mesh_axes": {"data": 1},
+            "mesh_axes": dict(self.mesh.shape) if self.mesh is not None else {"data": 1},
         }
         metadata = {
             "steps_completed": self.steps_completed,
@@ -468,20 +649,12 @@ class Trainer:
             "parent_storage_id": self.latest_checkpoint,
         }
         tracer = get_tracer()
+        if self._plan is not None:
+            return self._save_on_mesh(
+                trainer_state, metadata, asynchronous and self._async_checkpointing()
+            )
         if not (asynchronous and self._async_checkpointing()):
-            with tracer.span(
-                "checkpoint.save", cat="checkpoint", mode="sync", step=self.steps_completed
-            ):
-                with self.core.checkpoint.store_path(metadata) as (path, sid):
-                    for cb in self.callbacks.values():
-                        cb.on_checkpoint_write_start(path)
-                    serialization.save_arrays(path, self._array_state())
-                    serialization.save_trainer_state(path, trainer_state)
-            self.latest_checkpoint = sid
-            for cb in self.callbacks.values():
-                cb.on_checkpoint_write_end(sid)
-            logger.info("checkpoint %s at step %d", sid, self.steps_completed)
-            return sid
+            return self._saved(self._write_sync(metadata, self._array_state(), trainer_state))
 
         # overlapped save: snapshot on the device, serialise on a background
         # thread, finalize at the next drain point
@@ -498,31 +671,21 @@ class Trainer:
                     self._pinned = _pinned_like(snapshot)
                 pinned = self._pinned
         device = self.device
-        errors: list = []
 
-        def work() -> None:
-            try:
-                with get_tracer().span("checkpoint.write", cat="checkpoint", storage_id=sid):
-                    host = snapshot
-                    if ready is not None:
-                        # a stream of its own: the copy waits for the clones
-                        # only, never for the steps queued after them
-                        with get_tracer().span("checkpoint.copy", cat="checkpoint"):
-                            side = torch.cuda.Stream(device)
-                            with torch.cuda.stream(side):
-                                side.wait_event(ready)
-                                host = _to_host(snapshot, pinned)
-                            side.synchronize()
-                    serialization.save_arrays(path, host)
-                    serialization.save_trainer_state(path, trainer_state)
-            except BaseException as e:  # surfaced at the drain point
-                errors.append(e)
+        def host_arrays() -> Any:
+            if ready is None:
+                return snapshot
+            # a stream of its own: the copy waits for the clones only, never
+            # for the steps queued after them
+            with get_tracer().span("checkpoint.copy", cat="checkpoint"):
+                side = torch.cuda.Stream(device)
+                with torch.cuda.stream(side):
+                    side.wait_event(ready)
+                    host = _to_host(snapshot, pinned)
+                side.synchronize()
+            return host
 
-        thread = threading.Thread(target=work, name="dtt-ckpt-writer", daemon=True)
-        thread.start()
-        self._pending_save = _PendingSave(
-            thread=thread, finish=finish, storage_id=sid, step=self.steps_completed, errors=errors,
-        )
+        self._pending_save = self._start_writer(path, sid, finish, host_arrays, trainer_state)
         logger.info("async checkpoint %s started at step %d", sid, self.steps_completed)
         return sid
 
@@ -573,11 +736,14 @@ class Trainer:
         checkpoint directory, in place (also the tail of
         ``train.load_trial_from_checkpoint``)."""
         tstate = serialization.load_trainer_state(path)
-        stored_axes = tstate.get("mesh_axes")
-        if stored_axes is not None and {k: int(v) for k, v in stored_axes.items()} != {"data": 1}:
-            raise _later(f"restoring a checkpoint written on mesh {stored_axes} (elastic reshard)")
+        # the state is stored whole, so any data/fsdp/expert mesh reads it
+        # back; a checkpoint of a mesh axis the port does not run raises
+        check_ported(tstate.get("mesh_axes") or {})
         with get_tracer().span("checkpoint.load", cat="restore"):
-            serialization.restore_arrays(path, self._array_state())
+            serialization.restore_arrays(
+                path, self._array_state(),
+                reshape=self._local_slice if self._plan is not None else None,
+            )
         # The JAX Trainer grafts freshly built optax ``hyperparams`` over the
         # restored opt_state here (``_reinject_runtime_hparams``), so that a
         # PBT child trains with its own perturbed lr, not its parent's.  The
@@ -790,7 +956,10 @@ class Trainer:
             # ---- REPORT ---------------------------------------------------
             if rep_sched.is_boundary(self.steps_completed) or at_end:
                 sync_t0 = time.monotonic()
-                metrics = self.state.fetch_metrics()  # the one host sync
+                # the one host sync (and on a mesh the one all-reduce)
+                metrics = self.state.fetch_metrics(
+                    self._mean_over_ranks if self.mesh is not None else None
+                )
                 sync_t1 = time.monotonic()
                 hot_time += sync_t1 - sync_t0
                 # where the host waits for every queued step

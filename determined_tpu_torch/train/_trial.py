@@ -5,9 +5,9 @@ implement the data/model/optimizer builders and a per-batch loss; the
 Trainer owns the loop.  Where the JAX trial's ``loss`` is a pure function of
 a param tree traced under ``jit``, here it is an eager forward of the
 trial's ``nn.Module`` that returns a differentiable scalar; the Trainer runs
-the backward and the optimizer step.  Where the JAX context holds a mesh,
-this one holds the ``torch.device`` the trial runs on (one device: the batch
-axes have size 1).
+the backward and the optimizer step.  The context holds the ``torch.device``
+this rank runs on and, on a mesh, the port's ``parallel.Mesh`` (one process
+a device: the trial's loss sees this rank's shard of each global batch).
 """
 
 from __future__ import annotations
@@ -36,9 +36,11 @@ class TrialContext:
         hparams: Optional[Dict[str, Any]] = None,
         seed: int = 0,
         exp_config: Optional[Any] = None,
+        mesh: Optional[Any] = None,
     ) -> None:
         self.core = core
         self.device = device
+        self.mesh = mesh
         self.hparams = dict(hparams or {})
         self.seed = seed
         self.exp_config = exp_config
@@ -57,8 +59,11 @@ class TrialContext:
 
     @property
     def batch_axis_size(self) -> int:
-        """Product of the batch-carrying axes: 1 on one device."""
-        return 1
+        """Product of the batch-carrying axes (data x fsdp): 1 without a
+        mesh."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.shape["data"] * self.mesh.shape["fsdp"]
 
     def get_global_batch_size(self) -> int:
         return int(self.get_hparam("global_batch_size", 32))

@@ -31,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -86,9 +86,15 @@ def load_arrays(ckpt_dir: str, part: str) -> Dict[str, torch.Tensor]:
 
 
 @torch.no_grad()
-def restore_arrays(ckpt_dir: str, live: Dict[str, Any]) -> None:
+def restore_arrays(
+    ckpt_dir: str,
+    live: Dict[str, Any],
+    reshape: Optional[Callable[[str, str, torch.Tensor], torch.Tensor]] = None,
+) -> None:
     """Fill the live tree in place from the checkpoint: the same names, and
-    every tensor the same shape and dtype as the live one it replaces."""
+    every tensor the same shape and dtype as the live one it replaces.
+    ``reshape(part, name, stored)`` maps a stored tensor first (on a mesh:
+    the whole tensor to this rank's shard)."""
     for part, node in live.items():
         want = flatten(node)
         # on the host: copy_ moves each tensor to its live device, so the
@@ -102,6 +108,8 @@ def restore_arrays(ckpt_dir: str, live: Dict[str, Any]) -> None:
             )
         for name, leaf in want.items():
             value = stored[name]
+            if reshape is not None and not isinstance(leaf, torch.Generator):
+                value = reshape(part, name, value)
             if isinstance(leaf, torch.Generator):
                 leaf.set_state(value.cpu())
                 continue

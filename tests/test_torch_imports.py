@@ -148,6 +148,48 @@ def test_step_knob_and_train_to_serve_modules_import_nothing_of_jax(module):
     assert proc.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", [
+    "determined_tpu_torch.models.moe",
+    "determined_tpu_torch.core._distributed",
+    "determined_tpu_torch.parallel",
+    "determined_tpu_torch.parallel.mesh",
+    "determined_tpu_torch.parallel.sharding",
+])
+def test_moe_and_parallel_modules_import_nothing_of_jax(module):
+    """The MoE layer, the distributed context and the mesh and sharding
+    rules are the port's own copies: each, imported alone, pulls in nothing
+    of JAX or the JAX package (not its ``core/_distributed.py`` or
+    ``parallel/mesh.py``, which import no JAX themselves), opens no process
+    group and loads no FSDP (imported where a mesh is built)."""
+    probe = textwrap.dedent(
+        """
+        import importlib, sys
+
+        BLOCKED = {blocked!r}
+
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                    raise ImportError("blocked import of " + name)
+                return None
+
+        sys.meta_path.insert(0, Blocker())
+        importlib.import_module({module!r})
+        import torch.distributed as dist
+        assert not dist.is_initialized()
+        assert "torch.distributed.fsdp" not in sys.modules
+        print("ok")
+        """
+    ).format(blocked=BLOCKED, module=module)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_fails_without_cuda():
     """Without a GPU the smoke run prints no result and exits non-zero."""
     proc = subprocess.run(

@@ -372,7 +372,7 @@ def test_fit_checkpoint_options_work(kwargs, tmp_path):
 
 
 def test_unported_options_raise():
-    for extra in (dict(pipe_microbatches=2), dict(moe_experts=4)):
+    for extra in (dict(pipe_microbatches=2), dict(attention="ring")):
         ctx = train.init(hparams=dict(HP, **extra), device="cpu")
         with pytest.raises(NotImplementedError, match="later slice"):
             LMTrial(ctx).build_model()
@@ -381,8 +381,8 @@ def test_unported_options_raise():
 @pytest.mark.parametrize(
     "raw",
     [{"optimizations": {"overlap_grad_sync": True}},
-     {"resources": {"mesh": {"data": 2}}},
-     {"resources": {"mesh": {"fsdp": 2, "data": -1}}}],
+     {"resources": {"mesh": {"data": 2, "tensor": 2}}},
+     {"resources": {"mesh": {"fsdp": 2, "data": -1, "seq": 2}}}],
     ids=["overlap_grad_sync", "mesh_data2", "mesh_fsdp2"],
 )
 def test_exp_config_knobs_of_later_slices_raise(raw):

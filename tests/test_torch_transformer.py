@@ -250,7 +250,6 @@ def test_prefill_then_eight_decode_steps_match_full_forward(n_kv_heads):
 @pytest.mark.parametrize(
     "field, value",
     [
-        ("moe_experts", 4),
         ("attention_impl", "ring"),
         ("seq_axis_name", "seq"),
         ("expert_axis_name", "expert"),

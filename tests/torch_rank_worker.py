@@ -1,0 +1,253 @@
+"""Rank processes for the port's multi-rank CPU tests, and their launcher.
+
+``launch(case, world, workdir, payload)`` starts ``world`` processes of this
+file, each one rank of a gloo process group that meets through a
+``FileStore`` under ``workdir`` (no fixed TCP port), hands them ``payload``
+(numpy arrays and plain values, pickled into ``workdir``) and returns each
+rank's result.  The ranks import torch and the port, never JAX: the tests
+compute their JAX references in the parent.  Every launch has a hard
+timeout; on expiry every rank is killed and the launch fails, so a hung
+collective fails one test.
+
+Run as a script: ``python tests/torch_rank_worker.py CASE RANK WORLD DIR``.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+from typing import Any, Dict, List
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: seconds a launch may take before its ranks are killed
+RANK_TIMEOUT = 120.0
+
+
+def launch(case: str, world: int, workdir: str, payload: Dict[str, Any],
+           timeout: float = RANK_TIMEOUT) -> List[Any]:
+    """Run ``case`` on ``world`` gloo ranks; the list of their results."""
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "input.pkl"), "wb") as f:
+        pickle.dump(payload, f)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS", "PYTEST_XDIST_WORKER")}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="2", MKL_NUM_THREADS="2",
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    procs, logs = [], []
+    for rank in range(world):
+        log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), case, str(rank), str(world), workdir],
+            env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)),
+            stdout=log, stderr=subprocess.STDOUT, cwd=workdir,
+        ))
+    deadline = time.monotonic() + timeout
+    hung = False
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                hung = True
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+
+    def tail(rank: int) -> str:
+        with open(os.path.join(workdir, f"rank{rank}.log")) as f:
+            return f.read()[-3000:]
+
+    if hung:
+        raise AssertionError(
+            f"{case} on {world} ranks did not finish within {timeout:.0f} s; ranks killed\n"
+            + "\n".join(f"--- rank {r}:\n{tail(r)}" for r in range(world))
+        )
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(
+            f"{case}: ranks {bad} failed\n" + "\n".join(f"--- rank {r}:\n{tail(r)}" for r in bad)
+        )
+    out = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"out{rank}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the rank side
+# ---------------------------------------------------------------------------
+
+
+def _numpy(t: Any) -> Any:
+    return t.detach().cpu().float().numpy() if t is not None else None
+
+
+def case_moe_ep(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """The expert-parallel MoE layer on this rank's slice of the batch:
+    output, aux and the gradients of x, the router and its expert slices."""
+    import torch
+
+    from determined_tpu_torch.models.moe import MoE
+    from determined_tpu_torch.parallel import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(**inp["mesh"]), "cpu")
+    d_model, e, f, grp = inp["dims"]
+    layer = MoE(d_model, e, f, group_size=grp, dtype=torch.float32, device="cpu")
+    layer.load_state_dict({k: torch.tensor(v) for k, v in inp["params"].items()})
+    if mesh.shape["expert"] > 1:
+        layer.shard_experts(mesh.group("expert"), mesh.shape["expert"],
+                            mesh.coordinate("expert"))
+    if inp.get("shard_batch"):
+        layer.shard_batch(mesh.group("data"), mesh.shape["data"], mesh.coordinate("data"))
+    x = torch.tensor(inp["x"]).chunk(mesh.shape["data"])[mesh.coordinate("data")]
+    x = x.clone().requires_grad_(True)
+    y, aux = layer(x)
+    ((y ** 2).mean() + 0.01 * aux).backward()
+    out = {"data": mesh.coordinate("data"), "expert": mesh.coordinate("expert"),
+           "y": _numpy(y), "aux": float(aux), "x_grad": _numpy(x.grad)}
+    out.update({f"grad_{n}": _numpy(p.grad) for n, p in layer.named_parameters()})
+    return out
+
+
+def _trial_class(name: str, init_state: Any):
+    from determined_tpu_torch.models import LMTrial, MnistTrial
+
+    base = {"lm": LMTrial, "mnist": MnistTrial}[name]
+    if init_state is None:
+        return base
+
+    class FromState(base):
+        """The trial with its weights replaced before the Trainer shards
+        them (the JAX Trainer's initial params, converted)."""
+
+        def build_model(self):
+            import torch
+
+            model = super().build_model()
+            model.load_state_dict({k: torch.tensor(v) for k, v in init_state.items()})
+            return model
+
+    return FromState
+
+
+def case_train(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """``Trainer(trial).fit(**fit)`` on a mesh: the summary, the reported
+    rows, and the final params gathered whole."""
+    from determined_tpu_torch import core, train
+    from determined_tpu_torch.parallel import MeshConfig
+
+    from determined_tpu_torch.config import ExperimentConfig
+
+    core_ctx = core._dummy_init(distributed=dist, checkpoint_dir=inp["ckpt_dir"])
+    exp = ExperimentConfig.parse(inp["exp_config"]) if inp.get("exp_config") else None
+    ctx = train.init(hparams=inp["hparams"], seed=inp.get("seed", 0), device="cpu",
+                     core_context=core_ctx, mesh_config=MeshConfig(**inp["mesh"]),
+                     exp_config=exp)
+    trainer = train.Trainer(_trial_class(inp["trial"], inp.get("init_state"))(ctx))
+    preempt_at = inp.get("preempt_at")
+    if preempt_at is not None and dist.rank == dist.size - 1:
+        # the last rank alone is asked to stop before step ``preempt_at``
+        from determined_tpu_torch.utils import faults
+
+        class Stop:
+            def fire(self, site, **info):
+                if site == "train.step" and info["step"] == preempt_at:
+                    core_ctx.preempt.simulate()
+
+        faults.set_fault_injector(Stop())
+    summary = trainer.fit(**inp["fit"])
+    params = trainer._full_array_state()["params"] if trainer.mesh is not None else None
+    return {
+        "summary": summary,
+        "training": ctx.core.train.metrics("training"),
+        "validation": ctx.core.train.metrics("validation"),
+        "params": {k: _numpy(v) for k, v in params.items()} if dist.is_chief and params else None,
+        "batch_shard": (trainer.train_loader.sampler.shard_rank,
+                        trainer.train_loader.sampler.num_shards),
+    }
+
+
+def case_mesh(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """This rank's coordinate on each axis of ``make_mesh``, its batch
+    shard, and an all-reduce over each axis's group."""
+    import torch
+    import torch.distributed as tdist
+
+    from determined_tpu_torch.parallel import MeshConfig, batch_shard, make_mesh
+
+    mesh = make_mesh(MeshConfig(**inp["mesh"]), "cpu")
+    sums = {}
+    for axis in ("data", "fsdp", "expert"):
+        t = torch.tensor([float(dist.rank)])
+        tdist.all_reduce(t, group=mesh.group(axis))
+        sums[axis] = float(t)
+    return {"coords": {a: mesh.coordinate(a) for a in mesh.shape if a != "dcn"},
+            "batch_shard": batch_shard(mesh), "sums": sums, "size": mesh.size}
+
+
+def case_collectives(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """The star's collectives and the process group beside it."""
+    import torch
+    import torch.distributed as tdist
+
+    t = torch.tensor([dist.rank + 1.0])
+    tdist.all_reduce(t)
+    return {
+        "rank": dist.get_rank(), "size": dist.get_size(), "chief": dist.is_chief,
+        "local_chief": dist.is_local_chief, "backend": dist.backend,
+        "allgather": dist.allgather(f"r{dist.rank}"),
+        "gather": dist.gather(dist.rank * 10),
+        "broadcast": dist.broadcast("payload" if dist.is_chief else None),
+        "allgather_local": dist.allgather_local(dist.local_rank),
+        "all_reduce": float(t),
+        "preempt": _preempt_vote(dist),
+    }
+
+
+def _preempt_vote(dist: Any) -> bool:
+    """The last rank alone is asked to stop: every rank must stop."""
+    from determined_tpu_torch.core import PreemptContext
+
+    ctx = PreemptContext(dist).start()
+    if dist.rank == dist.size - 1:
+        ctx.simulate()
+    return ctx.should_preempt()
+
+
+CASES = {"moe_ep": case_moe_ep, "train": case_train, "mesh": case_mesh,
+         "collectives": case_collectives}
+
+
+def main(case: str, rank: int, world: int, workdir: str) -> None:
+    import torch
+
+    from determined_tpu_torch.core import DistributedContext
+
+    torch.set_num_threads(2)
+    with open(os.path.join(workdir, "input.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    dist = DistributedContext.from_torch(
+        device="cpu", init_method=f"file://{os.path.join(workdir, 'store')}", timeout=90.0
+    )
+    try:
+        result = CASES[case](dist, inp)
+    finally:
+        dist.close()
+    with open(os.path.join(workdir, f"out{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, REPO)
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
