@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--phases kernel,serve,parity,train,train_parity,experiment,search,observe,
-                  knobs,serve_ckpt,models,hf,moe]
+                  knobs,serve_ckpt,models,hf,moe,seq]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -256,6 +256,38 @@ Phases, in order; any failure raises and the script exits non-zero:
       TRAIN_PARITY_TOL, the same launch counts a step); a checkpoint
       written on the mesh (MOE_W_CKPT_CUTS, printed) that the no-mesh
       Trainer restores bitwise.
+   Printed: each part's seconds and the phase's.
+15. seq: examples/transformer_lm/fsdp_tp_sp.yaml (SEQ_CONST, a dict a CPU
+   test holds to the file): d 4096, 32 heads of 128, 8 kv heads, vocab
+   32768, seq 32768, bf16, remat, fused cross-entropy and fused AdamW.
+   R. the ring's kernel route (ops/ring_attention.py) on this card through
+      its VirtualRing: at the file's attention shape ([1, 32, 32768, 128]
+      q, 8 kv heads, bf16) the zigzag ring at n = 2 and 4, forward and
+      backward, against the whole-sequence flash kernels on the same inputs
+      (SEQ_RING_TOL); at SEQ_PLAIN_LEN tokens both against the plain
+      version in f32 (the ring's own share of the error; KERNEL_TOL's and
+      BWD_TOL's bf16 tolerances); the launch counters set to 0 just before
+      each ring and read just after, equal to ring_block_counts (2n + 1
+      flash forwards, dq and dk/dv a sweep); the sweeps' times beside the
+      whole-sequence kernels'.
+   L. the file's LM cut as SEQ_CUTS prints (one card: 4 layers, one
+      sequence a step, a 10-step warm-up; the file's ring is the
+      whole-sequence flash kernels without a seq axis), SEQ_STEPS steps
+      through train.init -> Trainer(LMTrial).fit and a validation pass:
+      step time, tokens/s and
+      MFU (dense_lm_step_flops, remat's recompute not counted), peak
+      memory, the launch counts (set to 0 just before fit, read just after:
+      a layer's flash forward twice a step under remat and once a
+      validation batch, dq and dk/dv once a step, fused_adamw once a leaf,
+      39 leaves), device time a step by op-table group and busy share over
+      a 3-step profiler window.
+   K. flash_fwd, dq and dk/dv at SEQ_KERNEL_SHAPES (the n = 2 ring's
+      half-chunks, causal and full, and the whole sequence; 8 kv heads),
+      each held against its plain version where its scores fit (8,192) and
+      timed beside its bound and scaled_dot_product_attention's time (k and
+      v expanded to 32 heads for it); fused_adamw at L's largest leaf
+      [16384, 4096] with L's optimizer.  The kernels line carries them as
+      each row's seq_shapes.
    Printed: each part's seconds and the phase's.
 
 Prints, before the last line, the kernels line (JSON), the script's total
@@ -748,8 +780,66 @@ MOE_W_CKPT_CUTS = [
     ("seq_len", 2048, 256, "the same, in length"),
 ]
 
+# phase 15: examples/transformer_lm/fsdp_tp_sp.yaml as a dict (a CPU test
+# holds it to the file), then its cuts for L: (key, the file's value, this
+# run's value, why)
+SEQ_CONST = {
+    "name": "lm-fsdp-tp-sp",
+    "entrypoint": "model_def:Trial",
+    "hyperparameters": dict(
+        lr=0.0003, global_batch_size=32, seq_len=32768, vocab_size=32768, d_model=4096,
+        n_layers=32, n_heads=32, n_kv_heads=8, dataset_size=65536, bf16=True, attention="ring",
+        remat=True,
+    ),
+    "resources": {"mesh": {"fsdp": 4, "tensor": 4, "seq": 2}, "single_slice": True},
+    "searcher": {"name": "single", "metric": "validation_loss",
+                 "max_length": {"batches": 10000}},
+    "min_validation_period": {"batches": 500},
+    "min_checkpoint_period": {"batches": 1000},
+    "optimizations": {"aggregation_frequency": 4},
+    "checkpoint_storage": {"type": "shared_fs", "host_path": "/tmp/dtpu-checkpoints"},
+}
+SEQ_CUTS = [
+    ("resources.mesh", {"fsdp": 4, "tensor": 4, "seq": 2}, None,
+     "the card's machine has one H100: L runs without a mesh (mesh_smoke.py runs the tensor "
+     "and seq meshes on four)"),
+    ("n_layers", 32, 4,
+     "the f32 params, grads and both AdamW moments of 32 layers (8.05B params x 16 B = "
+     "128.9 GB) do not fit 80 GB; 4 layers are 1.24B params, 19.9 GB"),
+    ("global_batch_size", 32, 1, "one sequence of 32,768 tokens a microbatch"),
+    ("optimizations.aggregation_frequency", 4, 1, "one microbatch a step"),
+    ("dataset_size", 65536, 8, "10 steps of 1 wrap its 8 samples; the validation pass reads its 8"),
+    ("warmup_steps", None, 10,
+     "the file sets none (LMTrial's 100): a few steps inside a 100-step warm-up move the loss "
+     "less than its noise (6 steps on the card: 10.894 -> 10.900); bench.py warms up "
+     "over 10"),
+]
+SEQ_STEPS = 10
+SEQ_REPORT = 2
+# the ring's shapes: fsdp_tp_sp.yaml's attention (32 heads of 128, 8 kv
+# heads) over its whole sequence, R's rings, and the length at which the
+# plain version (its [32, S, S] f32 scores) still fits the card
+SEQ_RING_NS = (2, 4)
+SEQ_PLAIN_LEN = 4096
+# ring against the whole-sequence kernels, both bf16: each block's out is
+# rounded to bf16 before the f32 merge and the merged out once more, where
+# the whole kernel rounds once; dq sums up to 2n + 1 bf16 block gradients
+# in f32, dk/dv travel in f32 and are rounded once.  A few bf16 ulps (2^-8
+# relative): the kernels' own bf16 rtol (KERNEL_TOL, BWD_TOL).  out's atol
+# is absolute, so it is cut to the size of the values: over 32,768 random
+# keys most rows' |out| is about 0.013, and 2e-3 still passes a one-ulp
+# difference at |out| up to 0.5 (2^-9 there) but fails a dropped or
+# misweighted block.  Against the plain version in f32 the ring's out is
+# held, like the whole kernel's, to the kernel's own bf16 tolerance
+SEQ_RING_TOL = dict(out=dict(KERNEL_TOL["bfloat16"]["out"], atol=2e-3),
+                    grad=BWD_TOL["bfloat16"])
+# K's rows: (label, sequence, causal): a half-chunk of the n = 2 zigzag
+# ring (its diagonal and its full blocks) and the whole sequence
+SEQ_KERNEL_SHAPES = (("half_chunk_causal", 8192, True), ("half_chunk_full", 8192, False),
+                     ("whole_causal", 32768, True))
+
 PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search",
-          "observe", "knobs", "serve_ckpt", "models", "hf", "moe")
+          "observe", "knobs", "serve_ckpt", "models", "hf", "moe", "seq")
 
 
 def log(msg: str) -> None:
@@ -807,9 +897,11 @@ def attention_bound_us(b, h, hkv, sq, sk, d, dtype_name, causal, *, products, q_
 
 
 def timed_row(kernel_us, plain_us, library_us, bound_us, bound_by, flops) -> dict:
-    """A kernel's timed fields of the kernels line: times in ms, the share of
-    its bound it reaches (bound / time) and its achieved TFLOP/s."""
-    return dict(ms=kernel_us / 1e3, plain_ms=plain_us / 1e3, bound_ms=bound_us / 1e3,
+    """A kernel's timed fields of the kernels line: times in ms (the plain
+    version's None where it does not fit the card), the share of its bound
+    it reaches (bound / time) and its achieved TFLOP/s."""
+    return dict(ms=kernel_us / 1e3, plain_ms=None if plain_us is None else plain_us / 1e3,
+                bound_ms=bound_us / 1e3,
                 bound_by=bound_by, library_ms=library_us / 1e3,
                 bound_share=bound_us / kernel_us, tflops=flops / kernel_us / 1e6)
 
@@ -4073,6 +4165,328 @@ def phase_moe(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sequence and tensor parallelism (fsdp_tp_sp.yaml)
+# ---------------------------------------------------------------------------
+
+
+def _seq_hparams() -> dict:
+    """L's hyperparameters: SEQ_CONST's with SEQ_CUTS (a dotted key is
+    the file's other sections)."""
+    hp = dict(SEQ_CONST["hyperparameters"])
+    for key, _file, value, _why in SEQ_CUTS:
+        if "." not in key:
+            hp[key] = value
+    return hp
+
+
+def dense_lm_step_flops(hp: dict) -> float:
+    """Matmul FLOPs of one training step of the dense LM at ``hp`` (forward
+    x 3, remat's recomputed forward not counted): q, k and v (GQA's kv
+    width), o, the causal score and value products and the SwiGLU a layer,
+    and the lm head, over every token of the step's batch."""
+    d, L, V = hp["d_model"], hp["n_layers"], hp["vocab_size"]
+    s, b = hp["seq_len"], hp["global_batch_size"]
+    f = hp.get("d_ff") or 4 * d
+    kv = d // hp["n_heads"] * (hp.get("n_kv_heads") or hp["n_heads"])
+    tokens = b * s
+    per_layer = 2 * tokens * (2 * d * d + 2 * d * kv + 3 * d * f) + 2 * 2 * b * d * s * (s + 1) / 2
+    return 3 * (L * per_layer + 2 * tokens * d * V)
+
+
+def _ring_inputs(seed: int, s: int):
+    """q [1, 32, s, 128], k and v [1, 8, s, 128] and an output gradient, bf16."""
+    import torch
+
+    hp = SEQ_CONST["hyperparameters"]
+    h, hkv = hp["n_heads"], hp["n_kv_heads"]
+    dh = hp["d_model"] // h
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    shapes = ((1, h, s, dh), (1, hkv, s, dh), (1, hkv, s, dh), (1, h, s, dh))
+    return [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            for shape in shapes]
+
+
+def _ring_grads(q, k, v, do, n: int):
+    """The virtual ring's out and (dq, dk, dv) for output gradient ``do``."""
+    import torch
+
+    from determined_tpu_torch.ops.ring_attention import VirtualRing, ring_attention_local
+
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = ring_attention_local(qg, kg, vg, VirtualRing(n), causal=True)
+    return out.detach(), torch.autograd.grad(out, (qg, kg, vg), do)
+
+
+def seq_ring_route(seed: int) -> dict:
+    """R: the ring's kernel route on one card (the docstring at the top)."""
+    import torch
+
+    import determined_tpu_torch.ops.flash_attention as fa
+    from determined_tpu_torch.ops.ring_attention import (
+        VirtualRing,
+        ring_attention_local,
+        ring_block_counts,
+    )
+
+    out: dict = dict(tol=SEQ_RING_TOL, rings={})
+    # the plain version's length first: ring and whole kernel against f32
+    q, k, v, do = _ring_inputs(seed, SEQ_PLAIN_LEN)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q.float(), k.float(), v.float())
+    ref = (ref_out,) + fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(),
+                                                        ref_out, ref_lse, do.float())
+    whole_out, whole_lse = fa.flash_attention_fwd(q, k, v)
+    whole = (whole_out,) + fa.flash_attention_bwd(q, k, v, whole_out, whole_lse, do)
+    plain: dict = {"whole_kernel": {}}
+    for name, got, want in zip(("out", "dq", "dk", "dv"), whole, ref):
+        plain["whole_kernel"][name] = _max_err(got, want)
+    for n in SEQ_RING_NS:
+        ring_out, grads = _ring_grads(q, k, v, do, n)
+        errs = {}
+        for name, got, want in zip(("out", "dq", "dk", "dv"), (ring_out,) + tuple(grads), ref):
+            errs[name] = _max_err(got, want)
+            tol = KERNEL_TOL["bfloat16"]["out"] if name == "out" else dict(
+                rtol=SEQ_RING_TOL["grad"]["rtol"],
+                atol=SEQ_RING_TOL["grad"]["atol"] * want.abs().max().item())
+            torch.testing.assert_close(got.float(), want, **tol, msg=f"R n={n} plain {name}")
+        plain[f"ring_n{n}"] = errs
+    out["plain_f32_max_abs_err"] = dict(length=SEQ_PLAIN_LEN, **plain)
+    log(f"seq R at {SEQ_PLAIN_LEN} against the plain version in f32: " + json.dumps(plain))
+    del q, k, v, do, ref, ref_out, ref_lse, whole, whole_out, whole_lse
+    _free_cuda()
+
+    s = SEQ_CONST["hyperparameters"]["seq_len"]
+    q, k, v, do = _ring_inputs(seed, s)
+    whole_out, whole_lse = fa.flash_attention_fwd(q, k, v)
+    whole = (whole_out,) + fa.flash_attention_bwd(q, k, v, whole_out, whole_lse, do)
+    whole_fwd_us = device_time_us(lambda: fa.flash_attention_fwd(q, k, v), reps=3, trials=5)
+    whole_bwd_us = device_time_us(
+        lambda: fa.flash_attention_bwd(q, k, v, whole_out, whole_lse, do), reps=3, trials=5)
+    out["whole"] = dict(shape=list(q.shape), fwd_ms=whole_fwd_us / 1e3,
+                        bwd_ms=whole_bwd_us / 1e3)
+    for n in SEQ_RING_NS:
+        _reset_launches()
+        with torch.no_grad():
+            ring_attention_local(q, k, v, VirtualRing(n), causal=True)
+        fwd_launches = _launch_counts()
+        _reset_launches()
+        ring_out, grads = _ring_grads(q, k, v, do, n)
+        torch.cuda.synchronize()
+        both_launches = _launch_counts()
+        _, counts = ring_block_counts(q, k, v, VirtualRing(n))
+        units = sum(counts)
+        assert counts == [2 * n + 1] * n, counts
+        assert fwd_launches == dict(flash_fwd=units, flash_bwd_dq=0, flash_bwd_dkv=0,
+                                    fused_adamw=0), fwd_launches
+        assert both_launches == dict(flash_fwd=units, flash_bwd_dq=units, flash_bwd_dkv=units,
+                                     fused_adamw=0), both_launches
+        errs = {}
+        for name, got, want in zip(("out", "dq", "dk", "dv"), (ring_out,) + tuple(grads), whole):
+            errs[name] = _max_err(got, want)
+            tol = SEQ_RING_TOL["out"] if name == "out" else dict(
+                rtol=SEQ_RING_TOL["grad"]["rtol"],
+                atol=SEQ_RING_TOL["grad"]["atol"] * want.float().abs().max().item())
+            torch.testing.assert_close(got.float(), want.float(), **tol,
+                                       msg=f"R n={n} against the whole kernels: {name}")
+        del ring_out, grads
+        with torch.no_grad():
+            fwd_us = device_time_us(
+                lambda: ring_attention_local(q, k, v, VirtualRing(n), causal=True),
+                reps=3, trials=5)
+        both_us = device_time_us(lambda: _ring_grads(q, k, v, do, n), reps=2, trials=5)
+        out["rings"][f"n{n}"] = dict(
+            counts=counts, launches_forward=fwd_launches, launches_forward_backward=both_launches,
+            max_abs_err_vs_whole=errs, fwd_ms=fwd_us / 1e3, fwd_bwd_ms=both_us / 1e3,
+            fwd_vs_whole=fwd_us / whole_fwd_us,
+            fwd_bwd_vs_whole=both_us / (whole_fwd_us + whole_bwd_us))
+        log(f"seq R ring n={n}: " + json.dumps(out["rings"][f"n{n}"]))
+        _free_cuda()
+    out["launches"] = out["rings"][f"n{SEQ_RING_NS[-1]}"]["launches_forward_backward"]
+    del q, k, v, do, whole, whole_out, whole_lse
+    _free_cuda()
+    return out
+
+
+def seq_main(seed: int) -> dict:
+    """L: SEQ_CONST's LM, cut (SEQ_CUTS), SEQ_STEPS steps through
+    train.init -> Trainer(LMTrial).fit with a validation at the end."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.models import LMTrial
+
+    hp = _seq_hparams()
+    ctx = train.init(hparams=hp, seed=seed)
+    trial = LMTrial(ctx)
+    trainer = train.Trainer(trial)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # counts from here on are L's
+    t0 = time.monotonic()
+    summary = trainer.fit(max_length=SEQ_STEPS, report_period=SEQ_REPORT,
+                          validation_period=SEQ_STEPS, checkpoint_policy="none")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    reports = ctx.core.train.metrics("training")
+    gbs, seq = hp["global_batch_size"], hp["seq_len"]
+    assert [s for s, _ in reports] == list(range(SEQ_REPORT, SEQ_STEPS + 1, SEQ_REPORT))
+    step_ms = [1e3 * gbs / m["samples_per_second"] for _, m in reports]
+    mean_step_ms = statistics.mean(step_ms[1:])  # the first report holds the warm-up
+    tokens_per_s = gbs * seq / (mean_step_ms / 1e3)
+    flops = dense_lm_step_flops(hp)
+    mfu = flops / (mean_step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    first, last = reports[0][1], reports[-1][1]
+    val = summary["validation_metrics"]
+    for name, x in (("first loss", first["loss"]), ("last loss", last["loss"]),
+                    ("validation loss", val["validation_loss"])):
+        assert np.isfinite(x), f"{name} is not finite: {x}"
+    assert last["loss"] < first["loss"], f"loss did not fall: {first['loss']} -> {last['loss']}"
+    cfg = trial._cfg()
+    n_leaves = len(trainer._params)
+    assert n_leaves == 3 + 9 * cfg.n_layers == 39, n_leaves
+    n_val = trainer.val_loader.batches_per_epoch
+    # remat reruns each block's forward in the backward
+    want = dict(flash_fwd=cfg.n_layers * (2 * SEQ_STEPS + n_val),
+                flash_bwd_dq=cfg.n_layers * SEQ_STEPS, flash_bwd_dkv=cfg.n_layers * SEQ_STEPS,
+                fused_adamw=n_leaves * SEQ_STEPS)
+    assert launches == want, f"launches {launches} != expected {want}"
+    n_params = sum(p.numel() for p in trainer._params.values())
+    out = dict(card=card_line(), params=n_params, leaves=n_leaves, steps=SEQ_STEPS,
+               wall_s=wall, step_ms_per_report=step_ms, mean_step_ms=mean_step_ms,
+               tokens_per_s=tokens_per_s, step_tflop=flops / 1e12,
+               mfu_vs_989_tflops=mfu, first_report_loss=first["loss"],
+               last_report_loss=last["loss"], validation_loss=val["validation_loss"],
+               peak_memory_gib=peak_gib, launches=launches, launches_per_step=dict(
+                   flash_fwd=2 * cfg.n_layers, flash_bwd_dq=cfg.n_layers,
+                   flash_bwd_dkv=cfg.n_layers, fused_adamw=n_leaves))
+    log("seq L: " + json.dumps(out))
+    prof = profile_train(trainer, label="seq L")
+    prof.pop("ops")
+    out["profile"] = prof
+    del trainer, trial, ctx
+    _free_cuda()
+    return out
+
+
+def seq_kernel_rows(seed: int) -> dict:
+    """K: the flash kernels at the ring's shapes and fused_adamw at L's
+    largest leaf (the docstring at the top)."""
+    import torch
+    import torch.nn.functional as F
+
+    import determined_tpu_torch.ops.flash_attention as fa
+    from determined_tpu_torch.ops.attention import _repeat_kv
+    from determined_tpu_torch.ops.fused_adamw import fused_adamw
+
+    hp = SEQ_CONST["hyperparameters"]
+    h, hkv = hp["n_heads"], hp["n_kv_heads"]
+    dh = hp["d_model"] // h
+    scale = dh ** -0.5
+    rows: dict = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    tol = KERNEL_TOL["bfloat16"]
+    for label, s, causal in SEQ_KERNEL_SHAPES:
+        q, k, v, do = _ring_inputs(seed + s + causal, s)
+        plain_fits = s <= 8192
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        kernel_us = device_time_us(lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
+                                   reps=5, trials=5)
+        err, plain_us = None, None
+        if plain_fits:
+            ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+            torch.testing.assert_close(out.float(), ref_out.float(), **tol["out"])
+            torch.testing.assert_close(lse, ref_lse, **tol["lse"])
+            err = _max_err(out, ref_out)
+            del ref_out, ref_lse
+            plain_us = device_time_us(
+                lambda: fa.flash_attention_fwd_reference(q, k, v, causal=causal), reps=2,
+                trials=3)
+        # SDPA on the same inputs with k and v expanded to the 32 heads
+        qe, ke, ve = (t.detach().clone().requires_grad_() for t in
+                      (q, _repeat_kv(k, h // hkv), _repeat_kv(v, h // hkv)))
+        sdpa_fwd_us = device_time_us(
+            lambda: F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal), reps=5,
+            trials=5)
+        bound_us, bound_by, flops = attention_bound_us(
+            1, h, hkv, s, s, dh, "bfloat16", causal, products=2, q_side=2, kv_side=2, rows=1)
+        rows["flash_fwd"][label] = dict(
+            shape=[1, h, s, dh], kv_heads=hkv, causal=causal, max_abs_err=err,
+            **timed_row(kernel_us, plain_us, sdpa_fwd_us, bound_us, bound_by, flops))
+        errs = {}
+        if plain_fits:
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+            want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal)
+            for grad, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+                errs[grad] = _max_err(g_, w_)
+                torch.testing.assert_close(
+                    g_.float(), w_.float(), rtol=BWD_TOL["bfloat16"]["rtol"],
+                    atol=BWD_TOL["bfloat16"]["atol"] * w_.float().abs().max().item())
+            del got, want
+            _free_cuda()
+            plain_us = device_time_us(
+                lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal),
+                reps=1, trials=3)
+        delta = fa._delta(out, do)
+        dq_us = device_time_us(lambda: fa._launch_dq(q, k, v, do, lse, delta, causal, scale),
+                               reps=5, trials=5)
+        dkv_us = device_time_us(lambda: fa._launch_dkv(q, k, v, do, lse, delta, causal, scale),
+                                reps=5, trials=5)
+        sdpa_both_us = device_time_us(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal), (qe, ke, ve), do),
+            reps=3, trials=5)
+        for row, kernel_us, products, q_side, kv_side, err in (
+            ("flash_bwd_dq", dq_us, 3, 3, 2, errs.get("dq")),
+            ("flash_bwd_dkv", dkv_us, 4, 2, 4,
+             max(errs["dk"], errs["dv"]) if errs else None),
+        ):
+            bound_us, bound_by, flops = attention_bound_us(
+                1, h, hkv, s, s, dh, "bfloat16", causal, products=products, q_side=q_side,
+                kv_side=kv_side, rows=2)
+            rows[row][label] = dict(
+                shape=[1, h, s, dh], kv_heads=hkv, causal=causal, max_abs_err=err,
+                **timed_row(kernel_us, plain_us, sdpa_both_us - sdpa_fwd_us, bound_us,
+                             bound_by, flops))
+        for row in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            r = rows[row][label]
+            log(f"seq kernel {row} {label} {r['shape']}: kernel {r['ms'] * 1e3:.2f} us, "
+                f"sdpa {r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+                f"({r['bound_by']}, share {r['bound_share']:.3f}), plain "
+                f"{'not measured' if r['plain_ms'] is None else '%.2f us' % (r['plain_ms'] * 1e3)}"
+                f", max_abs_err {r['max_abs_err']}")
+        del q, k, v, do, out, lse, qe, ke, ve, delta
+        _free_cuda()
+    # L's optimizer: LMTrial's fused AdamW (decay 0.01, clip 1.0, f32 mu)
+    tx = fused_adamw(hp["lr"], weight_decay=0.01, clip_norm=1.0)
+    shape = (4 * hp["d_model"], hp["d_model"])
+    err = check_adamw_leaves(seed, [shape], [tx], "seq L's w_gate leaf")
+    rows["fused_adamw"] = {"w_gate": dict(shape=list(shape), max_abs_err=err,
+                                          **time_adamw_leaf(seed, tx, shape))}
+    r = rows["fused_adamw"]["w_gate"]
+    log(f"seq kernel fused_adamw {list(shape)}: kernel {r['ms'] * 1e3:.2f} us, plain "
+        f"{r['plain_ms'] * 1e3:.2f} us, library {r['library_ms'] * 1e3:.2f} us, bound "
+        f"{r['bound_ms'] * 1e3:.2f} us (share {r['bound_share']:.3f})")
+    _free_cuda()
+    return rows
+
+
+def phase_seq(seed: int) -> dict:
+    """Parts R, L and K of phase 15 (the docstring at the top)."""
+    t_phase = time.monotonic()
+    for key, old, value, why in SEQ_CUTS:
+        log(f"seq cut (L): {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    out: dict = {}
+    for part, fn in (("R", lambda: seq_ring_route(seed)), ("L", lambda: seq_main(seed)),
+                     ("K", lambda: seq_kernel_rows(seed))):
+        t0 = time.monotonic()
+        out[part] = fn()
+        log(f"seq {part}: {time.monotonic() - t0:.1f} s")
+        _free_cuda()
+    out["launches"] = out["L"]["launches"]
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"seq: phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.monotonic()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4168,6 +4582,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         moe = phase_moe(args.seed)
+    seq = None
+    if "seq" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        seq = phase_seq(args.seed)
 
     if kernel and serve is not None and trained is not None:
         rows = []
@@ -4202,6 +4621,15 @@ def main() -> int:
                 by_phase["moe"] = moe["launches"][name]
                 fields["moe_shape"] = moe["K"][name]
                 fields["max_abs_err"] = max(fields["max_abs_err"], moe["K"][name]["max_abs_err"])
+            if seq is not None:
+                # L's launches, R's ring (n = 4, forward and backward), and
+                # the rows at the ring's shapes
+                by_phase["seq"] = seq["launches"][name]
+                by_phase["seq_ring"] = seq["R"]["launches"][name]
+                fields["seq_shapes"] = seq["K"][name]
+                fields["max_abs_err"] = max([fields["max_abs_err"]] + [
+                    r["max_abs_err"] for r in seq["K"][name].values()
+                    if r["max_abs_err"] is not None])
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=trained["launches"][name], launches_by_phase=by_phase,

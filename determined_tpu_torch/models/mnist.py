@@ -11,6 +11,13 @@ the port's fused AdamW with no weight decay and no clip: ``optax.adam`` step
 for step, and on CUDA every leaf goes through the ``fused_adamw`` kernel.
 The weights are random from the trial's generator (normal with std
 ``fan_in ** -0.5``, biases zero), where flax draws a truncated normal.
+
+On a ``tensor`` mesh axis (``shard_tensor``, called by
+``parallel.sharding.shard_model``) both models split their hidden dense
+layer as the flax modules' ``mlp`` annotation asks: ``fc1`` keeps this
+rank's output units (rows and bias), ``fc2`` the matching input columns,
+its output all-reduced before its bias (``parallel/tensor_parallel.py``).
+The convolutions stay whole.
 """
 
 from __future__ import annotations
@@ -24,10 +31,36 @@ from torch import nn
 from determined_tpu_torch._device import DeviceLike, resolve_device
 from determined_tpu_torch.data import DataLoader, mnist_like
 from determined_tpu_torch.models._layers import init_weights
+from determined_tpu_torch.parallel.tensor_parallel import (
+    copy_to,
+    keep_slice,
+    reduce_from,
+    split_range,
+)
 from determined_tpu_torch.train._trial import TorchTrial
 
 
-class MnistMLP(nn.Module):
+class _HiddenSplit:
+    """``fc1 -> relu -> fc2``, column- then row-parallel on a tensor group."""
+
+    tensor = None  # (group, size, rank) once sharded
+
+    def shard_tensor(self, group, size: int, rank: int) -> Dict[str, int]:
+        lo, hi = split_range(self.fc1.weight.shape[0], size, rank, "the hidden width")
+        keep_slice(self.fc1, "weight", 0, lo, hi)
+        keep_slice(self.fc1, "bias", 0, lo, hi)
+        keep_slice(self.fc2, "weight", 1, lo, hi)
+        self.tensor = (group, size, rank)
+        return {"fc1.weight": 0, "fc1.bias": 0, "fc2.weight": 1}
+
+    def _hidden_to_out(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tensor is None:
+            return self.fc2(F.relu(self.fc1(x)))
+        h = F.relu(self.fc1(copy_to(x, self.tensor[0])))
+        return reduce_from(F.linear(h, self.fc2.weight), self.tensor[0]) + self.fc2.bias
+
+
+class MnistMLP(_HiddenSplit, nn.Module):
     """Two-layer MLP: 784 -> hidden -> 10."""
 
     def __init__(
@@ -45,11 +78,10 @@ class MnistMLP(nn.Module):
         init_weights(self, generator or torch.Generator(device=dev).manual_seed(0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.reshape(x.shape[0], -1)
-        return self.fc2(F.relu(self.fc1(x)))
+        return self._hidden_to_out(x.reshape(x.shape[0], -1))
 
 
-class MnistCNN(nn.Module):
+class MnistCNN(_HiddenSplit, nn.Module):
     """Conv net of the reference tutorial's shape (2 conv + 2 dense): 3x3
     convolutions with SAME padding (flax's default), 2x2 max pools."""
 
@@ -73,8 +105,7 @@ class MnistCNN(nn.Module):
         x = F.max_pool2d(F.relu(self.conv1(x)), 2)
         x = F.max_pool2d(F.relu(self.conv2(x)), 2)
         # flatten in NHWC order, as the flax model does
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        return self.fc2(F.relu(self.fc1(x)))
+        return self._hidden_to_out(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
 
 
 class MnistTrial(TorchTrial):

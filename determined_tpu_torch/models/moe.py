@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from determined_tpu_torch.parallel.tensor_parallel import copy_to, reduce_from
+
 EXPERT_PARAMS = ("w_in", "w_gate", "w_out")
 
 
@@ -80,36 +82,6 @@ def _top2_dispatch(
     dispatch = d1 + d2
     combine = d1 * w1[..., None, None] + d2 * w2[..., None, None]
     return dispatch, combine, aux
-
-
-class _SumGrad(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over ``group``."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, group: Any) -> torch.Tensor:
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        grad = grad.contiguous()
-        torch.distributed.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
-class _AllReduce(torch.autograd.Function):
-    """All-reduce (sum) over ``group``; every rank holds the same loss, so
-    the backward passes the gradient through unchanged."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, group: Any) -> torch.Tensor:
-        out = x.contiguous().clone()
-        torch.distributed.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        return grad, None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -243,7 +215,7 @@ class MoE(nn.Module):
             gates = gates.reshape(-1, group_tokens, e)
 
         group = self.expert_group
-        partial = None if group is None else (lambda t: _SumGrad.apply(t, group))
+        partial = None if group is None else (lambda t: copy_to(t, group))
         dispatch, combine, aux = _top2_dispatch(gates, capacity, partial)
         aux = aux.mean()
         if spans:
@@ -259,7 +231,7 @@ class MoE(nn.Module):
             lo = self.expert_rank * (e // self.expert_size)
             hi = lo + e // self.expert_size
             dispatch, combine = dispatch[:, :, lo:hi], combine[:, :, lo:hi]
-            x_in = _SumGrad.apply(xg, group)
+            x_in = copy_to(xg, group)
 
         cd = self.dtype
         expert_in = torch.einsum("ngec,ngd->necd", dispatch.to(cd), x_in.to(cd))
@@ -269,6 +241,6 @@ class MoE(nn.Module):
         expert_out = torch.einsum("necf,efd->necd", h, self.w_out.to(cd))
         y = torch.einsum("ngec,necd->ngd", combine.to(cd), expert_out)
         if group is not None:
-            y = _AllReduce.apply(y, group)
+            y = reduce_from(y, group)
         y = y.reshape(n_groups * grp, d)[:g]
         return y.reshape(b, s, d), aux.float()

@@ -15,6 +15,32 @@ are the JAX serving functions' ``@``).  The KV-cache serving functions (``transf
 ``TransformerLM`` module where the JAX functions take its param tree, and
 update the paged cache in place where JAX returns a donated copy.
 
+On a mesh, ``parallel.sharding.shard_model`` calls ``shard_tensor`` and
+``shard_seq`` (JAX's logical rules, ``heads``/``mlp``/``vocab`` -> tensor,
+``length`` -> seq):
+
+- tensor (Megatron's layout): ``wq`` keeps its rank's output heads and
+  ``wo`` the matching input columns; ``w_gate``/``w_up`` their
+  ``ff / tensor`` output rows and ``w_down`` the input columns; ``embed``
+  its vocabulary rows (a masked lookup, then an all-reduce) and ``lm_head``
+  its vocabulary rows (the loss is vocab-parallel,
+  ``ops/cross_entropy.py``).  ``wk``/``wv`` keep their rank's kv heads
+  where the tensor size divides ``kv_heads``; elsewhere (MQA, say) they
+  stay whole, every rank computes all kv heads from the block's input and
+  takes the ones its q heads read, and their gradient is summed over the
+  tensor group before it reaches the weights (JAX's rule ``kv -> None``
+  replicates them everywhere).  The column-parallel products take their
+  input through ``copy_to`` and the row-parallel ones give theirs through
+  ``reduce_from`` (``parallel/tensor_parallel.py``), so norms and every
+  replicated parameter get whole gradients.
+- seq: each rank holds its contiguous ``S / seq`` tokens through the
+  norms, the MLP and the loss; rope takes the global positions ``rank ·
+  S/seq + arange(S/seq)`` and attention is the ring
+  (``ops/ring_attention.py``) over the seq group.  ``attention_impl`` must
+  then be ``auto`` or ``ring``: flash and reference see one shard only.
+  With a seq axis of 1, ``ring`` is the whole-sequence ``auto``
+  (``ops/attention.py``'s ``dot_product_attention`` holds the rule).
+
 The paged pool is ``[n_layers, num_blocks, block_size, kv_heads, head_dim]``
 with keys stored after rope; physical block 0 is scratch (padded prefill
 positions and empty decode lanes write there).  Positions of ``-1`` mark
@@ -35,7 +61,18 @@ from torch.utils.checkpoint import checkpoint
 from determined_tpu_torch._device import DeviceLike, resolve_device
 from determined_tpu_torch.data import DataLoader, SyntheticDataset
 from determined_tpu_torch.models.moe import MoE
-from determined_tpu_torch.ops.attention import NEG_INF, _repeat_kv, dot_product_attention
+from determined_tpu_torch.ops.attention import (
+    NEG_INF,
+    _repeat_kv,
+    dot_product_attention,
+)
+from determined_tpu_torch.parallel.tensor_parallel import (
+    copy_to,
+    keep_slice,
+    reduce_from,
+    split_range,
+    vocab_parallel_embedding,
+)
 from determined_tpu_torch.train._quant import check_mode, quant_linear, require_platform
 from determined_tpu_torch.train._trial import TorchTrial
 
@@ -52,7 +89,7 @@ class TransformerConfig:
     d_ff: Optional[int] = None                # None -> 4 * d_model
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16       # activation/compute dtype
-    attention_impl: str = "auto"              # auto|reference|flash
+    attention_impl: str = "auto"              # auto|reference|flash|ring
     remat: bool = False                       # checkpoint each block in training
     rope_theta: float = 10000.0
     moe_experts: int = 0
@@ -71,7 +108,6 @@ class TransformerConfig:
                 f"(got moe_every={self.moe_every})"
             )
         unported = [
-            (self.attention_impl == "ring", "attention_impl='ring' (the sequence-parallel slice)"),
             (self.seq_axis_name is not None, "seq_axis_name (the pipeline slice)"),
             (self.expert_axis_name is not None, "expert_axis_name (the pipeline slice)"),
         ]
@@ -81,7 +117,7 @@ class TransformerConfig:
                     f"{what} is not ported to determined_tpu_torch yet; it comes "
                     "with a later slice of the port (ROADMAP.md, Queue 1)"
                 )
-        if self.attention_impl not in ("auto", "reference", "flash"):
+        if self.attention_impl not in ("auto", "reference", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
         check_mode(self.quantized_matmul)
 
@@ -149,6 +185,16 @@ def _linear(d_in: int, d_out: int, device: torch.device) -> nn.Linear:
     return nn.Linear(d_in, d_out, bias=False, device=device, dtype=torch.float32)
 
 
+def _check_tensor_parallel(cfg: TransformerConfig) -> None:
+    if cfg.quantized_matmul != "none":
+        raise NotImplementedError(
+            f"quantized_matmul={cfg.quantized_matmul!r} on the 'tensor' mesh axis is not ported "
+            "to determined_tpu_torch yet (a row-parallel product would scale its rows over "
+            "its own columns only); it comes with a later slice of the port (ROADMAP.md, "
+            "Queue 1)"
+        )
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: torch.device) -> None:
         super().__init__()
@@ -158,15 +204,57 @@ class Attention(nn.Module):
         self.wk = _linear(cfg.d_model, cfg.kv_heads * hd, device)
         self.wv = _linear(cfg.d_model, cfg.kv_heads * hd, device)
         self.wo = _linear(cfg.n_heads * hd, cfg.d_model, device)
+        # (group, size, rank) of the tensor and seq axes once sharded
+        self.tensor: Optional[Tuple[Any, int, int]] = None
+        self.seq: Optional[Tuple[Any, int, int]] = None
+        self.kv_whole = False  # wk/wv kept whole on a tensor group
+
+    def shard_tensor(self, group: Any, size: int, rank: int) -> Dict[str, int]:
+        """Keep this rank's heads (module docstring); the split leaves and
+        their dims."""
+        cfg = self.cfg
+        _check_tensor_parallel(cfg)
+        hd = cfg.head_dim
+        lo, hi = split_range(cfg.n_heads, size, rank, "n_heads")
+        keep_slice(self.wq, "weight", 0, lo * hd, hi * hd)
+        keep_slice(self.wo, "weight", 1, lo * hd, hi * hd)
+        dims = {"wq.weight": 0, "wo.weight": 1}
+        self.kv_whole = cfg.kv_heads % size != 0
+        if not self.kv_whole:
+            klo, khi = split_range(cfg.kv_heads, size, rank, "kv_heads")
+            for lin in (self.wk, self.wv):
+                keep_slice(lin, "weight", 0, klo * hd, khi * hd)
+            dims.update({"wk.weight": 0, "wv.weight": 0})
+        self.tensor = (group, size, rank)
+        return dims
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        q, k, v = _attn_proj(self, x, cfg.dtype, cfg.quantized_matmul)
-        positions = torch.arange(x.shape[1], device=x.device)
+        dt, quant = cfg.dtype, cfg.quantized_matmul
+        s = x.shape[1]
+        hd = cfg.head_dim
+        xin = x if self.tensor is None else copy_to(x, self.tensor[0])
+        q = _heads(xin, self.wq, hd, dt, quant)
+        if self.kv_whole:
+            # every kv head from the block's input; the sum over the tensor
+            # group makes their gradient (and its share of x's) whole
+            group, size, rank = self.tensor
+            n_rep = cfg.n_heads // cfg.kv_heads
+            h_loc = cfg.n_heads // size
+            k, v = (_repeat_kv(copy_to(_heads(x, lin, hd, dt, quant), group),
+                               n_rep)[:, rank * h_loc:(rank + 1) * h_loc]
+                    for lin in (self.wk, self.wv))
+        else:
+            k, v = (_heads(xin, lin, hd, dt, quant) for lin in (self.wk, self.wv))
+        positions = torch.arange(s, device=x.device)
+        if self.seq is not None:
+            positions = positions + self.seq[2] * s  # global (contiguous) positions
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
-        out = dot_product_attention(q, k, v, causal=True, impl=cfg.attention_impl)
-        return _out_proj(self, out, cfg.dtype, cfg.quantized_matmul)
+        out = dot_product_attention(q, k, v, causal=True, impl=cfg.attention_impl,
+                                    seq=None if self.seq is None else self.seq[:2])
+        out = _out_proj(self, out, dt, quant)
+        return out if self.tensor is None else reduce_from(out, self.tensor[0])
 
 
 class MLP(nn.Module):
@@ -176,9 +264,25 @@ class MLP(nn.Module):
         self.w_gate = _linear(cfg.d_model, cfg.ff_dim, device)
         self.w_up = _linear(cfg.d_model, cfg.ff_dim, device)
         self.w_down = _linear(cfg.ff_dim, cfg.d_model, device)
+        self.tensor: Optional[Tuple[Any, int, int]] = None
+
+    def shard_tensor(self, group: Any, size: int, rank: int) -> Dict[str, int]:
+        """Keep this rank's ``ff / size`` hidden units: gate and up rows,
+        down columns."""
+        _check_tensor_parallel(self.cfg)
+        lo, hi = split_range(self.cfg.ff_dim, size, rank, "d_ff")
+        keep_slice(self.w_gate, "weight", 0, lo, hi)
+        keep_slice(self.w_up, "weight", 0, lo, hi)
+        keep_slice(self.w_down, "weight", 1, lo, hi)
+        self.tensor = (group, size, rank)
+        return {"w_gate.weight": 0, "w_up.weight": 0, "w_down.weight": 1}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _mlp_apply(self, x, self.cfg.dtype, self.cfg.quantized_matmul)
+        if self.tensor is None:
+            return _mlp_apply(self, x, self.cfg.dtype, self.cfg.quantized_matmul)
+        out = _mlp_apply(self, copy_to(x, self.tensor[0]), self.cfg.dtype,
+                         self.cfg.quantized_matmul)
+        return reduce_from(out, self.tensor[0])
 
 
 class Block(nn.Module):
@@ -235,6 +339,60 @@ class TransformerLM(nn.Module):
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         self._init_weights(generator)
+        # (group, size, rank) of the tensor and seq axes once sharded
+        self.tensor: Optional[Tuple[Any, int, int]] = None
+        self.seq: Optional[Tuple[Any, int, int]] = None
+
+    def shard_tensor(self, group: Any, size: int, rank: int) -> Dict[str, int]:
+        """Keep this rank's vocabulary rows of ``embed`` and ``lm_head``
+        (the blocks' modules split their own).  MoE blocks do not split."""
+        if self.cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "MoE blocks on the 'tensor' mesh axis are not ported to determined_tpu_torch "
+                "yet; they come with a later slice of the port (ROADMAP.md, Queue 1)"
+            )
+        _check_tensor_parallel(self.cfg)
+        lo, hi = split_range(self.cfg.vocab_size, size, rank, "vocab_size")
+        keep_slice(self.embed, "weight", 0, lo, hi)
+        keep_slice(self.lm_head, "weight", 0, lo, hi)
+        self.tensor = (group, size, rank)
+        return {"embed.weight": 0, "lm_head.weight": 0}
+
+    @property
+    def vocab_start(self) -> int:
+        """The first vocabulary row this rank holds (0 unsharded)."""
+        return 0 if self.tensor is None else self.tensor[2] * self.lm_head.weight.shape[0]
+
+    def shard_seq(self, group: Any, size: int, rank: int) -> None:
+        """Run on this rank's contiguous ``1 / size`` of every sequence,
+        attention through the ring over ``group``.  ``shard_model`` calls it
+        on every mesh: with ``size`` 1, ``attention_impl='ring'`` is
+        whole-sequence attention (flash on CUDA), as JAX's ring falls back
+        without a seq axis."""
+        if size > 1 and self.cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "MoE blocks on the 'seq' mesh axis are not ported to determined_tpu_torch yet; "
+                "they come with a later slice of the port (ROADMAP.md, Queue 1)"
+            )
+        if size > 1 and self.cfg.attention_impl not in ("auto", "ring"):
+            raise ValueError(
+                f"attention_impl={self.cfg.attention_impl!r} on a 'seq' mesh axis: the port "
+                "runs ring attention there; use 'auto' or 'ring'"
+            )
+        self.seq = (group, size, rank)
+        for blk in self.blocks:
+            blk.attn.seq = self.seq
+
+    def seq_slice(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous part of ``x`` [b, S, ...] along S (all of
+        it without a seq axis)."""
+        if self.seq is None:
+            return x
+        _, size, rank = self.seq
+        if x.shape[1] % size:
+            raise ValueError(f"the seq axis ({size}) must divide the sequence ({x.shape[1]})")
+        part = x.shape[1] // size
+        return x[:, rank * part:(rank + 1) * part]
 
     @torch.no_grad()
     def _init_weights(self, generator: torch.Generator) -> None:
@@ -250,8 +408,14 @@ class TransformerLM(nn.Module):
     ) -> Any:
         """Logits [b, s, vocab] in f32, or with ``return_hidden`` the final
         normed hidden states [b, s, d] in ``cfg.dtype``; with ``return_aux``
-        also the MoE blocks' aux losses summed (f32 zero without experts)."""
-        x = self.embed.weight[tokens].to(self.cfg.dtype)
+        also the MoE blocks' aux losses summed (f32 zero without experts).
+        On a tensor group the logits are this rank's vocabulary columns; on
+        a seq group ``tokens`` are this rank's part of each sequence."""
+        if self.tensor is None:
+            x = self.embed.weight[tokens].to(self.cfg.dtype)
+        else:
+            x = vocab_parallel_embedding(self.embed.weight, tokens, self.tensor[0],
+                                         self.vocab_start).to(self.cfg.dtype)
         remat = self.cfg.remat and torch.is_grad_enabled()
         aux_total = None
         for blk in self.blocks:
@@ -260,6 +424,10 @@ class TransformerLM(nn.Module):
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         x = self.ln_f(x)
+        if self.tensor is not None:
+            # the head's columns are this rank's vocabulary: x's gradient
+            # from them is partial, summed over the group here
+            x = copy_to(x, self.tensor[0])
         if not return_hidden:
             x = quant_linear(
                 x, self.lm_head.weight, self.cfg.dtype, self.cfg.quantized_matmul
@@ -292,19 +460,22 @@ def init_kv_cache(
     }
 
 
-def _attn_proj(
-    attn: Attention, x: torch.Tensor, dtype: torch.dtype, quant: str = "none"
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q/k/v projections of x [b, s, d] to [b, heads, s, head_dim].
-    ``quant`` is the training forward's mode; the serving path leaves it
-    ``none``."""
+def _heads(
+    x: torch.Tensor, lin: nn.Linear, hd: int, dtype: torch.dtype, quant: str = "none"
+) -> torch.Tensor:
+    """One projection of x [b, s, d] to [b, heads, s, hd].  ``quant`` is
+    the training forward's mode; the serving path leaves it ``none``."""
     b, s, _ = x.shape
+    return quant_linear(x, lin.weight, dtype, quant).view(b, s, -1, hd).transpose(1, 2)
+
+
+def _attn_proj(
+    attn: Attention, x: torch.Tensor, dtype: torch.dtype
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The serving path's q/k/v projections of x [b, s, d] to [b, heads,
+    s, head_dim]."""
     hd = attn.cfg.head_dim
-
-    def proj(lin: nn.Linear) -> torch.Tensor:
-        return quant_linear(x, lin.weight, dtype, quant).view(b, s, -1, hd).transpose(1, 2)
-
-    return proj(attn.wq), proj(attn.wk), proj(attn.wv)
+    return tuple(_heads(x, lin, hd, dtype) for lin in (attn.wq, attn.wk, attn.wv))
 
 
 def _out_proj(
@@ -579,7 +750,7 @@ class LMTrial(TorchTrial):
 
     Hyperparameters, with the JAX ``LMTrial``'s names and defaults: lr,
     global_batch_size, seq_len, vocab_size, d_model, n_layers, n_heads,
-    n_kv_heads, d_ff, attention (auto/flash/reference), remat, bf16,
+    n_kv_heads, d_ff, attention (auto/flash/reference/ring), remat, bf16,
     warmup_steps, decay_steps, dataset_size, fused_ce, ce_chunk,
     ce_bf16_residual, fused_adamw, adam_mu_bf16, weight_decay, grad_clip.
     ``fused_adamw: auto`` is the fused kernel on a CUDA device (the JAX
@@ -644,9 +815,15 @@ class LMTrial(TorchTrial):
         return float(6 * n_params + 12 * n_layers * cfg.max_seq_len * d)
 
     def build_model(self) -> TransformerLM:
-        return TransformerLM(
+        model = TransformerLM(
             self._cfg(), device=self.context.device, generator=self.context.generator()
         )
+        if self.context.mesh is None:
+            # the JAX Trainer's one device is a mesh of one: attention
+            # 'ring' is whole-sequence attention there (shard_model says so
+            # on a mesh)
+            model.shard_seq(None, 1, 0)
+        return model
 
     def build_optimizer(self) -> Any:
         from determined_tpu_torch.ops.fused_adamw import fused_adamw
@@ -696,7 +873,9 @@ class LMTrial(TorchTrial):
         self, model: TransformerLM, batch: Dict[str, torch.Tensor]
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         tokens = batch["tokens"].long()
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        # shift over the whole sequence, then each seq rank takes its part
+        inputs, targets = (model.seq_slice(t) for t in (tokens[:, :-1], tokens[:, 1:]))
+        tp_group = None if model.tensor is None else model.tensor[0]
         g = self.context.get_hparam
         fused = g("fused_ce", "auto")
         if fused == "auto":
@@ -716,10 +895,20 @@ class LMTrial(TorchTrial):
                 # JAX trial divides the global batch by its shards here)
                 batch_shards=1,
                 bf16_residual=bool(g("ce_bf16_residual", False)),
+                group=tp_group,
+                vocab_start=model.vocab_start,
             )
         else:
             logits, moe_aux = model(inputs, return_aux=True)
-            loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+            if tp_group is None:
+                loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                       targets.reshape(-1))
+            else:
+                from determined_tpu_torch.ops.cross_entropy import (
+                    vocab_parallel_cross_entropy,
+                )
+
+                loss = vocab_parallel_cross_entropy(logits, targets, tp_group, model.vocab_start)
         metrics = {"perplexity": torch.exp(loss)}
         if model.cfg.moe_experts > 0:
             metrics["moe_aux_loss"] = moe_aux

@@ -7,6 +7,8 @@ Port of ``determined_tpu/ops/attention.py``.
 - ``flash_attention``: the hand-written CUDA forward and backward kernels
   under an autograd Function (``ops/flash_attention.py``,
   ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``).
+- ``ring_attention``: sequence parallelism over a mesh's ``seq`` axis on
+  those kernels (``ops/ring_attention.py``).
 
 All take [batch, heads, q_len, head_dim] q and [batch, kv_heads, kv_len,
 head_dim] k/v (GQA when kv_heads < heads).
@@ -14,7 +16,7 @@ head_dim] k/v (GQA when kv_heads < heads).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -65,10 +67,24 @@ def dot_product_attention(
     causal: bool = True,
     impl: str = "auto",
     scale: Optional[float] = None,
+    seq: Optional[Tuple[Any, int]] = None,
 ) -> torch.Tensor:
-    """Dispatcher: 'auto' picks flash on CUDA for sequences worth tiling,
-    where the JAX package picks it on the TPU (``q_len >= 256``)."""
-    if impl == "auto":
+    """Dispatcher, the one place of the ring's rule.  ``seq`` is the mesh's
+    seq axis as ``(group, size)`` when q, k, v lie on a mesh (this rank's
+    shards along it; a size of 1 on a mesh without the axis), None off a
+    mesh.  'auto' and 'ring' run the ring over the group when its size is
+    over 1, as the JAX ``Attention`` dispatches; with a size of 1 they are
+    the whole-sequence 'auto' (JAX's ring falls back without a seq axis):
+    flash on CUDA for sequences worth tiling, where the JAX package picks
+    it on the TPU (``q_len >= 256``), the plain version on the CPU.  'ring'
+    off a mesh raises, as the JAX ``Attention`` does."""
+    if impl == "ring" and seq is None:
+        raise ValueError("ring attention requires the mesh")
+    if impl in ("auto", "ring") and seq is not None and seq[1] > 1:
+        from determined_tpu_torch.ops.ring_attention import ring_attention_local
+
+        return ring_attention_local(q, k, v, seq[0], causal=causal, scale=scale)
+    if impl in ("auto", "ring"):
         impl = "flash" if q.device.type == "cuda" and q.shape[-2] >= 256 else "reference"
     if impl == "reference":
         return reference_attention(q, k, v, causal=causal, scale=scale)

@@ -17,11 +17,20 @@ loss reduces in f32.  Two modes, as in the JAX package:
 ``chunk_size=None`` picks by the per-shard residual size.  Targets ``< 0``
 are ignored and the loss is the mean over valid tokens.  ``kernel`` is
 ``[d, vocab]``, the JAX layout (``lm_head.weight.t()`` of the port's model).
+
+Vocab-parallel (``group``, the tensor group, and ``vocab_start``): the
+kernel holds this rank's columns ``[vocab_start, vocab_start + V/t)``.  The
+row max is all-reduced (max) and the sum of exps (sum) over the group, and
+the target logit comes from the rank that owns the target's column, so every
+rank computes the loss over the whole vocabulary; the gradient of the hidden
+states is partial over the vocab shards, and the model's ``copy_to`` before
+the head sums it.  ``vocab_parallel_cross_entropy`` is the same loss from
+logits (the unfused head).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -37,18 +46,44 @@ def _logits(x: torch.Tensor, kernel: torch.Tensor, compute_dtype: torch.dtype) -
     return torch.matmul(x.to(compute_dtype), kernel.to(compute_dtype)).float()
 
 
+def _lse_and_target(
+    logits: torch.Tensor, tgt: torch.Tensor, group: Any = None, vocab_start: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per row of f32 ``logits`` [n, V_local]: the logsumexp over the whole
+    vocabulary and the target's logit (0 where the target is < 0).  With a
+    ``group`` this rank holds columns ``[vocab_start, vocab_start + V_local)``."""
+    valid = tgt >= 0
+    if group is None:
+        safe_tgt = torch.where(valid, tgt, torch.zeros_like(tgt)).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse, torch.gather(logits, -1, safe_tgt[:, None])[:, 0]
+    import torch.distributed as tdist
+
+    from determined_tpu_torch.parallel.tensor_parallel import reduce_from
+
+    local = tgt.long() - vocab_start
+    mine = valid & (local >= 0) & (local < logits.shape[-1])
+    with torch.no_grad():  # a constant shift: the loss's gradient to it is 0
+        m = logits.amax(dim=-1)
+        tdist.all_reduce(m, op=tdist.ReduceOp.MAX, group=group)
+    sumexp = reduce_from(torch.exp(logits - m[:, None]).sum(dim=-1), group)
+    picked = torch.gather(logits, -1, local.clamp(0, logits.shape[-1] - 1)[:, None])[:, 0]
+    tgt_logit = reduce_from(torch.where(mine, picked, torch.zeros_like(picked)), group)
+    return m + torch.log(sumexp), tgt_logit
+
+
 def _chunk_loss(
     x: torch.Tensor,
     kernel: torch.Tensor,
     tgt: torch.Tensor,
     compute_dtype: torch.dtype,
+    group: Any = None,
+    vocab_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sum of token losses and the valid-token count for one chunk."""
     logits = _logits(x, kernel, compute_dtype)
     valid = tgt >= 0
-    safe_tgt = torch.where(valid, tgt, torch.zeros_like(tgt)).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt_logit = torch.gather(logits, -1, safe_tgt[:, None])[:, 0]
+    lse, tgt_logit = _lse_and_target(logits, tgt, group, vocab_start)
     token_loss = torch.where(valid, lse - tgt_logit, torch.zeros_like(lse))
     return token_loss.sum(), valid.sum().float()
 
@@ -58,17 +93,16 @@ class _TileCEBf16Residual(torch.autograd.Function):
     the logits instead of the f32 tile (``_tile_ce_bf16_residual``)."""
 
     @staticmethod
-    def forward(ctx, x, kernel, tgt):
+    def forward(ctx, x, kernel, tgt, group=None, vocab_start=0):
         with torch.no_grad():
             logits = _logits(x, kernel, torch.bfloat16)
             valid = tgt >= 0
-            safe_tgt = torch.where(valid, tgt, torch.zeros_like(tgt)).long()
-            lse = torch.logsumexp(logits, dim=-1)
-            tgt_logit = torch.gather(logits, -1, safe_tgt[:, None])[:, 0]
+            lse, tgt_logit = _lse_and_target(logits, tgt, group, vocab_start)
             loss_sum = torch.where(valid, lse - tgt_logit, torch.zeros_like(lse)).sum()
             count = valid.sum().float()
         # the only tensor-sized residual is the bf16 logits copy
         ctx.save_for_backward(x, kernel, tgt, logits.to(torch.bfloat16), lse)
+        ctx.vocab_start = vocab_start
         ctx.mark_non_differentiable(count)
         return loss_sum, count
 
@@ -77,14 +111,14 @@ class _TileCEBf16Residual(torch.autograd.Function):
         x, kernel, tgt, logits16, lse = ctx.saved_tensors
         valid = tgt >= 0
         safe_tgt = torch.where(valid, tgt, torch.zeros_like(tgt)).long()
-        cols = torch.arange(logits16.shape[1], device=logits16.device)
+        cols = ctx.vocab_start + torch.arange(logits16.shape[1], device=logits16.device)
         p = torch.exp(logits16.float() - lse[:, None])
         dlogits = p - (cols[None, :] == safe_tgt[:, None]).float()
         dlogits = torch.where(valid[:, None], dlogits, torch.zeros_like(dlogits)) * g_loss
         d16 = dlogits.to(torch.bfloat16)
         dx = torch.matmul(d16, kernel.to(torch.bfloat16).t()).to(x.dtype)
         dk = torch.matmul(x.to(torch.bfloat16).t(), d16).to(kernel.dtype)
-        return dx, dk, None
+        return dx, dk, None, None, None
 
 
 def fused_cross_entropy(
@@ -96,8 +130,11 @@ def fused_cross_entropy(
     compute_dtype: torch.dtype = torch.bfloat16,
     batch_shards: int = 1,
     bf16_residual: bool = False,
+    group: Any = None,
+    vocab_start: int = 0,
 ) -> torch.Tensor:
-    """Mean softmax cross-entropy over valid tokens of ``hidden @ kernel``."""
+    """Mean softmax cross-entropy over valid tokens of ``hidden @ kernel``;
+    vocab-parallel over ``group`` (module docstring)."""
     d = hidden.shape[-1]
     x = hidden.reshape(-1, d)
     tgt = targets.reshape(-1)
@@ -115,9 +152,9 @@ def fused_cross_entropy(
 
     if chunk_size <= 0:
         if bf16_residual:
-            loss_sum, count = _TileCEBf16Residual.apply(x, kernel, tgt)
+            loss_sum, count = _TileCEBf16Residual.apply(x, kernel, tgt, group, vocab_start)
         else:
-            loss_sum, count = _chunk_loss(x, kernel, tgt, compute_dtype)
+            loss_sum, count = _chunk_loss(x, kernel, tgt, compute_dtype, group, vocab_start)
         return loss_sum / torch.clamp(count, min=1.0)
     chunk_size = min(chunk_size, n)
 
@@ -130,11 +167,25 @@ def fused_cross_entropy(
     for start in range(0, x.shape[0], chunk_size):
         s, c = checkpoint(
             _chunk_loss, x[start:start + chunk_size], kernel,
-            tgt[start:start + chunk_size], compute_dtype, use_reentrant=False,
+            tgt[start:start + chunk_size], compute_dtype, group, vocab_start,
+            use_reentrant=False,
         )
         loss_sum = loss_sum + s
         count = count + c
     return loss_sum / torch.clamp(count, min=1.0)
+
+
+def vocab_parallel_cross_entropy(
+    logits: torch.Tensor, targets: torch.Tensor, group: Any, vocab_start: int
+) -> torch.Tensor:
+    """Mean softmax cross-entropy over valid tokens of logits [..., V/t]
+    that hold this rank's columns ``[vocab_start, vocab_start + V/t)``."""
+    x = logits.reshape(-1, logits.shape[-1]).float()
+    tgt = targets.reshape(-1)
+    valid = tgt >= 0
+    lse, tgt_logit = _lse_and_target(x, tgt, group, vocab_start)
+    loss_sum = torch.where(valid, lse - tgt_logit, torch.zeros_like(lse)).sum()
+    return loss_sum / torch.clamp(valid.sum().float(), min=1.0)
 
 
 def naive_cross_entropy(

@@ -6,8 +6,8 @@ process per device (torchrun) and builds a ``DeviceMesh`` with
 ``init_device_mesh`` over the world of its process group, in the JAX mesh's
 axis order ``(pipe, data, fsdp, expert, seq, tensor)``, so rank ``r`` sits
 at the coordinate of the JAX mesh's device ``r``.  ``dcn`` (``num_slices``)
-is not an axis of the port's mesh.  The Trainer runs the ``data``, ``fsdp``
-and ``expert`` axes; ``tensor``, ``seq``, ``pipe`` and ``num_slices`` > 1
+is not an axis of the port's mesh.  The Trainer runs the ``data``, ``fsdp``,
+``expert``, ``tensor`` and ``seq`` axes; ``pipe`` and ``num_slices`` > 1
 raise ``NotImplementedError`` here (``sharding.check_ported``).
 """
 
@@ -69,10 +69,6 @@ class Mesh:
     def group(self, axis: str) -> Any:
         """The process group of this rank's line along ``axis``."""
         return self.device_mesh.get_group(axis)
-
-    def submesh(self, *axes: str) -> Any:
-        """The ``DeviceMesh`` of this rank's slice over ``axes``."""
-        return self.device_mesh[axes if len(axes) > 1 else axes[0]]
 
 
 def make_mesh(config: MeshConfig, device_type: str = "cuda") -> Mesh:

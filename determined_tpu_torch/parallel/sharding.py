@@ -15,19 +15,37 @@ places them itself (``shard_model``), one process per device:
   over the expert group; every other parameter is replicated over it.
   Modules with ``shard_batch`` learn their slice of the global batch and
   the group of the ranks that hold the others (``batch_group``);
-- ``data`` and ``fsdp``: FSDP2 ``fully_shard`` on the ``(data, fsdp)``
-  submesh, each block and then the root (HSDP, replicated over ``data`` and
-  sharded over ``fsdp``, when both are over 1; one flat shard group
-  otherwise).  Each parameter is sharded on the dim the JAX Trainer's
-  auto-FSDP would choose (``fsdp_shard_dim``, its ``_infer_fsdp_specs``:
-  the largest dim the shard count divides), else on dim 0, which FSDP2 pads.
+- ``tensor``: every module with ``shard_tensor`` (the LM's attention, MLP,
+  embedding and head; the MNIST models' hidden layer) keeps its rank's rows
+  or columns of the leaves the rules ``heads``, ``mlp`` and ``vocab ->
+  tensor`` shard, as plain parameters, and puts Megatron's collectives in
+  its forward (``parallel/tensor_parallel.py``).  Every other parameter is
+  replicated over tensor and gets a whole gradient there;
+- ``seq``: every module with ``shard_seq`` (the LM) runs on its rank's
+  contiguous part of each sequence, attention through the ring (on a mesh
+  whose seq axis is 1 it learns that too: ``attention: ring`` is then
+  whole-sequence attention, JAX's fallback).  Every
+  parameter is replicated over seq (JAX's rules shard none over it), and
+  each seq rank's gradient covers its own tokens: they are averaged;
+- ``data``, ``fsdp`` and ``seq``: FSDP2 ``fully_shard`` on the batch-like
+  axes, each block and then the root, on a mesh that excludes ``tensor``
+  and ``expert``.  ``fsdp`` and ``seq`` are flattened into FSDP's one shard
+  dim (torchtitan's ``dp_shard_cp``): FSDP's reduce-scatter then averages
+  over the seq ranks as over the batch shards, and the optimizer state is
+  sharded over seq too, where HSDP with seq as a replicate dim would keep a
+  copy of it on every seq rank.  With ``data`` and a shard dim both over 1
+  it is HSDP, replicated over ``data``; otherwise one flat shard group over
+  every batch-like axis over 1.  Each parameter is sharded on the dim the
+  JAX Trainer's auto-FSDP would choose (``fsdp_shard_dim``, its
+  ``_infer_fsdp_specs``: the largest dim the shard count divides), else on
+  dim 0, which FSDP2 pads.
 
 ``ShardPlan`` carries what the Trainer needs of that placement: each
 rank's local shards for the optimizer (``local``), the global gradient norm
 (``global_norm``), and the full tensors of a checkpoint both ways (``full``
 gathers a leaf, ``local_slice`` cuts this rank's part from one).  The mesh
-axes ``tensor``, ``seq``, ``pipe`` and ``dcn`` raise ``NotImplementedError``
-(``check_ported``).
+axes ``pipe`` and ``dcn``, and MoE blocks on ``tensor`` or ``seq``, raise
+``NotImplementedError`` (``check_ported``).
 """
 
 from __future__ import annotations
@@ -63,11 +81,11 @@ DEFAULT_RULES: LogicalAxisRules = {
 
 # the mesh axes the port does not run yet, and the slice each comes with
 _LATER_AXES = {
-    MeshAxes.TENSOR: "the tensor-parallel slice",
-    MeshAxes.SEQUENCE: "the sequence-parallel slice",
     MeshAxes.PIPELINE: "the pipeline slice",
     MeshAxes.DCN: "the multislice slice",
 }
+# the axes MoE blocks do not run on yet
+_MOE_LATER_AXES = (MeshAxes.TENSOR, MeshAxes.SEQUENCE)
 
 
 def _axis_sizes(mesh: Any) -> Optional[Dict[str, int]]:
@@ -183,9 +201,10 @@ def fsdp_shard_dim(shape: Sequence[int], n: int) -> Optional[int]:
     return max(divisible, key=lambda i: shape[i])
 
 
-def check_ported(axis_sizes: Mapping[str, int]) -> None:
+def check_ported(axis_sizes: Mapping[str, int], moe: bool = False) -> None:
     """Raise ``NotImplementedError`` for a mesh axis of size > 1 that the
-    port does not run yet."""
+    port does not run yet; with ``moe`` (a model with MoE blocks) also for
+    the axes MoE blocks do not run on yet."""
     for axis, what in _LATER_AXES.items():
         if int(axis_sizes.get(axis, 1)) > 1:
             name = "num_slices" if axis == MeshAxes.DCN else f"the {axis!r} mesh axis"
@@ -193,18 +212,30 @@ def check_ported(axis_sizes: Mapping[str, int]) -> None:
                 f"{name} ({what}) is not ported to determined_tpu_torch yet; it comes "
                 "with a later slice of the port (ROADMAP.md, Queue 1)"
             )
+    for axis in _MOE_LATER_AXES if moe else ():
+        if int(axis_sizes.get(axis, 1)) > 1:
+            raise NotImplementedError(
+                f"MoE blocks on the {axis!r} mesh axis are not ported to determined_tpu_torch "
+                "yet; they come with a later slice of the port (ROADMAP.md, Queue 1)"
+            )
 
 
 class ShardPlan:
     """Where each parameter of a sharded model lives (``shard_model``)."""
 
-    def __init__(self, model: torch.nn.Module, mesh: Any, expert_params: Set[str]) -> None:
+    def __init__(self, model: torch.nn.Module, mesh: Any, expert_params: Set[str],
+                 tensor_dims: Optional[Dict[str, int]] = None) -> None:
         self.mesh = mesh
         self.params: Dict[str, torch.nn.Parameter] = dict(model.named_parameters())
         self.expert_params = expert_params
         self.expert_size = mesh.shape[MeshAxes.EXPERT]
         self.expert_group = mesh.group(MeshAxes.EXPERT) if self.expert_size > 1 else None
         self.expert_rank = mesh.coordinate(MeshAxes.EXPERT)
+        # the leaves split over tensor, and the dim of each
+        self.tensor_dims: Dict[str, int] = dict(tensor_dims or {})
+        self.tensor_size = mesh.shape[MeshAxes.TENSOR]
+        self.tensor_group = mesh.group(MeshAxes.TENSOR) if self.tensor_dims else None
+        self.tensor_rank = mesh.coordinate(MeshAxes.TENSOR)
 
     @staticmethod
     def local(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -230,30 +261,35 @@ class ShardPlan:
     @torch.no_grad()
     def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The f32 global norm of the local gradient shards ``grads``: the
-        sum of squares over every leaf's shards, and over the expert group
-        for the expert leaves alone (the replicated leaves are the same on
-        every rank of it)."""
+        sum of squares over every leaf's FSDP shards, then over the expert
+        group for the expert leaves and over the tensor group for the
+        tensor-split leaves (a replicated leaf is the same on every rank of
+        those groups and counts once)."""
         import torch.distributed as tdist
 
         first = next(iter(grads.values()))
-        sq = torch.zeros(2, dtype=torch.float32, device=first.device)
+        # [replicated, expert, tensor]
+        sq = torch.zeros(3, dtype=torch.float32, device=first.device)
         for k, g in grads.items():
-            sq[int(k in self.expert_params)] += g.float().square().sum()
+            cat = 1 if k in self.expert_params else 2 if k in self.tensor_dims else 0
+            sq[cat] += g.float().square().sum()
         group = self._shard_group(next(iter(grads)))
         if group is not None:
             tdist.all_reduce(sq, group=group)
-        if self.expert_group is not None:
-            expert = sq[1:].clone()
-            tdist.all_reduce(expert, group=self.expert_group)
-            sq[1:] = expert
+        for i, split_over in ((1, self.expert_group), (2, self.tensor_group)):
+            if split_over is not None:
+                part = sq[i:i + 1].clone()
+                tdist.all_reduce(part, group=split_over)
+                sq[i:i + 1] = part
         return torch.sqrt(sq.sum())
 
     @torch.no_grad()
     def full(self, name: str, local: torch.Tensor) -> torch.Tensor:
         """The whole tensor of a parameter-shaped leaf (the parameter, or a
         moment kept beside its shard) from this rank's shard ``local``:
-        FSDP shards gathered, then expert slices in expert order.  A
-        collective: every rank calls it, leaf for leaf."""
+        FSDP shards gathered, then expert slices in expert order, then
+        tensor slices in tensor order along their dim.  A collective:
+        every rank calls it, leaf for leaf."""
         import torch.distributed as tdist
         from torch.distributed.tensor import DTensor
 
@@ -268,14 +304,21 @@ class ShardPlan:
             parts = [torch.empty_like(t) for _ in range(self.expert_size)]
             tdist.all_gather(parts, t.contiguous(), group=self.expert_group)
             t = torch.cat(parts, dim=0)
+        if name in self.tensor_dims:
+            parts = [torch.empty_like(t) for _ in range(self.tensor_size)]
+            tdist.all_gather(parts, t.contiguous(), group=self.tensor_group)
+            t = torch.cat(parts, dim=self.tensor_dims[name])
         return t
 
     def local_slice(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's part of a whole leaf: its experts' rows, then its
-        FSDP chunk (``torch.chunk`` along each sharded dim, as FSDP2 cuts)."""
+        """This rank's part of a whole leaf: its tensor slice or its
+        experts' rows, then its FSDP chunk (``torch.chunk`` along each
+        sharded dim, as FSDP2 cuts)."""
         from torch.distributed.tensor import DTensor, Shard
 
         t = full
+        if name in self.tensor_dims:
+            t = t.chunk(self.tensor_size, dim=self.tensor_dims[name])[self.tensor_rank]
         if name in self.expert_params and self.expert_group is not None:
             t = t.chunk(self.expert_size, dim=0)[self.expert_rank]
         p = self.params[name]
@@ -289,9 +332,29 @@ class ShardPlan:
         return t
 
 
+def _dp_mesh(mesh: Any) -> Tuple[Any, int]:
+    """FSDP2's mesh over the batch-like axes (module docstring) and the
+    size of its shard dim."""
+    sizes = mesh.shape
+    shard = [a for a in (MeshAxes.FSDP, MeshAxes.SEQUENCE) if sizes[a] > 1]
+    replicate = sizes[MeshAxes.DATA] > 1 and bool(shard)
+    if not replicate:
+        shard = [a for a in (MeshAxes.DATA, *shard) if sizes[a] > 1] or [MeshAxes.FSDP]
+    n = 1
+    for a in shard:
+        n *= sizes[a]
+    dm, name = mesh.device_mesh, "_".join(shard)
+    if len(shard) > 1:
+        flat = dm[tuple(shard)]._flatten(name)
+        if not replicate:
+            return flat, n
+    return (dm[MeshAxes.DATA, name] if replicate else dm[name]), n
+
+
 def shard_model(model: torch.nn.Module, mesh: Any) -> ShardPlan:
     """Place ``model`` on ``mesh`` in place: expert parallelism over
-    ``expert``, then FSDP2 over ``(data, fsdp)`` (module docstring)."""
+    ``expert``, tensor parallelism over ``tensor``, the sequence over
+    ``seq``, then FSDP2 over the batch-like axes (module docstring)."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -307,18 +370,26 @@ def shard_model(model: torch.nn.Module, mesh: Any) -> ShardPlan:
             if hasattr(mod, "shard_experts"):
                 mod.shard_experts(group, n_exp, idx)
                 expert_params.update(f"{name}.{p}" if name else p for p in EXPERT_PARAMS)
+    tensor_dims: Dict[str, int] = {}
+    if sizes[MeshAxes.TENSOR] > 1:
+        group, idx = mesh.group(MeshAxes.TENSOR), mesh.coordinate(MeshAxes.TENSOR)
+        for name, mod in model.named_modules():
+            if hasattr(mod, "shard_tensor"):
+                for p, dim in mod.shard_tensor(group, sizes[MeshAxes.TENSOR], idx).items():
+                    tensor_dims[f"{name}.{p}" if name else p] = dim
+    # every mesh, a seq axis of 1 included ('ring' falls back to
+    # whole-sequence attention on a mesh and raises off one)
+    group, idx = mesh.group(MeshAxes.SEQUENCE), mesh.coordinate(MeshAxes.SEQUENCE)
+    for mod in model.modules():
+        if hasattr(mod, "shard_seq"):
+            mod.shard_seq(group, sizes[MeshAxes.SEQUENCE], idx)
     b_rank, b_shards = batch_shard(mesh)
     if b_shards > 1:
         group = batch_group(mesh)
         for mod in model.modules():
             if hasattr(mod, "shard_batch"):
                 mod.shard_batch(group, b_shards, b_rank)
-    data, fsdp = sizes[MeshAxes.DATA], sizes[MeshAxes.FSDP]
-    if data > 1 and fsdp > 1:
-        dp_mesh, n_shard = mesh.submesh(MeshAxes.DATA, MeshAxes.FSDP), fsdp
-    else:
-        axis = MeshAxes.DATA if data > 1 else MeshAxes.FSDP
-        dp_mesh, n_shard = mesh.submesh(axis), data * fsdp
+    dp_mesh, n_shard = _dp_mesh(mesh)
 
     def placement(param: torch.nn.Parameter) -> Any:
         return Shard(fsdp_shard_dim(param.shape, n_shard) or 0)
@@ -326,4 +397,4 @@ def shard_model(model: torch.nn.Module, mesh: Any) -> ShardPlan:
     for blk in getattr(model, "blocks", ()):
         fully_shard(blk, mesh=dp_mesh, shard_placement_fn=placement)
     fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
-    return ShardPlan(model, mesh, expert_params)
+    return ShardPlan(model, mesh, expert_params, tensor_dims)

@@ -28,14 +28,18 @@ buffers are allocated once, at the first asynchronous save.
 On a mesh (``train.init(mesh_config=...)`` or ``resources.mesh``, resolved
 against the world of the torch.distributed process group, one process a
 device) the Trainer places the model with ``parallel.sharding.shard_model``:
-experts over ``expert``, FSDP2 over ``(data, fsdp)``.  Each rank reads its
-``(data, fsdp)`` slice of every global batch, the optimizer updates each
-rank's local shards (the clip's norm global over the mesh), the reported
-training and validation metrics are averaged over the ranks, and the
-preemption vote and the checkpoint's storage id go through the
-``DistributedContext``.  A checkpoint holds the whole state in the
-single-device format (gathered leaf by leaf, the chief writes), so any
-data/fsdp/expert mesh, or none, restores it.
+experts over ``expert``, heads, hidden units and vocabulary over
+``tensor``, the sequence over ``seq`` (ring attention), FSDP2 over
+``(data, fsdp, seq)``.  Each rank reads its ``(data, fsdp)`` slice of every
+global batch (the tensor and seq ranks of one slice read the same batch;
+the trial's loss takes its seq part), the optimizer updates each rank's
+local shards (the clip's norm global over the mesh), the reported training
+and validation metrics are averaged over the ranks (tensor ranks hold
+equal values and seq parts are equal in size, so a mean over examples is
+the global mean), and the preemption vote and the checkpoint's storage id
+go through the ``DistributedContext``.  A checkpoint holds the whole state
+in the single-device format (gathered leaf by leaf, the chief writes), so
+any mesh, or none, restores it.
 
 Experiment-configuration knobs the JAX Trainer reads are honoured or raise
 ``NotImplementedError``.  Honoured: ``aggregation_frequency`` (gradient
@@ -44,10 +48,10 @@ many stacked microbatches, summing the gradients in ``.grad``, then one
 update), ``fetch_workers`` (passed to loaders that set none),
 ``compilation_cache_dir`` (the kernels' build directory,
 ``utils/compilation_cache.py``) and ``quantized_matmul`` (read by the
-trial's model, ``train/_quant.py``).  The tensor, sequence and pipeline
-mesh axes and ``num_slices``, overlapped or hierarchical gradient sync,
-pipeline schedules and the retrace sentinel come with later slices of the
-port.  ``profiling.trace``
+trial's model, ``train/_quant.py``).  The pipeline mesh axis,
+``num_slices``, MoE blocks on the tensor or seq axis, overlapped or
+hierarchical gradient sync, pipeline schedules and the retrace sentinel
+come with later slices of the port.  ``profiling.trace``
 bounds a ``torch.profiler`` window that the core context's profiler opened
 (``core.profiler.on(trace=True)``) to ``profiling.end_after_batch`` steps,
 counted from the resume point.
@@ -89,11 +93,19 @@ def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to determined_tpu_torch yet; {_LATER}")
 
 
+def _has_moe(hparams: Optional[Dict[str, Any]]) -> bool:
+    """Whether the hyperparameters put MoE blocks in the LM (a fixed
+    ``moe_experts`` over 0)."""
+    n = (hparams or {}).get("moe_experts")
+    n = getattr(n, "val", n)  # an experiment's Const
+    return isinstance(n, (int, float)) and n > 0
+
+
 def check_exp_config(exp_config: Any) -> None:
     """Raise for every knob the JAX Trainer reads that this port does not
     run; what passes is honoured."""
     opt = exp_config.optimizations
-    check_ported(exp_config.resources.mesh.shape)
+    check_ported(exp_config.resources.mesh.shape, moe=_has_moe(exp_config.hyperparameters))
     if opt.overlap_grad_sync or opt.hierarchical_collectives:
         raise _later("optimizations.overlap_grad_sync / hierarchical_collectives")
     if opt.pipeline_schedule != "gpipe" or opt.virtual_stages != 1:
@@ -122,7 +134,7 @@ def init(
     of the process group (``core.init`` under torchrun opens it; each rank
     then runs on its own device, the core context's ``distributed.device``).
     Without a process group a mesh of one device is the single-device path."""
-    check_ported((mesh_config or MeshConfig()).shape)
+    check_ported((mesh_config or MeshConfig()).shape, moe=_has_moe(hparams))
     if exp_config is not None:
         check_exp_config(exp_config)
         if hparams is None:

@@ -20,6 +20,19 @@ G. each mesh: 5 steps through train.init(mesh_config=...) ->
 E. the expert-parallel MoE layer (d 256, e 8, f32, TF32 off) at data 2 x
    expert 2: each rank's output, aux and gradients against the unsharded
    layer on the same rank's tokens within E_TOL.
+S. the dense LM of chip_smoke.py's phase 15 (examples/transformer_lm/
+   fsdp_tp_sp.yaml at its full width: d 4096, 32 heads of 128, 8 kv heads,
+   vocab 32768, seq 32768, bf16, remat; 4 layers, SEQ_CUTS and
+   SEQ_MESH_CUTS) for 5 steps on one GPU, then on each mesh of SEQ_MESHES
+   (tensor x seq: Megatron's tensor split, ring attention over seq, FSDP2
+   over fsdp x seq): every step's loss against the one GPU's within
+   MESH_LOSS_TOL, each rank's launches (flash forward twice a layer a step
+   under remat, dq and dk/dv once, each times the ring's units that
+   ring_block_counts gives this rank on a seq axis; fused_adamw once a
+   local leaf), the host step and peak memory of each rank.
+C. a tensor 2 x seq 2 checkpoint (SEQ_CKPT_CUTS: the round trip, not the
+   size): 3 steps on the mesh, saved whole by the chief, restored by one
+   GPU's Trainer bitwise equal to the mesh's gathered params and moments.
 
 Each gang has a hard timeout (GANG_TIMEOUT_S); its ranks are killed on
 expiry and the run fails.  Prints a JSON line a part, the card's name and
@@ -53,6 +66,21 @@ MESH_LOSS_TOL = dict(rtol=2e-3, atol=2e-3)
 # f32, TF32 off, the same tokens: the layer to f32 reassociation
 E_TOL = dict(rtol=1e-5, atol=1e-5)
 GANG_TIMEOUT_S = 300.0
+SEQ_MESHES = (dict(tensor=2, seq=2), dict(fsdp=2, tensor=2), dict(seq=4))
+# S's changes to chip_smoke's phase 15 L: (key, L's value, S's value, why)
+SEQ_MESH_CUTS = [
+    ("global_batch_size", 1, 2, "fsdp 2 reads one sequence a batch shard"),
+]
+# C's round trip at a small width: the full-width state is 19.9 GB
+SEQ_CKPT_CUTS = [
+    ("d_model", 4096, 256, "the round trip, not the size, is what C's checkpoint shows"),
+    ("n_heads", 32, 2, "head dim 128 at width 256"),
+    ("n_kv_heads", 8, 2, "one kv head a tensor rank"),
+    ("n_layers", 4, 2, "two blocks"),
+    ("vocab_size", 32768, 4096, "the same, in the head"),
+    ("seq_len", 32768, 256, "the same, in length"),
+]
+SEQ_CKPT_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -63,6 +91,15 @@ def _hparams() -> dict:
     from chip_smoke import _moe_hparams
 
     return _moe_hparams()
+
+
+def _seq_hparams(cuts=()) -> dict:
+    from chip_smoke import _seq_hparams as phase15_hparams
+
+    hp = phase15_hparams()
+    for key, _old, value, _why in list(SEQ_MESH_CUTS) + list(cuts):
+        hp[key] = value
+    return hp
 
 
 def _fit(ctx, steps: int) -> dict:
@@ -82,7 +119,7 @@ def _fit(ctx, steps: int) -> dict:
     rows = ctx.core.train.metrics("training")
     gbs = ctx.get_global_batch_size()
     return dict(
-        losses=[m["loss"] for _, m in rows], aux=[m["moe_aux_loss"] for _, m in rows],
+        losses=[m["loss"] for _, m in rows], aux=[m.get("moe_aux_loss") for _, m in rows],
         step_ms=[1e3 * gbs / m["samples_per_second"] for _, m in rows],
         wall_s=time.monotonic() - t0, launches=_launch_counts(),
         local_leaves=len(trainer._params), layers=trainer.model.cfg.n_layers,
@@ -92,7 +129,8 @@ def _fit(ctx, steps: int) -> dict:
 
 
 def _rank_gang(workdir: str, mesh: dict, seed: int) -> dict:
-    """One rank of a gang: G's fit on ``mesh``, or E's layer."""
+    """One rank of a gang: G's fit on ``mesh``, E's layer, S's fit or C's
+    checkpoint."""
     import torch
 
     from determined_tpu_torch import core, train
@@ -103,6 +141,10 @@ def _rank_gang(workdir: str, mesh: dict, seed: int) -> dict:
     try:
         if mesh.get("part") == "E":
             return _rank_layer(dist)
+        if mesh.get("part") == "S":
+            return _rank_seq(core_ctx, mesh["mesh"], seed)
+        if mesh.get("part") == "C":
+            return _rank_ckpt(core_ctx, workdir, seed)
         ctx = train.init(hparams=_hparams(), seed=seed, core_context=core_ctx,
                          mesh_config=MeshConfig(**mesh))
         out = _fit(ctx, STEPS)
@@ -111,6 +153,75 @@ def _rank_gang(workdir: str, mesh: dict, seed: int) -> dict:
         return out
     finally:
         dist.close()
+
+
+def _rank_seq(core_ctx, mesh: dict, seed: int) -> dict:
+    """One rank of S: the LM's fit on ``mesh``, and the ring's units for
+    this rank (ring_block_counts on its seq group; 1 without one)."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.ops.ring_attention import ring_block_counts
+    from determined_tpu_torch.parallel import MeshConfig
+
+    ctx = train.init(hparams=_seq_hparams(), seed=seed, core_context=core_ctx,
+                     mesh_config=MeshConfig(**mesh))
+    out = _fit(ctx, STEPS)
+    out["coords"] = {a: ctx.mesh.coordinate(a) for a in ("fsdp", "seq", "tensor")}
+    units = 1
+    if ctx.mesh.shape["seq"] > 1:
+        q = torch.randn((1, 2, 32, 64), device=ctx.device, dtype=torch.bfloat16)
+        _, counts = ring_block_counts(q, q, q, ctx.mesh.group("seq"))
+        units = counts[ctx.mesh.coordinate("seq")]
+        out["ring_counts"] = counts
+    out["ring_units"] = units
+    torch.cuda.synchronize()
+    return out
+
+
+def _rank_ckpt(core_ctx, workdir: str, seed: int) -> dict:
+    """One rank of C: SEQ_CKPT_STEPS steps at tensor 2 x seq 2 and a
+    checkpoint; the chief also saves the mesh's gathered params and
+    moments for the one-GPU restore to be held against."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.parallel import MeshConfig
+
+    ctx = train.init(hparams=_seq_hparams(SEQ_CKPT_CUTS), seed=seed, core_context=core_ctx,
+                     mesh_config=MeshConfig(tensor=2, seq=2))
+    trainer = train.Trainer(LMTrial(ctx))
+    summary = trainer.fit(max_length=SEQ_CKPT_STEPS, report_period=1, checkpoint_policy="all",
+                          validation_period=SEQ_CKPT_STEPS)
+    full = trainer._full_array_state()
+    if core_ctx.distributed.is_chief:
+        torch.save({"params": full["params"], "mu": full["opt_state"].mu,
+                    "nu": full["opt_state"].nu}, os.path.join(workdir, "mesh_state.pt"))
+    return dict(storage_id=summary["latest_checkpoint"])
+
+
+def _ckpt_on_one_gpu(workdir: str, sid: str, seed: int) -> dict:
+    """C's restore: one GPU's Trainer resumes the mesh's checkpoint; its
+    params and moments equal the mesh's gathered ones bitwise."""
+    import torch
+
+    from determined_tpu_torch import core, train
+    from determined_tpu_torch.models import LMTrial
+
+    want = torch.load(os.path.join(workdir, "mesh_state.pt"))
+    ctx = train.init(hparams=_seq_hparams(SEQ_CKPT_CUTS), seed=seed,
+                     core_context=core._dummy_init(checkpoint_dir=os.path.join(workdir, "ck")))
+    trainer = train.Trainer(LMTrial(ctx))
+    summary = trainer.fit(max_length=SEQ_CKPT_STEPS, latest_checkpoint=sid,
+                          checkpoint_policy="none")
+    assert summary["steps_completed"] == SEQ_CKPT_STEPS
+    for name, p in trainer._params.items():
+        assert torch.equal(p.detach().cpu(), want["params"][name]), name
+    for which in ("mu", "nu"):
+        for name, t in getattr(trainer.state.opt_state, which).items():
+            assert torch.equal(t.cpu(), want[which][name]), (which, name)
+    return dict(storage_id=sid, leaves=len(trainer._params), restored="bitwise")
 
 
 def _layer_inputs(seed: int):
@@ -215,6 +326,51 @@ def _launch_gang(n: int, workdir: str, mesh: dict, seed: int) -> list:
     return out
 
 
+def _seq_part(args, root: str) -> None:
+    """S and C (the docstring at the top)."""
+    import torch
+
+    from chip_smoke import SEQ_CUTS
+    from determined_tpu_torch import train
+
+    for key, old, value, why in SEQ_CUTS + SEQ_MESH_CUTS:
+        log(f"S cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    for key, old, value, why in SEQ_CKPT_CUTS:
+        log(f"C cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    ctx = train.init(hparams=_seq_hparams(), seed=args.seed)
+    ref = _fit(ctx, STEPS)
+    del ctx
+    torch.cuda.empty_cache()
+    log("S one GPU: " + json.dumps({k: v for k, v in ref.items() if k != "aux"}))
+    for i, mesh in enumerate(SEQ_MESHES):
+        outs = _launch_gang(args.gpus, os.path.join(root, f"s{i}"), dict(part="S", mesh=mesh),
+                            args.seed)
+        chief = outs[0]
+        np.testing.assert_allclose(chief["losses"], ref["losses"], err_msg=str(mesh),
+                                   **MESH_LOSS_TOL)
+        for rank, o in enumerate(outs):
+            layers, leaves, u = o["layers"], o["local_leaves"], o["ring_units"]
+            if mesh.get("seq", 1) > 1:
+                assert u == 2 * mesh["seq"] + 1, (mesh, rank, o["ring_counts"])
+            want = dict(flash_fwd=2 * layers * STEPS * u, flash_bwd_dq=layers * STEPS * u,
+                        flash_bwd_dkv=layers * STEPS * u, fused_adamw=leaves * STEPS)
+            assert o["launches"] == want, (mesh, rank, o["launches"], want)
+        log("S " + json.dumps(dict(
+            mesh=mesh, losses=chief["losses"], ref_losses=ref["losses"],
+            max_loss_rel=max(abs(a - b) / abs(b) for a, b in zip(chief["losses"], ref["losses"])),
+            step_ms=[o["step_ms"] for o in outs],
+            peak_memory_gib=[o["peak_memory_gib"] for o in outs],
+            ref_peak_memory_gib=ref["peak_memory_gib"],
+            local_params=[o["params"] for o in outs], coords=[o["coords"] for o in outs],
+            ring_counts=[o.get("ring_counts") for o in outs],
+            launches=[o["launches"] for o in outs])))
+    workdir = os.path.join(root, "c")
+    outs = _launch_gang(args.gpus, workdir, dict(part="C"), args.seed)
+    sid = outs[0]["storage_id"]
+    assert all(o["storage_id"] == sid for o in outs), outs
+    log("C " + json.dumps(_ckpt_on_one_gpu(workdir, sid, args.seed)))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gpus", type=int, default=4)
@@ -272,6 +428,7 @@ def main() -> int:
                 coords=[o["batch_shard"] for o in outs], launches=chief["launches"])))
         outs = _launch_gang(args.gpus, os.path.join(root, "e"), dict(part="E"), args.seed)
         log("E " + json.dumps({f"rank{r}": o["max_abs_err"] for r, o in enumerate(outs)}))
+        _seq_part(args, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"mesh_smoke: {time.monotonic() - t_start:.1f} s")

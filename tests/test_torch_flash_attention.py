@@ -148,6 +148,8 @@ def test_dispatcher_auto_is_reference_on_cpu_and_flash_agrees():
     flash = dot_product_attention(q, k, v, causal=True, impl="flash")
     np.testing.assert_allclose(flash.numpy(), ref.numpy(), **TOL)
     with pytest.raises(ValueError, match="unknown attention impl"):
+        dot_product_attention(q, k, v, impl="spiral")
+    with pytest.raises(ValueError, match="ring attention requires the mesh"):
         dot_product_attention(q, k, v, impl="ring")
 
 

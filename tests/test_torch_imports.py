@@ -154,6 +154,8 @@ def test_step_knob_and_train_to_serve_modules_import_nothing_of_jax(module):
     "determined_tpu_torch.parallel",
     "determined_tpu_torch.parallel.mesh",
     "determined_tpu_torch.parallel.sharding",
+    "determined_tpu_torch.parallel.tensor_parallel",
+    "determined_tpu_torch.ops.ring_attention",
 ])
 def test_moe_and_parallel_modules_import_nothing_of_jax(module):
     """The MoE layer, the distributed context and the mesh and sharding

@@ -111,9 +111,15 @@ def test_auto_fsdp_dim_is_the_jax_trainers_choice(devices8, n):
 
 @pytest.mark.parametrize("axis", ["tensor", "seq", "pipe", "dcn"])
 def test_axes_of_later_slices_raise_naming_the_slice(axis):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    if axis in ("tensor", "seq"):
+        # ported: what still waits is MoE blocks on them
         check_ported({axis: 2})
-    check_ported({"data": 2, "fsdp": 2, "expert": 8, axis: 1})
+        with pytest.raises(NotImplementedError, match="MoE blocks .* later slice"):
+            check_ported({axis: 2}, moe=True)
+    else:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            check_ported({axis: 2})
+    check_ported({"data": 2, "fsdp": 2, "expert": 8, axis: 1}, moe=True)
 
 
 @pytest.mark.parametrize("mesh", [dict(data=2, expert=2), dict(data=2, fsdp=2),

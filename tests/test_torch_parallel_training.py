@@ -18,8 +18,9 @@ mesh.
   only) ends at one device's params.
 - Preemption asked of one rank stops every rank at the same boundary,
   with one checkpoint that every rank names.
-- The mesh axes of later slices raise ``NotImplementedError``, and so does
-  a local experiment on a mesh of more than one device.
+- The mesh axes of later slices (and MoE blocks on tensor or seq) raise
+  ``NotImplementedError``, and so does a local experiment on a mesh of
+  more than one device.
 """
 
 import functools
@@ -190,10 +191,11 @@ def test_checkpoint_resumes_across_a_mesh_change(tmp_path):
     ids=["tensor", "seq", "pipe", "num_slices"],
 )
 def test_mesh_axes_of_later_slices_raise(axes):
+    # tensor and seq are ported; MoE blocks on them are not
+    hp = dict(MOE_HP) if set(axes) <= {"tensor", "seq"} else dict(MNIST_HP)
     with pytest.raises(NotImplementedError, match="later slice"):
-        train.init(hparams=dict(MNIST_HP), device="cpu", mesh_config=MeshConfig(**axes))
-    cfg = ExperimentConfig.parse({"hyperparameters": dict(MNIST_HP),
-                                  "resources": {"mesh": dict(axes)}})
+        train.init(hparams=hp, device="cpu", mesh_config=MeshConfig(**axes))
+    cfg = ExperimentConfig.parse({"hyperparameters": hp, "resources": {"mesh": dict(axes)}})
     with pytest.raises(NotImplementedError, match="later slice"):
         train.init(exp_config=cfg, device="cpu")
 

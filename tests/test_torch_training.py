@@ -46,6 +46,7 @@ from determined_tpu_torch.data import (
     to_device,
 )
 from determined_tpu_torch.models import LMTrial
+from determined_tpu_torch.models.transformer import TransformerLM
 from determined_tpu_torch.train import MetricReducer, get_reducer
 from determined_tpu_torch.utils import faults
 
@@ -372,23 +373,37 @@ def test_fit_checkpoint_options_work(kwargs, tmp_path):
 
 
 def test_unported_options_raise():
-    for extra in (dict(pipe_microbatches=2), dict(attention="ring")):
-        ctx = train.init(hparams=dict(HP, **extra), device="cpu")
-        with pytest.raises(NotImplementedError, match="later slice"):
-            LMTrial(ctx).build_model()
+    ctx = train.init(hparams=dict(HP, pipe_microbatches=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        LMTrial(ctx).build_model()
+    # ring attention is ported; on one device (the JAX Trainer's mesh of
+    # one) it is whole-sequence attention (plain on the CPU), as JAX's ring
+    # falls back without a seq axis, and the bare model without a mesh
+    # raises as the JAX Attention
+    tokens = torch.arange(8)[None] % HP["vocab_size"]
+    ring = LMTrial(train.init(hparams=dict(HP, attention="ring"), device="cpu")).build_model()
+    plain = LMTrial(train.init(hparams=dict(HP, attention="reference"), device="cpu")
+                    ).build_model()
+    assert torch.equal(ring(tokens), plain(tokens))
+    bare = TransformerLM(ring.cfg, device="cpu")
+    with pytest.raises(ValueError, match="ring attention requires the mesh"):
+        bare(tokens)
 
 
 @pytest.mark.parametrize(
     "raw",
+    # tensor and seq are ported: MoE blocks on them are what waits
     [{"optimizations": {"overlap_grad_sync": True}},
-     {"resources": {"mesh": {"data": 2, "tensor": 2}}},
-     {"resources": {"mesh": {"fsdp": 2, "data": -1, "seq": 2}}}],
+     {"resources": {"mesh": {"data": 2, "tensor": 2}}, "moe_experts": 2},
+     {"resources": {"mesh": {"fsdp": 2, "data": -1, "seq": 2}}, "moe_experts": 2}],
     ids=["overlap_grad_sync", "mesh_data2", "mesh_fsdp2"],
 )
 def test_exp_config_knobs_of_later_slices_raise(raw):
     from determined_tpu_torch.config import ExperimentConfig
 
-    cfg = ExperimentConfig.parse(dict(raw, hyperparameters=HP))
+    raw = dict(raw)
+    hp = dict(HP, moe_experts=raw.pop("moe_experts")) if "moe_experts" in raw else HP
+    cfg = ExperimentConfig.parse(dict(raw, hyperparameters=hp))
     with pytest.raises(NotImplementedError, match="later slice"):
         train.init(exp_config=cfg, device="cpu")
 

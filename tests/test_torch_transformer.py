@@ -256,6 +256,14 @@ def test_prefill_then_eight_decode_steps_match_full_forward(n_kv_heads):
     ],
 )
 def test_unported_configs_raise(field, value):
+    if field == "attention_impl":
+        # ring attention is ported: the config takes it, and without a
+        # mesh the forward raises as the JAX Attention does
+        model = TransformerLM(TransformerConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2,
+                                                **{field: value}), device="cpu")
+        with pytest.raises(ValueError, match="ring attention requires the mesh"):
+            model(torch.zeros((1, 4), dtype=torch.long))
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         TransformerConfig(**{field: value})
 

@@ -170,6 +170,8 @@ def case_train(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
     params = trainer._full_array_state()["params"] if trainer.mesh is not None else None
     return {
         "summary": summary,
+        # each parameter's shape on this rank before FSDP (its tensor slice)
+        "local_shapes": {k: tuple(v.shape) for k, v in trainer._params.items()},
         "training": ctx.core.train.metrics("training"),
         "validation": ctx.core.train.metrics("validation"),
         "params": {k: _numpy(v) for k, v in params.items()} if dist.is_chief and params else None,
@@ -225,8 +227,104 @@ def _preempt_vote(dist: Any) -> bool:
     return ctx.should_preempt()
 
 
+def _local_part(x: Any, mesh: Any, heads: bool) -> Any:
+    """This rank's part of a global [b, h, s, ...] array: the batch over
+    ``data``, the heads over ``tensor`` (when ``heads``), the sequence over
+    ``seq``; a leaf that requires grad."""
+    import torch
+
+    t = torch.tensor(x)
+    for axis, dim, on in (("data", 0, True), ("tensor", 1, heads), ("seq", 2, True)):
+        if on:
+            t = t.chunk(mesh.shape[axis], dim)[mesh.coordinate(axis)]
+    return t.contiguous().requires_grad_(True)
+
+
+def case_ring(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """Each of ``inp["cases"]``: ``ring_attention`` on this rank's parts of
+    the global q, k, v on the case's mesh, the gradients of sum(out²), and
+    with ``counts`` the ring's per-rank units; then the vocab-parallel
+    cross-entropy of ``inp["ce"]`` on a tensor group against the whole one
+    on the same rank."""
+    from determined_tpu_torch.ops.ring_attention import ring_attention, ring_block_counts
+    from determined_tpu_torch.parallel import MeshConfig, make_mesh
+
+    meshes: Dict[Any, Any] = {}
+    out: Dict[str, Any] = {}
+    for name, c in inp["cases"].items():
+        key = tuple(sorted(c["mesh"].items()))
+        if key not in meshes:
+            meshes[key] = make_mesh(MeshConfig(**c["mesh"]), "cpu")
+        mesh = meshes[key]
+        t = mesh.shape["tensor"]
+        kv_split = t > 1 and c["k"].shape[1] % t == 0
+        q = _local_part(c["q"], mesh, True)
+        k, v = (_local_part(c[n], mesh, kv_split) for n in ("k", "v"))
+        o = ring_attention(q, k, v, mesh, causal=c["causal"], assignment=c["assignment"])
+        (o ** 2).sum().backward()
+        res = {"coords": {a: mesh.coordinate(a) for a in ("data", "tensor", "seq")},
+               "out": _numpy(o), "dq": _numpy(q.grad), "dk": _numpy(k.grad),
+               "dv": _numpy(v.grad)}
+        if c.get("counts"):
+            _, res["counts"] = ring_block_counts(q.detach(), k.detach(), v.detach(),
+                                                 mesh.group("seq"), causal=c["causal"],
+                                                 assignment=c["assignment"])
+        out[name] = res
+    out["ce"] = _vocab_parallel_ce(inp["ce"])
+    return out
+
+
+def _vocab_parallel_ce(inp: Dict[str, Any]) -> Dict[str, Any]:
+    """fused_cross_entropy over this rank's vocabulary columns of a tensor
+    group of 2 (its hidden gradient summed by ``copy_to``, as the LM's head
+    does) and vocab_parallel_cross_entropy from its logits, each against
+    the whole-vocabulary loss on the same rank: the loss, the hidden's
+    gradient and this rank's columns of the kernel's gradient."""
+    import torch
+
+    from determined_tpu_torch.ops.cross_entropy import (
+        fused_cross_entropy,
+        naive_cross_entropy,
+        vocab_parallel_cross_entropy,
+    )
+    from determined_tpu_torch.parallel import MeshConfig, make_mesh
+    from determined_tpu_torch.parallel.tensor_parallel import copy_to
+
+    mesh = make_mesh(MeshConfig(data=2, tensor=2), "cpu")
+    group, idx = mesh.group("tensor"), mesh.coordinate("tensor")
+    hidden, kernel, tgt = (torch.tensor(inp[n]) for n in ("hidden", "kernel", "targets"))
+    cols = kernel.shape[1] // 2
+    lo = idx * cols
+    errs = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    modes = {"chunked": dict(chunk_size=8, compute_dtype=f32),
+             "tile": dict(chunk_size=0, compute_dtype=f32),
+             "bf16_residual": dict(chunk_size=0, bf16_residual=True, compute_dtype=bf16),
+             "logits": None}
+    for mode, kw in modes.items():
+        runs = []
+        for sharded in (False, True):
+            x = hidden.clone().requires_grad_(True)
+            w = (kernel[:, lo:lo + cols] if sharded else kernel).clone().requires_grad_(True)
+            xin = copy_to(x, group) if sharded else x
+            if kw is None:
+                loss = (vocab_parallel_cross_entropy(xin @ w, tgt, group, lo) if sharded
+                        else naive_cross_entropy(xin, w, tgt))
+            else:
+                loss = fused_cross_entropy(xin, w, tgt, group=group if sharded else None,
+                                           vocab_start=lo if sharded else 0, **kw)
+            loss.backward()
+            wg = w.grad if sharded else w.grad[:, lo:lo + cols]
+            runs.append((float(loss), _numpy(x.grad), _numpy(wg)))
+        (la, xa, wa), (lb, xb, wb) = runs
+        errs[mode] = {"loss": (la, lb), "dx": float(abs(xa - xb).max()),
+                      "dw": float(abs(wa - wb).max()), "dx_scale": float(abs(xa).max()),
+                      "dw_scale": float(abs(wa).max())}
+    return errs
+
+
 CASES = {"moe_ep": case_moe_ep, "train": case_train, "mesh": case_mesh,
-         "collectives": case_collectives}
+         "collectives": case_collectives, "ring": case_ring}
 
 
 def main(case: str, rank: int, world: int, workdir: str) -> None:
