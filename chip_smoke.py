@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--phases kernel,serve,parity,train,train_parity,experiment,search,observe,
-                  knobs,serve_ckpt,models,hf,moe,seq]
+                  knobs,serve_ckpt,models,hf,moe,seq,gang]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -191,7 +191,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    read just after.
    G. examples/hf_gpt2/const.yaml: GPT-2 base (12 layers, width 768, 12
       heads, vocab 50257, 124M parameters in 148 leaves, the head tied to
-      wte), batch 32 x 128, plain AdamW, 500 steps, a validation every 100:
+      wte), batch 32 x 128, plain AdamW, cut to 200 steps (HF_GPT2_CUTS,
+      printed), a validation every 100:
       the validation loss falls at every validation and ends below
       ln(50257), no kernel launched; 0.8 ln(50257) is printed beside it.
       Then GPT2FinetuneTrial at tests/test_transformer.py's GPT-2 learning
@@ -289,6 +290,26 @@ Phases, in order; any failure raises and the script exits non-zero:
       [16384, 4096] with L's optimizer.  The kernels line carries them as
       each row's seq_shapes.
    Printed: each part's seconds and the phase's.
+16. gang: phase 7's experiment (EXPERIMENT_CONST with EXPERIMENT_CUTS: the
+   full width at 2 layers, 24 steps, validations at 12 and 24, checkpoint
+   period 18; GANG_CUTS printed) run by the gang launcher
+   (experiment/_gang.py) on a block of one device: a driver process
+   (``gang_driver``: run-local's path, the configuration parsed from its
+   dict where run-local reads YAML) sends its block to LocalExperiment's
+   gang path, which starts one rank process under NCCL for the trial
+   (GANG_ENTRY, LMTrial whose chief SIGTERMs the driver before step 14).
+   A. the run: the SIGTERM drains the gang through the relay and the
+      ranks' vote to a checkpoint at step 18; the driver exits 75.
+   B. ``experiment resume`` in a second driver: steps 18 -> 24; the
+      rank's launch counts come back through the relay and equal 6 steps x
+      the model's leaves of fused_adamw, 6 x its layers of each flash
+      backward kernel and 2 x (6 + the validation batches) of the forward.
+   Checks: the journal holds both validations (12 and 24), relayed; the
+   step-24 checkpoint, loaded on this card, equals phase 7's uninterrupted
+   run C (run here when phase 7 did not run) bitwise: params, moments,
+   steps and the last validation loss.  Printed: each driver's seconds,
+   the time from the gang's launch to its first step, the host-clock step
+   beside phase 7's, and the phase's seconds.
 
 Prints, before the last line, the kernels line (JSON), the script's total
 seconds and the card's name and power limit, and as the last line
@@ -481,6 +502,24 @@ CRASH_CUTS = [
 EXPERIMENT_STEPS = 24
 PREEMPT_AT = 18
 CRASH_AT = 15
+
+# phase 16: phase 7's configuration run by the gang launcher on a block of
+# one device.  The trial class the rank imports by name (module
+# ``__getattr__`` below builds it), the step before which its chief SIGTERMs
+# the driver, the driver's and the gang's time limit, and the one change
+# from phase 7: (what, phase 7's, this phase's, why)
+GANG_ENTRY = "chip_smoke:GangLMTrial"
+GANG_SIGTERM_AT = 14
+GANG_TIMEOUT_S = 300.0
+GANG_CUTS = [
+    ("the trial's block of one device", "trains on a thread of the experiment",
+     "one rank process (NCCL, a world of one) under the gang launcher",
+     "the card has one GPU: the launcher, the relay and the preemption drain run for a "
+     "block of one, driven directly (LocalExperiment runs a block of one on a thread)"),
+    ("the preemption", f"request_preemption() before step {PREEMPT_AT}",
+     f"SIGTERM to the driver before step {GANG_SIGTERM_AT}, read at the step-{PREEMPT_AT} "
+     "boundary", "what a host's maintenance event sends to run-local"),
+]
 
 # phase 8: searches.  S1 (ASHA) and S2 (PBT) are const.yaml (EXPERIMENT_CONST)
 # with these changes, S3 is examples/mnist/adaptive.yaml (MNIST_ADAPTIVE, a
@@ -693,6 +732,12 @@ HF_CUTS = [
     ("reproducibility.experiment_seed", None, "<--seed>",
      "the trial's weights and data from the run's --seed"),
 ]
+# G's own cut: its length, for the whole script's time (its validation every
+# 100 steps kept; the learning-rate schedule does not depend on the length)
+HF_GPT2_CUTS = [
+    ("searcher.max_length", {"batches": 500}, {"batches": 200},
+     "200 steps, a validation at 100 and 200: the whole script's time"),
+]
 # GPT-2's leaves: wte, wpe, ln_f's two and 12 a layer (the head is tied to
 # wte); BERT's: 5 embedding leaves, 16 a layer, the pooler's 2 and the
 # classifier's 2
@@ -700,7 +745,7 @@ HF_GPT2_LEAVES = 4 + 12 * 12
 # G's second run: tests/test_transformer.py::test_hf_gpt2_trial_learns's
 # hparams and bar (validation loss below 0.8 ln(vocab) after 40 steps), on
 # the card through the port's trial.  const.yaml's GPT-2 base run does not
-# reach that bar in its 500 steps (PERF.md §6; whether the JAX trial does at
+# reach that bar in its 500 steps, nor in G's 200 (PERF.md §6; whether the JAX trial does at
 # this size is not known: no run of it at GPT-2 base is in the repo): it is
 # held to falling at every validation and ending below ln(vocab), the
 # uniform prediction, and the bar is printed; that the port computes the
@@ -839,7 +884,7 @@ SEQ_KERNEL_SHAPES = (("half_chunk_causal", 8192, True), ("half_chunk_full", 8192
                      ("whole_causal", 32768, True))
 
 PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search",
-          "observe", "knobs", "serve_ckpt", "models", "hf", "moe", "seq")
+          "observe", "knobs", "serve_ckpt", "models", "hf", "moe", "seq", "gang")
 
 
 def log(msg: str) -> None:
@@ -1752,6 +1797,262 @@ def _device_memory(out: dict, part: str):
         log(f"experiment {part} device memory: " + json.dumps(out[part]))
 
 
+_SIGTERM_TRIALS: dict = {}
+
+
+def sigterm_trial(name: str, at: int):
+    """LMTrial whose chief rank SIGTERMs its parent, a gang's driver,
+    before step ``at`` (once: a resume starts past it), importable as
+    ``<module>:<name>`` through the module's ``__getattr__``."""
+    if name not in _SIGTERM_TRIALS:
+        import os
+        import signal
+
+        from determined_tpu_torch.models import LMTrial
+        from determined_tpu_torch.train import Callback
+        from determined_tpu_torch.utils import faults
+
+        class SigtermLMTrial(LMTrial):
+            def build_callbacks(self):
+                dist = self.context.core.distributed
+
+                class Sigterm(Callback):
+                    def on_training_start(self, trainer) -> None:
+                        if dist.is_chief and trainer.steps_completed < at:
+                            faults.set_fault_injector(_StepHook(
+                                at, lambda: os.kill(os.getppid(), signal.SIGTERM)))
+
+                return {"sigterm": Sigterm()}
+
+        SigtermLMTrial.__qualname__ = SigtermLMTrial.__name__ = name
+        _SIGTERM_TRIALS[name] = SigtermLMTrial
+    return _SIGTERM_TRIALS[name]
+
+
+def __getattr__(name: str):
+    """``GangLMTrial``: phase 16's trial (``sigterm_trial``), built on first
+    use, since this module imports the port inside functions only."""
+    if name != "GangLMTrial":
+        raise AttributeError(name)
+    cls = sigterm_trial(name, GANG_SIGTERM_AT)
+    cls.__module__ = __name__
+    return cls
+
+
+def gang_driver(argv) -> int:
+    """A gang's driver process (phase 16, mesh_smoke.py's X2): ``run
+    CONFIG_JSON DIR OUT [ENTRY]`` (run-local's path: LocalExperiment.run of
+    ENTRY, GANG_ENTRY by default; exit 75 when preempted) or ``resume - DIR
+    OUT`` (``experiment resume DIR``), with every trial's block, one device
+    included, sent to the gang launcher.  Writes the chief's relayed launch
+    counts, the time from the gang's launch to its first step and the
+    host-clock steps to OUT."""
+    import os
+
+    from determined_tpu_torch.cli.main import main as cli_main
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.experiment import PREEMPTED_EXIT_CODE, LocalExperiment, local
+    from determined_tpu_torch.experiment import _gang
+    from determined_tpu_torch.observability import get_tracer
+
+    mode, config_path, ckpt_dir, out_path, *entry = argv
+    launches: dict = {}
+    _gang.ATTEMPT_TIMEOUT_S = GANG_TIMEOUT_S
+
+    def through_launcher(self, create, devices=None):
+        with get_tracer().span("trial.run", cat="trial", trial=create.request_id):
+            try:
+                return self._run_gang(create, list(devices or [self.device]))
+            finally:
+                launches.update(self.trial_launches)
+
+    local.LocalExperiment._run_trial = through_launcher
+    if mode == "run":
+        with open(config_path) as f:
+            cfg = ExperimentConfig.parse(json.load(f))
+        summary = LocalExperiment(cfg, _gang.import_trial(entry[0] if entry else GANG_ENTRY),
+                                  checkpoint_dir=ckpt_dir).run()
+        print(json.dumps(summary, default=str), flush=True)
+        code = PREEMPTED_EXIT_CODE if summary["status"] == "preempted" else 0
+    else:
+        code = cli_main(["experiment", "resume", ckpt_dir])
+    tracer = get_tracer()
+    launch = _spans(tracer, "gang.launch")
+    steps = _spans(tracer, "data.wait")
+    with open(out_path, "w") as f:
+        json.dump(dict(
+            launches={str(k): v for k, v in launches.items()},
+            launch_to_first_step_s=steps[0][0] - launch[0][0] if launch and steps else None,
+            host_steps=_host_steps(tracer),
+        ), f)
+    return code
+
+
+def gang_drive(mode: str, config_path: str, ckpt_dir: str, out_path: str,
+               entry: str = GANG_ENTRY) -> tuple:
+    """Run ``gang_driver`` in a process of its own under GANG_TIMEOUT_S:
+    its exit code, its record and its seconds."""
+    import os
+    import signal
+
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.gang_driver(sys.argv[1:]))", mode, config_path, ckpt_dir, out_path,
+         entry],
+        cwd=os.path.dirname(os.path.abspath(__file__)), start_new_session=True,
+    )
+    try:
+        code = proc.wait(timeout=GANG_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise AssertionError(f"gang driver ({mode}) did not finish in {GANG_TIMEOUT_S:.0f} s")
+    wall = time.monotonic() - t0
+    with open(out_path) as f:
+        return code, json.load(f), wall
+
+
+def load_compared(path: str, trial_class):
+    """``train.load_trial_from_checkpoint(path)`` on the GPU without its md5
+    pass, for a caller that holds every loaded tensor against a reference
+    bitwise, which the digest would only repeat (a resume in the same run
+    checks the md5 path)."""
+    from unittest import mock
+
+    from determined_tpu_torch.train import _load
+
+    with mock.patch.object(_load, "verify_manifest", lambda path: None):
+        return _load.load_trial_from_checkpoint(path, trial_class=trial_class, device="cuda")
+
+
+def _compare_loaded(name: str, trainer, validation_loss: float, want: dict) -> dict:
+    """A checkpoint's state loaded into ``trainer`` against a reference's
+    (``_final_state``): bitwise, or the largest difference."""
+    import torch
+
+    bitwise, worst = True, 0.0
+    opt = trainer.state.opt_state
+    for k, a in trainer.model.named_parameters():
+        for got, ref in ((a.detach(), want["params"][k]), (opt.mu[k], want["mu"][k]),
+                         (opt.nu[k], want["nu"][k])):
+            ref = ref.to(got.device)
+            bitwise &= torch.equal(got, ref)
+            worst = max(worst, (got.float() - ref.float()).abs().max().item())
+    steps = (int(trainer.state.step), int(opt.count))
+    out = dict(bitwise=bool(bitwise and validation_loss == want["validation_loss"]
+                            and steps == want["steps"]),
+               max_abs_diff=worst, steps=steps + want["steps"],
+               validation_loss=(validation_loss, want["validation_loss"]),
+               loader=(trainer.train_loader.state_dict(), want["loader"]))
+    log(f"gang {name} vs uninterrupted: " + json.dumps(out))
+    return out
+
+
+def _journal_validations(ckpt_dir: str) -> list:
+    import os
+
+    with open(os.path.join(ckpt_dir, "experiment.journal")) as f:
+        recs = [json.loads(line) for line in f]
+    return [(r["metrics"]["batches"], r["metrics"]) for r in recs
+            if r["type"] == "trial_validated"]
+
+
+def phase_gang(seed: int, reference=None) -> dict:
+    """Parts A and B of phase 16 (the docstring at the top); ``reference``
+    is phase 7's C (its final state, initial params and host steps), run
+    here when None."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.experiment import LocalExperiment
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.observability import get_tracer
+
+    t_phase = time.monotonic()
+    root = tempfile.mkdtemp(prefix="dtt-chip-gang-")
+    for path, const, value, why in EXPERIMENT_CUTS:
+        value = seed if value == "<--seed>" else value
+        log(f"gang cut: {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
+    for what, before, now, why in GANG_CUTS:
+        log(f"gang cut: {what}: {before} -> {now} ({why})")
+    out: dict = {}
+    try:
+        raw = experiment_raw_config(os.path.join(root, "ab"), seed)
+        if reference is None:
+            trial_cls, trainers, _ = _capturing(LMTrial)
+            ref_raw = dict(raw, checkpoint_policy="none")
+            ref_raw.pop("min_checkpoint_period")
+            get_tracer().reset()
+            LocalExperiment(ExperimentConfig.parse(ref_raw), trial_cls,
+                            checkpoint_dir=os.path.join(root, "ref")).run()
+            reference = (_final_state(trainers.pop()), None, _host_steps(get_tracer()))
+            del trainers[:]
+            gc.collect()
+            torch.cuda.empty_cache()
+            log("gang C (uninterrupted, run here): " + json.dumps(reference[2]))
+        ref, _, ref_host = reference
+        ckpt_dir = raw["checkpoint_storage"]["host_path"]
+        config_path = os.path.join(root, "config.json")
+        with open(config_path, "w") as f:
+            json.dump(raw, f)
+
+        # ---- A: run-local, SIGTERM before step 14, drained at 18 -----------
+        code_a, rec_a, wall_a = gang_drive("run", config_path, ckpt_dir,
+                                            os.path.join(root, "a.json"))
+        ckpts_a = _checkpoint_steps(ckpt_dir)
+        log(f"gang A (SIGTERM before step {GANG_SIGTERM_AT}): exit {code_a}, {wall_a:.1f} s, "
+            + json.dumps(dict(launch_to_first_step_s=rec_a["launch_to_first_step_s"],
+                              host_steps=rec_a["host_steps"], checkpoints=ckpts_a)))
+        assert code_a == 75, code_a
+        assert sorted(c["steps"] for c in ckpts_a.values()) == [12, PREEMPT_AT], ckpts_a
+        assert all(c["verified"] for c in ckpts_a.values())
+
+        # ---- B: experiment resume, 18 -> 24 ---------------------------------
+        code_b, rec_b, wall_b = gang_drive("resume", "-", ckpt_dir,
+                                            os.path.join(root, "b.json"))
+        launches = rec_b["launches"]["1"]
+        log(f"gang B (resumed): exit {code_b}, {wall_b:.1f} s, " + json.dumps(dict(
+            launch_to_first_step_s=rec_b["launch_to_first_step_s"],
+            host_steps=rec_b["host_steps"], launches=launches)))
+        assert code_b == 0, code_b
+        validations = _journal_validations(ckpt_dir)
+        assert [s for s, _ in validations] == [12, EXPERIMENT_STEPS], validations
+        final = [u for u, c in _checkpoint_steps(ckpt_dir).items()
+                 if c["steps"] == EXPERIMENT_STEPS]
+        assert len(final) == 1, final
+        _, trainer = load_compared(os.path.join(ckpt_dir, "trial_1", final[0]), LMTrial)
+        layers, n_leaves = trainer.model.cfg.n_layers, len(trainer._params)
+        n_val = trainer.val_loader.batches_per_epoch
+        resumed = EXPERIMENT_STEPS - PREEMPT_AT
+        want = dict(flash_fwd=layers * (resumed + n_val), flash_bwd_dq=layers * resumed,
+                    flash_bwd_dkv=layers * resumed, fused_adamw=n_leaves * resumed)
+        got = {k: launches[k] for k in want}
+        assert got == want, f"relayed launches {got} != expected {want}"
+        cmp = _compare_loaded("B (SIGTERM, resumed)", trainer,
+                              validations[-1][1]["validation_loss"], ref)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        assert cmp["bitwise"], cmp
+        out.update(
+            launches=got, vs_uninterrupted=cmp,
+            launch_to_first_step_s=dict(A=rec_a["launch_to_first_step_s"],
+                                        B=rec_b["launch_to_first_step_s"]),
+            host_step_ms=dict(gang_A=rec_a["host_steps"]["mean_step_ms_without_write"],
+                              phase7=ref_host and ref_host["mean_step_ms_without_write"]),
+            wall_s=dict(A=wall_a, B=wall_b, phase=time.monotonic() - t_phase),
+        )
+        log("gang: " + json.dumps(out))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def phase_experiment(seed: int) -> dict:
     """Parts C, A, B and D of phase 7 (the docstring at the top)."""
     import os
@@ -1925,6 +2226,8 @@ def phase_experiment(seed: int) -> dict:
         del restarted
         out.update(saves=saves, restore=restore, host_steps=host, device_memory_gib=memory,
                    wall_s=dict(A=wall_a, B=wall_b, D=wall_d))
+        # C's final state on the host, for phase 16 to hold its gang against
+        out["_C"] = (ref, init_params, host)
         out["peak_memory_gib"] = max(m["peak_gib"] for m in memory.values())
         log(f"experiment peak device memory: {out['peak_memory_gib']:.2f} GiB")
     finally:
@@ -2001,13 +2304,13 @@ def _measured_experiment_cls():
 
                 setattr(self.searcher, name, record)
 
-        def _run_trial(self, create):
+        def _run_trial(self, create, devices=None):
             tracer = get_tracer()
             seen = {name: len(_spans(tracer, name)) for name in _TRIAL_SPANS}
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.memory_allocated()
             t0 = time.monotonic()
-            result = super()._run_trial(create)
+            result = super()._run_trial(create, devices)
             torch.cuda.synchronize()
             rid = create.request_id
             self.trial_stats[rid] = dict(
@@ -3457,7 +3760,8 @@ def hf_gpt2(seed: int, root: str) -> dict:
 
     from determined_tpu_torch.models import GPT2FinetuneTrial
 
-    raw = hf_raw_config("gpt2", os.path.join(root, "gpt2"), seed)
+    raw = _apply_cuts(hf_raw_config("gpt2", os.path.join(root, "gpt2"), seed),
+                      HF_GPT2_CUTS, {})
     out, trainer = _experiment_run(raw, GPT2FinetuneTrial, "hf G (gpt2)")
     hp = HF_GPT2_CONST["hyperparameters"]
     # the bar of tests/test_transformer.py::test_hf_gpt2_trial_learns
@@ -3467,8 +3771,8 @@ def hf_gpt2(seed: int, root: str) -> dict:
                bar=bar, bar_reached=bool(losses and losses[-1] < bar),
                params=sum(p.numel() for p in trainer._params.values()))
     log("hf G (gpt2): " + json.dumps(out))
-    steps = HF_GPT2_CONST["searcher"]["max_length"]["batches"]
-    period = HF_GPT2_CONST["min_validation_period"]["batches"]
+    steps = raw["searcher"]["max_length"]["batches"]
+    period = raw["min_validation_period"]["batches"]
     assert out["steps"] == steps, out["steps"]
     assert out["validation_steps"] == list(range(period, steps + 1, period)), \
         out["validation_steps"]
@@ -3676,6 +3980,8 @@ def phase_hf(seed: int) -> dict:
     for path, const, value, why in HF_CUTS:
         value = seed if value == "<--seed>" else value
         log(f"hf cut (G and B): {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
+    for path, const, value, why in HF_GPT2_CUTS:
+        log(f"hf cut (G): {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
     for part, key, const, value, why in HF_PARITY_CUTS:
         log(f"hf P cut ({part}): hyperparameters.{key} {json.dumps(const)} -> "
             f"{json.dumps(value)} ({why})")
@@ -4587,6 +4893,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         seq = phase_seq(args.seed)
+    gang = None
+    if "gang" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        gang = phase_gang(args.seed, experiment and experiment.pop("_C", None))
 
     if kernel and serve is not None and trained is not None:
         rows = []
@@ -4630,6 +4941,9 @@ def main() -> int:
                 fields["max_abs_err"] = max([fields["max_abs_err"]] + [
                     r["max_abs_err"] for r in seq["K"][name].values()
                     if r["max_abs_err"] is not None])
+            if gang is not None:
+                # the gang's rank, relayed: the resumed attempt's launches
+                by_phase["gang_resume"] = gang["launches"][name]
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=trained["launches"][name], launches_by_phase=by_phase,

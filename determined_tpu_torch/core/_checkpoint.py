@@ -1,17 +1,26 @@
 """CheckpointContext: durable checkpoint upload and restore with integrity
 manifests.
 
-A copy of ``determined_tpu/core/_checkpoint.py``'s chief path: upload /
-store_path / store_path_async / restore_path / delete against a
-StorageManager, and the manifest (per-file sizes and md5 digests, written as
-the last step of finalize, with a parent pointer for the fallback walk).
-On a mesh the Trainer gathers the whole state and the chief alone writes
-it through this path.  The merge helpers of a sharded checkpoint
-(``merge_resources``, ``merge_metadata``) are copied with the JAX
-semantics; the sharded paths that use them (``shard=True``: every rank
-writes its own files) raise ``NotImplementedError`` until a later slice of
-the port.  The array files themselves are written by
-``determined_tpu_torch.train.serialization``.
+A copy of ``determined_tpu/core/_checkpoint.py``: upload / store_path /
+store_path_async / restore_path / delete against a StorageManager, and the
+manifest (per-file sizes and md5 digests, written as the last step of
+finalize, with a parent pointer for the fallback walk).
+
+``shard=False`` is the chief's call: one rank writes the checkpoint.
+``shard=True`` is collective, with the JAX semantics: every rank calls,
+the chief's storage id is broadcast, every rank writes its own files into
+the one checkpoint, the chief merges every rank's file list, digests and
+metadata (``merge_resources``, ``merge_metadata``: a file two ranks wrote
+must be bit-identical, a metadata key must agree) and writes the metadata
+and the manifest last, and every rank returns only after that.  Where the
+JAX package has each host's local chief digest the whole shared
+directory, here each rank digests its own share of it (``upload``: the
+files it uploaded; ``store_path``: every ``size``-th file of the listing,
+offset by its rank), so no rank hashes the whole checkpoint.  The
+asynchronous variant's ``finish`` is the same collective, run at the next
+drain point.  A rank that dies before the chief's manifest leaves a
+checkpoint without one, which verification rejects.  The array files
+themselves are written by ``determined_tpu_torch.train.serialization``.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import contextlib
 import json
 import logging
 import os
+import shutil
 import tempfile
 import uuid as uuid_mod
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
@@ -37,9 +47,6 @@ logger = logging.getLogger("determined_tpu_torch.core.checkpoint")
 METADATA_FILE = "metadata.json"
 MANIFEST_FILE = "manifest.json"
 MANIFEST_VERSION = 1
-
-_LATER = "it comes with a later slice of the port (ROADMAP.md, Queue 1)"
-
 
 def build_manifest(
     resources: Dict[str, int],
@@ -145,6 +152,16 @@ def merge_resources(
     return merged
 
 
+def _merge_digests(all_digests: List[Dict[str, str]]) -> Dict[str, str]:
+    """First-writer-wins union of per-rank digest maps; conflicts were
+    already rejected by ``merge_resources``."""
+    merged: Dict[str, str] = {}
+    for rank_digests in all_digests:
+        for rel, digest in rank_digests.items():
+            merged.setdefault(rel, digest)
+    return merged
+
+
 def merge_metadata(all_metadata: List[Optional[Dict[str, Any]]]) -> Dict[str, Any]:
     """Key-wise merge; the same key must carry the same value on all ranks
     (reference ``merge_metadata:84``)."""
@@ -177,9 +194,8 @@ def file_stats(path: str) -> Dict[str, Tuple[int, int]]:
 
 
 class CheckpointContext:
-    """Checkpoints written by one rank, the chief: every call takes the JAX
-    package's non-sharded path; ``shard=True`` raises
-    ``NotImplementedError`` (a later slice of the port)."""
+    """Checkpoints written by the chief (``shard=False``) or by every rank
+    together (``shard=True``, collective)."""
 
     def __init__(
         self,
@@ -194,38 +210,63 @@ class CheckpointContext:
         # outside this context (accept_verified); consumed by restore_path
         self._verified: Dict[str, Dict[str, Tuple[int, int]]] = {}
 
-    def _check_single_rank(self, shard: bool, what: str) -> None:
-        if shard:
-            raise NotImplementedError(
-                f"{what}(shard=True) (one checkpoint merged from every rank's files) is "
-                f"not ported to determined_tpu_torch yet; {_LATER}"
-            )
+    def _check_chief(self, what: str) -> None:
         if not self._dist.is_chief:
             raise RuntimeError(f"{what}(shard=False) must only be called on the chief")
+
+    def _shared_storage_id(self) -> str:
+        """The chief's new storage id, on every rank (a collective)."""
+        return self._dist.broadcast(str(uuid_mod.uuid4()) if self._dist.is_chief else None)
 
     # -- write path --------------------------------------------------------
 
     def upload(
         self,
-        ckpt_dir: str,
+        ckpt_dir: Optional[str],
         metadata: Optional[Dict[str, Any]] = None,
         *,
         shard: bool = False,
         selector: Optional[Callable[[str], bool]] = None,
     ) -> str:
-        """Upload a directory as one checkpoint; returns its storage id."""
-        self._check_single_rank(shard, "upload")
+        """Upload a directory as one checkpoint; returns its storage id.
+
+        Non-sharded: chief-only call.  Sharded: collective, every rank
+        calls (``ckpt_dir=None`` for a rank with nothing to add)."""
+        if shard:
+            return self._upload_sharded(ckpt_dir, metadata, selector)
+        self._check_chief("upload")
+        if ckpt_dir is None:
+            raise ValueError("chief upload requires ckpt_dir")
         storage_id = str(uuid_mod.uuid4())
+        resources, digests, paths = self._digest_selected(ckpt_dir, selector)
+        self._storage.upload(ckpt_dir, storage_id, paths=paths)
+        self._finalize(storage_id, resources, dict(metadata or {}), digests)
+        return storage_id
+
+    def _digest_selected(self, ckpt_dir: str, selector: Optional[Callable[[str], bool]]):
         paths = self._selected(ckpt_dir, selector)
         selected = set(paths)
-        self._storage.upload(ckpt_dir, storage_id, paths=paths)
         resources = {p: sz for p, sz in list_directory(ckpt_dir).items() if p in selected}
         digests = {
             p: file_md5(os.path.join(ckpt_dir, p))
             for p in paths
             if not p.endswith("/") and p != METADATA_FILE
         }
-        self._finalize(storage_id, resources, dict(metadata or {}), digests)
+        return resources, digests, paths
+
+    def _upload_sharded(
+        self,
+        ckpt_dir: Optional[str],
+        metadata: Optional[Dict[str, Any]],
+        selector: Optional[Callable[[str], bool]],
+    ) -> str:
+        storage_id = self._shared_storage_id()
+        resources: Dict[str, int] = {}
+        digests: Dict[str, str] = {}
+        if ckpt_dir is not None:
+            resources, digests, paths = self._digest_selected(ckpt_dir, selector)
+            self._storage.upload(ckpt_dir, storage_id, paths=paths)
+        self._merge_and_finalize(storage_id, resources, digests, dict(metadata or {}))
         return storage_id
 
     def _selected(self, ckpt_dir: str, selector: Optional[Callable[[str], bool]]) -> List[str]:
@@ -264,18 +305,38 @@ class CheckpointContext:
                 json.dump(manifest, f, indent=2, sort_keys=True)
             self._storage.upload(td, storage_id, paths=[MANIFEST_FILE])
 
+    def _merge_and_finalize(self, storage_id: str, resources: Dict[str, int],
+                            digests: Dict[str, str], metadata: Dict[str, Any]) -> None:
+        """The sharded tail, collective: every rank's files, digests and
+        metadata go to the chief, which merges them and finalizes; no rank
+        returns before the manifest is written."""
+        gathered = self._dist.gather((resources, digests, metadata))
+        if self._dist.is_chief:
+            merged = merge_resources([g[0] for g in gathered], [g[1] for g in gathered])
+            merged_md = merge_metadata([g[2] for g in gathered])
+            self._finalize(storage_id, merged, merged_md,
+                           _merge_digests([g[1] for g in gathered]))
+        self._dist.barrier()
+
     @contextlib.contextmanager
     def store_path(
         self, metadata: Optional[Dict[str, Any]] = None, *, shard: bool = False
     ) -> Iterator[Tuple[str, str]]:
         """Yield (path, storage_id); whatever the caller writes there is the
-        checkpoint."""
-        self._check_single_rank(shard, "store_path")
-        storage_id = str(uuid_mod.uuid4())
-        with self._storage.store_path(storage_id, self._staging_dir) as path:
-            yield path, storage_id
-            resources, digests = self._list_and_digest(path)
-        self._finalize(storage_id, resources, dict(metadata or {}), digests)
+        checkpoint.  The sharded variant is collective like
+        ``upload(shard=True)``: every rank writes its own files into
+        ``path``."""
+        if not shard:
+            self._check_chief("store_path")
+            storage_id = str(uuid_mod.uuid4())
+            with self._storage.store_path(storage_id, self._staging_dir) as path:
+                yield path, storage_id
+                resources, digests = self._list_and_digest(path)
+            self._finalize(storage_id, resources, dict(metadata or {}), digests)
+            return
+        path, storage_id, finish = self.store_path_async(metadata, shard=True)
+        yield path, storage_id
+        finish()
 
     def store_path_async(
         self, metadata: Optional[Dict[str, Any]] = None, *, shard: bool = False
@@ -285,34 +346,76 @@ class CheckpointContext:
 
         The caller may write into ``path`` from a BACKGROUND thread while
         training continues; once the writes are done, ``finish()`` must be
-        called from the MAIN thread (at the next save, preemption, or exit):
-        it digests the files and writes the metadata and the manifest, as
-        ``store_path``'s exit does.  Until then the checkpoint has no
-        manifest, so no resume can take it.
+        called from the MAIN thread (at the next save, preemption, or exit;
+        with ``shard`` at a point every rank reaches in the same loop
+        position, since it is the collective merge): it digests the files and
+        writes the metadata and the manifest, as ``store_path``'s exit does.
+        Until then the checkpoint has no manifest, so no resume can take it.
         """
-        self._check_single_rank(shard, "store_path_async")
         metadata = dict(metadata or {})
-        storage_id = str(uuid_mod.uuid4())
-        cm = self._storage.store_path(storage_id, self._staging_dir)
-        path = cm.__enter__()
+        if not shard:
+            self._check_chief("store_path_async")
+            storage_id = str(uuid_mod.uuid4())
+            cm = self._storage.store_path(storage_id, self._staging_dir)
+            path = cm.__enter__()
+
+            def finish() -> None:
+                try:
+                    resources, digests = self._list_and_digest(path)
+                finally:
+                    cm.__exit__(None, None, None)
+                self._finalize(storage_id, resources, metadata, digests)
+
+            return path, storage_id, finish
+
+        storage_id = self._shared_storage_id()
+        dist = self._dist
+        if self._storage.direct_store:
+            # shared fs: every rank writes straight into the one durable dir
+            cm = self._storage.store_path(storage_id, self._staging_dir)
+            path = cm.__enter__()
+
+            def finish() -> None:
+                try:
+                    # every rank's files are complete before any is hashed
+                    dist.barrier()
+                    resources, digests = self._list_and_digest(path, dist.rank, dist.size)
+                finally:
+                    cm.__exit__(None, None, None)
+                self._merge_and_finalize(storage_id, resources, digests, metadata)
+
+            return path, storage_id, finish
+
+        # a staged backend: the ranks of a host stage into one directory per
+        # storage id, and its local chief uploads it once
+        path = self._storage.stage_path(storage_id, self._staging_dir)
 
         def finish() -> None:
             try:
-                resources, digests = self._list_and_digest(path)
+                dist.barrier()
+                resources, digests = self._list_and_digest(
+                    path, dist.local_rank, dist.local_size)
+                if dist.is_local_chief:
+                    self._storage.upload(path, storage_id)
+                # the uploads on every host land before any rank goes on
+                dist.barrier()
             finally:
-                cm.__exit__(None, None, None)
-            self._finalize(storage_id, resources, metadata, digests)
+                if dist.is_local_chief:
+                    shutil.rmtree(path, ignore_errors=True)
+            self._merge_and_finalize(storage_id, resources, digests, metadata)
 
         return path, storage_id, finish
 
-    def _list_and_digest(self, path: str):
+    def _list_and_digest(self, path: str, rank: int = 0, size: int = 1):
+        """The files under ``path`` and the md5 of this rank's share of them
+        (every ``size``-th file, from ``rank``): with ``size`` 1, all."""
         with get_tracer().span("checkpoint.digest", cat="checkpoint"):
-            resources = list_directory(path)
-            digests = {
-                p: file_md5(os.path.join(path, p))
-                for p in resources
-                if not p.endswith("/") and p != METADATA_FILE
-            }
+            listed = list_directory(path)
+            files = sorted(p for p in listed if not p.endswith("/") and p != METADATA_FILE)
+            mine = files[rank::size]
+            resources = {p: listed[p] for p in mine}
+            resources.update({p: sz for p, sz in listed.items() if p.endswith("/")})
+            digests = {p: file_md5(os.path.join(path, p)) for p in mine}
         return resources, digests
 
     # -- read path ---------------------------------------------------------

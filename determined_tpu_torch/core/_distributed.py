@@ -374,8 +374,11 @@ class DistributedContext:
         """Build from torchrun's environment (``RANK``, ``WORLD_SIZE``,
         ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
         ``MASTER_PORT``) and open the tensor process group beside the star:
-        NCCL on CUDA (each rank on ``cuda:LOCAL_RANK``), gloo only where
-        ``device`` names the CPU.  ``init_method`` overrides the TCP
+        NCCL on CUDA, gloo only where ``device`` names the CPU.  A rank runs
+        on ``cuda:LOCAL_RANK`` unless ``device`` names its ordinal (a gang
+        on a block of the host's devices, ``experiment/_gang.py``: the
+        rank's device is its block's, every device stays visible, and
+        ``LOCAL_RANK`` is never taken as an ordinal there).  ``init_method`` overrides the TCP
         rendezvous at ``MASTER_ADDR:MASTER_PORT`` (``file://...`` for a
         ``FileStore``).
 
@@ -404,7 +407,7 @@ class DistributedContext:
         addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
         dev = resolve_device(device)
         if dev.type == "cuda":
-            dev = torch.device("cuda", local_rank)
+            dev = torch.device("cuda", local_rank if dev.index is None else dev.index)
             torch.cuda.set_device(dev)
             backend = "nccl"
         elif dev.type == "cpu":

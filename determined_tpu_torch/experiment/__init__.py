@@ -1,7 +1,9 @@
-"""Experiment orchestration of the port: the local searcher-driven runner
-and its crash-recovery journal (``determined_tpu/experiment`` without the
-cluster runner and the gang scheduler)."""
+"""Experiment orchestration of the port: the local searcher-driven runner,
+its crash-recovery journal, the concurrent trial scheduler and the gang
+launch of a trial on several devices (``determined_tpu/experiment``
+without the cluster runner)."""
 
+from determined_tpu_torch.experiment._gang import Gang, TrialNotImportableError
 from determined_tpu_torch.experiment.journal import (
     ExperimentJournal,
     ExperimentJournalError,
@@ -15,14 +17,26 @@ from determined_tpu_torch.experiment.local import (
     LocalExperiment,
     TrialResult,
 )
+from determined_tpu_torch.experiment.scheduler import (
+    SchedulerOutcome,
+    SlotAllocation,
+    SlotPool,
+    TrialScheduler,
+)
 
 __all__ = [
     "ExperimentJournal",
     "ExperimentJournalError",
+    "Gang",
     "JournaledSearcher",
     "LocalExperiment",
     "PREEMPTED_EXIT_CODE",
+    "SchedulerOutcome",
+    "SlotAllocation",
+    "SlotPool",
+    "TrialNotImportableError",
     "TrialResult",
+    "TrialScheduler",
     "experiment_status",
     "journal_path",
     "read_journal",

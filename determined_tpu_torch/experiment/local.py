@@ -1,4 +1,4 @@
-"""Local experiment runner: a searcher-driven search on one device.
+"""Local experiment runner: a searcher-driven search on the host's devices.
 
 Port of ``determined_tpu/experiment/local.py``: the same ``Searcher`` /
 ``SearchMethod`` machinery drives trials through the Trainer, with
@@ -16,8 +16,20 @@ copied into its own namespace through the storage manager and journaled as
 (``config.experiment.clone_extended_length``); a resume replays the clones.
 Live clone sources are kept by the retention pass.
 
-The port runs on one device (``device=``, CUDA unless named), so trials run
-one after another: the serial path (``_run_serial``) is the whole runner.
+The trials run on the host's devices (``devices=``; None: every visible
+CUDA device, or the one ``device=`` names, CUDA unless named), as the JAX
+runner packs them: each trial takes a block of ``resources.mesh``'s size
+(a wildcard ``-1`` axis takes every device), and with
+``searcher.max_concurrent_trials`` over 1 (at most one trial a block; 0 or
+less: bounded by the devices alone) the blocks run at once under
+``experiment/scheduler.py``'s ``TrialScheduler`` (``_run_concurrent``),
+else one trial after another (``_run_serial``).  A trial on one device
+trains on its own thread with that device given to its Trainer (its CUDA
+calls made under ``torch.cuda.device``, which holds for the thread alone;
+nothing sets a process-wide device); a trial whose block holds several
+devices runs as a gang of rank processes, one a device
+(``experiment/_gang.py``), restarted by ``exec.run_trial.TrialSupervisor``
+from its newest finalized checkpoint after a rank fails.
 With ``observability.trace_export`` the tracer's events stream to
 ``checkpoint_dir/traces/events.jsonl`` while the run goes, and the run ends
 by writing ``traces/trace.json`` (Perfetto) and ``traces/goodput.json``
@@ -26,15 +38,15 @@ by writing ``traces/trace.json`` (Perfetto) and ``traces/goodput.json``
 ``traces/torch_profiler/trial_<id>/``.
 
 Waiting for later slices of the port, each raising ``NotImplementedError``
-when asked for: a mesh over more than one device and the concurrent gang
-scheduler (both launch gangs of ranks),
-registry promotion and the strict preflight lint; with ``lint.preflight``
+when asked for: registry promotion and the strict preflight lint; with
+``lint.preflight``
 on (the default) the runner logs once that the preflight lint is not
 ported and goes on.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -44,7 +56,9 @@ import signal
 import tempfile
 import threading
 import time
-from typing import Any, Dict, Optional, Set, Tuple, Type
+from typing import Any, Dict, List, Optional, Set, Tuple, Type
+
+import torch
 
 from determined_tpu_torch import core
 from determined_tpu_torch._device import DeviceLike, resolve_device
@@ -54,6 +68,7 @@ from determined_tpu_torch.config.experiment import (
     Length,
     clone_extended_length,
 )
+from determined_tpu_torch.experiment._gang import Gang, trial_entrypoint
 from determined_tpu_torch.experiment.journal import (
     ExperimentJournal,
     ExperimentJournalError,
@@ -64,6 +79,8 @@ from determined_tpu_torch.experiment.journal import (
 from determined_tpu_torch.observability import export_experiment_trace, get_tracer
 from determined_tpu_torch.searcher import Create, method_from_config
 from determined_tpu_torch.train import Trainer, init as train_init
+from determined_tpu_torch.exec.run_trial import TrialSupervisor
+from determined_tpu_torch.train._restart import RestartPolicy
 from determined_tpu_torch.train._trial import TorchTrial
 from determined_tpu_torch.utils.errors import CheckpointCorruptError
 
@@ -92,6 +109,19 @@ class _PreemptFlag:
         return self._flag
 
 
+class _GangPreempt:
+    """What a gang trial registers as its active context: ``preempt.
+    simulate()`` sets a plain flag (safe from a signal handler) that the
+    gang's supervising thread forwards to the chief."""
+
+    def __init__(self) -> None:
+        self.preempt = self
+        self.requested = False
+
+    def simulate(self) -> None:
+        self.requested = True
+
+
 @dataclasses.dataclass
 class TrialResult:
     request_id: int
@@ -116,18 +146,12 @@ class LocalExperiment:
         checkpoint_dir: Optional[str] = None,
         seed: Optional[int] = None,
         device: DeviceLike = None,
+        devices: Optional[List[Any]] = None,
         preflight: Optional[bool] = None,
     ) -> None:
         if config.registry.auto_promote:
             raise NotImplementedError(
                 f"registry.auto_promote is not ported to determined_tpu_torch yet; {_LATER}"
-            )
-        mesh = config.resources.mesh
-        if mesh.num_devices > 1:
-            raise NotImplementedError(
-                f"resources.mesh {mesh.axes()} over {mesh.num_devices} devices in a local "
-                "experiment (launching a gang of ranks comes with the scheduler) is not "
-                f"ported to determined_tpu_torch yet; {_LATER}"
             )
         lint = config.lint
         if lint.strict or lint.thread_sentinel or lint.collective_sentinel:
@@ -137,7 +161,11 @@ class LocalExperiment:
             )
         self.config = config
         self.trial_cls = trial_cls
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None or not devices
+                                     else devices[0])
+        # None = every visible CUDA device (or the one ``device`` names) at
+        # run time
+        self.devices = [torch.device(d) for d in devices] if devices is not None else None
         # None = follow config.lint.preflight (on by default)
         self.preflight = preflight
         self.checkpoint_dir = checkpoint_dir or os.path.join(
@@ -150,6 +178,10 @@ class LocalExperiment:
             seed=self.seed,
         )
         self.results: Dict[int, TrialResult] = {}
+        self.scheduler_stats: Optional[Dict[str, Any]] = None
+        # rid -> the kernel launch counts a gang's chief relayed (its last
+        # attempt)
+        self.trial_launches: Dict[int, Dict[str, Any]] = {}
         self.journal: Optional[ExperimentJournal] = None
         self.status = "pending"  # pending|running|completed|preempted
         self._resume_checkpoints: Dict[int, Optional[str]] = {}
@@ -187,96 +219,179 @@ class LocalExperiment:
     def _traces_dir(self) -> str:
         return os.path.join(self.checkpoint_dir, "traces")
 
-    def _run_trial(self, create: Create) -> TrialResult:
-        """Train one trial; report validations into the searcher as they
-        happen."""
+    def _run_trial(self, create: Create, devices: Optional[List[Any]] = None) -> TrialResult:
+        """Train one trial on ``devices`` (its block; None: the experiment's
+        device); report validations into the searcher as they happen.  A
+        block of several devices runs the trial as a gang."""
         with get_tracer().span("trial.run", cat="trial", trial=create.request_id):
-            return self._run_trial_inner(create)
+            if devices is not None and len(devices) > 1:
+                return self._run_gang(create, devices)
+            return self._run_trial_inner(create, devices[0] if devices else self.device)
 
-    def _run_trial_inner(self, create: Create) -> TrialResult:
+    def _register(self, rid: int, ctx: Any) -> None:
+        with self._active_lock:
+            actives = dict(self._active_trials)
+            actives[rid] = ctx
+            self._active_trials = actives  # COW: readers never lock
+        if self._preempt.is_set():
+            # the drain request landed before this trial registered
+            ctx.preempt.simulate()
+
+    def _unregister(self, rid: int) -> None:
+        with self._active_lock:
+            actives = dict(self._active_trials)
+            actives.pop(rid, None)
+            self._active_trials = actives
+
+    def _resume_point(self, create: Create) -> Tuple[Optional[str], Any]:
+        """The checkpoint the trial resumes from (its journaled one, or a
+        PBT parent's materialized into its namespace), and the manifest
+        check already made of it, for the restore to reuse (None: none)."""
+        rid = create.request_id
+        with self._ckpt_lock:
+            resume_ckpt = self._resume_checkpoints.get(rid)
+            verdict = self._resume_verdicts.pop(rid, None)
+        if verdict is not None and verdict[0] != resume_ckpt:
+            verdict = None
+        if resume_ckpt is None and create.source_trial_id is not None:
+            # PBT exploit: materialize the parent's newest usable
+            # checkpoint into this trial's namespace and resume from it
+            resume_ckpt = self._materialize_clone(rid, create.source_trial_id)
+        return resume_ckpt, verdict
+
+    def _on_validation(self, rid: int, steps_completed: int, metrics: Dict[str, Any],
+                       latest: Optional[str], progress: float) -> bool:
+        """A trial's validation into the searcher; whether the searcher
+        stopped the trial."""
+        payload = dict(metrics)
+        payload.setdefault(self.config.searcher.time_metric or "batches", steps_completed)
+        self.searcher.on_validation(rid, payload)
+        # WAL the newest FINALIZED checkpoint so a driver crash knows this
+        # trial's resume point
+        self._journal_trial_checkpoint(rid, latest)
+        stopped = self.searcher.is_stopped(rid)
+        self.searcher.set_trial_progress(rid, progress)
+        return stopped
+
+    def _fit_kwargs(self, max_length: Length) -> Dict[str, Any]:
         cfg = self.config
-        scfg = cfg.searcher
+        validation_period = cfg.min_validation_period or Length.batches(
+            max(1, (max_length.units if max_length.unit == "batches" else 100) // 4)
+        )
+        return dict(
+            validation_period=validation_period,
+            checkpoint_period=cfg.min_checkpoint_period,
+            report_period=validation_period,
+            checkpoint_policy=cfg.checkpoint_policy,
+        )
+
+    def _max_length(self, rid: int) -> Length:
+        scfg = self.config.searcher
         max_length = scfg.max_length or Length.batches(scfg.max_time or 100)
+        return self._clone_extended_length(max_length, rid)
+
+    def _run_trial_inner(self, create: Create, device: torch.device) -> TrialResult:
         rid = create.request_id
         core_ctx = core._dummy_init(
             checkpoint_dir=self._trial_checkpoint_dir(rid),
             trace_dir=os.path.join(self._traces_dir(), "torch_profiler", f"trial_{rid}"),
         )
         orig_report = core_ctx.train.report_validation_metrics
-        searcher = self.searcher
         runner = self
-        with self._active_lock:
-            actives = dict(self._active_trials)
-            actives[rid] = core_ctx
-            self._active_trials = actives  # COW: readers never lock
-        if self._preempt.is_set():
-            # the drain request landed before this trial registered
-            core_ctx.preempt.simulate()
-        with self._ckpt_lock:
-            resume_ckpt = self._resume_checkpoints.get(rid)
-            verdict = self._resume_verdicts.pop(rid, None)
-        if verdict is not None and verdict[0] == resume_ckpt:
+        self._register(rid, core_ctx)
+        resume_ckpt, verdict = self._resume_point(create)
+        if verdict is not None:
             core_ctx.checkpoint.accept_verified(*verdict)
-        if resume_ckpt is None and create.source_trial_id is not None:
-            # PBT exploit: materialize the parent's newest usable
-            # checkpoint into this trial's namespace and resume from it
-            resume_ckpt = self._materialize_clone(rid, create.source_trial_id)
-        max_length = self._clone_extended_length(max_length, rid)
+        max_length = self._max_length(rid)
+        # the trial's CUDA calls go to its device on this thread alone
+        on_device = (torch.cuda.device(device) if device.type == "cuda"
+                     else contextlib.nullcontext())
         try:
             if self.journal is not None:
                 self.journal.append(
-                    "trial_running", rid=rid, devices=[str(self.device)],
+                    "trial_running", rid=rid, devices=[str(device)],
                     resume_checkpoint=resume_ckpt,
                 )
-            ctx = train_init(
-                hparams=create.hparams,
-                core_context=core_ctx,
-                exp_config=cfg,
-                seed=self.seed + rid,
-                device=self.device,
-            )
-            trial = self.trial_cls(ctx)
-            trainer = Trainer(trial)
-
-            def report_validation(steps_completed: int, metrics: Dict[str, Any]) -> None:
-                orig_report(steps_completed, metrics)
-                payload = dict(metrics)
-                payload.setdefault(scfg.time_metric or "batches", steps_completed)
-                searcher.on_validation(rid, payload)
-                # WAL the newest FINALIZED checkpoint so a driver crash
-                # knows this trial's resume point
-                runner._journal_trial_checkpoint(rid, trainer.latest_checkpoint)
-                if searcher.is_stopped(rid):
-                    # cooperative stop through the preemption path
-                    core_ctx.preempt.simulate()
-                searcher.set_trial_progress(
-                    rid, min(steps_completed / runner._max_steps(trainer, max_length), 1.0)
+            with on_device:
+                ctx = train_init(
+                    hparams=create.hparams,
+                    core_context=core_ctx,
+                    exp_config=self.config,
+                    seed=self.seed + rid,
+                    device=device,
                 )
+                trial = self.trial_cls(ctx)
+                trainer = Trainer(trial)
 
-            core_ctx.train.report_validation_metrics = report_validation
+                def report_validation(steps_completed: int, metrics: Dict[str, Any]) -> None:
+                    orig_report(steps_completed, metrics)
+                    progress = min(steps_completed / runner._max_steps(trainer, max_length), 1.0)
+                    if runner._on_validation(rid, steps_completed, metrics,
+                                             trainer.latest_checkpoint, progress):
+                        # cooperative stop through the preemption path
+                        core_ctx.preempt.simulate()
 
-            validation_period = cfg.min_validation_period or Length.batches(
-                max(1, (max_length.units if max_length.unit == "batches" else 100) // 4)
-            )
-            summary = trainer.fit(
-                max_length,
-                validation_period=validation_period,
-                checkpoint_period=cfg.min_checkpoint_period,
-                report_period=validation_period,
-                latest_checkpoint=resume_ckpt,
-                checkpoint_policy=cfg.checkpoint_policy,
-            )
+                core_ctx.train.report_validation_metrics = report_validation
+                summary = trainer.fit(
+                    max_length, latest_checkpoint=resume_ckpt, **self._fit_kwargs(max_length)
+                )
         finally:
             # the hook must not outlive the trial, and a failed build must
             # still close the context it was handed
             core_ctx.train.report_validation_metrics = orig_report
             core_ctx.close()
-            with self._active_lock:
-                actives = dict(self._active_trials)
-                actives.pop(rid, None)
-                self._active_trials = actives
+            self._unregister(rid)
+        return self._trial_result(create, summary)
+
+    def _run_gang(self, create: Create, devices: List[Any]) -> TrialResult:
+        """The trial as a gang of rank processes on ``devices``, under the
+        supervisor's restarts (``experiment/_gang.py``)."""
+        rid = create.request_id
+        cfg = self.config
+        # a class the ranks cannot import fails here, before any process
+        entrypoint = trial_entrypoint(self.trial_cls)
+        if not cfg.raw:
+            raise ValueError("a gang trial needs an ExperimentConfig made by parse/from_yaml "
+                             "(its ranks parse the same raw configuration)")
+        handle = _GangPreempt()
+        self._register(rid, handle)
+        try:
+            resume_ckpt, verdict = self._resume_point(create)
+            max_length = self._max_length(rid)
+            names = [str(d) for d in devices]
+            if self.journal is not None:
+                self.journal.append("trial_running", rid=rid, devices=names,
+                                    resume_checkpoint=resume_ckpt)
+            spec = dict(
+                entrypoint=entrypoint, config=cfg.raw, hparams=create.hparams,
+                seed=self.seed + rid, checkpoint_dir=self._trial_checkpoint_dir(rid),
+                trace_dir=os.path.join(self._traces_dir(), "torch_profiler", f"trial_{rid}"),
+                # the resume point's manifest check, for every rank's restore
+                # to reuse (the ranks see the same files)
+                verdict=verdict,
+            )
+            gang = Gang(
+                spec, names, os.path.join(self.checkpoint_dir, "gangs", f"trial_{rid}"),
+                on_validation=lambda *a: self._on_validation(rid, *a),
+                preempt_requested=lambda: handle.requested,
+            )
+            supervisor = TrialSupervisor(lambda: gang, policy=RestartPolicy.from_exp_config(cfg))
+            try:
+                summary = supervisor.run(max_length, latest_checkpoint=resume_ckpt,
+                                         **self._fit_kwargs(max_length))
+            finally:
+                self.trial_launches[rid] = gang.launches
+        finally:
+            self._unregister(rid)
+        return self._trial_result(create, summary)
+
+    def _trial_result(self, create: Create, summary: Dict[str, Any]) -> TrialResult:
+        """A trial's result from its fit summary; journaled unless the
+        trial was drained for preemption."""
+        rid = create.request_id
         preempted = bool(
-            self._preempt.is_set() and summary["stopped_early"] and not searcher.is_stopped(rid)
+            self._preempt.is_set() and summary["stopped_early"]
+            and not self.searcher.is_stopped(rid)
         )
         result = TrialResult(
             request_id=rid,
@@ -329,15 +444,38 @@ class LocalExperiment:
 
     # -- the search loop ---------------------------------------------------
 
-    def run(self, max_trials: Optional[int] = None, *, resume: bool = False) -> Dict[str, Any]:
-        """Run the search to completion (or to a resumable preemption), one
-        trial at a time.
+    def _host_devices(self) -> List[torch.device]:
+        """The devices trials run on: ``devices``, else every visible CUDA
+        device (``device`` without an ordinal), else ``device`` alone."""
+        if self.devices is not None:
+            return list(self.devices)
+        if self.device.type == "cuda" and self.device.index is None:
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return [self.device]
 
-        With ``fault_tolerance.journal`` (default on) every
+    def _slots_per_trial(self, n_devices: int) -> int:
+        """Devices one trial's mesh occupies; a wildcard (-1) axis means
+        'the whole host', which forces serial execution."""
+        mesh_cfg = self.config.resources.mesh
+        if -1 in mesh_cfg.sizes():
+            return n_devices
+        return mesh_cfg.num_devices
+
+    def run(
+        self,
+        max_trials: Optional[int] = None,
+        *,
+        resume: bool = False,
+    ) -> Dict[str, Any]:
+        """Run the search to completion (or to a resumable preemption).
+
+        Trials run concurrently on disjoint device blocks when
+        ``searcher.max_concurrent_trials`` (> 1), the block size and the
+        device count allow.  With ``fault_tolerance.journal`` (default on) every
         searcher event and trial transition is journaled under
         ``checkpoint_dir``; ``resume=True`` replays that journal instead of
         starting fresh.  SIGTERM/SIGINT (or ``request_preemption()``) drain
-        the running trial to a checkpoint and the summary comes back with
+        the running trials to checkpoints and the summary comes back with
         ``status="preempted"`` (resumable).
         """
         self._preflight_check()
@@ -383,10 +521,27 @@ class LocalExperiment:
                     config=self.config.raw or None,
                     seed=self.seed,
                 )
+            devices = self._host_devices()
+            slots = self._slots_per_trial(len(devices))
+            if slots > len(devices):
+                raise InvalidExperimentConfig(
+                    f"resources.mesh wants {slots} devices per trial, "
+                    f"only {len(devices)} visible"
+                )
+            limit = self.config.searcher.max_concurrent_trials
+            if limit <= 0:
+                # 0 = no explicit cap (the adaptive searcher's "auto" value):
+                # bound by device capacity alone
+                limit = len(devices)
+            concurrency = min(limit, max(1, len(devices) // slots))
+
             self.status = "running"
             self._install_signal_handlers()
             try:
-                self._run_serial(max_trials)
+                if concurrency <= 1:
+                    self._run_serial(max_trials, devices[:slots])
+                else:
+                    self._run_concurrent(max_trials, devices, slots, concurrency)
             finally:
                 self._restore_signal_handlers()
             self.status = "preempted" if self._preempt.is_set() else "completed"
@@ -801,8 +956,9 @@ class LocalExperiment:
         except Exception:  # noqa: BLE001 - GC must never kill the search
             logger.exception("checkpoint gc pass failed")
 
-    def _run_serial(self, max_trials: Optional[int] = None) -> None:
-        """Sequential execution in the reference event order."""
+    def _run_serial(self, max_trials: Optional[int], block: List[Any]) -> None:
+        """Sequential execution in the reference event order, every trial on
+        ``block``."""
         self.searcher.start()
         executed = 0
         while self.searcher.shutdown is None and not self._preempt.is_set():
@@ -815,7 +971,8 @@ class LocalExperiment:
             if max_trials is not None and executed >= max_trials:
                 break
             logger.info("trial %d starting with hparams %s", rec.request_id, rec.hparams)
-            result = self._run_trial(Create(rec.request_id, rec.hparams, rec.source_trial_id))
+            result = self._run_trial(Create(rec.request_id, rec.hparams, rec.source_trial_id),
+                                     block)
             if result.preempted:
                 # drained, not done: the trial stays in flight, its
                 # checkpoint (None if no boundary was reached) is the
@@ -826,6 +983,36 @@ class LocalExperiment:
             self.results[rec.request_id] = result
             executed += 1
             self.searcher.on_trial_exited(rec.request_id)
+
+    def _run_concurrent(self, max_trials: Optional[int], devices: List[Any], slots: int,
+                        concurrency: int) -> None:
+        from determined_tpu_torch.experiment.scheduler import SlotPool, TrialScheduler
+
+        logger.info(
+            "concurrent search: %d devices / %d per trial -> up to %d trials in parallel",
+            len(devices), slots, concurrency,
+        )
+        scheduler = TrialScheduler(
+            self.searcher,
+            SlotPool(devices),
+            self._run_trial,
+            slots_per_trial=slots,
+            max_concurrent=concurrency,
+            stop_event=self._preempt,
+            drain_timeout=self.config.fault_tolerance.preempt_drain_seconds,
+        )
+        outcome = scheduler.run(max_trials=max_trials)
+        self.results.update(outcome.results)
+        self.scheduler_stats = outcome.stats
+        with self._ckpt_lock:
+            for rid, res in outcome.preempted.items():
+                if res is not None:
+                    self._resume_checkpoints[rid] = res.checkpoint
+        if outcome.errors:
+            rid, exc = outcome.errors[0]
+            # the original exception type, as on the serial path
+            logger.error("trial %d failed during concurrent search", rid)
+            raise exc
 
     def summary(self) -> Dict[str, Any]:
         scfg = self.config.searcher

@@ -14,12 +14,22 @@ booleans, nil and arrays, and one extension:
 ``read_msgpack`` returns the nested dict with numpy leaves (each owning its
 memory).  ``bfloat16``, which numpy lacks, is widened to float32, exactly.
 Any other type (ext 2 or 3, a dtype numpy does not name, a non-string key)
-raises ``FlaxMsgpackError``; a sharded checkpoint (``flax_model.msgpack.index.json``)
-raises ``ShardedCheckpointError``.  Nothing is guessed.
+raises ``FlaxMsgpackError``.  Nothing is guessed.
+
+A sharded directory (``save_pretrained(..., max_shard_size=...)``) holds
+``flax_model.msgpack.index.json``, whose ``weight_map`` names the shard
+file of every leaf ("/"-joined path), and the shards, each a param tree of
+its own leaves.  ``read_pretrained_dir`` reads every shard the index names
+and joins them into one tree, as ``load_flax_sharded_weights`` does; a
+shard that is missing (``MissingShardError``), a leaf held by two shards
+(``DuplicateLeafError``), or a leaf that its shard holds and the index does
+not give it, or gives it and the shard lacks (``UnindexedLeafError``),
+raises.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import struct
 from typing import Any, Dict, Tuple
@@ -37,8 +47,17 @@ class FlaxMsgpackError(ValueError):
     """The bytes are not the msgpack subset a Flax ``save_pretrained`` writes."""
 
 
-class ShardedCheckpointError(FlaxMsgpackError):
-    """The directory holds a sharded Flax checkpoint, which the port does not read."""
+class MissingShardError(FlaxMsgpackError):
+    """A shard that the index names is not in the directory."""
+
+
+class DuplicateLeafError(FlaxMsgpackError):
+    """Two shards of one checkpoint hold the same leaf."""
+
+
+class UnindexedLeafError(FlaxMsgpackError):
+    """A shard holds a leaf that the index does not give it, or lacks one
+    that the index does."""
 
 
 class _Reader:
@@ -191,15 +210,72 @@ def read_msgpack(data: bytes) -> Dict[str, Any]:
     return _unchunk(tree)
 
 
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = out
+        *parents, last = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return out
+
+
+def _read_file(path: str) -> Dict[str, Any]:
+    with open(path, "rb") as f:
+        return read_msgpack(f.read())
+
+
+def _read_sharded(path: str) -> Dict[str, Any]:
+    """The tree of a sharded directory: every shard of the index's
+    ``weight_map``, each leaf where the index puts it."""
+    with open(os.path.join(path, INDEX_NAME)) as f:
+        index = json.load(f)
+    weight_map = index.get("weight_map") if isinstance(index, dict) else None
+    if not isinstance(weight_map, dict) or not weight_map:
+        raise FlaxMsgpackError(f"{INDEX_NAME} in {path} has no weight_map")
+    flat: Dict[str, Any] = {}
+    owner: Dict[str, str] = {}
+    for shard in sorted(set(weight_map.values())):
+        file = os.path.join(path, shard)
+        if not os.path.isfile(file):
+            raise MissingShardError(f"{path}: the shard {shard} that {INDEX_NAME} names is "
+                                    "missing")
+        leaves = _flatten(_read_file(file))
+        for name, leaf in leaves.items():
+            if name in owner:
+                raise DuplicateLeafError(
+                    f"{path}: the leaf {name} is in both {owner[name]} and {shard}")
+            if weight_map.get(name) != shard:
+                raise UnindexedLeafError(
+                    f"{path}: {shard} holds the leaf {name}, which {INDEX_NAME} "
+                    f"{'gives to ' + weight_map[name] if name in weight_map else 'does not name'}")
+            owner[name] = shard
+            flat[name] = leaf
+    absent = sorted(set(weight_map) - set(flat))
+    if absent:
+        raise UnindexedLeafError(f"{path}: {INDEX_NAME} names leaves no shard holds: "
+                                 f"{absent[:5]}")
+    return _unflatten(flat)
+
+
 def read_pretrained_dir(path: str) -> Dict[str, Any]:
-    """The param tree of a Flax ``save_pretrained`` directory's
-    ``flax_model.msgpack``."""
+    """The param tree of a Flax ``save_pretrained`` directory: its
+    ``flax_model.msgpack``, or the shards its index names."""
     if os.path.exists(os.path.join(path, INDEX_NAME)):
-        raise ShardedCheckpointError(
-            f"{path} holds a sharded Flax checkpoint ({INDEX_NAME}); the port reads a single "
-            f"{WEIGHTS_NAME} only")
+        return _read_sharded(path)
     file = os.path.join(path, WEIGHTS_NAME)
     if not os.path.isfile(file):
         raise FileNotFoundError(f"no {WEIGHTS_NAME} in {path}")
-    with open(file, "rb") as f:
-        return read_msgpack(f.read())
+    return _read_file(file)

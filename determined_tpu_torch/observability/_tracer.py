@@ -288,6 +288,33 @@ class Tracer:
             return
         self._ring().push(("C", name, time.monotonic(), value, "g", args or None))
 
+    def ingest(self, events: List[Dict[str, Any]], epoch: float) -> None:
+        """Re-record another process's drained events (``chrome_events``;
+        ``epoch`` its tracer's ``time.monotonic()`` origin, one clock on a
+        host) on the calling thread, as if they had happened here: a
+        gang's chief ships its spans and counters to the experiment's
+        tracer this way (``experiment/_gang.py``)."""
+        if not self.enabled:
+            return
+        ring = self._ring()
+        for ev in events:
+            t = epoch + float(ev.get("ts", 0.0)) / 1e6
+            args = dict(ev.get("args") or {}) or None
+            ph = ev.get("ph")
+            if ph == "X":
+                ring.push(("X", ev["name"], ev.get("cat"), t, float(ev["dur"]) / 1e6, args))
+            elif ph == "i":
+                ring.push(("I", ev["name"], ev.get("cat"), t, args))
+            elif ph == "C":
+                value = args.pop("value") if args else 0.0
+                kind = "g" if ev.get("cat") == "gauge" else "c"
+                ring.push(("C", ev["name"], t, value, kind, args or None))
+
+    @property
+    def epoch(self) -> float:
+        """The ``time.monotonic()`` origin of the events' ``ts``."""
+        return self._epoch
+
     # -- drain / shipper ---------------------------------------------------
 
     def _to_us(self, t: float) -> float:

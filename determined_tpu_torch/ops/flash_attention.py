@@ -26,7 +26,8 @@ launch the kernels or raise.  There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -63,11 +64,33 @@ _BWD_SIGNATURES = {
 launches = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
+#: the same counts by CUDA device index: trials that run at once, each on
+#: its own device, read their own
+launches_by_device: Dict[str, Dict[int, int]] = {
+    "flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     global launches, launches_bwd_dq, launches_bwd_dkv
-    launches = launches_bwd_dq = launches_bwd_dkv = 0
+    with _count_lock:
+        launches = launches_bwd_dq = launches_bwd_dkv = 0
+        for per in launches_by_device.values():
+            per.clear()
+
+
+def _count(name: str, device: torch.device) -> None:
+    """One launch of kernel ``name`` on ``device`` (threads launch at once)."""
+    global launches, launches_bwd_dq, launches_bwd_dkv
+    with _count_lock:
+        if name == "flash_fwd":
+            launches += 1
+        elif name == "flash_bwd_dq":
+            launches_bwd_dq += 1
+        else:
+            launches_bwd_dkv += 1
+        per = launches_by_device[name]
+        per[device.index] = per.get(device.index, 0) + 1
 
 
 def flash_attention_fwd_reference(
@@ -133,7 +156,6 @@ def _launch_kernel(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel alone; ``block_rows`` forces the bf16 tile (see
     ``FWD_BLOCK_ROWS``), as ``chip_smoke.py`` does to time both."""
-    global launches
     from determined_tpu_torch.ops import _build
 
     _check_kernel_inputs(q, k, v)
@@ -155,7 +177,7 @@ def _launch_kernel(
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {err}")
-    launches += 1
+    _count("flash_fwd", q.device)
     return out, lse
 
 
@@ -255,7 +277,6 @@ def _bwd_args(q, k, v, do, lse, delta, causal: bool, scale: float):
 
 def _launch_dq(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Tensor:
     """The dq kernel alone (inputs already checked, delta computed)."""
-    global launches_bwd_dq
     ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):  # the launch goes to q's device
@@ -264,7 +285,7 @@ def _launch_dq(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Ten
         )
     if err != 0:
         raise RuntimeError(f"flash_bwd dq kernel launch failed: cudaError_t {err}")
-    launches_bwd_dq += 1
+    _count("flash_bwd_dq", q.device)
     return dq
 
 
@@ -272,7 +293,6 @@ def _launch_dkv(
     q, k, v, do, lse, delta, causal: bool, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel alone (inputs already checked, delta computed)."""
-    global launches_bwd_dkv
     ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):  # the launch goes to q's device
@@ -281,7 +301,7 @@ def _launch_dkv(
         )
     if err != 0:
         raise RuntimeError(f"flash_bwd dkv kernel launch failed: cudaError_t {err}")
-    launches_bwd_dkv += 1
+    _count("flash_bwd_dkv", q.device)
     return dk, dv
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -37,11 +38,17 @@ Tree = Dict[str, torch.Tensor]
 #: touches it); ``chip_smoke.py`` reads it to show the training path ran
 #: through the kernel
 launches = 0
+#: the same count by CUDA device index: trials that run at once, each on its
+#: own device, read their own
+launches_by_device: Dict[int, int] = {}
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
+    with _count_lock:
+        launches = 0
+        launches_by_device.clear()
 
 
 class FusedAdamWState(NamedTuple):
@@ -104,7 +111,9 @@ def _launch_kernel(p, m, v, g, scalars, *, b1, b2, eps, wd) -> None:
         )
     if err != 0:
         raise RuntimeError(f"fused_adamw kernel launch failed: cudaError_t {err}")
-    launches += 1
+    with _count_lock:  # trials on other devices launch at once
+        launches += 1
+        launches_by_device[p.device.index] = launches_by_device.get(p.device.index, 0) + 1
 
 
 @torch.no_grad()

@@ -42,21 +42,29 @@ places them itself (``shard_model``), one process per device:
 
 ``ShardPlan`` carries what the Trainer needs of that placement: each
 rank's local shards for the optimizer (``local``), the global gradient norm
-(``global_norm``), and the full tensors of a checkpoint both ways (``full``
-gathers a leaf, ``local_slice`` cuts this rank's part from one).  The mesh
+(``global_norm``), the whole tensor of a leaf (``full`` gathers it), and
+the layout a sharded checkpoint carries: a leaf's whole shape (``full_shape``) and the box of
+it this rank holds (``box``: a ``(start, stop)`` a dim, through the tensor
+split, the expert split and FSDP2's ``torch.chunk`` of its shard dim,
+uneven chunks and empty ones included).  Ranks whose boxes of a leaf are
+equal (data replicas, a whole ``wk``/``wv`` on the tensor ranks, a dense
+leaf on the expert ranks) hold the same values.  The mesh
 axes ``pipe`` and ``dcn``, and MoE blocks on ``tensor`` or ``seq``, raise
 ``NotImplementedError`` (``check_ported``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence, Set, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Set, Tuple, Union
 
 import torch
 
 from determined_tpu_torch.parallel.mesh import MeshAxes
 
 # A logical spec is a tuple of logical axis names (or None), one per dim.
+# The part of a whole tensor a rank holds: (start, stop) a dim.
+Box = Tuple[Tuple[int, int], ...]
+
 LogicalSpec = Tuple[Optional[str], ...]
 
 # Rules: logical axis name -> mesh axis (str), tuple of mesh axes, or None.
@@ -201,6 +209,14 @@ def fsdp_shard_dim(shape: Sequence[int], n: int) -> Optional[int]:
     return max(divisible, key=lambda i: shape[i])
 
 
+def chunk_range(lo: int, hi: int, n: int, i: int) -> Tuple[int, int]:
+    """The ``i``-th of ``torch.chunk``'s ``n`` chunks of ``[lo, hi)``:
+    chunks of ``ceil(len / n)``, the last ones short or empty."""
+    size = hi - lo
+    step = -(-size // n) if size else 0
+    return lo + min(i * step, size), lo + min((i + 1) * step, size)
+
+
 def check_ported(axis_sizes: Mapping[str, int], moe: bool = False) -> None:
     """Raise ``NotImplementedError`` for a mesh axis of size > 1 that the
     port does not run yet; with ``moe`` (a model with MoE blocks) also for
@@ -310,26 +326,35 @@ class ShardPlan:
             t = torch.cat(parts, dim=self.tensor_dims[name])
         return t
 
-    def local_slice(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's part of a whole leaf: its tensor slice or its
-        experts' rows, then its FSDP chunk (``torch.chunk`` along each
-        sharded dim, as FSDP2 cuts)."""
+    def full_shape(self, name: str) -> Tuple[int, ...]:
+        """The whole shape of a parameter-shaped leaf: its FSDP2 global
+        shape with the expert and tensor splits undone."""
+        shape = list(self.params[name].shape)
+        if name in self.expert_params and self.expert_group is not None:
+            shape[0] *= self.expert_size
+        if name in self.tensor_dims:
+            shape[self.tensor_dims[name]] *= self.tensor_size
+        return tuple(shape)
+
+    def box(self, name: str, shape: Optional[Sequence[int]] = None) -> Box:
+        """The part of the whole leaf ``name`` (of ``shape``, by default
+        ``full_shape``) that this rank holds: its tensor slice or its
+        experts' rows, then its FSDP chunk along each sharded dim."""
         from torch.distributed.tensor import DTensor, Shard
 
-        t = full
+        box: List[Tuple[int, int]] = [(0, int(n)) for n in (shape or self.full_shape(name))]
         if name in self.tensor_dims:
-            t = t.chunk(self.tensor_size, dim=self.tensor_dims[name])[self.tensor_rank]
+            d = self.tensor_dims[name]
+            box[d] = chunk_range(*box[d], self.tensor_size, self.tensor_rank)
         if name in self.expert_params and self.expert_group is not None:
-            t = t.chunk(self.expert_size, dim=0)[self.expert_rank]
+            box[0] = chunk_range(*box[0], self.expert_size, self.expert_rank)
         p = self.params[name]
         if isinstance(p, DTensor):
             for mesh_dim, pl in enumerate(p.placements):
                 if isinstance(pl, Shard):
-                    n = p.device_mesh.size(mesh_dim)
-                    coord = p.device_mesh.get_local_rank(mesh_dim)
-                    chunks = t.chunk(n, dim=pl.dim)
-                    t = chunks[coord] if coord < len(chunks) else t.narrow(pl.dim, 0, 0)
-        return t
+                    box[pl.dim] = chunk_range(*box[pl.dim], p.device_mesh.size(mesh_dim),
+                                              p.device_mesh.get_local_rank(mesh_dim))
+        return tuple(box)
 
 
 def _dp_mesh(mesh: Any) -> Tuple[Any, int]:

@@ -52,6 +52,10 @@ class StorageManager(abc.ABC):
     (``utils/faults.py``).
     """
 
+    # True when store_path/restore_path expose the durable directory itself
+    # (shared_fs): no staging copy, and every rank may use the same path.
+    direct_store = False
+
     def upload(
         self,
         src: str,

@@ -14,6 +14,8 @@ from determined_tpu_torch.utils.errors import CheckpointNotFoundError
 class SharedFSStorageManager(StorageManager):
     """Checkpoints live under a shared filesystem root visible to all hosts."""
 
+    direct_store = True
+
     def __init__(self, base_path: str) -> None:
         self.base_path = os.path.abspath(base_path)
 

@@ -10,6 +10,10 @@ into ``trainer_state.json``, so inference or fine-tune scripts can do::
 Unlike the JAX function, the load first checks the directory against its
 integrity manifest (md5 and size of every file), as a Trainer's restore
 does: a serving replica must not load a truncated or bit-flipped file.
+
+The trial is rebuilt on one device whatever mesh trained it: a sharded
+checkpoint (``serialization``'s layout) is joined leaf by leaf on the
+host, so a model trained on a mesh serves from its own checkpoint.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ def load_trial_from_checkpoint(
         trial_class = obj
 
     from determined_tpu_torch import core
-    from determined_tpu_torch.config.experiment import ExperimentConfig
+    from determined_tpu_torch.config.experiment import ExperimentConfig, MeshConfig
 
     exp_config = (
         ExperimentConfig.parse(tstate["exp_config"]) if tstate.get("exp_config") else None
@@ -66,6 +70,8 @@ def load_trial_from_checkpoint(
         core_context=core_context or core._dummy_init(),
         seed=int(tstate.get("seed") or 0),
         device=device,
+        # one device, not the recorded resources.mesh
+        mesh_config=MeshConfig(),
     )
     trial = trial_class(ctx)
     trainer = Trainer(trial)

@@ -37,9 +37,16 @@ local shards (the clip's norm global over the mesh), the reported training
 and validation metrics are averaged over the ranks (tensor ranks hold
 equal values and seq parts are equal in size, so a mean over examples is
 the global mean), and the preemption vote and the checkpoint's storage id
-go through the ``DistributedContext``.  A checkpoint holds the whole state
-in the single-device format (gathered leaf by leaf, the chief writes), so
-any mesh, or none, restores it.
+go through the ``DistributedContext``.  In a world of more than one rank
+every checkpoint is sharded, as the JAX Trainer writes at ``dist.size >
+1``: each rank writes the pieces of its local shards that no lower rank
+holds the same (``serialization.build_layout``: a data replica or a
+replicated leaf is written once), the chief adds the layout and
+``trainer_state.json``, and no rank gathers the state.  A world of one
+writes the whole-state format.  ``restore_from_path`` reads either format
+on any mesh or on one device, each rank its own box of every leaf; a
+restore onto another mesh than the one that wrote it is a ``trial.resize``
+span.
 
 Experiment-configuration knobs the JAX Trainer reads are honoured or raise
 ``NotImplementedError``.  Honoured: ``aggregation_frequency`` (gradient
@@ -61,11 +68,12 @@ compile nothing per trial, so either value gives the same run.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
 import time
-from typing import Any, Callable as TCallable, Dict, Optional
+from typing import Any, Callable as TCallable, Dict, Optional, Tuple
 
 import torch
 
@@ -166,6 +174,15 @@ def _collapse(tree: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+def _mesh_axes(axes: Optional[Dict[str, Any]]) -> Dict[str, int]:
+    """A mesh's axes over 1 (none: one device)."""
+    return {k: int(v) for k, v in (axes or {}).items() if int(v) > 1}
+
+
+def _fmt_axes(axes: Dict[str, int]) -> str:
+    return ",".join(f"{k}={v}" for k, v in axes.items()) or "data=1"
+
+
 class _BoundarySchedule:
     """Next-boundary arithmetic over a step counter (host-side ints only)."""
 
@@ -190,7 +207,7 @@ class _PendingSave:
     snapshot; ``finish`` (merge/manifest/report) runs on the main thread at
     the next drain point."""
 
-    thread: Optional[threading.Thread]  # None on a mesh's non-chief rank
+    thread: Optional[threading.Thread]
     finish: TCallable[[], None]
     storage_id: str
     step: int
@@ -276,6 +293,9 @@ class Trainer:
         # calls while it runs, so it happens once, inside the dispatch
         self._pinned: Any = None
         self._last_ckpt_sid: Optional[str] = None
+        # a sharded checkpoint's layout and the keys this rank writes, the
+        # same at every save (the leaves' shapes do not change)
+        self._shard_layout: Any = None
         self._last_val_metrics: Dict[str, float] = {}
         self._stopped_early = False
         # Newest FINALIZED checkpoint (manifest written).  An async save
@@ -496,7 +516,9 @@ class Trainer:
 
     def _full_array_state(self) -> Dict[str, Any]:
         """The whole array state of a mesh, gathered leaf by leaf (every
-        rank takes part) onto the chief's host; None leaves elsewhere."""
+        rank takes part) onto the chief's host; None leaves elsewhere.  No
+        checkpoint uses it: it is what a check of a sharded run compares
+        with one device."""
         plan, chief = self._plan, self.core.distributed.is_chief
 
         def gather(name: str, local: torch.Tensor) -> Optional[torch.Tensor]:
@@ -523,56 +545,63 @@ class Trainer:
             "rng": self.state.rng.get_state(),
         }
 
-    def _local_slice(self, part: str, name: str, value: torch.Tensor) -> torch.Tensor:
-        """This rank's part of a checkpoint leaf (``serialization.
-        restore_arrays``' ``reshape``): a parameter or a parameter-shaped
-        moment is cut to its shard, anything else is whole."""
+    def _place(self, part: str, name: str, leaf: Any) -> Optional[Tuple[Tuple[int, ...], Any]]:
+        """(whole shape, this rank's box) of a leaf the mesh splits: a
+        parameter, or a moment shaped like its local shard; None for a
+        leaf every rank holds whole (``serialization``'s ``place``)."""
+        if self._plan is None or part not in ("params", "opt_state"):
+            return None
         key = name if part == "params" else name.split(serialization.SEP, 1)[-1]
-        if part in ("params", "opt_state") and key in self._params and value.dim():
-            return self._plan.local_slice(key, value)
-        return value
+        local = self._opt_params.get(key)
+        if (local is None or not isinstance(leaf, torch.Tensor) or not leaf.dim()
+                or leaf.shape != local.shape):
+            return None
+        whole = self._plan.full_shape(key)
+        return whole, self._plan.box(key, whole)
 
-    def _save_on_mesh(self, trainer_state: Dict[str, Any], metadata: Dict[str, Any],
-                      asynchronous: bool) -> str:
-        """A mesh's checkpoint: the state gathered whole (a collective), the
-        chief writes it in the single-device format, and every rank learns
-        its storage id.  Asynchronously, the chief's writer thread
-        serialises the gathered host copy while training goes on."""
+    def _sharded_keys(self) -> Any:
+        """The layout of this mesh's checkpoints and the keys this rank
+        writes (a collective at the first save, cached)."""
+        if self._shard_layout is None:
+            dist = self.core.distributed
+            mine = serialization.describe(
+                self._array_state(), self._place if self._plan is not None else None)
+            layout, writes = serialization.build_layout(dist.allgather(mine))
+            self._shard_layout = (layout, writes[dist.rank])
+        return self._shard_layout
+
+    def _writer(self, shard: bool, trainer_state: Dict[str, Any]) -> TCallable[[str, Any], None]:
+        """What writes a checkpoint's files into ``path`` from the arrays
+        to store: the whole state, or this rank's pieces (``select``'d
+        flat) with the chief's layout; the chief's trainer state."""
         dist = self.core.distributed
-        with get_tracer().span("checkpoint.gather", cat="checkpoint", step=self.steps_completed):
-            full = self._full_array_state()
-        sid: Optional[str] = None
-        pending: Optional[_PendingSave] = None
-        if dist.is_chief:
-            if asynchronous:
-                path, sid, finish = self.core.checkpoint.store_path_async(metadata)
-                for cb in self.callbacks.values():
-                    cb.on_checkpoint_write_start(path)
-                pending = self._start_writer(path, sid, finish, lambda: full, trainer_state)
+        chief, rank = dist.is_chief, dist.rank
+        layout = self._sharded_keys()[0] if shard else None
+
+        def write(path: str, arrays: Any) -> None:
+            if shard:
+                serialization.save_shard(path, rank, arrays)
+                if chief:
+                    serialization.save_layout(path, layout)
             else:
-                sid = self._write_sync(metadata, full, trainer_state)
-        sid = dist.broadcast(sid)
-        if not asynchronous:
-            return self._saved(sid)
-        # a worker's placeholder: the chief reports the outcome at the
-        # drain point
-        self._pending_save = pending or _PendingSave(
-            None, lambda: None, sid, self.steps_completed, []
-        )
-        logger.info("async checkpoint %s started at step %d", sid, self.steps_completed)
-        return sid
+                serialization.save_arrays(path, arrays)
+            if chief:
+                serialization.save_trainer_state(path, trainer_state)
+
+        return write
 
     def _write_sync(self, metadata: Dict[str, Any], arrays: Dict[str, Any],
-                    trainer_state: Dict[str, Any]) -> str:
-        """Write a checkpoint now; returns its storage id."""
+                    write: TCallable[[str, Any], None], shard: bool) -> str:
+        """Write a checkpoint now (collective with ``shard``); returns its
+        storage id."""
         with get_tracer().span(
-            "checkpoint.save", cat="checkpoint", mode="sync", step=self.steps_completed
+            "checkpoint.save", cat="checkpoint", mode="sync", step=self.steps_completed,
+            rank=self.core.distributed.rank,
         ):
-            with self.core.checkpoint.store_path(metadata) as (path, sid):
+            with self.core.checkpoint.store_path(metadata, shard=shard) as (path, sid):
                 for cb in self.callbacks.values():
                     cb.on_checkpoint_write_start(path)
-                serialization.save_arrays(path, arrays)
-                serialization.save_trainer_state(path, trainer_state)
+                write(path, arrays)
         return sid
 
     def _saved(self, sid: str) -> str:
@@ -585,17 +614,18 @@ class Trainer:
 
     def _start_writer(self, path: str, sid: str, finish: TCallable[[], None],
                       host_arrays: TCallable[[], Any],
-                      trainer_state: Dict[str, Any]) -> _PendingSave:
-        """The background writer of an overlapped save: serialises
-        ``host_arrays()`` and the trainer state into ``path``; a failure is
-        surfaced at the drain point."""
+                      write: TCallable[[str, Any], None]) -> _PendingSave:
+        """The background writer of an overlapped save: ``write``s
+        ``host_arrays()`` into ``path``; a failure is surfaced at the drain
+        point."""
         errors: list = []
+        rank = self.core.distributed.rank
 
         def work() -> None:
             try:
-                with get_tracer().span("checkpoint.write", cat="checkpoint", storage_id=sid):
-                    serialization.save_arrays(path, host_arrays())
-                    serialization.save_trainer_state(path, trainer_state)
+                with get_tracer().span("checkpoint.write", cat="checkpoint", storage_id=sid,
+                                       rank=rank):
+                    write(path, host_arrays())
             except BaseException as e:  # surfaced at the drain point
                 errors.append(e)
 
@@ -624,10 +654,11 @@ class Trainer:
             "checkpoint.stall", "checkpoint", stall_t0, time.monotonic(),
             {"storage_id": p.storage_id, "failed": bool(p.errors)},
         )
-        if self._plan is not None and self.core.distributed.size > 1:
-            # the chief's writer decides for every rank
-            if not self.core.distributed.broadcast(not p.errors):
-                p.errors.append(RuntimeError("the chief's writer failed"))
+        if self.core.distributed.size > 1:
+            # every rank's writer must have landed before the collective
+            # finalize writes the manifest
+            if not all(self.core.distributed.allgather(not p.errors)) and not p.errors:
+                p.errors.append(RuntimeError("another rank's checkpoint writer failed"))
         if p.errors:
             raise RuntimeError(f"async checkpoint {p.storage_id} failed") from p.errors[0]
         with tracer.span("checkpoint.finalize", cat="checkpoint", storage_id=p.storage_id):
@@ -661,20 +692,22 @@ class Trainer:
             "parent_storage_id": self.latest_checkpoint,
         }
         tracer = get_tracer()
-        if self._plan is not None:
-            return self._save_on_mesh(
-                trainer_state, metadata, asynchronous and self._async_checkpointing()
-            )
+        # a world of several ranks writes sharded, each rank its own pieces
+        shard = self.core.distributed.size > 1
+        write = self._writer(shard, trainer_state)
+        arrays = self._array_state()
+        if shard:
+            arrays = serialization.select(arrays, self._sharded_keys()[1])
         if not (asynchronous and self._async_checkpointing()):
-            return self._saved(self._write_sync(metadata, self._array_state(), trainer_state))
+            return self._saved(self._write_sync(metadata, arrays, write, shard))
 
         # overlapped save: snapshot on the device, serialise on a background
         # thread, finalize at the next drain point
         with tracer.span("checkpoint.dispatch", cat="checkpoint", step=self.steps_completed):
-            path, sid, finish = self.core.checkpoint.store_path_async(metadata)
+            path, sid, finish = self.core.checkpoint.store_path_async(metadata, shard=shard)
             for cb in self.callbacks.values():
                 cb.on_checkpoint_write_start(path)
-            snapshot = _snapshot(self._array_state())
+            snapshot = _snapshot(arrays)
             ready = pinned = None
             if self.device.type == "cuda":
                 ready = torch.cuda.Event()
@@ -697,7 +730,7 @@ class Trainer:
                 side.synchronize()
             return host
 
-        self._pending_save = self._start_writer(path, sid, finish, host_arrays, trainer_state)
+        self._pending_save = self._start_writer(path, sid, finish, host_arrays, write)
         logger.info("async checkpoint %s started at step %d", sid, self.steps_completed)
         return sid
 
@@ -746,15 +779,25 @@ class Trainer:
     def restore_from_path(self, path: str) -> None:
         """Load the array state and the trainer state from a local
         checkpoint directory, in place (also the tail of
-        ``train.load_trial_from_checkpoint``)."""
+        ``train.load_trial_from_checkpoint``).  Either format, written on
+        any mesh: each rank reads its box of every leaf.  A checkpoint
+        written on another mesh is restored inside a ``trial.resize``
+        span, as the JAX Trainer's elastic reshard is."""
         tstate = serialization.load_trainer_state(path)
-        # the state is stored whole, so any data/fsdp/expert mesh reads it
-        # back; a checkpoint of a mesh axis the port does not run raises
+        # a checkpoint of a mesh axis the port does not run raises
         check_ported(tstate.get("mesh_axes") or {})
-        with get_tracer().span("checkpoint.load", cat="restore"):
+        stored = _mesh_axes(tstate.get("mesh_axes"))
+        live = _mesh_axes(self.mesh.shape if self.mesh is not None else None)
+        resize = contextlib.nullcontext()
+        if stored != live:
+            logger.info("elastic reshard: restoring a checkpoint of mesh (%s) onto mesh (%s)",
+                        _fmt_axes(stored), _fmt_axes(live))
+            resize = get_tracer().span("trial.resize", cat="restore",
+                                       from_mesh=_fmt_axes(stored), to_mesh=_fmt_axes(live))
+        with resize, get_tracer().span("checkpoint.load", cat="restore"):
             serialization.restore_arrays(
                 path, self._array_state(),
-                reshape=self._local_slice if self._plan is not None else None,
+                place=self._place if self._plan is not None else None,
             )
         # The JAX Trainer grafts freshly built optax ``hyperparams`` over the
         # restored opt_state here (``_reinject_runtime_hparams``), so that a
@@ -1021,7 +1064,10 @@ class Trainer:
                     preempted
                     and pending is not None
                     and pending.step == self.steps_completed
-                    and not pending.errors
+                    # one rank's writer error must not split the ranks
+                    # between two collectives: on several, the drain's vote
+                    # raises it everywhere
+                    and (not pending.errors or self.core.distributed.size > 1)
                 ):
                     # a save of this exact step is already in flight:
                     # wait for it instead of writing a duplicate

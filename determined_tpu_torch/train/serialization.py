@@ -20,10 +20,30 @@ are filled on the way in: nothing is pickled, and files are read with
 ``torch.load(weights_only=True)``.  A ``torch.Generator`` is stored as its
 ``get_state()`` bytes.
 
-``restore_arrays`` reads each part onto the host and copies the stored
-values INTO the live tensors (``copy_``), so the module's parameters, the
-optimizer's pairing of its state with them, and every reference the Trainer
-holds stay valid, and the device holds no second copy of the state.
+A world of more than one rank writes the sharded format instead, beside
+the same ``trainer_state.json``::
+
+    state/layout.json           every leaf's whole shape, dtype and pieces
+    state/shards/rank<r>.pt     rank r's pieces, {part/name: tensor}
+
+Each rank describes the leaves it holds (``describe``: the whole shape, the
+dtype and its box, ``parallel.sharding.Box``); ``build_layout`` joins every
+rank's description and names one writer for each distinct piece, the
+lowest rank that holds it, so a leaf that several ranks hold the same
+(a data replica, a replicated leaf) is written once.  Every rank writes
+its own file (``save_shard``), the chief writes the layout.
+
+``restore_arrays`` reads either format and copies the stored values INTO
+the live tensors (``copy_``), so the module's parameters, the optimizer's
+pairing of its state with them, and every reference the Trainer holds stay
+valid, and the device holds no second copy of the state.  The files are
+memory-mapped (``torch.load(mmap=True)``) and read one leaf at a time:
+``place(part, name, leaf)`` gives the whole shape and the box of a leaf
+the live rank holds part of (None: the whole leaf), and the box is cut
+from the whole stored tensor or assembled from the stored pieces that
+overlap it.  On the mesh that wrote it a rank's box is one stored piece;
+on another mesh, or on one device, the pieces are joined on the host, a
+leaf at a time, so no rank holds the whole state.
 """
 
 from __future__ import annotations
@@ -31,13 +51,22 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Set, Tuple
 
 import torch
 
 ARRAY_SUBDIR = "state"
 TRAINER_STATE_FILE = "trainer_state.json"
+LAYOUT_FILE = "layout.json"
+SHARD_SUBDIR = "shards"
+LAYOUT_VERSION = 1
 SEP = "/"
+
+# (start, stop) a dim: the part of a whole tensor (parallel.sharding.Box)
+Box = Tuple[Tuple[int, int], ...]
+# (whole shape, box) of a leaf the live rank holds part of
+Placement = Tuple[Tuple[int, ...], Box]
+PlaceFn = Callable[[str, str, Any], Optional[Placement]]
 
 
 def _children(node: Any) -> Iterator[Tuple[str, Any]]:
@@ -80,42 +109,190 @@ def save_arrays(ckpt_dir: str, tree: Dict[str, Any]) -> None:
         torch.save(flat, _part_path(ckpt_dir, part))
 
 
+def _mmap(path: str) -> Dict[str, torch.Tensor]:
+    """A saved flat dict, memory-mapped: a tensor's bytes are read when it
+    is."""
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+
 def load_arrays(ckpt_dir: str, part: str) -> Dict[str, torch.Tensor]:
-    """One part's flat ``{name: tensor}`` dict, read onto the host."""
+    """One part's flat ``{name: tensor}`` dict of a whole-state checkpoint,
+    read onto the host."""
     return torch.load(_part_path(ckpt_dir, part), map_location="cpu", weights_only=True)
+
+
+def _whole(shape: Any) -> Box:
+    return tuple((0, int(n)) for n in shape)
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def describe(tree: Dict[str, Any], place: Optional[PlaceFn] = None) -> Dict[str, Any]:
+    """``{part/name: (whole shape, dtype name, box)}`` of every leaf of the
+    live tree on this rank (``place`` as for ``restore_arrays``)."""
+    out: Dict[str, Any] = {}
+    for part, node in tree.items():
+        for name, leaf in flatten(node).items():
+            t = _stored(leaf)
+            pl = place(part, name, leaf) if place is not None else None
+            shape, box = pl if pl is not None else (tuple(t.shape), _whole(t.shape))
+            out[f"{part}{SEP}{name}"] = (tuple(int(n) for n in shape), _dtype_name(t),
+                                         tuple(tuple(b) for b in box))
+    return out
+
+
+def build_layout(descriptions: List[Dict[str, Any]]) -> Tuple[Dict[str, Any], List[Set[str]]]:
+    """Every rank's ``describe`` joined: the layout (each leaf's whole
+    shape, dtype and distinct pieces, each with the rank that writes it,
+    the lowest that holds it) and, for each rank, the keys it writes."""
+    keys = set(descriptions[0])
+    for r, d in enumerate(descriptions):
+        if set(d) != keys:
+            raise ValueError(f"rank {r} holds other leaves than rank 0: "
+                             f"{sorted(set(d) ^ keys)[:5]}")
+    leaves: Dict[str, Any] = {}
+    writes: List[Set[str]] = [set() for _ in descriptions]
+    for key in sorted(keys):
+        shape, dtype, _ = descriptions[0][key]
+        pieces: Dict[Box, int] = {}
+        for r, d in enumerate(descriptions):
+            if d[key][:2] != (shape, dtype):
+                raise ValueError(f"{key}: rank {r} holds {d[key][1]}{list(d[key][0])}, "
+                                 f"rank 0 {dtype}{list(shape)}")
+            if d[key][2] not in pieces:
+                pieces[d[key][2]] = r
+                writes[r].add(key)
+        leaves[key] = {"shape": list(shape), "dtype": dtype,
+                       "pieces": [{"rank": r, "box": [list(b) for b in box]}
+                                  for box, r in pieces.items()]}
+    return {"version": LAYOUT_VERSION, "world": len(descriptions), "leaves": leaves}, writes
+
+
+def shard_path(ckpt_dir: str, rank: int) -> str:
+    return os.path.join(ckpt_dir, ARRAY_SUBDIR, SHARD_SUBDIR, f"rank{rank:05d}.pt")
+
+
+def select(tree: Dict[str, Any], keys: Set[str]) -> Dict[str, Any]:
+    """``{part/name: leaf}`` of the leaves of ``tree`` that ``keys`` name."""
+    out: Dict[str, Any] = {}
+    for part, node in tree.items():
+        for name, leaf in flatten(node).items():
+            key = f"{part}{SEP}{name}"
+            if key in keys:
+                out[key] = leaf
+    return out
+
+
+def save_shard(ckpt_dir: str, rank: int, flat: Dict[str, Any]) -> None:
+    """Write ``{part/name: leaf}`` (``select``) as rank ``rank``'s file;
+    nothing when it is empty."""
+    if flat:
+        os.makedirs(os.path.dirname(shard_path(ckpt_dir, rank)), exist_ok=True)
+        torch.save({k: _stored(v) for k, v in flat.items()}, shard_path(ckpt_dir, rank))
+
+
+def save_layout(ckpt_dir: str, layout: Dict[str, Any]) -> None:
+    os.makedirs(os.path.join(ckpt_dir, ARRAY_SUBDIR), exist_ok=True)
+    with open(os.path.join(ckpt_dir, ARRAY_SUBDIR, LAYOUT_FILE), "w") as f:
+        json.dump(layout, f, sort_keys=True)
+
+
+def load_layout(ckpt_dir: str) -> Optional[Dict[str, Any]]:
+    """The layout of a sharded checkpoint; None for a whole-state one."""
+    path = os.path.join(ckpt_dir, ARRAY_SUBDIR, LAYOUT_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+class _Pieces:
+    """The stored pieces of a sharded checkpoint, by leaf, with each
+    rank's file mapped once."""
+
+    def __init__(self, ckpt_dir: str, layout: Dict[str, Any]) -> None:
+        self.ckpt_dir = ckpt_dir
+        self.leaves = layout["leaves"]
+        self._files: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def _file(self, rank: int) -> Dict[str, torch.Tensor]:
+        if rank not in self._files:
+            self._files[rank] = _mmap(shard_path(self.ckpt_dir, rank))
+        return self._files[rank]
+
+    def read(self, key: str, box: Box) -> torch.Tensor:
+        """The values of ``box`` of the whole leaf ``key``, joined from the
+        stored pieces that overlap it."""
+        entry = self.leaves[key]
+        out = torch.empty([b - a for a, b in box], dtype=getattr(torch, entry["dtype"]))
+        if not out.numel() and out.dim():
+            return out
+        covered = 0
+        for piece in entry["pieces"]:
+            pbox = [tuple(b) for b in piece["box"]]
+            inter = [(max(a, c), min(b, d)) for (a, b), (c, d) in zip(box, pbox)]
+            if any(lo >= hi for lo, hi in inter):
+                continue
+            stored = self._file(piece["rank"])[key]
+            src = stored[tuple(slice(lo - c, hi - c) for (lo, hi), (c, _) in zip(inter, pbox))]
+            out[tuple(slice(lo - a, hi - a) for (lo, hi), (a, _) in zip(inter, box))] = src
+            covered += src.numel()
+            if box == tuple(pbox):
+                break
+        if covered != out.numel():
+            raise ValueError(f"the stored pieces of {key} cover {covered} of the "
+                             f"{out.numel()} values of {list(box)}")
+        return out
 
 
 @torch.no_grad()
 def restore_arrays(
     ckpt_dir: str,
     live: Dict[str, Any],
-    reshape: Optional[Callable[[str, str, torch.Tensor], torch.Tensor]] = None,
+    place: Optional[PlaceFn] = None,
 ) -> None:
-    """Fill the live tree in place from the checkpoint: the same names, and
-    every tensor the same shape and dtype as the live one it replaces.
-    ``reshape(part, name, stored)`` maps a stored tensor first (on a mesh:
-    the whole tensor to this rank's shard)."""
+    """Fill the live tree in place from the checkpoint, either format: the
+    same names, every leaf the same whole shape and dtype as stored, and
+    each live tensor filled with its box of the stored leaf (``place``;
+    None, or no placement for a leaf: the whole leaf)."""
+    layout = load_layout(ckpt_dir)
+    pieces = _Pieces(ckpt_dir, layout) if layout is not None else None
     for part, node in live.items():
         want = flatten(node)
-        # on the host: copy_ moves each tensor to its live device, so the
-        # device never holds a second copy of the state
-        stored = load_arrays(ckpt_dir, part)
-        if set(stored) != set(want):
-            missing, extra = sorted(set(want) - set(stored)), sorted(set(stored) - set(want))
+        if pieces is not None:
+            prefix = f"{part}{SEP}"
+            names = {k[len(prefix):] for k in pieces.leaves if k.startswith(prefix)}
+            stored = None
+        else:
+            stored = _mmap(_part_path(ckpt_dir, part))
+            names = set(stored)
+        if names != set(want):
+            missing, extra = sorted(set(want) - names), sorted(names - set(want))
             raise ValueError(
                 f"checkpoint part {part!r} does not match the live state: "
                 f"missing {missing[:5]}, unexpected {extra[:5]}"
             )
         for name, leaf in want.items():
-            value = stored[name]
-            if reshape is not None and not isinstance(leaf, torch.Generator):
-                value = reshape(part, name, value)
+            key = f"{part}{SEP}{name}"
+            pl = place(part, name, leaf) if place is not None else None
+            shape = (pieces.leaves[key]["shape"] if pieces is not None
+                     else stored[name].shape)
+            whole, box = pl if pl is not None else (tuple(_stored(leaf).shape), _whole(shape))
+            if tuple(shape) != tuple(whole):
+                raise ValueError(f"checkpoint {key} is {list(shape)} whole, the live leaf "
+                                 f"{list(whole)}")
+            if pieces is not None:
+                value = pieces.read(key, box)
+            else:
+                value = stored[name][tuple(slice(a, b) for a, b in box)]
             if isinstance(leaf, torch.Generator):
-                leaf.set_state(value.cpu())
+                leaf.set_state(value.clone())
                 continue
             if value.shape != leaf.shape or value.dtype != leaf.dtype:
                 raise ValueError(
-                    f"checkpoint {part}{SEP}{name} is {value.dtype}{list(value.shape)}, "
+                    f"checkpoint {key} is {value.dtype}{list(value.shape)}, "
                     f"the live tensor {leaf.dtype}{list(leaf.shape)}"
                 )
             leaf.copy_(value)

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Multi-GPU check of the port's mesh path on the GPUs of one host.
 
-    python3 mesh_smoke.py [--gpus 4] [--seed N]
+    python3 mesh_smoke.py [--gpus 4] [--seed N] [--parts G,E,S,X]
+
+(``X`` is X1, X2 and X3, each of which ``--parts`` also takes alone.)
 
 The MoE LM of chip_smoke.py's phase 14 (examples/transformer_lm/moe_ep.yaml
 at its full width, cut to 4 layers and a global batch of 8 sequences of
@@ -33,6 +35,40 @@ S. the dense LM of chip_smoke.py's phase 15 (examples/transformer_lm/
 C. a tensor 2 x seq 2 checkpoint (SEQ_CKPT_CUTS: the round trip, not the
    size): 3 steps on the mesh, saved whole by the chief, restored by one
    GPU's Trainer bitwise equal to the mesh's gathered params and moments.
+
+X. the local experiment on every GPU of the host (``--gpus`` 4), through
+   run-local's path (LocalExperiment, its configuration from a dict where
+   run-local reads YAML) and ``experiment resume``:
+   X1. chip_smoke.py's phase 8 S1 (ASHA over const.yaml's flagship at 2
+       layers and full width, 4 trials, rungs at 16 and 32 batches) with the
+       default max_concurrent_trials: four trials at once, one a GPU (each
+       trial's device read from the journal), against the same search run
+       serially on one GPU here: the trial set, and each validation both
+       runs made, bitwise (else within TRAIN_PARITY_TOL, the difference
+       printed); the concurrent run's rung decisions equal a fresh ASHA
+       replaying its events (the serial run's are printed beside them: ASHA
+       ranks a report against what its rung holds when it arrives, so the
+       arrival order decides); each GPU's launch counts (the kernels' per
+       device counters) equal its trials' steps and validations; both wall
+       times.
+   X2. moe_ep.yaml at MOE_CUTS on fsdp 2 x expert 2 as a gang of four rank
+       processes (X2_CUTS: 12 steps, validations at 6 and 12, checkpoint
+       period 6): an uninterrupted gang (checkpointed at its end only); a
+       driver SIGTERMed before step
+       X2_SIGTERM_AT exits 75 with the step-6 checkpoint, and ``experiment
+       resume`` ends with validations equal to the uninterrupted gang's,
+       bitwise.  Per rank: its sharded checkpoint bytes (their sum within 1%
+       of the whole state's) and its save seconds, against the chief-gather
+       path, the earlier mesh save (the state gathered leaf by leaf and written whole by
+       the chief) on the same state in the same run.  The step-12 checkpoint
+       restored on data 4 (inside a trial.resize span) and on one GPU
+       (load_trial_from_checkpoint) equals the gang's gathered params and
+       moments, bitwise; these restores compare bytes, and only the resume
+       takes an md5 pass.
+   X3. examples/mnist/adaptive.yaml cut to 4 trials on data 2 (X3_CUTS):
+       two gangs at once on the blocks {0,1} and {2,3} (read from the
+       journal), the scheduler backfilling a freed block; the trial set
+       equals the same search run serially on two GPUs.
 
 Each gang has a hard timeout (GANG_TIMEOUT_S); its ranks are killed on
 expiry and the run fails.  Prints a JSON line a part, the card's name and
@@ -81,10 +117,52 @@ SEQ_CKPT_CUTS = [
     ("seq_len", 32768, 256, "the same, in length"),
 ]
 SEQ_CKPT_STEPS = 3
+PARTS = ("G", "E", "S", "X")
+X_PARTS = ("X1", "X2", "X3")
+# X2: moe_ep.yaml (chip_smoke.MOE_EP_CONST) at MOE_CUTS' hyperparameters,
+# and these changes: (dotted key, the file's value, X2's value, why)
+X2_STEPS = 12
+X2_SIGTERM_AT = 4
+X2_ENTRY = "mesh_smoke:X2SigtermLMTrial"
+X2_CUTS = [
+    ("resources.mesh", {"data": 2, "fsdp": 2, "expert": 8}, {"fsdp": 2, "expert": 2},
+     "four GPUs: the experts over 2, FSDP2 over the other 2"),
+    ("searcher.max_length", {"batches": 10000}, {"batches": X2_STEPS},
+     f"{X2_STEPS} steps: preempted, then resumed"),
+    ("min_validation_period", {"batches": 500}, {"batches": 6}, "validations at 6 and 12"),
+    ("min_checkpoint_period", None, {"batches": 6},
+     f"checkpoints at 6 and 12; the SIGTERM before step {X2_SIGTERM_AT} is read at the step-6 "
+     "boundary, so the resume trains 6 steps"),
+    ("checkpoint_storage.host_path", "/tmp/dtpu-checkpoints", "<temp dir>",
+     "a fresh temporary directory, deleted at the end"),
+    ("reproducibility.experiment_seed", None, "<--seed>", "the weights and data from --seed"),
+]
+# X3: examples/mnist/adaptive.yaml (chip_smoke.MNIST_ADAPTIVE) with these
+X3_CUTS = [
+    ("searcher.max_trials", 16, 4, "4 trials: two gangs at once, then two more"),
+    ("searcher.max_length", {"batches": 400}, {"batches": 100},
+     "a quarter of the length: four validations a full trial, rung stops at 25 and 50"),
+    ("resources.mesh", None, {"data": 2}, "each trial a gang of two ranks"),
+    ("checkpoint_storage.host_path", "/tmp/dtpu-checkpoints", "<temp dir>",
+     "a fresh temporary directory, deleted at the end"),
+    ("reproducibility.experiment_seed", None, "<--seed>", "the searcher's draws from --seed"),
+]
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def __getattr__(name: str):
+    """``X2SigtermLMTrial``, the gang trial X2's driver runs
+    (``chip_smoke.sigterm_trial``), built on first use."""
+    if name != "X2SigtermLMTrial":
+        raise AttributeError(name)
+    from chip_smoke import sigterm_trial
+
+    cls = sigterm_trial(name, X2_SIGTERM_AT)
+    cls.__module__ = __name__
+    return cls
 
 
 def _hparams() -> dict:
@@ -136,7 +214,7 @@ def _rank_gang(workdir: str, mesh: dict, seed: int) -> dict:
     from determined_tpu_torch import core, train
     from determined_tpu_torch.parallel import MeshConfig
 
-    core_ctx = core.init(checkpoint_dir=os.path.join(workdir, "ck"))
+    core_ctx = core.init(checkpoint_dir=mesh.get("ckpt_dir") or os.path.join(workdir, "ck"))
     dist = core_ctx.distributed
     try:
         if mesh.get("part") == "E":
@@ -145,6 +223,8 @@ def _rank_gang(workdir: str, mesh: dict, seed: int) -> dict:
             return _rank_seq(core_ctx, mesh["mesh"], seed)
         if mesh.get("part") == "C":
             return _rank_ckpt(core_ctx, workdir, seed)
+        if mesh.get("part") == "X2R":
+            return _rank_x2_restore(core_ctx, workdir, dict(mesh, seed=seed))
         ctx = train.init(hparams=_hparams(), seed=seed, core_context=core_ctx,
                          mesh_config=MeshConfig(**mesh))
         out = _fit(ctx, STEPS)
@@ -371,12 +451,377 @@ def _seq_part(args, root: str) -> None:
     log("C " + json.dumps(_ckpt_on_one_gpu(workdir, sid, args.seed)))
 
 
+# ---------------------------------------------------------------------------
+# X: the local experiment on every GPU of the host
+# ---------------------------------------------------------------------------
+
+
+def _journal(ckpt_dir: str) -> list:
+    with open(os.path.join(ckpt_dir, "experiment.journal")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _trial_devices(ckpt_dir: str) -> dict:
+    """rid -> the devices of its first ``trial_running`` record."""
+    out: dict = {}
+    for r in _journal(ckpt_dir):
+        if r["type"] == "trial_running":
+            out.setdefault(r["rid"], r["devices"])
+    return out
+
+
+def _validations(ckpt_dir: str) -> dict:
+    """(rid, steps) -> the validation metrics the searcher received."""
+    return {(r["rid"], r["metrics"]["batches"]): r["metrics"] for r in _journal(ckpt_dir)
+            if r["type"] == "trial_validated"}
+
+
+def _recording_experiment():
+    """LocalExperiment that records the searcher's events in order (for the
+    replay) and deletes a trial's checkpoints when it ends."""
+    import copy
+
+    from determined_tpu_torch.experiment import LocalExperiment
+
+    class Recording(LocalExperiment):
+        def __init__(self, *args, **kwargs) -> None:
+            super().__init__(*args, **kwargs)
+            self.events: list = []
+            for name in ("on_validation", "on_trial_exited", "on_trial_exited_early"):
+                orig = getattr(self.searcher, name)
+
+                def record(*a, _orig=orig, _name=name):
+                    self.events.append((_name, copy.deepcopy(a)))
+                    return _orig(*a)
+
+                setattr(self.searcher, name, record)
+
+        def _run_trial(self, create, devices=None):
+            result = super()._run_trial(create, devices)
+            shutil.rmtree(self._trial_checkpoint_dir(create.request_id), ignore_errors=True)
+            return result
+
+    return Recording
+
+
+def _per_device_launches() -> dict:
+    import determined_tpu_torch.ops.flash_attention as fa
+    from determined_tpu_torch.ops import fused_adamw as fw
+
+    devices = set(fw.launches_by_device)
+    for per in fa.launches_by_device.values():
+        devices |= set(per)
+    return {d: dict(flash_fwd=fa.launches_by_device["flash_fwd"].get(d, 0),
+                    flash_bwd_dq=fa.launches_by_device["flash_bwd_dq"].get(d, 0),
+                    flash_bwd_dkv=fa.launches_by_device["flash_bwd_dkv"].get(d, 0),
+                    fused_adamw=fw.launches_by_device.get(d, 0)) for d in sorted(devices)}
+
+
+def _x1(args, root: str) -> dict:
+    """X1 (the docstring at the top)."""
+    import torch
+
+    from chip_smoke import (SEARCH_ASHA_CUTS, TRAIN_PARITY_TOL, _check_trial_set,
+                            _reset_launches, search_raw_config)
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.searcher import ASHASearch
+
+    for key, old, value, why in SEARCH_ASHA_CUTS:
+        log(f"X1 cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    runs = {}
+    for label, devices in (("serial", ["cuda:0"]), ("concurrent", None)):
+        ckpt = os.path.join(root, f"x1-{label}")
+        cfg = ExperimentConfig.parse(search_raw_config("S1", ckpt, args.seed))
+        exp = _recording_experiment()(cfg, LMTrial, checkpoint_dir=ckpt, devices=devices)
+        _reset_launches()
+        t0 = time.monotonic()
+        summary = exp.run()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        runs[label] = dict(exp=exp, cfg=cfg, wall_s=time.monotonic() - t0, summary=summary,
+                           devices=_trial_devices(ckpt), validations=_validations(ckpt),
+                           launches=_per_device_launches())
+        assert summary["status"] == "completed", summary
+        _check_trial_set(exp, cfg, args.seed, ASHASearch)
+        log(f"X1 {label}: {runs[label]['wall_s']:.1f} s, " + json.dumps(dict(
+            summary=summary, devices=runs[label]["devices"],
+            scheduler=exp.scheduler_stats, launches=runs[label]["launches"])))
+    serial, packed = runs["serial"], runs["concurrent"]
+    stats = packed["exp"].scheduler_stats
+    assert stats is not None and stats["peak_concurrency"] == 4, stats
+    first = [packed["devices"][rid] for rid in sorted(packed["devices"])[:4]]
+    assert sorted(d for ds in first for d in ds) == [f"cuda:{i}" for i in range(4)], first
+
+    def trial_set(run):
+        return {rid: r.hparams for rid, r in run["exp"].results.items()}
+
+    assert trial_set(packed) == trial_set(serial)
+    both = sorted(set(serial["validations"]) & set(packed["validations"]))
+    assert both
+    diffs = {}
+    for key in both:
+        a = packed["validations"][key]["validation_loss"]
+        b = serial["validations"][key]["validation_loss"]
+        diffs[f"{key[0]}@{key[1]}"] = abs(a - b)
+        np.testing.assert_allclose(a, b, err_msg=str(key), **TRAIN_PARITY_TOL["loss"])
+
+    def decisions(run):
+        return {rid: (r.steps_completed, run["exp"].searcher.is_stopped(rid))
+                for rid, r in run["exp"].results.items()}
+
+    # each GPU's launches: its trials' steps and validation batches
+    hp = {k: v.val for k, v in packed["cfg"].hyperparameters.items() if hasattr(v, "val")}
+    layers, n_val = hp["n_layers"], hp["dataset_size"] // hp["global_batch_size"]
+    want: dict = {}
+    for rid, r in packed["exp"].results.items():
+        dev = int(packed["devices"][rid][0].split(":")[1])
+        vals = sum(1 for k in packed["validations"] if k[0] == rid)
+        w = want.setdefault(dev, dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+                                      fused_adamw=0))
+        w["flash_fwd"] += layers * (r.steps_completed + vals * n_val)
+        w["flash_bwd_dq"] += layers * r.steps_completed
+        w["flash_bwd_dkv"] += layers * r.steps_completed
+        w["fused_adamw"] += (3 + 9 * layers) * r.steps_completed
+    assert packed["launches"] == want, (packed["launches"], want)
+    out = dict(wall_s=dict(serial=serial["wall_s"], concurrent=packed["wall_s"]),
+               speedup=serial["wall_s"] / packed["wall_s"], scheduler=stats,
+               devices=packed["devices"], validations_compared=len(both),
+               validations_bitwise=all(d == 0 for d in diffs.values()),
+               max_validation_diff=max(diffs.values()),
+               decisions=dict(serial=decisions(serial), concurrent=decisions(packed)),
+               launches_by_device=packed["launches"])
+    log("X1 " + json.dumps(out, default=str))
+    return out
+
+
+def _x2_raw(ckpt_dir: str, seed: int) -> dict:
+    from chip_smoke import MOE_EP_CONST, _apply_cuts, _moe_hparams
+
+    raw = _apply_cuts(MOE_EP_CONST, X2_CUTS, {"<temp dir>": ckpt_dir, "<--seed>": seed})
+    raw["hyperparameters"] = _moe_hparams()
+    return raw
+
+
+def _rank_x2_restore(core_ctx, workdir: str, inp: dict) -> dict:
+    """One rank of X2's restores: on fsdp 2 x expert 2 the step-12
+    checkpoint restored and then gathered and written whole by the chief
+    (the earlier mesh save path, timed); on data 4 restored (a trial.resize span)
+    and gathered, held against the first bitwise on the chief."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.observability import get_tracer
+    from determined_tpu_torch.parallel import MeshConfig
+
+    # these restores compare bytes, not digests: the resume B checked the
+    # md5 path of a sharded checkpoint
+    cfg = ExperimentConfig.parse(dict(inp["raw"], fault_tolerance={"verify_checkpoints": False}))
+    chief = core_ctx.distributed.is_chief
+    out: dict = {}
+    first = None
+    for mesh in (dict(fsdp=2, expert=2), dict(data=4)):
+        get_tracer().reset()
+        ctx = train.init(hparams=_hparams(), exp_config=cfg, seed=inp["seed"],
+                         core_context=core_ctx, mesh_config=MeshConfig(**mesh))
+        trainer = train.Trainer(LMTrial(ctx))
+        trainer.fit(max_length=X2_STEPS, latest_checkpoint=inp["sid"], checkpoint_policy="none")
+        spans = {e["name"] for e in get_tracer().chrome_events() if e["ph"] == "X"}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        full = trainer._full_array_state()
+        gather_s = time.monotonic() - t0
+        state = None
+        if chief:
+            state = {"params": full["params"], "mu": full["opt_state"].mu,
+                     "nu": full["opt_state"].nu}
+        key = "_".join(f"{k}{v}" for k, v in mesh.items())
+        if first is None:
+            write_s = None
+            if chief:
+                t1 = time.monotonic()
+                torch.save(state, os.path.join(workdir, "gathered.pt"))
+                write_s = time.monotonic() - t1
+            first = state
+            out[key] = dict(gather_s=gather_s, chief_write_s=write_s,
+                            resize="trial.resize" in spans)
+        else:
+            if chief:
+                for part in ("params", "mu", "nu"):
+                    for name, t in state[part].items():
+                        assert torch.equal(t, first[part][name]), (mesh, part, name)
+            out[key] = dict(gather_s=gather_s, resize="trial.resize" in spans,
+                            bitwise=bool(chief))
+        del trainer, ctx, full, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _x2(args, root: str) -> dict:
+    """X2 (the docstring at the top)."""
+    import glob
+
+    import torch
+
+    from chip_smoke import gang_drive, load_compared
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.experiment import LocalExperiment
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.train import serialization
+
+    for key, old, value, why in X2_CUTS:
+        log(f"X2 cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    # at most three 13.3 GB states on the disk at once: U's last checkpoint,
+    # A/B's two (or the gathered copy)
+    free = shutil.disk_usage(root).free
+    log(f"X2: {free / 2**30:.1f} GiB free under {root}")
+    assert free > 45 * 2 ** 30, f"X2 needs 45 GiB free under {root}"
+    # U: uninterrupted, checkpointed at its end only
+    ucfg = _x2_raw(os.path.join(root, "x2-u"), args.seed)
+    for key, value in (("checkpoint_policy", "none"), ("min_checkpoint_period",
+                                                       {"batches": X2_STEPS})):
+        log(f"X2 U cut: {key} {json.dumps(ucfg.get(key))} -> {json.dumps(value)} (U writes "
+            "only its step-12 checkpoint, the one the restores read)")
+        ucfg[key] = value
+    t0 = time.monotonic()
+    exp = LocalExperiment(ExperimentConfig.parse(ucfg), LMTrial,
+                          checkpoint_dir=ucfg["checkpoint_storage"]["host_path"])
+    summary_u = exp.run()
+    wall_u = time.monotonic() - t0
+    udir = ucfg["checkpoint_storage"]["host_path"]
+    val_u = _validations(udir)
+    log(f"X2 U (uninterrupted gang): {wall_u:.1f} s, " + json.dumps(summary_u))
+    assert summary_u["status"] == "completed" and sorted(val_u) == [(1, 6), (1, X2_STEPS)]
+    sid = exp.results[1].checkpoint
+    ckpt = os.path.join(udir, "trial_1", sid)
+    for other in os.listdir(os.path.join(udir, "trial_1")):
+        if other != sid:
+            shutil.rmtree(os.path.join(udir, "trial_1", other))
+    layout = serialization.load_layout(ckpt)
+    whole = sum(int(np.prod(e["shape"], dtype=np.int64)) * torch.empty(
+        0, dtype=getattr(torch, e["dtype"])).element_size() for e in layout["leaves"].values())
+    rank_bytes = {int(os.path.basename(f)[4:9]): os.path.getsize(f)
+                  for f in glob.glob(os.path.join(ckpt, "state", "shards", "rank*.pt"))}
+    assert abs(sum(rank_bytes.values()) - whole) <= 0.01 * whole, (rank_bytes, whole)
+    attempt = os.path.join(udir, "gangs", "trial_1", "attempt_1")
+    save_s = {}
+    for r in range(4):
+        with open(os.path.join(attempt, f"rank{r}.spans.json")) as f:
+            spans = json.load(f)
+        save_s[r] = {name: [round(e["dur"] / 1e6, 6) for e in spans if e["name"] == name]
+                     for name in ("checkpoint.save", "checkpoint.dispatch", "checkpoint.write",
+                                  "checkpoint.stall", "checkpoint.finalize",
+                                  "checkpoint.digest")}
+
+    # A and B: SIGTERM before step 4 (read at 6), resumed to 12
+    abcfg = _x2_raw(os.path.join(root, "x2-ab"), args.seed)
+    abdir = abcfg["checkpoint_storage"]["host_path"]
+    config_path = os.path.join(root, "x2.json")
+    with open(config_path, "w") as f:
+        json.dump(abcfg, f)
+    code_a, rec_a, wall_a = gang_drive("run", config_path, abdir, os.path.join(root, "x2a.json"),
+                                       X2_ENTRY)
+    log(f"X2 A (SIGTERM before step {X2_SIGTERM_AT}): exit {code_a}, {wall_a:.1f} s, "
+        + json.dumps(rec_a))
+    assert code_a == 75, code_a
+    code_b, rec_b, wall_b = gang_drive("resume", "-", abdir, os.path.join(root, "x2b.json"))
+    log(f"X2 B (resumed): exit {code_b}, {wall_b:.1f} s, " + json.dumps(rec_b))
+    assert code_b == 0, code_b
+    val_ab = _validations(abdir)
+    assert val_ab == val_u, (val_ab, val_u)
+    shutil.rmtree(abdir, ignore_errors=True)
+
+    # the restores: data 4 (trial.resize) and one GPU, against the gathered state
+    workdir = os.path.join(root, "x2r")
+    outs = _launch_gang(args.gpus, workdir, dict(part="X2R", raw=ucfg, sid=sid,
+                                                 ckpt_dir=os.path.join(udir, "trial_1")),
+                        args.seed)
+    restores = outs[0]
+    assert restores["fsdp2_expert2"]["resize"] is False and restores["data4"]["resize"], restores
+    want = torch.load(os.path.join(workdir, "gathered.pt"))
+    t0 = time.monotonic()
+    _, single = load_compared(ckpt, LMTrial)
+    one_gpu_s = time.monotonic() - t0
+    for name, p in single._params.items():
+        assert torch.equal(p.detach().cpu(), want["params"][name]), name
+    for which in ("mu", "nu"):
+        for name, t in getattr(single.state.opt_state, which).items():
+            assert torch.equal(t.cpu(), want[which][name]), (which, name)
+    del single, want
+    torch.cuda.empty_cache()
+    out = dict(
+        wall_s=dict(uninterrupted=wall_u, A=wall_a, B=wall_b),
+        launch_to_first_step_s=rec_a["launch_to_first_step_s"],
+        whole_state_bytes=whole, rank_checkpoint_bytes=rank_bytes,
+        rank_bytes_over_whole=sum(rank_bytes.values()) / whole,
+        rank_save_s=save_s, chief_gather=restores, one_gpu_restore_s=one_gpu_s,
+        validations=[val_u[(1, 6)]["validation_loss"], val_u[(1, X2_STEPS)]["validation_loss"]],
+        resumed_bitwise=True, restores_bitwise=True,
+    )
+    log("X2 " + json.dumps(out))
+    return out
+
+
+def _x3(args, root: str) -> dict:
+    """X3 (the docstring at the top)."""
+    from chip_smoke import MNIST_ADAPTIVE, _apply_cuts
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.experiment import LocalExperiment
+    from determined_tpu_torch.models import MnistTrial
+
+    for key, old, value, why in X3_CUTS:
+        log(f"X3 cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    runs = {}
+    for label, devices in (("serial", ["cuda:0", "cuda:1"]), ("concurrent", None)):
+        ckpt = os.path.join(root, f"x3-{label}")
+        raw = _apply_cuts(MNIST_ADAPTIVE, X3_CUTS, {"<temp dir>": ckpt, "<--seed>": args.seed})
+        exp = LocalExperiment(ExperimentConfig.parse(raw), MnistTrial, checkpoint_dir=ckpt,
+                              devices=devices)
+        t0 = time.monotonic()
+        summary = exp.run()
+        runs[label] = dict(exp=exp, wall_s=time.monotonic() - t0, devices=_trial_devices(ckpt))
+        assert summary["status"] == "completed", summary
+        log(f"X3 {label}: {runs[label]['wall_s']:.1f} s, " + json.dumps(dict(
+            summary=summary, devices=runs[label]["devices"], scheduler=exp.scheduler_stats)))
+        shutil.rmtree(ckpt, ignore_errors=True)
+    packed = runs["concurrent"]
+    stats = packed["exp"].scheduler_stats
+    assert stats["peak_concurrency"] == 2 and stats["backfills"] >= 1, stats
+    blocks = {tuple(d) for d in packed["devices"].values()}
+    assert blocks == {("cuda:0", "cuda:1"), ("cuda:2", "cuda:3")}, blocks
+    assert {r: x.hparams for r, x in packed["exp"].results.items()} == \
+        {r: x.hparams for r, x in runs["serial"]["exp"].results.items()}
+    out = dict(wall_s={k: v["wall_s"] for k, v in runs.items()}, scheduler=stats,
+               devices=packed["devices"],
+               steps={r: x.steps_completed for r, x in packed["exp"].results.items()})
+    log("X3 " + json.dumps(out, default=str))
+    return out
+
+
+def _x_part(args, root: str, names) -> None:
+    from determined_tpu_torch.experiment import _gang
+
+    _gang.ATTEMPT_TIMEOUT_S = GANG_TIMEOUT_S
+    for name in names:
+        fn = {"X1": _x1, "X2": _x2, "X3": _x3}[name]
+        t0 = time.monotonic()
+        fn(args, root)
+        log(f"{name}: {time.monotonic() - t0:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gpus", type=int, default=4)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--rank-of", nargs=2, metavar=("WORKDIR", "MESH"))
+    parser.add_argument("--parts", default=",".join(PARTS))
     args = parser.parse_args()
+    parts = set(args.parts.split(","))
+    unknown = parts - set(PARTS) - set(X_PARTS)
+    if unknown:
+        parser.error(f"unknown parts {sorted(unknown)}; choose from {PARTS + X_PARTS}")
 
     import torch
 
@@ -392,7 +837,6 @@ def main() -> int:
         return 1
     import determined_tpu_torch  # noqa: F401  (fails outside a checkout)
     from chip_smoke import MOE_CUTS, card_line
-    from determined_tpu_torch import train
 
     t_start = time.monotonic()
     card = card_line()
@@ -401,34 +845,16 @@ def main() -> int:
         log(f"cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
     root = tempfile.mkdtemp(prefix="dtt-mesh-smoke-")
     try:
-        ctx = train.init(hparams=_hparams(), seed=args.seed)
-        ref = _fit(ctx, STEPS)
-        del ctx
-        torch.cuda.empty_cache()
-        log("R: " + json.dumps(ref))
-        for i, mesh in enumerate(MESHES):
-            outs = _launch_gang(args.gpus, os.path.join(root, f"g{i}"), mesh, args.seed)
-            chief = outs[0]
-            np.testing.assert_allclose(chief["losses"], ref["losses"], err_msg=str(mesh),
-                                       **MESH_LOSS_TOL)
-            np.testing.assert_allclose(chief["aux"], ref["aux"], err_msg=str(mesh),
-                                       **MESH_LOSS_TOL)
-            for rank, o in enumerate(outs):
-                layers, leaves = o["layers"], o["local_leaves"]
-                want = dict(flash_fwd=layers * STEPS, flash_bwd_dq=layers * STEPS,
-                            flash_bwd_dkv=layers * STEPS, fused_adamw=leaves * STEPS)
-                assert o["launches"] == want, (mesh, rank, o["launches"], want)
-            log("G " + json.dumps(dict(
-                mesh=mesh, losses=chief["losses"], ref_losses=ref["losses"],
-                max_loss_rel=max(abs(a - b) / abs(b) for a, b in
-                                 zip(chief["losses"], ref["losses"])),
-                step_ms=[o["step_ms"] for o in outs],
-                peak_memory_gib=[o["peak_memory_gib"] for o in outs],
-                local_params=[o["params"] for o in outs],
-                coords=[o["batch_shard"] for o in outs], launches=chief["launches"])))
-        outs = _launch_gang(args.gpus, os.path.join(root, "e"), dict(part="E"), args.seed)
-        log("E " + json.dumps({f"rank{r}": o["max_abs_err"] for r, o in enumerate(outs)}))
-        _seq_part(args, root)
+        if "G" in parts:
+            _mesh_part(args, root)
+        if "E" in parts:
+            outs = _launch_gang(args.gpus, os.path.join(root, "e"), dict(part="E"), args.seed)
+            log("E " + json.dumps({f"rank{r}": o["max_abs_err"] for r, o in enumerate(outs)}))
+        if "S" in parts:
+            _seq_part(args, root)
+        xs = [x for x in X_PARTS if "X" in parts or x in parts]
+        if xs:
+            _x_part(args, root, xs)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"mesh_smoke: {time.monotonic() - t_start:.1f} s")
@@ -438,6 +864,39 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def _mesh_part(args, root: str) -> None:
+    """R and G (the docstring at the top)."""
+    import torch
+
+    from determined_tpu_torch import train
+
+    ctx = train.init(hparams=_hparams(), seed=args.seed)
+    ref = _fit(ctx, STEPS)
+    del ctx
+    torch.cuda.empty_cache()
+    log("R: " + json.dumps(ref))
+    for i, mesh in enumerate(MESHES):
+        outs = _launch_gang(args.gpus, os.path.join(root, f"g{i}"), mesh, args.seed)
+        chief = outs[0]
+        np.testing.assert_allclose(chief["losses"], ref["losses"], err_msg=str(mesh),
+                                   **MESH_LOSS_TOL)
+        np.testing.assert_allclose(chief["aux"], ref["aux"], err_msg=str(mesh),
+                                   **MESH_LOSS_TOL)
+        for rank, o in enumerate(outs):
+            layers, leaves = o["layers"], o["local_leaves"]
+            want = dict(flash_fwd=layers * STEPS, flash_bwd_dq=layers * STEPS,
+                        flash_bwd_dkv=layers * STEPS, fused_adamw=leaves * STEPS)
+            assert o["launches"] == want, (mesh, rank, o["launches"], want)
+        log("G " + json.dumps(dict(
+            mesh=mesh, losses=chief["losses"], ref_losses=ref["losses"],
+            max_loss_rel=max(abs(a - b) / abs(b) for a, b in
+                             zip(chief["losses"], ref["losses"])),
+            step_ms=[o["step_ms"] for o in outs],
+            peak_memory_gib=[o["peak_memory_gib"] for o in outs],
+            local_params=[o["params"] for o in outs],
+            coords=[o["batch_shard"] for o in outs], launches=chief["launches"])))
 
 
 if __name__ == "__main__":

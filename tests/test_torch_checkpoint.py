@@ -155,21 +155,6 @@ def test_store_restore_lineage_and_delete_round_trip(tmp_path):
     assert not os.path.exists(os.path.join(str(tmp_path / "store"), first))
 
 
-@pytest.mark.parametrize("call", ["upload", "store_path", "store_path_async"])
-def test_sharded_checkpoints_raise_naming_the_later_slice(tmp_path, call):
-    ctx = core._dummy_init(checkpoint_dir=str(tmp_path / "store")).checkpoint
-    with pytest.raises(NotImplementedError, match="later slice"):
-        if call == "upload":
-            ctx.upload(_src_dir(tmp_path), shard=True)
-        elif call == "store_path":
-            with ctx.store_path(shard=True):
-                pass
-        else:
-            ctx.store_path_async(shard=True)
-    store = str(tmp_path / "store")
-    assert not os.path.exists(store) or not os.listdir(store)
-
-
 def test_restore_reuses_a_manifest_verdict_only_for_unchanged_files(tmp_path, monkeypatch):
     """A verdict handed over by accept_verified spares restore_path its md5
     pass once, and only while every file keeps its size and mtime."""

@@ -8,9 +8,12 @@
 - Leaves over the chunk size in flax's ``__msgpack_chunked_array__`` form
   (the chunk size lowered for the test) are joined back.
 - A ``save_pretrained`` directory reads as ``msgpack_restore`` reads its
-  file; a sharded one (``flax_model.msgpack.index.json``) raises
-  ``ShardedCheckpointError``, named; a directory without the file raises
-  ``FileNotFoundError``.
+  file; a sharded one (``save_pretrained(max_shard_size=...)``, at least
+  three shards and ``flax_model.msgpack.index.json``) of a tiny GPT-2 and a
+  tiny BERT reads as the Flax class's ``from_pretrained`` reads it, leaf
+  for leaf; a missing shard, a leaf in two shards and a leaf the index does
+  not give its shard each raise a named ``FlaxMsgpackError``; a directory
+  without the file raises ``FileNotFoundError``.
 - What the reader does not read (ext 2 and 3, an unknown dtype, a
   non-string key, a truncated file, bytes after the tree) raises
   ``FlaxMsgpackError``: nothing is guessed.
@@ -18,6 +21,7 @@
 
 import json
 
+import jax
 import jax.numpy as jnp
 import msgpack
 import numpy as np
@@ -101,14 +105,60 @@ def test_save_pretrained_directory_reads_as_flax_reads_it(tmp_path):
     assert "transformer" in got and "lm_head" not in got  # the tied head has no leaf
 
 
-def test_sharded_directory_raises_a_named_error(tmp_path):
-    (tmp_path / fm.INDEX_NAME).write_text(json.dumps(
-        {"metadata": {"total_size": 8}, "weight_map": {"a": "flax_model-00001-of-00002.msgpack"}}))
-    (tmp_path / "flax_model-00001-of-00002.msgpack").write_bytes(
-        serialization.msgpack_serialize({"a": np.ones(2, np.float32)}))
-    with pytest.raises(fm.ShardedCheckpointError, match="sharded"):
+def _tiny_flax_model(kind):
+    if kind == "gpt2":
+        cfg = transformers.GPT2Config(vocab_size=64, n_positions=16, n_embd=16, n_layer=2,
+                                      n_head=2)
+        return transformers.FlaxGPT2LMHeadModel, transformers.FlaxGPT2LMHeadModel(cfg, seed=0)
+    cfg = transformers.BertConfig(vocab_size=64, hidden_size=16, num_hidden_layers=2,
+                                  num_attention_heads=2, intermediate_size=32,
+                                  max_position_embeddings=16, num_labels=3)
+    cls = transformers.FlaxBertForSequenceClassification
+    return cls, cls(cfg, seed=0)
+
+
+@pytest.mark.parametrize("kind", ["gpt2", "bert"])
+def test_sharded_save_pretrained_reads_as_flax_reads_it(tmp_path, kind):
+    cls, model = _tiny_flax_model(kind)
+    total = sum(int(np.asarray(x).nbytes) for x in jax.tree_util.tree_leaves(model.params))
+    model.save_pretrained(str(tmp_path), max_shard_size=total // 4)
+    index = json.loads((tmp_path / fm.INDEX_NAME).read_text())
+    assert len(set(index["weight_map"].values())) >= 3
+    assert not (tmp_path / fm.WEIGHTS_NAME).exists()
+    want = cls.from_pretrained(str(tmp_path), local_files_only=True).params
+    _assert_trees_equal(fm.read_pretrained_dir(str(tmp_path)), jax.device_get(want))
+
+
+def _sharded_dir(path):
+    """A hand-written two-shard directory: leaves a and b/c."""
+    names = ["flax_model-00001-of-00002.msgpack", "flax_model-00002-of-00002.msgpack"]
+    (path / names[0]).write_bytes(serialization.msgpack_serialize({"a": np.ones(2, np.float32)}))
+    (path / names[1]).write_bytes(
+        serialization.msgpack_serialize({"b": {"c": np.zeros(3, np.float32)}}))
+    index = {"metadata": {"total_size": 20}, "weight_map": {"a": names[0], "b/c": names[1]}}
+    (path / fm.INDEX_NAME).write_text(json.dumps(index))
+    return names, index
+
+
+@pytest.mark.parametrize("fault", ["missing_shard", "leaf_in_two_shards", "unindexed_leaf"])
+def test_malformed_sharded_directories_raise_named_errors(tmp_path, fault):
+    names, index = _sharded_dir(tmp_path)
+    _assert_trees_equal(fm.read_pretrained_dir(str(tmp_path)),
+                        {"a": np.ones(2, np.float32), "b": {"c": np.zeros(3, np.float32)}})
+    if fault == "missing_shard":
+        (tmp_path / names[1]).unlink()
+        err, match = fm.MissingShardError, "missing"
+    elif fault == "leaf_in_two_shards":
+        (tmp_path / names[1]).write_bytes(serialization.msgpack_serialize(
+            {"a": np.ones(2, np.float32), "b": {"c": np.zeros(3, np.float32)}}))
+        err, match = fm.DuplicateLeafError, "in both"
+    else:
+        (tmp_path / names[0]).write_bytes(serialization.msgpack_serialize(
+            {"a": np.ones(2, np.float32), "d": np.ones(1, np.float32)}))
+        err, match = fm.UnindexedLeafError, "does not name"
+    assert issubclass(err, fm.FlaxMsgpackError)
+    with pytest.raises(err, match=match):
         fm.read_pretrained_dir(str(tmp_path))
-    assert issubclass(fm.ShardedCheckpointError, fm.FlaxMsgpackError)
 
 
 def test_directory_without_weights_raises(tmp_path):

@@ -192,6 +192,50 @@ def test_moe_and_parallel_modules_import_nothing_of_jax(module):
     assert proc.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", [
+    "determined_tpu_torch.experiment.scheduler",
+    "determined_tpu_torch.experiment._gang",
+    "determined_tpu_torch.exec.gang_rank",
+    "determined_tpu_torch.train.serialization",
+    "mesh_smoke",
+])
+def test_scheduler_gang_and_sharded_checkpoint_modules_import_nothing_of_jax(module):
+    """The concurrent trial scheduler, the gang launcher, the gang's rank
+    entry point and the sharded array plane are the port's own copies (not
+    the JAX package's ``experiment/scheduler.py``, which imports no JAX
+    itself), and ``mesh_smoke.py`` drives them: each, imported alone, pulls
+    in nothing of JAX or the JAX package, opens no process group and starts
+    no rank process."""
+    probe = textwrap.dedent(
+        """
+        import importlib, sys
+
+        BLOCKED = {blocked!r}
+
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                    raise ImportError("blocked import of " + name)
+                return None
+
+        sys.meta_path.insert(0, Blocker())
+        importlib.import_module({module!r})
+        import multiprocessing
+        import torch.distributed as dist
+        assert not dist.is_initialized()
+        assert not multiprocessing.active_children()
+        print("ok")
+        """
+    ).format(blocked=BLOCKED, module=module)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_fails_without_cuda():
     """Without a GPU the smoke run prints no result and exits non-zero."""
     proc = subprocess.run(

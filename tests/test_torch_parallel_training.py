@@ -19,8 +19,7 @@ mesh.
 - Preemption asked of one rank stops every rank at the same boundary,
   with one checkpoint that every rank names.
 - The mesh axes of later slices (and MoE blocks on tensor or seq) raise
-  ``NotImplementedError``, and so does a local experiment on a mesh of
-  more than one device.
+  ``NotImplementedError``.
 """
 
 import functools
@@ -225,15 +224,6 @@ def test_gradient_accumulation_on_a_mesh_equals_one_device(tmp_path):
                                    atol=2e-5, err_msg=k)
     np.testing.assert_allclose(outs[0]["training"][-1][1]["loss"],
                                ctx.core.train.metrics("training")[-1][1]["loss"], rtol=1e-5)
-
-
-def test_a_local_experiment_on_a_mesh_raises(tmp_path):
-    from determined_tpu_torch.experiment import LocalExperiment
-
-    cfg = ExperimentConfig.parse({"hyperparameters": dict(MNIST_HP),
-                                  "resources": {"mesh": {"data": 2}}})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        LocalExperiment(cfg, MnistTrial, checkpoint_dir=str(tmp_path), device="cpu")
 
 
 def test_preemption_of_one_rank_stops_every_rank(tmp_path):

@@ -180,6 +180,59 @@ def case_train(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+def _gathered(trainer: Any, chief: bool) -> Any:
+    """The trainer's whole array state gathered onto the chief, flat:
+    ``{part/name: (dtype name, float32 numpy)}`` (None elsewhere)."""
+    from determined_tpu_torch.train import serialization
+
+    full = trainer._full_array_state()
+    if not chief:
+        return None
+    full["rng"] = full["rng"].clone()
+    out = {}
+    for part, node in full.items():
+        for name, t in serialization.flatten({part: node}).items():
+            out[name] = (str(t.dtype).replace("torch.", ""), t.detach().cpu().float().numpy())
+    return out
+
+
+def case_sharded(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """A sharded checkpoint written on ``inp["mesh"]`` by ``fit(**fit)``
+    (or the checkpoint ``inp["sid"]``), then restored in the same processes
+    on each of ``inp["restore"]``
+    (``(mesh, max_length)``: a fresh Trainer's ``fit`` from the newest
+    checkpoint to ``max_length``, no new checkpoint): each run's gathered
+    state, reported training rows and span names."""
+    from determined_tpu_torch import core, train
+    from determined_tpu_torch.observability import get_tracer
+    from determined_tpu_torch.parallel import MeshConfig
+
+    trial_cls = _trial_class(inp["trial"], inp.get("init_state"))
+    tracer = get_tracer()
+    runs = []
+    # with ``sid`` no checkpoint is written here: the restores take it
+    sid = inp.get("sid")
+    writes = [] if sid else [(inp["mesh"], inp["fit"])]
+    for mesh, fit in writes + [
+            (m, dict(max_length=n, latest_checkpoint=None, report_period=1,
+                     checkpoint_policy="none")) for m, n in inp["restore"]]:
+        tracer.reset()
+        if sid is not None:
+            fit["latest_checkpoint"] = sid
+        core_ctx = core._dummy_init(distributed=dist, checkpoint_dir=inp["ckpt_dir"])
+        ctx = train.init(hparams=inp["hparams"], seed=inp.get("seed", 0), device="cpu",
+                         core_context=core_ctx, mesh_config=MeshConfig(**mesh))
+        trainer = train.Trainer(trial_cls(ctx))
+        summary = trainer.fit(**fit)
+        sid = sid or summary["latest_checkpoint"]
+        runs.append({
+            "summary": summary, "state": _gathered(trainer, dist.is_chief),
+            "training": ctx.core.train.metrics("training"),
+            "spans": sorted({e["name"] for e in tracer.chrome_events() if e["ph"] == "X"}),
+        })
+    return {"runs": runs}
+
+
 def case_mesh(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
     """This rank's coordinate on each axis of ``make_mesh``, its batch
     shard, and an all-reduce over each axis's group."""
@@ -323,7 +376,7 @@ def _vocab_parallel_ce(inp: Dict[str, Any]) -> Dict[str, Any]:
     return errs
 
 
-CASES = {"moe_ep": case_moe_ep, "train": case_train, "mesh": case_mesh,
+CASES = {"moe_ep": case_moe_ep, "train": case_train, "sharded": case_sharded, "mesh": case_mesh,
          "collectives": case_collectives, "ring": case_ring}
 
 
