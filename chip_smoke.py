@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--phases kernel,serve,parity,train,train_parity,experiment,search,observe,
-                  knobs,serve_ckpt,models,hf,moe,seq,gang]
+                  knobs,serve_ckpt,models,hf,moe,seq,gang,cluster]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -300,16 +300,57 @@ Phases, in order; any failure raises and the script exits non-zero:
    (GANG_ENTRY, LMTrial whose chief SIGTERMs the driver before step 14).
    A. the run: the SIGTERM drains the gang through the relay and the
       ranks' vote to a checkpoint at step 18; the driver exits 75.
+      Checks: the step-12 and step-18 checkpoints, manifest-verified; the
+      journal holds the step-12 validation, relayed; the rank's launch
+      counts come back through the relay and equal 18 steps x the model's
+      leaves of fused_adamw, 18 x its layers of each flash backward kernel
+      and its layers x (18 + the validation batches) of the forward.
    B. ``experiment resume`` in a second driver: steps 18 -> 24; the
       rank's launch counts come back through the relay and equal 6 steps x
       the model's leaves of fused_adamw, 6 x its layers of each flash
-      backward kernel and 2 x (6 + the validation batches) of the forward.
+      backward kernel and its layers x (6 + the validation batches) of the
+      forward.
    Checks: the journal holds both validations (12 and 24), relayed; the
    step-24 checkpoint, loaded on this card, equals phase 7's uninterrupted
    run C (run here when phase 7 did not run) bitwise: params, moments,
    steps and the last validation loss.  Printed: each driver's seconds,
    the time from the gang's launch to its first step, the host-clock step
    beside phase 7's, and the phase's seconds.
+17. cluster: the native control plane.  dtpu-master and dtpu-agent are
+   built from native/ (determined_tpu_torch/devcluster.py: cmake, else g++)
+   into a fresh temporary directory by a process started when the script
+   starts, beside the GPU phases; the phase joins it.  A master and one
+   agent (one slot, ``--python`` the port's launcher, exec/launcher.py) run
+   on localhost with their state and checkpoints in a temporary directory;
+   the port's ClusterExperiment submits phase 7's configuration
+   (EXPERIMENT_CUTS, then CLUSTER_CUTS, printed: searcher single, the same
+   seed, registry auto_promote) to the master, which places the trial on
+   the agent; the agent execs the port's run_trial on this card.  Before
+   step 14 the trial waits until the master's preemption signal reaches
+   it; the script pauses the experiment through the master's API
+   (POST /api/v1/experiments/{id}/pause), the trial checkpoints at its next
+   boundary (step 14: the default report period is 2 steps) and exits 0,
+   the master holds it PENDING; the script activates the experiment and
+   the master relaunches the trial with DTPU_LATEST_CHECKPOINT, which
+   resumes 14 -> 24.  Checks: the search completes; the final params,
+   moments, steps and validation loss equal phase 7's C bitwise (run here
+   when phase 7 did not run); the master's /api/v1/trials/{id}/metrics
+   holds the trial's training rows and its validations at 12 and 24;
+   /api/v1/checkpoints the drained step-14 checkpoint and the final one;
+   the trial's logs at the master (/api/v1/trials/{id}/logs, relayed by
+   the agent) a line naming its CUDA device, a heartbeat the master
+   answered, and the resumed run's kernel launch counts: 10 steps x the
+   model's leaves of fused_adamw (210), 10 x its layers of each flash
+   backward kernel (20) and 2 x (10 + 16 validation batches) of the
+   forward (52); the registry version 1 of lm-const at the final
+   checkpoint's uuid.  Printed: the native build's seconds and how many the
+   phase waited for them, the submit-to-first-step time, the trial's step
+   (from its reports at the master: each covers 2 steps and ends in a host
+   sync; those at a start, a validation or a save left out) beside phase
+   7's host-clock step, the trial's host-clock step between reports (the
+   enqueue: the report's sync absorbs the device time), the time from the
+   pause to the trial's exit, from the activation to the resumed run's
+   first step, and the phase's seconds.
 
 Prints, before the last line, the kernels line (JSON), the script's total
 seconds and the card's name and power limit, and as the last line
@@ -519,6 +560,31 @@ GANG_CUTS = [
     ("the preemption", f"request_preemption() before step {PREEMPT_AT}",
      f"SIGTERM to the driver before step {GANG_SIGTERM_AT}, read at the step-{PREEMPT_AT} "
      "boundary", "what a host's maintenance event sends to run-local"),
+]
+
+# phase 17: phase 7's configuration submitted to the native master by the
+# port's ClusterExperiment and run by a native agent through the port's
+# launcher.  The trial class the agent's process imports by name (module
+# ``__getattr__`` builds it), the step before which it waits for the
+# master's preemption signal, the variable naming the directory it writes
+# its events to, the phase's time limits, and the changes from phase 7's
+# configuration: (dotted key, phase 7's value, this phase's, why)
+CLUSTER_ENTRY = "chip_smoke:ClusterLMTrial"
+CLUSTER_PAUSE_AT = 14
+CLUSTER_DIR_ENV = "DTT_SMOKE_CLUSTER_DIR"
+CLUSTER_MODEL = "lm-const"
+CLUSTER_TIMEOUT_S = 300.0
+# the trial process's heartbeat period (HeartbeatReporter.INTERVAL, set
+# where the process imports its trial class): (the default, this run's, why)
+CLUSTER_HEARTBEAT_CUT = (30.0, 2.0, "each of the trial's two runs is shorter than 30 s")
+CLUSTER_CUTS = [
+    ("entrypoint", "model_def:Trial", CLUSTER_ENTRY,
+     f"LMTrial that waits before step {CLUSTER_PAUSE_AT} until the master's preemption signal "
+     "reaches it, and writes its start times and host steps to a file"),
+    ("registry", None, {"model": CLUSTER_MODEL, "auto_promote": True},
+     "the search's winner is promoted to the master's registry"),
+    (f"environment.env.{CLUSTER_DIR_ENV}", None, "<events dir>",
+     "where the trial writes its events (a fresh temporary directory)"),
 ]
 
 # phase 8: searches.  S1 (ASHA) and S2 (PBT) are const.yaml (EXPERIMENT_CONST)
@@ -884,7 +950,7 @@ SEQ_KERNEL_SHAPES = (("half_chunk_causal", 8192, True), ("half_chunk_full", 8192
                      ("whole_causal", 32768, True))
 
 PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search",
-          "observe", "knobs", "serve_ckpt", "models", "hf", "moe", "seq", "gang")
+          "observe", "knobs", "serve_ckpt", "models", "hf", "moe", "seq", "gang", "cluster")
 
 
 def log(msg: str) -> None:
@@ -1830,8 +1896,11 @@ def sigterm_trial(name: str, at: int):
 
 
 def __getattr__(name: str):
-    """``GangLMTrial``: phase 16's trial (``sigterm_trial``), built on first
-    use, since this module imports the port inside functions only."""
+    """``GangLMTrial``: phase 16's trial (``sigterm_trial``), and
+    ``ClusterLMTrial``: phase 17's (``cluster_trial``), built on first use,
+    since this module imports the port inside functions only."""
+    if name == "ClusterLMTrial":
+        return cluster_trial()
     if name != "GangLMTrial":
         raise AttributeError(name)
     cls = sigterm_trial(name, GANG_SIGTERM_AT)
@@ -1945,7 +2014,7 @@ def _compare_loaded(name: str, trainer, validation_loss: float, want: dict) -> d
                max_abs_diff=worst, steps=steps + want["steps"],
                validation_loss=(validation_loss, want["validation_loss"]),
                loader=(trainer.train_loader.state_dict(), want["loader"]))
-    log(f"gang {name} vs uninterrupted: " + json.dumps(out))
+    log(f"{name} vs uninterrupted: " + json.dumps(out))
     return out
 
 
@@ -1958,13 +2027,11 @@ def _journal_validations(ckpt_dir: str) -> list:
             if r["type"] == "trial_validated"]
 
 
-def phase_gang(seed: int, reference=None) -> dict:
-    """Parts A and B of phase 16 (the docstring at the top); ``reference``
-    is phase 7's C (its final state, initial params and host steps), run
-    here when None."""
+def reference_c(seed: int, root: str) -> tuple:
+    """Phase 7's C run here (for ``--phases`` without ``experiment``): the
+    uninterrupted 24 steps without checkpoints, under ``root``; its final
+    state, None for the initial params, and its host steps."""
     import os
-    import shutil
-    import tempfile
 
     import torch
 
@@ -1972,6 +2039,33 @@ def phase_gang(seed: int, reference=None) -> dict:
     from determined_tpu_torch.experiment import LocalExperiment
     from determined_tpu_torch.models import LMTrial
     from determined_tpu_torch.observability import get_tracer
+
+    trial_cls, trainers, _ = _capturing(LMTrial)
+    ref_raw = experiment_raw_config(os.path.join(root, "ref-ck"), seed)
+    ref_raw["checkpoint_policy"] = "none"
+    ref_raw.pop("min_checkpoint_period")
+    get_tracer().reset()
+    LocalExperiment(ExperimentConfig.parse(ref_raw), trial_cls,
+                    checkpoint_dir=os.path.join(root, "ref")).run()
+    reference = (_final_state(trainers.pop()), None, _host_steps(get_tracer()))
+    del trainers[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("C (uninterrupted, run here): " + json.dumps(reference[2]))
+    return reference
+
+
+def phase_gang(seed: int, reference=None) -> dict:
+    """Parts A and B of phase 16 (the docstring at the top); ``reference``
+    is phase 7's C (its final state, initial params and host steps), run
+    here when None and returned under ``_C`` for phase 17."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from determined_tpu_torch.models import LMTrial
 
     t_phase = time.monotonic()
     root = tempfile.mkdtemp(prefix="dtt-chip-gang-")
@@ -1982,73 +2076,400 @@ def phase_gang(seed: int, reference=None) -> dict:
         log(f"gang cut: {what}: {before} -> {now} ({why})")
     out: dict = {}
     try:
-        raw = experiment_raw_config(os.path.join(root, "ab"), seed)
         if reference is None:
-            trial_cls, trainers, _ = _capturing(LMTrial)
-            ref_raw = dict(raw, checkpoint_policy="none")
-            ref_raw.pop("min_checkpoint_period")
-            get_tracer().reset()
-            LocalExperiment(ExperimentConfig.parse(ref_raw), trial_cls,
-                            checkpoint_dir=os.path.join(root, "ref")).run()
-            reference = (_final_state(trainers.pop()), None, _host_steps(get_tracer()))
-            del trainers[:]
-            gc.collect()
-            torch.cuda.empty_cache()
-            log("gang C (uninterrupted, run here): " + json.dumps(reference[2]))
+            reference = reference_c(seed, root)
+        out["_C"] = reference
         ref, _, ref_host = reference
+        raw = experiment_raw_config(os.path.join(root, "ab"), seed)
         ckpt_dir = raw["checkpoint_storage"]["host_path"]
         config_path = os.path.join(root, "config.json")
         with open(config_path, "w") as f:
             json.dump(raw, f)
+        hp = raw["hyperparameters"]
+        layers = hp["n_layers"]
+        n_leaves = _moe_leaves(layers, every=layers + 1)  # no MoE block: 3 + 9 a block
+        n_val = hp["dataset_size"] // hp["global_batch_size"]
+
+        def want_launches(steps: int) -> dict:
+            return dict(flash_fwd=layers * (steps + n_val), flash_bwd_dq=layers * steps,
+                        flash_bwd_dkv=layers * steps, fused_adamw=n_leaves * steps)
 
         # ---- A: run-local, SIGTERM before step 14, drained at 18 -----------
         code_a, rec_a, wall_a = gang_drive("run", config_path, ckpt_dir,
                                             os.path.join(root, "a.json"))
         ckpts_a = _checkpoint_steps(ckpt_dir)
+        launches_a = rec_a["launches"]["1"]
         log(f"gang A (SIGTERM before step {GANG_SIGTERM_AT}): exit {code_a}, {wall_a:.1f} s, "
             + json.dumps(dict(launch_to_first_step_s=rec_a["launch_to_first_step_s"],
-                              host_steps=rec_a["host_steps"], checkpoints=ckpts_a)))
+                              host_steps=rec_a["host_steps"], checkpoints=ckpts_a,
+                              launches=launches_a)))
         assert code_a == 75, code_a
         assert sorted(c["steps"] for c in ckpts_a.values()) == [12, PREEMPT_AT], ckpts_a
         assert all(c["verified"] for c in ckpts_a.values())
+        assert [s for s, _ in _journal_validations(ckpt_dir)] == [12]
+        want = want_launches(PREEMPT_AT)
+        got_a = {k: launches_a[k] for k in want}
+        assert got_a == want, f"A's relayed launches {got_a} != expected {want}"
 
         # ---- B: experiment resume, 18 -> 24 ---------------------------------
         code_b, rec_b, wall_b = gang_drive("resume", "-", ckpt_dir,
                                             os.path.join(root, "b.json"))
-        launches = rec_b["launches"]["1"]
+        launches_b = rec_b["launches"]["1"]
         log(f"gang B (resumed): exit {code_b}, {wall_b:.1f} s, " + json.dumps(dict(
             launch_to_first_step_s=rec_b["launch_to_first_step_s"],
-            host_steps=rec_b["host_steps"], launches=launches)))
+            host_steps=rec_b["host_steps"], launches=launches_b)))
         assert code_b == 0, code_b
         validations = _journal_validations(ckpt_dir)
         assert [s for s, _ in validations] == [12, EXPERIMENT_STEPS], validations
         final = [u for u, c in _checkpoint_steps(ckpt_dir).items()
                  if c["steps"] == EXPERIMENT_STEPS]
         assert len(final) == 1, final
+        want = want_launches(EXPERIMENT_STEPS - PREEMPT_AT)
+        got_b = {k: launches_b[k] for k in want}
+        assert got_b == want, f"B's relayed launches {got_b} != expected {want}"
         _, trainer = load_compared(os.path.join(ckpt_dir, "trial_1", final[0]), LMTrial)
-        layers, n_leaves = trainer.model.cfg.n_layers, len(trainer._params)
-        n_val = trainer.val_loader.batches_per_epoch
-        resumed = EXPERIMENT_STEPS - PREEMPT_AT
-        want = dict(flash_fwd=layers * (resumed + n_val), flash_bwd_dq=layers * resumed,
-                    flash_bwd_dkv=layers * resumed, fused_adamw=n_leaves * resumed)
-        got = {k: launches[k] for k in want}
-        assert got == want, f"relayed launches {got} != expected {want}"
-        cmp = _compare_loaded("B (SIGTERM, resumed)", trainer,
+        cmp = _compare_loaded("gang B (SIGTERM, resumed)", trainer,
                               validations[-1][1]["validation_loss"], ref)
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
         assert cmp["bitwise"], cmp
         out.update(
-            launches=got, vs_uninterrupted=cmp,
+            launches=got_a, launches_resume=got_b, vs_uninterrupted=cmp,
             launch_to_first_step_s=dict(A=rec_a["launch_to_first_step_s"],
                                         B=rec_b["launch_to_first_step_s"]),
             host_step_ms=dict(gang_A=rec_a["host_steps"]["mean_step_ms_without_write"],
                               phase7=ref_host and ref_host["mean_step_ms_without_write"]),
             wall_s=dict(A=wall_a, B=wall_b, phase=time.monotonic() - t_phase),
         )
-        log("gang: " + json.dumps(out))
+        log("gang: " + json.dumps({k: v for k, v in out.items() if k != "_C"}))
     finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+class NativeBuild:
+    """dtpu-master and dtpu-agent built from native/ into a fresh temporary
+    directory by a process of its own (``devcluster.build_binaries``),
+    started when the script starts so that its compile runs beside the GPU
+    phases; ``join`` waits for it.  An unjoined build is killed at exit."""
+
+    def __init__(self) -> None:
+        import atexit
+        import os
+        import tempfile
+
+        self.where = tempfile.mkdtemp(prefix="dtt-chip-native-")
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys; from determined_tpu_torch import devcluster; "
+             "print(devcluster.build_binaries(sys.argv[1], force=True))", self.where],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True,
+        )
+        atexit.register(self.close)
+
+    def join(self, timeout: float = 600.0) -> tuple:
+        """The build directory, the build's seconds and the seconds this
+        call waited for it."""
+        t0 = time.monotonic()
+        out, _ = self.proc.communicate(timeout=timeout)
+        waited = time.monotonic() - t0
+        assert self.proc.returncode == 0, f"native build failed:\n{out[-4000:]}"
+        return self.where, float(out.strip().splitlines()[-1]), waited
+
+    def close(self) -> None:
+        import os
+        import shutil
+        import signal
+
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            self.proc.wait()
+        shutil.rmtree(self.where, ignore_errors=True)
+
+
+_CLUSTER_TRIALS: dict = {}
+
+
+def cluster_trial():
+    """Phase 17's trial (``ClusterLMTrial``): LMTrial whose first run waits
+    before step CLUSTER_PAUSE_AT until the master's preemption signal has
+    reached it, and whose every run appends its events (start, waiting,
+    signalled, end with its host-clock steps) as JSON lines under
+    ``$DTT_SMOKE_CLUSTER_DIR``."""
+    if "ClusterLMTrial" in _CLUSTER_TRIALS:
+        return _CLUSTER_TRIALS["ClusterLMTrial"]
+    import os
+
+    from determined_tpu_torch.core import HeartbeatReporter
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.observability import get_tracer
+    from determined_tpu_torch.train import Callback
+    from determined_tpu_torch.utils import faults
+
+    # run_trial imports the trial class before core.init starts the
+    # reporter, so its beats follow this period
+    HeartbeatReporter.INTERVAL = CLUSTER_HEARTBEAT_CUT[1]
+
+    def event(**rec) -> None:
+        rec["t"] = time.time()
+        with open(os.path.join(os.environ[CLUSTER_DIR_ENV], "events.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    class ClusterLMTrial(LMTrial):
+        def build_callbacks(self):
+            preempt = self.context.core.preempt
+
+            def wait_for_signal() -> None:
+                event(event="waiting", step=CLUSTER_PAUSE_AT - 1)
+                deadline = time.monotonic() + CLUSTER_TIMEOUT_S
+                # a world of one: the read is the flag the master's
+                # long-poll sets, not a collective
+                while not preempt.should_preempt(auto_ack=False):
+                    assert time.monotonic() < deadline, "no preemption signal from the master"
+                    time.sleep(0.01)
+                event(event="signalled", step=CLUSTER_PAUSE_AT - 1)
+
+            class Record(Callback):
+                def on_training_start(self, trainer) -> None:
+                    event(event="start", step=trainer.steps_completed)
+                    if trainer.steps_completed < CLUSTER_PAUSE_AT - 1:
+                        faults.set_fault_injector(_StepHook(CLUSTER_PAUSE_AT - 1,
+                                                            wait_for_signal))
+
+                def on_trial_shutdown(self) -> None:
+                    faults.set_fault_injector(None)
+                    event(event="end", host_steps=_host_steps(get_tracer()))
+
+            return {"record": Record()}
+
+    ClusterLMTrial.__module__ = __name__
+    _CLUSTER_TRIALS["ClusterLMTrial"] = ClusterLMTrial
+    return ClusterLMTrial
+
+
+def _read_events(path: str) -> list:
+    import os
+
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _wait_for(what: str, fn, timeout: float, alive=None, poll: float = 0.05):
+    """Poll ``fn`` until it returns something truthy; fail after
+    ``timeout`` seconds or when ``alive()`` turns false."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = fn()
+        if got:
+            return got
+        assert alive is None or alive(), f"{what}: the cluster or the driver stopped"
+        assert time.monotonic() < deadline, f"{what}: not within {timeout:.0f} s"
+        time.sleep(poll)
+
+
+def _log_lines(session, tid: int) -> list:
+    """The trial's log lines at the master (the agent relays the trial
+    process's output), as strings."""
+    recs = session.get(f"/api/v1/trials/{tid}/logs", params={"limit": 10000}).json()
+    return [r if isinstance(r, str) else str(r.get("line", r)) for r in recs]
+
+
+def phase_cluster(seed: int, build: NativeBuild, reference=None) -> dict:
+    """Phase 17 (the docstring at the top); ``reference`` is phase 7's C
+    (its final state, initial params and host steps), run here when None."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from determined_tpu_torch import devcluster
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.experiment import ClusterExperiment
+    from determined_tpu_torch.models import LMTrial
+
+    t_phase = time.monotonic()
+    where, build_s, waited_s = build.join()
+    log(f"cluster: native build {build_s:.1f} s (cmake or g++ of native/), the phase waited "
+        f"{waited_s:.1f} s for it")
+    root = tempfile.mkdtemp(prefix="dtt-chip-cluster-")
+    events_dir = os.path.join(root, "events")
+    os.makedirs(events_dir)
+    events_path = os.path.join(events_dir, "events.jsonl")
+    for path, const, value, why in EXPERIMENT_CUTS:
+        value = seed if value == "<--seed>" else value
+        log(f"cluster cut: {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
+    for path, const, value, why in CLUSTER_CUTS:
+        log(f"cluster cut: {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
+    default, interval, why = CLUSTER_HEARTBEAT_CUT
+    log(f"cluster cut: the trial's HeartbeatReporter.INTERVAL {default} -> {interval} ({why})")
+    out: dict = dict(native_build_s=build_s, native_build_waited_s=waited_s)
+    cluster = None
+    driver = None
+    try:
+        if reference is None:
+            reference = reference_c(seed, root)
+        ref, _, ref_host = reference
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        ckpt_dir = os.path.join(root, "checkpoints")
+        cluster = devcluster.LocalCluster(
+            os.path.join(root, "state"), ckpt_dir, agents=1, slots=1,
+            cwd=os.path.dirname(os.path.abspath(__file__)), where=where,
+        )
+        t0 = time.monotonic()
+        cluster.start()
+        log(f"cluster: master {cluster.url} and one agent up in {time.monotonic() - t0:.1f} s "
+            f"(their logs under {cluster.log_dir})")
+        session = cluster.session()
+        raw = _apply_cuts(experiment_raw_config(ckpt_dir, seed), CLUSTER_CUTS,
+                          {"<events dir>": events_dir})
+        exp = ClusterExperiment(ExperimentConfig.parse(raw), session=session,
+                                checkpoint_dir=os.path.join(root, "driver"), poll_interval=0.5)
+        result: dict = {}
+
+        def drive() -> None:
+            try:
+                result["summary"] = exp.run()
+            except BaseException as e:  # noqa: BLE001 - raised on the main thread
+                result["error"] = e
+
+        alive = lambda: cluster.alive() and driver.is_alive()  # noqa: E731
+        t_submit = time.time()
+        driver = threading.Thread(target=drive, name="cluster-driver", daemon=True)
+        driver.start()
+
+        def event(name: str, nth: int = 1):
+            hits = [e for e in _read_events(events_path) if e["event"] == name]
+            return hits[nth - 1] if len(hits) >= nth else None
+
+        # ---- the first run, paused through the master before step 14 -------
+        waiting = _wait_for("the trial reaching the pause", lambda: event("waiting"),
+                            CLUSTER_TIMEOUT_S, alive)
+        eid = exp.master_experiment_id
+        tid = exp._watches[1].master_trial_id
+        t_pause = time.time()
+        session.post(f"/api/v1/experiments/{eid}/pause")
+        _wait_for("the trial's exit", lambda: session.get(
+            f"/api/v1/trials/{tid}").json()["state"] == "PENDING", CLUSTER_TIMEOUT_S, alive,
+            poll=0.02)
+        t_exit = time.time()
+        first = _read_events(events_path)
+        log(f"cluster: trial {tid} paused by the master (experiment {eid}) before step "
+            f"{CLUSTER_PAUSE_AT}; the signal reached it in "
+            f"{event('signalled')['t'] - t_pause:.2f} s, it exited {t_exit - t_pause:.2f} s "
+            "after the pause")
+
+        # ---- the second run, from the drained checkpoint ---------------------
+        t_activate = time.time()
+        session.post(f"/api/v1/experiments/{eid}/activate")
+        driver.join(CLUSTER_TIMEOUT_S)
+        assert not driver.is_alive(), "the search did not finish"
+        if "error" in result:
+            raise result["error"]
+        summary = result["summary"]
+        t_done = time.time()
+        evs = _read_events(events_path)
+        starts = [e for e in evs if e["event"] == "start"]
+        ends = [e for e in evs if e["event"] == "end"]
+        log(f"cluster: search {json.dumps(summary, default=str)}")
+        log("cluster: trial events " + json.dumps(evs))
+        assert summary["status"] == "completed" and summary["trials"] == 1, summary
+        assert [e["step"] for e in starts] == [0, CLUSTER_PAUSE_AT], starts
+        del first
+
+        # ---- the master's records --------------------------------------------
+        rows = []
+        while True:
+            page = session.get(f"/api/v1/trials/{tid}/metrics",
+                               params={"offset": len(rows)}).json()
+            if not page:
+                break
+            rows += page
+        training = [r["steps_completed"] for r in rows if r["group"] == "training"]
+        # a report covers 2 steps and ends in a host sync: its samples/s is
+        # the step the card sustains; reports at a start, a validation or a
+        # save are left out
+        gbs = raw["hyperparameters"]["global_batch_size"]
+        busy = {2, 12, CLUSTER_PAUSE_AT, CLUSTER_PAUSE_AT + 2, 18, EXPERIMENT_STEPS}
+        report_ms = {r["steps_completed"]: 1e3 * gbs / r["metrics"]["samples_per_second"]
+                     for r in rows if r["group"] == "training"
+                     and r["steps_completed"] not in busy}
+        validations = [(r["steps_completed"], r["metrics"]) for r in rows
+                       if r["group"] == "validation"]
+        log(f"cluster: master metrics: {len(training)} training rows (steps {training}), "
+            f"validations at {[s for s, _ in validations]}")
+        assert training and training[-1] == EXPERIMENT_STEPS, training
+        assert [s for s, _ in validations] == [12, EXPERIMENT_STEPS], validations
+        ckpts = [c for c in session.get("/api/v1/checkpoints").json() if c["trial_id"] == tid]
+        by_step = {c["metadata"]["steps_completed"]: c for c in ckpts}
+        log("cluster: master checkpoints " + json.dumps(
+            {s: (c["uuid"], c["state"]) for s, c in sorted(by_step.items())}))
+        drained = by_step.get(CLUSTER_PAUSE_AT)
+        final = by_step.get(EXPERIMENT_STEPS)
+        assert drained is not None and final is not None, sorted(by_step)
+        trial_json = session.get(f"/api/v1/trials/{tid}").json()
+        assert trial_json["latest_checkpoint"] == final["uuid"], trial_json
+        lines = _log_lines(session, tid)
+        device_lines = [ln for ln in lines if "device: cuda" in ln]
+        beat_lines = [ln for ln in lines if "beat acknowledged by the master" in ln]
+        launch_lines = [ln for ln in lines if "kernel launches: " in ln]
+        log(f"cluster: {len(lines)} log lines at the master; " + json.dumps(
+            dict(device=device_lines, heartbeat=beat_lines, launches=launch_lines)))
+        assert len(device_lines) == 2, device_lines
+        assert beat_lines, "no heartbeat answered by the master in the trial's log"
+        assert len(launch_lines) == 2, launch_lines
+        launches = json.loads(launch_lines[-1].split("kernel launches: ", 1)[1])
+        version = session.get(f"/api/v1/models/{CLUSTER_MODEL}/versions/1").json()
+        log("cluster: registry " + json.dumps(version))
+        assert summary["registry"]["version"] == 1, summary
+        assert version["checkpoint_uuid"] == final["uuid"], (version, final["uuid"])
+
+        # ---- the final state against phase 7's C -----------------------------
+        _, trainer = load_compared(os.path.join(ckpt_dir, final["uuid"]), LMTrial)
+        layers, n_leaves = trainer.model.cfg.n_layers, len(trainer._params)
+        n_val = trainer.val_loader.batches_per_epoch
+        resumed = EXPERIMENT_STEPS - drained["metadata"]["steps_completed"]
+        want = dict(flash_fwd=layers * (resumed + n_val), flash_bwd_dq=layers * resumed,
+                    flash_bwd_dkv=layers * resumed, fused_adamw=n_leaves * resumed)
+        got = {k: launches[k] for k in want}
+        cmp = _compare_loaded("cluster (paused, resumed)", trainer, validations[-1][1][
+            "validation_loss"], ref)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        assert cmp["bitwise"], cmp
+        assert got == want, f"resumed run's launches {got} != expected {want}"
+        out.update(
+            launches=got, vs_uninterrupted=cmp, trial_id=tid,
+            submit_to_first_step_s=starts[0]["t"] - t_submit,
+            pause_to_signal_s=event("signalled")["t"] - t_pause,
+            pause_to_exit_s=t_exit - t_pause,
+            activate_to_first_step_s=starts[1]["t"] - t_activate,
+            step_ms=dict(
+                reports=report_ms, median=statistics.median(report_ms.values()),
+                phase7_host_step=ref_host and ref_host["mean_step_ms_without_write"]),
+            host_enqueue_ms=dict(
+                first_run=ends[0]["host_steps"]["mean_step_ms_without_write"],
+                resumed_run=ends[-1]["host_steps"]["mean_step_ms_without_write"]),
+            search_s=t_done - t_submit, waiting_step=waiting["step"],
+        )
+        out["wall_s"] = time.monotonic() - t_phase
+        log("cluster: " + json.dumps(out))
+    finally:
+        if cluster is not None:
+            cluster.stop()
+        if driver is not None:
+            driver.join(10)
         shutil.rmtree(root, ignore_errors=True)
     return out
 
@@ -2226,7 +2647,7 @@ def phase_experiment(seed: int) -> dict:
         del restarted
         out.update(saves=saves, restore=restore, host_steps=host, device_memory_gib=memory,
                    wall_s=dict(A=wall_a, B=wall_b, D=wall_d))
-        # C's final state on the host, for phase 16 to hold its gang against
+        # C's final state on the host, for phase 17 to hold its cluster run against
         out["_C"] = (ref, init_params, host)
         out["peak_memory_gib"] = max(m["peak_gib"] for m in memory.values())
         log(f"experiment peak device memory: {out['peak_memory_gib']:.2f} GiB")
@@ -4815,6 +5236,8 @@ def main() -> int:
 
     card = card_line()
     log(f"card: {card}")
+    # the native control plane compiles beside the GPU phases (phase 17)
+    build = NativeBuild() if "cluster" in phases else None
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
     kernel = {}
@@ -4893,11 +5316,18 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         seq = phase_seq(args.seed)
+    reference = experiment and experiment.pop("_C", None)
     gang = None
     if "gang" in phases:
         gc.collect()
         torch.cuda.empty_cache()
-        gang = phase_gang(args.seed, experiment and experiment.pop("_C", None))
+        gang = phase_gang(args.seed, reference)
+        reference = gang.pop("_C")
+    cluster = None
+    if "cluster" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cluster = phase_cluster(args.seed, build, reference)
 
     if kernel and serve is not None and trained is not None:
         rows = []
@@ -4942,8 +5372,14 @@ def main() -> int:
                     r["max_abs_err"] for r in seq["K"][name].values()
                     if r["max_abs_err"] is not None])
             if gang is not None:
-                # the gang's rank, relayed: the resumed attempt's launches
-                by_phase["gang_resume"] = gang["launches"][name]
+                # the gang's rank, relayed: A's launches, 0 -> 18, and
+                # the resumed attempt's (B), 18 -> 24
+                by_phase["gang"] = gang["launches"][name]
+                by_phase["gang_resume"] = gang["launches_resume"][name]
+            if cluster is not None:
+                # the agent's trial process, from its log at the master:
+                # the resumed run's launches
+                by_phase["cluster_resume"] = cluster["launches"][name]
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=trained["launches"][name], launches_by_phase=by_phase,

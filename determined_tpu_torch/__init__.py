@@ -15,5 +15,8 @@ flash attention forward and backward kernels (``ops/flash_attention.py``,
 (``experiment/``, checkpoints, preemption, restarts) and hyperparameter
 search (``searcher/``: ASHA, adaptive ASHA, Hyperband, PBT with clones
 restored from checkpoints, the simulator) with the MNIST trial
-(``models/mnist.py``).
+(``models/mnist.py``); later slices are listed in ROADMAP.md, the latest
+the cluster path (``api/``, ``exec/run_trial.py``, ``exec/launcher.py``,
+``experiment/cluster.py``: trials placed by the native master on its
+agents).
 """

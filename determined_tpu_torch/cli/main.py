@@ -1,20 +1,29 @@
-"""Command line of the port: the local experiment and search verbs of
+"""Command line of the port: the experiment, search and cluster verbs of
 ``determined_tpu/cli/main.py``.
 
     python -m determined_tpu_torch.cli run-local CONFIG pkg.module:TrialClass \\
         [--checkpoint-dir DIR]
-    python -m determined_tpu_torch.cli experiment run CONFIG [ENTRYPOINT] [--checkpoint-dir DIR]
-    python -m determined_tpu_torch.cli experiment resume DIR [--entrypoint E]
+    python -m determined_tpu_torch.cli [-m URL] experiment run CONFIG [ENTRYPOINT] \\
+        [--cluster] [--checkpoint-dir DIR]
+    python -m determined_tpu_torch.cli [-m URL] experiment resume DIR [--entrypoint E]
     python -m determined_tpu_torch.cli experiment status DIR [--json]
     python -m determined_tpu_torch.cli experiment profile DIR [--json] [--trace-dir DIR]
     python -m determined_tpu_torch.cli searcher simulate [-c CONFIG] [--methods M,...] \\
         [--seed N] [--period N] [--journal PATH] [--json]
     python -m determined_tpu_torch.cli preview-search CONFIG [--native]
+    python -m determined_tpu_torch.cli cluster up [--agents N] [--slots N] [--gpus]
 
 The search runs in this process on the GPU (it raises without one; the
-Python API takes ``device="cpu"`` for small runs).  Exit code 0: the
-experiment finished; 75: it was preempted and ``experiment resume`` carries
-it on.  ``experiment status`` digests a local experiment's journal and
+Python API takes ``device="cpu"`` for small runs).  With ``--cluster`` the
+searcher runs here and every trial is submitted to the master at ``-m``
+(``$DTPU_MASTER``), whose agents run it through the port's launcher
+(``ClusterExperiment``); the session comes from ``api.authentication``
+(``DTPU_TOKEN``, the cached token, else a login as ``-u``).  ``experiment
+resume`` of a directory whose journal records a master re-attaches to it.
+``cluster up`` builds the native master and agent from ``native/`` at first
+use and runs a master with N agents, each agent's trials in the port (with
+``--gpus``, one GPU an agent).  Exit code 0: the experiment finished; 75:
+it was preempted and ``experiment resume`` carries it on.  ``experiment status`` digests a local experiment's journal and
 ``experiment profile`` prints its goodput ledger (from the traces that
 ``observability.trace_export`` writes) and the op table of a
 ``torch.profiler`` window (``--trace-dir``, where the JAX CLI takes
@@ -22,8 +31,7 @@ it on.  ``experiment status`` digests a local experiment's journal and
 ``searcher simulate`` and ``preview-search`` run no trial and need no
 device: they replay search methods against curve models (``--native`` asks
 the master's C++ searcher, ``dtpu-master --simulate``, built from
-``native/``).  The cluster verbs (``--cluster``, the master's experiments)
-come with the cluster slice of the port.
+``native/``).
 """
 
 from __future__ import annotations
@@ -56,17 +64,24 @@ def _trial_class(entrypoint: str) -> type:
     return getattr(importlib.import_module(module_name), class_name)
 
 
+def _session(args, master: Optional[str] = None):
+    """An authenticated session to the master (``-m``, else ``master``,
+    else ``$DTPU_MASTER``)."""
+    from determined_tpu_torch.api.authentication import ensure_session
+
+    url = getattr(args, "master", None) or master or os.environ.get("DTPU_MASTER")
+    if not url:
+        raise SystemExit("error: no master: pass -m URL or set DTPU_MASTER")
+    return ensure_session(url, getattr(args, "user", None))
+
+
 def exp_run(args) -> int:
-    """Drive a search from this process (the in-process LocalExperiment)."""
+    """Drive a search from this process: its trials in this process
+    (LocalExperiment), or with ``--cluster`` on the master's agents
+    (ClusterExperiment)."""
     from determined_tpu_torch.config.experiment import ExperimentConfig
     from determined_tpu_torch.experiment import PREEMPTED_EXIT_CODE, LocalExperiment
 
-    if getattr(args, "cluster", False):
-        raise NotImplementedError(
-            "--cluster (trials dispatched through the master) is not ported to "
-            "determined_tpu_torch yet; it comes with the cluster slice of the port "
-            "(ROADMAP.md, Queue 1)"
-        )
     cfg = ExperimentConfig.from_yaml(args.config)
     entrypoint = getattr(args, "entrypoint", None) or cfg.entrypoint
     if not entrypoint:
@@ -75,9 +90,17 @@ def exp_run(args) -> int:
             file=sys.stderr,
         )
         return 2
-    lexp = LocalExperiment(cfg, _trial_class(entrypoint), checkpoint_dir=args.checkpoint_dir)
-    summary = lexp.run()
+    if getattr(args, "cluster", False):
+        from determined_tpu_torch.experiment import ClusterExperiment
+
+        summary = ClusterExperiment(cfg, entrypoint, session=_session(args),
+                                    checkpoint_dir=args.checkpoint_dir).run()
+    else:
+        lexp = LocalExperiment(cfg, _trial_class(entrypoint), checkpoint_dir=args.checkpoint_dir)
+        summary = lexp.run()
     _print_json(summary)
+    # 75 (EX_TEMPFAIL): drained to checkpoints (local) or detached from
+    # the running gangs (cluster); `experiment resume DIR` finishes it
     return PREEMPTED_EXIT_CODE if summary.get("status") == "preempted" else 0
 
 
@@ -86,11 +109,15 @@ run_local = exp_run
 
 
 def exp_resume_local(args) -> int:
-    """Resume a crashed or preempted local experiment from its journal,
-    which records the configuration and the trial entrypoint."""
+    """Resume a crashed or preempted experiment from its journal, which
+    records the configuration and the trial entrypoint.  A journal with a
+    ``cluster_attached`` record resumes as a ClusterExperiment: the driver
+    re-attaches to its master experiment (``-m`` overrides the journaled
+    master url)."""
     from determined_tpu_torch.config.experiment import ExperimentConfig
     from determined_tpu_torch.experiment import (
         PREEMPTED_EXIT_CODE,
+        ClusterExperiment,
         ExperimentJournalError,
         LocalExperiment,
         journal_path,
@@ -116,18 +143,21 @@ def exp_resume_local(args) -> int:
     if not started.get("config"):
         print("error: journal records no experiment config", file=sys.stderr)
         return 2
-    if replay.cluster is not None:
-        raise NotImplementedError(
-            "resuming a cluster-driven experiment is not ported to determined_tpu_torch "
-            "yet; it comes with the cluster slice of the port (ROADMAP.md, Queue 1)"
-        )
     cfg = ExperimentConfig.parse(started["config"])
     try:
-        lexp = LocalExperiment(
-            cfg, _trial_class(entrypoint), checkpoint_dir=args.checkpoint_dir,
-            seed=started.get("seed"),
-        )
-        summary = lexp.resume()
+        if replay.cluster is not None:
+            exp = ClusterExperiment(
+                cfg, entrypoint,
+                session=_session(args, replay.cluster.get("master_url")),
+                checkpoint_dir=args.checkpoint_dir, seed=started.get("seed"),
+            )
+            summary = exp.resume()
+        else:
+            lexp = LocalExperiment(
+                cfg, _trial_class(entrypoint), checkpoint_dir=args.checkpoint_dir,
+                seed=started.get("seed"),
+            )
+            summary = lexp.resume()
     except ExperimentJournalError as e:
         # e.g. the original driver is still alive and owns the journal
         print(f"error: {e}", file=sys.stderr)
@@ -307,6 +337,47 @@ def searcher_simulate(args) -> int:
     return 0
 
 
+def cluster_up(args) -> int:
+    """A master and N agents on this host, each agent's trials run by the
+    port (``devcluster.LocalCluster``); the binaries are built from
+    ``native/`` at first use.  Runs until Ctrl-C or a process exits."""
+    import time
+
+    from determined_tpu_torch import devcluster
+
+    built = devcluster.build_binaries()
+    if built:
+        print(f"built dtpu-master and dtpu-agent in {built:.1f} s")
+    gpus = None
+    if args.gpus:
+        import torch
+
+        gpus = [str(i) for i in range(torch.cuda.device_count())][: args.agents]
+        if len(gpus) < args.agents:
+            print(f"error: --gpus with {args.agents} agents needs {args.agents} GPUs, "
+                  f"found {len(gpus)}", file=sys.stderr)
+            return 2
+    cluster = devcluster.LocalCluster(
+        args.state_dir, args.checkpoint_dir, agents=args.agents,
+        slots=1 if gpus is not None else args.slots, gpus=gpus, port=args.port,
+        scheduler=args.scheduler,
+    )
+    try:
+        cluster.start()
+        per = "1 GPU" if gpus is not None else f"{args.slots} slot(s)"
+        print(f"cluster up: master {cluster.url}, {args.agents} agent(s) x {per}, "
+              f"trials run by determined_tpu_torch (logs under {cluster.log_dir})", flush=True)
+        print("Ctrl-C to tear down", flush=True)
+        while cluster.alive():
+            time.sleep(1)
+        print("a cluster process exited; tearing down", file=sys.stderr)
+        return 1
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        cluster.stop()
+
+
 def _find_binary(name: str) -> str:
     import shutil
 
@@ -380,6 +451,9 @@ def preview_search(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m determined_tpu_torch.cli",
                                 description="determined_tpu_torch CLI")
+    p.add_argument("-m", "--master", help="master url (default $DTPU_MASTER)")
+    p.add_argument("-u", "--user", help="user to log in as (default: the cached token's, "
+                   "else determined)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     rl = sub.add_parser("run-local")
@@ -396,12 +470,14 @@ def build_parser() -> argparse.ArgumentParser:
         help="pkg.module:TrialClass (default: `entrypoint:` in the config)",
     )
     rn.add_argument("--cluster", action="store_true",
-                    help="dispatch trials through the master (not ported yet)")
+                    help="submit the searcher's trials to the master (-m) for its agents "
+                    "to run instead of running them in this process")
     rn.add_argument("--checkpoint-dir", default=None,
                     help="driver directory (journal and checkpoints; default "
-                    "./local_experiment_checkpoints)")
+                    "./local_experiment_checkpoints, or ./cluster_experiment_driver)")
     rn.set_defaults(fn=exp_run)
-    rs = exp.add_parser("resume", help="resume a crashed/preempted local experiment")
+    rs = exp.add_parser("resume", help="resume a crashed/preempted experiment (a cluster "
+                        "journal re-attaches to its master)")
     rs.add_argument("checkpoint_dir")
     rs.add_argument("--entrypoint", help="pkg.module:TrialClass (default: from the journal)")
     rs.set_defaults(fn=exp_resume_local)
@@ -442,6 +518,20 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--native", action="store_true",
                     help="simulate with the master's C++ searcher")
     ps.set_defaults(fn=preview_search)
+
+    cl = sub.add_parser("cluster").add_subparsers(dest="verb", required=True)
+    cu = cl.add_parser("up", help="a master and N agents on this host, running the port's "
+                       "trials")
+    cu.add_argument("--port", type=int, default=8080)
+    cu.add_argument("--agents", type=int, default=1)
+    cu.add_argument("--slots", type=int, default=1)
+    cu.add_argument("--gpus", action="store_true",
+                    help="one GPU an agent (CUDA_VISIBLE_DEVICES), one slot each")
+    cu.add_argument("--scheduler", default="priority", choices=["priority", "fair_share"])
+    cu.add_argument("--state-dir", default=os.path.join(os.getcwd(), "dtt-cluster-state"))
+    cu.add_argument("--checkpoint-dir", default=os.path.join(os.getcwd(),
+                                                             "dtt-cluster-checkpoints"))
+    cu.set_defaults(fn=cluster_up)
     return p
 
 

@@ -201,10 +201,14 @@ class CheckpointContext:
         self,
         dist: Any,
         storage_manager: StorageManager,
+        session: Optional[Any] = None,
+        trial_id: Optional[int] = None,
         staging_dir: Optional[str] = None,
     ) -> None:
         self._dist = dist
         self._storage = storage_manager
+        self._session = session
+        self._trial_id = trial_id
         self._staging_dir = staging_dir or tempfile.gettempdir()
         # storage_id -> file_stats of a checkpoint whose manifest was checked
         # outside this context (accept_verified); consumed by restore_path
@@ -283,7 +287,8 @@ class CheckpointContext:
         digests: Dict[str, str],
     ) -> None:
         """Write the metadata, then the integrity manifest (the ATOMIC last
-        step: its presence certifies the whole upload)."""
+        step: its presence certifies the whole upload), then report to the
+        master."""
         metadata = dict(metadata)
         metadata.setdefault("format", "determined_tpu_torch")
         with tempfile.TemporaryDirectory() as td:
@@ -304,6 +309,29 @@ class CheckpointContext:
             with open(os.path.join(td, MANIFEST_FILE), "w") as f:
                 json.dump(manifest, f, indent=2, sort_keys=True)
             self._storage.upload(td, storage_id, paths=[MANIFEST_FILE])
+        self._report_checkpoint(storage_id, resources, metadata)
+
+    def _report_checkpoint(
+        self, storage_id: str, resources: Dict[str, int], metadata: Dict[str, Any]
+    ) -> None:
+        """Record the checkpoint with the master; no-op off-cluster."""
+        if self._session is None:
+            return
+        try:
+            # keyed by uuid server-side, so a duplicate report is a no-op:
+            # safe to opt this POST into transport retries
+            self._session.post(
+                "/api/v1/checkpoints",
+                json={
+                    "uuid": storage_id,
+                    "trial_id": self._trial_id,
+                    "resources": resources,
+                    "metadata": metadata,
+                },
+                retry=True,
+            )
+        except Exception:  # noqa: BLE001 - reporting must not kill training
+            logger.exception("failed to report checkpoint %s to master", storage_id)
 
     def _merge_and_finalize(self, storage_id: str, resources: Dict[str, int],
                             digests: Dict[str, str], metadata: Dict[str, Any]) -> None:

@@ -6,8 +6,9 @@ non-tensor facts) are tiny, rare and host-side: a chief-rooted star over
 TCP sockets carrying pickled objects (``_StarServer``/``_StarClient``/
 ``_Star``).  Where the JAX package leaves the tensor plane to XLA, the port
 opens a ``torch.distributed`` process group beside the star
-(``DistributedContext.from_torch``, in place of ``from_jax``): NCCL on CUDA,
-gloo on the CPU.  One process per device, as torchrun launches them.
+(``DistributedContext.from_torch`` under torchrun, ``from_rendezvous`` under
+the master, in place of ``from_jax``): NCCL on CUDA, gloo on the CPU.  One
+process per device, as torchrun launches them.
 
 One DistributedContext per process.  ``rank``/``size`` are global,
 ``local_rank``/``local_size`` within a host, ``cross_rank``/``cross_size``
@@ -223,6 +224,17 @@ class _StarClient:
             pass
 
 
+def _collective_timeout(timeout: float) -> float:
+    """``DTPU_COLLECTIVE_TIMEOUT`` over the given collective deadline."""
+    env_timeout = os.environ.get("DTPU_COLLECTIVE_TIMEOUT")
+    if env_timeout:
+        try:
+            return float(env_timeout)
+        except ValueError:
+            logger.warning("ignoring malformed DTPU_COLLECTIVE_TIMEOUT=%r", env_timeout)
+    return timeout
+
+
 class _Star:
     """A gather/allgather/broadcast group of ``size`` ranks rooted at 0."""
 
@@ -387,6 +399,71 @@ class DistributedContext:
         pins the global one where a firewall wants it).  The timeout is the
         collective I/O deadline (``DTPU_COLLECTIVE_TIMEOUT`` overrides it)
         and the process group's."""
+        timeout = _collective_timeout(timeout)
+        addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
+        return cls._with_process_group(
+            rank=int(os.environ.get("RANK", "0")),
+            size=int(os.environ.get("WORLD_SIZE", "1")),
+            local_rank=int(os.environ.get("LOCAL_RANK", "0")),
+            local_size=int(os.environ.get("LOCAL_WORLD_SIZE", "1")),
+            addr=addr,
+            init_method=init_method
+            or f"tcp://{addr}:{int(os.environ.get('MASTER_PORT', '29500'))}",
+            device=device,
+            timeout=timeout,
+        )
+
+    @classmethod
+    def from_rendezvous(
+        cls, *, device: Any = None, timeout: float = 600.0
+    ) -> "DistributedContext":
+        """Build from the master's launch environment, as the JAX
+        package's ``from_jax`` reads it after ``jax.distributed``:
+        ``DTPU_RENDEZVOUS`` (``coordinator`` host:port, ``num_nodes``,
+        ``node_rank``) is the torch process group's TCP rendezvous (NCCL
+        on CUDA, gloo where ``device`` names the CPU), one rank a node, and
+        ``DTPU_CHIEF_ADDR``/``DTPU_CHIEF_PORT`` are the star's chief (the
+        master picks the port).  An allocation of one node is a single
+        rank with no process group.
+
+        A node's process drives one device here: an allocation of more
+        than one slot on a node (``DTPU_NUM_SLOTS`` > 1) raises, since
+        running a node's slots as local ranks is a later slice of the port.
+        A host with several GPUs runs one agent a GPU, each with its own
+        ``CUDA_VISIBLE_DEVICES``, which the trial inherits."""
+        import json
+
+        slots = int(os.environ.get("DTPU_NUM_SLOTS", "1") or 1)
+        if slots > 1:
+            raise NotImplementedError(
+                f"an allocation of {slots} slots on one node needs its slots run as "
+                "local ranks, which is not ported to determined_tpu_torch yet; it comes "
+                "with a later slice of the port (ROADMAP.md, Queue 1): start one agent a "
+                "GPU (`cluster up --gpus`) so that each node holds one slot"
+            )
+        info = json.loads(os.environ.get("DTPU_RENDEZVOUS") or "{}")
+        size = int(info.get("num_nodes", 1))
+        if size <= 1:
+            return cls.single()
+        host, _, port = str(info["coordinator"]).rpartition(":")
+        return cls._with_process_group(
+            rank=int(info["node_rank"]),
+            size=size,
+            local_rank=0,
+            local_size=1,
+            addr=os.environ.get("DTPU_CHIEF_ADDR") or host,
+            init_method=f"tcp://{host}:{int(port)}",
+            device=device,
+            timeout=_collective_timeout(timeout),
+        )
+
+    @classmethod
+    def _with_process_group(
+        cls, *, rank: int, size: int, local_rank: int, local_size: int, addr: str,
+        init_method: str, device: Any, timeout: float,
+    ) -> "DistributedContext":
+        """Open the tensor process group, then the stars beside it (the
+        chiefs bind, every rank learns the ports over the group)."""
         import datetime
 
         import torch
@@ -394,17 +471,6 @@ class DistributedContext:
 
         from determined_tpu_torch._device import resolve_device
 
-        env_timeout = os.environ.get("DTPU_COLLECTIVE_TIMEOUT")
-        if env_timeout:
-            try:
-                timeout = float(env_timeout)
-            except ValueError:
-                logger.warning("ignoring malformed DTPU_COLLECTIVE_TIMEOUT=%r", env_timeout)
-        rank = int(os.environ.get("RANK", "0"))
-        size = int(os.environ.get("WORLD_SIZE", "1"))
-        local_rank = int(os.environ.get("LOCAL_RANK", "0"))
-        local_size = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
-        addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
         dev = resolve_device(device)
         if dev.type == "cuda":
             dev = torch.device("cuda", local_rank if dev.index is None else dev.index)
@@ -414,13 +480,10 @@ class DistributedContext:
             backend = "gloo"
         else:
             raise ValueError(f"no process group backend for device {dev}")
-        if init_method is None:
-            init_method = f"tcp://{addr}:{int(os.environ.get('MASTER_PORT', '29500'))}"
         tdist.init_process_group(
             backend, init_method=init_method, rank=rank, world_size=size,
             timeout=datetime.timedelta(seconds=timeout),
         )
-        # the chiefs bind, then every rank learns the ports
         pinned = int(os.environ.get("DTPU_CHIEF_PORT", "0") or 0)
         chief = _StarServer(pinned, size - 1, host="0.0.0.0") if rank == 0 and size > 1 else None
         local = (

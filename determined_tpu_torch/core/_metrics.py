@@ -1,12 +1,11 @@
-"""Background metric shipper: the local half of
-``determined_tpu/core/_metrics.py``.
+"""Background metric shipper: a copy of ``determined_tpu/core/_metrics.py``.
 
 Training code must never block on metric I/O, so reports are enqueued and
-a daemon thread batches them to a local JSONL file.  Every row is also
-kept in memory (``rows``), which is how an off-cluster run reads its own
-reports back (``DummyTrainContext.metrics``, the profiler's ``profile``
-row).  The master's metrics API (a session) comes with the cluster slice
-of the port.
+a daemon thread batches them to the sink: the master's metrics API
+(``POST /api/v1/trials/metrics``) when a session exists, else a local JSONL
+file.  Every row is also kept in memory (``rows``), which is how a run
+reads its own reports back (``TrainContext.metrics``, the profiler's
+``profile`` row).
 """
 
 from __future__ import annotations
@@ -29,14 +28,13 @@ class MetricsContext:
     def __init__(
         self,
         session: Optional[Any] = None,
+        trial_id: Optional[int] = None,
+        run_id: int = 0,
         local_path: Optional[str] = None,
     ) -> None:
-        if session is not None:
-            raise NotImplementedError(
-                "shipping metrics to the master is not ported to determined_tpu_torch "
-                "yet; it comes with the cluster slice of the port (ROADMAP.md, Queue 1, "
-                "item 7)"
-            )
+        self._session = session
+        self._trial_id = trial_id
+        self._run_id = run_id
         self._local_path = local_path
         self._lock = threading.Lock()
         #: (group, steps_completed, metrics) in report order
@@ -46,9 +44,9 @@ class MetricsContext:
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> "MetricsContext":
-        """Start the shipper; with no file to write there is nothing to
-        ship, and no thread starts."""
-        if self._thread is None and self._local_path is not None:
+        """Start the shipper; with no master and no file there is nothing
+        to ship, and no thread starts."""
+        if self._thread is None and (self._session is not None or self._local_path is not None):
             self._thread = threading.Thread(target=self._run, daemon=True, name="metrics-shipper")
             self._thread.start()
         return self
@@ -58,6 +56,7 @@ class MetricsContext:
         group: str,
         steps_completed: Optional[int],
         metrics: Dict[str, Any],
+        report_time: Optional[float] = None,
     ) -> None:
         if self._error is not None:
             raise RuntimeError("metrics shipper thread died") from self._error
@@ -70,10 +69,9 @@ class MetricsContext:
                 "group": group,
                 "steps_completed": steps_completed,
                 "metrics": metrics,
-                # an off-cluster run has no trial id and a single run
-                "report_time": time.time(),
-                "trial_id": None,
-                "trial_run_id": 0,
+                "report_time": report_time if report_time is not None else time.time(),
+                "trial_id": self._trial_id,
+                "trial_run_id": self._run_id,
             }
         )
 
@@ -128,6 +126,10 @@ class MetricsContext:
             logger.exception("metrics shipper thread failed")
 
     def _ship(self, batch: List[Dict[str, Any]]) -> None:
+        if self._session is not None:
+            self._session.post("/api/v1/trials/metrics",
+                               json={"metrics": json.loads(json.dumps(batch, default=_json_default))})
+            return
         os.makedirs(os.path.dirname(self._local_path) or ".", exist_ok=True)
         with open(self._local_path, "a") as f:
             for m in batch:

@@ -1,13 +1,18 @@
-"""Checkpoint retention for a LocalExperiment's directory: the retention
-half of ``determined_tpu/exec/gc_checkpoints.py`` (``RetentionPolicy`` /
-``plan_retention`` / ``apply_retention``).
+"""Checkpoint-GC task body + experiment retention policy: a copy of
+``determined_tpu/exec/gc_checkpoints.py``.
 
-Keep the newest N checkpoints of every trial plus the latest checkpoint of
+The master marks checkpoints deleted and dispatches a ``gc`` work item to
+an agent; the agent runs this module (through the port's launcher) with the
+work item in ``DTPU_GC_SPEC``, and deletion goes through the same
+StorageManager family the trial saved with (``main``).
+
+The retention half (``RetentionPolicy`` / ``plan_retention`` /
+``apply_retention``) applies to a LocalExperiment's directory:
+keep the newest N checkpoints of every trial plus the latest checkpoint of
 the top-k trials by searcher metric, and NEVER delete (a) the
 manifest-referenced parent of any kept checkpoint (the verified-resume
 fallback needs one step of lineage) or (b) a directory without a manifest,
-which may be an upload still in flight.  The GC task body the master
-dispatches comes with the cluster slice of the port.
+which may be an upload still in flight.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import json
 import logging
 import os
 import shutil
+import sys
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 logger = logging.getLogger("determined_tpu_torch.gc")
@@ -179,3 +185,47 @@ def apply_retention(
             "retention: deleted %d checkpoint(s), kept %d", len(deleted), len(keep)
         )
     return {"kept": sorted(keep), "deleted": deleted}
+
+
+def storage_manager_from_spec(storage: dict, fallback_dir: str):
+    from determined_tpu_torch.config.experiment import CheckpointStorageConfig
+    from determined_tpu_torch.storage import from_string
+
+    if storage:
+        cfg = CheckpointStorageConfig.parse(dict(storage))
+        return from_string(cfg.to_url())
+    return from_string(fallback_dir)
+
+
+def main() -> int:
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
+    spec = json.loads(os.environ["DTPU_GC_SPEC"])
+    manager = storage_manager_from_spec(
+        spec.get("storage") or {}, spec.get("checkpoint_dir") or "/tmp/dtpu-checkpoints"
+    )
+    failed = 0
+    for uuid in spec.get("uuids", []):
+        try:
+            deleted = manager.delete(uuid)
+            logger.info("gc: deleted checkpoint %s (%d files)", uuid, len(deleted))
+        except Exception:  # noqa: BLE001 - keep deleting the rest
+            logger.exception("gc: failed to delete checkpoint %s", uuid)
+            failed += 1
+    # experiment deletion also clears profiler trace dirs ("traces/trial_N"
+    # storage-relative prefixes; same delete path as checkpoints)
+    from determined_tpu_torch.utils.errors import CheckpointNotFoundError
+
+    for rel in spec.get("trace_dirs", []):
+        try:
+            manager.delete(rel)
+            logger.info("gc: deleted traces %s", rel)
+        except CheckpointNotFoundError:
+            pass  # trial never traced
+        except Exception:  # noqa: BLE001
+            logger.exception("gc: failed to delete traces %s", rel)
+            failed += 1
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

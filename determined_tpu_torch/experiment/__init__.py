@@ -1,9 +1,15 @@
 """Experiment orchestration of the port: the local searcher-driven runner,
-its crash-recovery journal, the concurrent trial scheduler and the gang
-launch of a trial on several devices (``determined_tpu/experiment``
-without the cluster runner)."""
+the cluster driver that submits the searcher's trials to the master, their
+crash-recovery journal, the concurrent trial scheduler, the gang launch of
+a trial on several devices and the model-registry client
+(``determined_tpu/experiment``)."""
 
 from determined_tpu_torch.experiment._gang import Gang, TrialNotImportableError
+from determined_tpu_torch.experiment.cluster import (
+    ClusterExperiment,
+    MasterUnreachableError,
+    run_cluster_experiment,
+)
 from determined_tpu_torch.experiment.journal import (
     ExperimentJournal,
     ExperimentJournalError,
@@ -25,6 +31,8 @@ from determined_tpu_torch.experiment.scheduler import (
 )
 
 __all__ = [
+    "ClusterExperiment",
+    "MasterUnreachableError",
     "ExperimentJournal",
     "ExperimentJournalError",
     "Gang",
@@ -40,4 +48,5 @@ __all__ = [
     "experiment_status",
     "journal_path",
     "read_journal",
+    "run_cluster_experiment",
 ]

@@ -37,11 +37,13 @@ by writing ``traces/trace.json`` (Perfetto) and ``traces/goodput.json``
 (``profiling.trace``) writes its ``torch.profiler`` trace under
 ``traces/torch_profiler/trial_<id>/``.
 
-Waiting for later slices of the port, each raising ``NotImplementedError``
-when asked for: registry promotion and the strict preflight lint; with
-``lint.preflight``
-on (the default) the runner logs once that the preflight lint is not
-ported and goes on.
+With ``registry: {model, auto_promote: true}`` a finished search registers
+its winner's final verified checkpoint as the model's next version through
+the master (``session=``, else a login to ``$DTPU_MASTER``); without a
+master the summary carries ``registry_error``.  Waiting for a later slice
+of the port, raising ``NotImplementedError`` when asked for: the strict
+lint and the sentinels; with ``lint.preflight`` on (the default) the runner
+logs once that the preflight lint is not ported and goes on.
 """
 
 from __future__ import annotations
@@ -148,11 +150,8 @@ class LocalExperiment:
         device: DeviceLike = None,
         devices: Optional[List[Any]] = None,
         preflight: Optional[bool] = None,
+        session: Optional[Any] = None,
     ) -> None:
-        if config.registry.auto_promote:
-            raise NotImplementedError(
-                f"registry.auto_promote is not ported to determined_tpu_torch yet; {_LATER}"
-            )
         lint = config.lint
         if lint.strict or lint.thread_sentinel or lint.collective_sentinel:
             raise NotImplementedError(
@@ -168,6 +167,9 @@ class LocalExperiment:
         self.devices = [torch.device(d) for d in devices] if devices is not None else None
         # None = follow config.lint.preflight (on by default)
         self.preflight = preflight
+        # master session for registry promotion (config `registry:`); a
+        # masterless run logs in to $DTPU_MASTER when promoting, or skips
+        self._session = session
         self.checkpoint_dir = checkpoint_dir or os.path.join(
             os.getcwd(), "local_experiment_checkpoints"
         )
@@ -552,7 +554,10 @@ class LocalExperiment:
                     self.journal.append("experiment_preempted", in_flight=in_flight)
                 else:
                     self.journal.append("experiment_completed")
-            return self.summary()
+            summary = self.summary()
+            if self.status == "completed":
+                self.on_search_complete(summary)
+            return summary
         finally:
             gc_thread = self._gc_thread
             if gc_thread is not None:
@@ -1013,6 +1018,67 @@ class LocalExperiment:
             # the original exception type, as on the serial path
             logger.error("trial %d failed during concurrent search", rid)
             raise exc
+
+    # -- registry promotion ------------------------------------------------
+
+    def on_search_complete(self, summary: Dict[str, Any]) -> None:
+        """End-of-search hook: with ``registry: {model, auto_promote}``
+        configured, register the best trial's final manifest-verified
+        checkpoint as the model's next version (``name@vN``) with lineage
+        back to this trial.  Promotion failure must not fail a finished
+        search — it lands in ``summary["registry_error"]`` and the logs,
+        never as an exception; success lands in ``summary["registry"]``
+        and a ``model_registered`` journal record that pins the promoted
+        checkpoint against the retention pass (also across resume)."""
+        rcfg = self.config.registry
+        if not (rcfg.model and rcfg.auto_promote):
+            return
+        from determined_tpu_torch.experiment import registry as registry_mod
+
+        def report(msg: str) -> None:
+            summary["registry_error"] = msg
+            logger.warning("registry: %s", msg)
+
+        try:
+            session = registry_mod.registry_session(self._session)
+            if session is None:
+                return report(
+                    "registry.auto_promote set but no master configured "
+                    "(pass session= or set DTPU_MASTER)"
+                )
+            best_rid = summary.get("best_trial")
+            if best_rid is None:
+                return report("search produced no best trial to promote")
+            result = self.results[best_rid]
+            sid = self._verified_resume_checkpoint(best_rid, result.checkpoint)
+            if sid is None:
+                return report(
+                    f"best trial {best_rid} has no manifest-verified checkpoint"
+                )
+            promoted = registry_mod.promote_search_winner(
+                session,
+                model=rcfg.model,
+                labels=rcfg.labels,
+                checkpoint_uuid=sid,
+                storage_path=os.path.abspath(
+                    os.path.join(self._trial_checkpoint_dir(best_rid), sid)
+                ),
+                source_trial_id=best_rid,
+                metrics=dict(result.metrics or {}),
+            )
+            summary["registry"] = promoted
+            with self._ckpt_lock:
+                self._registry_pinned.add(sid)
+            if self.journal is not None:
+                self.journal.append(
+                    "model_registered",
+                    name=promoted["model"],
+                    version=promoted["version"],
+                    uuid=sid,
+                )
+        except Exception as e:  # noqa: BLE001 - promotion must not kill the run
+            logger.exception("registry: auto-promotion failed")
+            summary["registry_error"] = str(e)
 
     def summary(self) -> Dict[str, Any]:
         scfg = self.config.searcher

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Multi-GPU check of the port's mesh path on the GPUs of one host.
 
-    python3 mesh_smoke.py [--gpus 4] [--seed N] [--parts G,E,S,X]
+    python3 mesh_smoke.py [--gpus 4] [--seed N] [--parts G,E,S,X,C]
 
 (``X`` is X1, X2 and X3, each of which ``--parts`` also takes alone.)
 
@@ -32,9 +32,10 @@ S. the dense LM of chip_smoke.py's phase 15 (examples/transformer_lm/
    under remat, dq and dk/dv once, each times the ring's units that
    ring_block_counts gives this rank on a seq axis; fused_adamw once a
    local leaf), the host step and peak memory of each rank.
-C. a tensor 2 x seq 2 checkpoint (SEQ_CKPT_CUTS: the round trip, not the
-   size): 3 steps on the mesh, saved whole by the chief, restored by one
-   GPU's Trainer bitwise equal to the mesh's gathered params and moments.
+   S ends with a tensor 2 x seq 2 checkpoint (SEQ_CKPT_CUTS: the round trip,
+   not the size; logged as "S-C"): 3 steps on the mesh, saved whole by the
+   chief, restored by one GPU's Trainer bitwise equal to the mesh's
+   gathered params and moments.
 
 X. the local experiment on every GPU of the host (``--gpus`` 4), through
    run-local's path (LocalExperiment, its configuration from a dict where
@@ -69,6 +70,26 @@ X. the local experiment on every GPU of the host (``--gpus`` 4), through
        two gangs at once on the blocks {0,1} and {2,3} (read from the
        journal), the scheduler backfilling a freed block; the trial set
        equals the same search run serially on two GPUs.
+
+C. the cluster path on every GPU of the host: dtpu-master and dtpu-agent
+   built from native/ (devcluster.build_binaries, in a process of its own
+   while the reference runs), a master and ``--gpus`` agents, one a GPU
+   (``cluster up --agents 4 --gpus``: each agent's CUDA_VISIBLE_DEVICES,
+   one slot, ``--python`` the port's launcher).  X3's search
+   (examples/mnist/adaptive.yaml at X3_CUTS: resources.mesh {data: 2}, so
+   the master places each trial as a gang of two one-slot agents) runs
+   through the port's ClusterExperiment with C_CUTS: two 2-rank NCCL gangs
+   at once, each rank a run_trial process of its own that joins its gang
+   through the master's rendezvous (DistributedContext.from_rendezvous).
+   One rank is SIGKILLed mid-trial; the master tears the gang down and
+   reschedules it from its last checkpoint.  Checks: the search completes
+   with the trial set (request id -> hparams) of the same search through
+   run-local's path (LocalExperiment on the blocks {0,1} and {2,3}), run
+   first as the reference; the master counts at least one restart; both
+   ranks of every trial logged their rendezvous (the trial's log at the
+   master, rank-prefixed).  Printed: the build's seconds and the wait for
+   it, the reference's and the cluster search's seconds, the kill and the
+   restart.
 
 Each gang has a hard timeout (GANG_TIMEOUT_S); its ranks are killed on
 expiry and the run fails.  Prints a JSON line a part, the card's name and
@@ -117,7 +138,7 @@ SEQ_CKPT_CUTS = [
     ("seq_len", 32768, 256, "the same, in length"),
 ]
 SEQ_CKPT_STEPS = 3
-PARTS = ("G", "E", "S", "X")
+PARTS = ("G", "E", "S", "X", "C")
 X_PARTS = ("X1", "X2", "X3")
 # X2: moe_ep.yaml (chip_smoke.MOE_EP_CONST) at MOE_CUTS' hyperparameters,
 # and these changes: (dotted key, the file's value, X2's value, why)
@@ -147,6 +168,13 @@ X3_CUTS = [
      "a fresh temporary directory, deleted at the end"),
     ("reproducibility.experiment_seed", None, "<--seed>", "the searcher's draws from --seed"),
 ]
+
+# C: X3's search through the master, with these changes on top of X3_CUTS
+C_CUTS = [
+    ("entrypoint", "model_def:Trial", "determined_tpu_torch.models.mnist:MnistTrial",
+     "the port's trial, by name: the agents' processes import it"),
+]
+C_TIMEOUT_S = 600.0
 
 
 def log(msg: str) -> None:
@@ -448,7 +476,7 @@ def _seq_part(args, root: str) -> None:
     outs = _launch_gang(args.gpus, workdir, dict(part="C"), args.seed)
     sid = outs[0]["storage_id"]
     assert all(o["storage_id"] == sid for o in outs), outs
-    log("C " + json.dumps(_ckpt_on_one_gpu(workdir, sid, args.seed)))
+    log("S-C " + json.dumps(_ckpt_on_one_gpu(workdir, sid, args.seed)))
 
 
 # ---------------------------------------------------------------------------
@@ -811,6 +839,143 @@ def _x_part(args, root: str, names) -> None:
         log(f"{name}: {time.monotonic() - t0:.1f} s")
 
 
+def _run_trial_pids() -> list:
+    """Pids of the port's trial processes on this host, oldest first."""
+    pids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"determined_tpu_torch.exec.run_trial" in cmd:
+            pids.append(int(name))
+    return sorted(pids)
+
+
+def _cluster_part(args, root: str) -> dict:
+    """C (the docstring at the top)."""
+    import signal
+    import threading
+
+    from chip_smoke import MNIST_ADAPTIVE, _apply_cuts
+    from determined_tpu_torch import devcluster
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.experiment import ClusterExperiment, LocalExperiment
+    from determined_tpu_torch.models import MnistTrial
+
+    for key, old, value, why in X3_CUTS + C_CUTS:
+        log(f"C cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    where = tempfile.mkdtemp(prefix="native-", dir=root)
+    t_build = time.monotonic()
+    build = subprocess.Popen(
+        [sys.executable, "-c", "import sys; from determined_tpu_torch import devcluster; "
+         "print(devcluster.build_binaries(sys.argv[1], force=True))", where],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    cluster = None
+    try:
+        # the reference: run-local's path on the blocks {0,1} and {2,3}
+        ref_ckpt = os.path.join(root, "c-ref")
+        raw = _apply_cuts(MNIST_ADAPTIVE, X3_CUTS, {"<temp dir>": ref_ckpt,
+                                                    "<--seed>": args.seed})
+        t0 = time.monotonic()
+        ref = LocalExperiment(ExperimentConfig.parse(raw), MnistTrial, checkpoint_dir=ref_ckpt)
+        ref_summary = ref.run()
+        ref_s = time.monotonic() - t0
+        assert ref_summary["status"] == "completed", ref_summary
+        want = {r: x.hparams for r, x in ref.results.items()}
+        log(f"C reference (run-local, blocks {{0,1}} and {{2,3}}): {ref_s:.1f} s, "
+            + json.dumps(ref_summary, default=str))
+        shutil.rmtree(ref_ckpt, ignore_errors=True)
+
+        t0 = time.monotonic()
+        out, _ = build.communicate(timeout=C_TIMEOUT_S)
+        waited = time.monotonic() - t0
+        assert build.returncode == 0, f"native build failed:\n{out[-4000:]}"
+        build_s = float(out.strip().splitlines()[-1])
+        log(f"C: native build {build_s:.1f} s (started {t0 - t_build:.1f} s before the join), "
+            f"waited {waited:.1f} s for it")
+
+        ckpt = os.path.join(root, "c-cluster")
+        cluster = devcluster.LocalCluster(
+            os.path.join(root, "c-state"), ckpt, agents=args.gpus, slots=1,
+            gpus=[str(i) for i in range(args.gpus)], cwd=REPO, where=where)
+        cluster.start()
+        session = cluster.session()
+        log(f"C: master {cluster.url}, {args.gpus} agents, one GPU each")
+        raw = _apply_cuts(MNIST_ADAPTIVE, X3_CUTS + C_CUTS, {"<temp dir>": ckpt,
+                                                             "<--seed>": args.seed})
+        exp = ClusterExperiment(ExperimentConfig.parse(raw), session=session,
+                                checkpoint_dir=os.path.join(root, "c-driver"),
+                                poll_interval=0.5)
+        killed: dict = {}
+        done = threading.Event()
+
+        def training() -> bool:
+            """A trial has reported a training row to the master."""
+            for w in list(exp._watches.values()):
+                if w.master_trial_id is not None and session.get(
+                        f"/api/v1/trials/{w.master_trial_id}/metrics",
+                        params={"group": "training"}).json():
+                    return True
+            return False
+
+        def kill_one_rank() -> None:
+            # once a gang trains: SIGKILL the oldest trial process, once
+            deadline = time.monotonic() + C_TIMEOUT_S
+            while not done.is_set() and time.monotonic() < deadline:
+                pids = _run_trial_pids()
+                if len(pids) >= 2 and training():
+                    try:
+                        os.kill(pids[0], signal.SIGKILL)
+                    except OSError:
+                        continue
+                    killed.update(pid=pids[0], at_s=time.monotonic() - t0)
+                    return
+                time.sleep(0.2)
+
+        killer = threading.Thread(target=kill_one_rank, daemon=True)
+        t0 = time.monotonic()
+        killer.start()
+        try:
+            summary = exp.run()
+        finally:
+            done.set()
+        cluster_s = time.monotonic() - t0
+        log(f"C cluster search: {cluster_s:.1f} s, " + json.dumps(summary, default=str))
+        assert summary["status"] == "completed", summary
+        assert "pid" in killed, "the rank killer found no gang to kill"
+        got = {r: x.hparams for r, x in exp.results.items()}
+        assert got == want, (got, want)
+        mexp = session.get(f"/api/v1/experiments/{summary['master_experiment_id']}").json()
+        restarts = {t["id"]: t["restarts"] for t in mexp["trials"]}
+        assert sum(restarts.values()) >= 1, restarts
+        rendezvous = {}
+        for t in mexp["trials"]:
+            recs = session.get(f"/api/v1/trials/{t['id']}/logs", params={"limit": 10000}).json()
+            lines = [r if isinstance(r, str) else str(r.get("line", r)) for r in recs]
+            rendezvous[t["id"]] = sorted({ln.split("]", 1)[0] + "]" for ln in lines
+                                          if "rendezvous: joined" in ln and "[rank=" in ln})
+            assert rendezvous[t["id"]] == ["[rank=0]", "[rank=1]"], (t["id"], rendezvous)
+        res = dict(build_s=build_s, build_waited_s=waited, reference_s=ref_s,
+                   cluster_search_s=cluster_s, killed=killed, restarts=restarts,
+                   trials={r: dict(hparams=x.hparams, steps=x.steps_completed,
+                                   stopped_early=x.stopped_early)
+                           for r, x in exp.results.items()},
+                   rendezvous=rendezvous)
+        log("C " + json.dumps(res, default=str))
+        return res
+    finally:
+        if cluster is not None:
+            cluster.stop()
+        if build.poll() is None:
+            os.killpg(build.pid, signal.SIGKILL)
+            build.wait()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gpus", type=int, default=4)
@@ -855,6 +1020,10 @@ def main() -> int:
         xs = [x for x in X_PARTS if "X" in parts or x in parts]
         if xs:
             _x_part(args, root, xs)
+        if "C" in parts:
+            t0 = time.monotonic()
+            _cluster_part(args, root)
+            log(f"C: {time.monotonic() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"mesh_smoke: {time.monotonic() - t_start:.1f} s")

@@ -16,8 +16,10 @@ a hard attempt deadline (``_gang.ATTEMPT_TIMEOUT_S``).
   it from the newest finalized checkpoint, ending at the uninterrupted
   run's params.
 - A trial class that cannot be imported by name raises
-  ``TrialNotImportableError`` before any process starts; the knobs of later
-  slices still raise ``NotImplementedError``.
+  ``TrialNotImportableError`` before any process starts; the lint knobs of
+  a later slice still raise ``NotImplementedError``, and
+  ``registry.auto_promote`` without a master degrades to
+  ``registry_error``.
 """
 
 import functools
@@ -245,7 +247,18 @@ def test_a_trial_class_that_cannot_be_imported_raises_before_any_process(tmp_pat
     {"lint": {"thread_sentinel": True}},
     {"lint": {"collective_sentinel": True}},
 ], ids=["auto_promote", "lint_strict", "thread_sentinel", "collective_sentinel"])
-def test_knobs_of_later_slices_still_raise(tmp_path, knob):
+def test_knobs_of_later_slices_still_raise(tmp_path, knob, monkeypatch):
+    """The lint knobs still raise; registry.auto_promote is ported: without
+    a master the experiment is built and its promotion degrades to
+    ``registry_error`` (tests/test_torch_cluster_driver.py runs one)."""
     cfg = ExperimentConfig.parse(dict({"hyperparameters": dict(HP)}, **knob))
+    if "registry" in knob:
+        monkeypatch.delenv("DTPU_MASTER", raising=False)
+        exp = LocalExperiment(cfg, MnistTrial, checkpoint_dir=str(tmp_path),
+                              devices=["cpu", "cpu"])
+        summary = {"best_trial": None}
+        exp.on_search_complete(summary)
+        assert "no master configured" in summary["registry_error"]
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         LocalExperiment(cfg, MnistTrial, checkpoint_dir=str(tmp_path), devices=["cpu", "cpu"])

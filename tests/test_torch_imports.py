@@ -15,7 +15,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "determined_tpu", "yaml",
-           "transformers", "msgpack")
+           "transformers", "msgpack", "requests")
 
 _PROBE = textwrap.dedent(
     """
@@ -278,3 +278,50 @@ def test_run_local_without_a_gpu_raises_instead_of_training_on_cpu(tmp_path):
     assert proc.returncode != 0
     assert "device='cpu'" in proc.stderr
     assert not ckpt.exists()
+
+
+@pytest.mark.parametrize("module, no_torch", [
+    ("determined_tpu_torch.api.session", True),
+    ("determined_tpu_torch.api.authentication", True),
+    ("determined_tpu_torch.exec._tls", True),
+    ("determined_tpu_torch.exec.launcher", True),
+    ("determined_tpu_torch.exec.run_trial", True),
+    ("determined_tpu_torch.core._cluster_info", True),
+    ("determined_tpu_torch.core._heartbeat", True),
+    ("determined_tpu_torch.core._preempt", True),
+    ("determined_tpu_torch.core._train", True),
+    ("determined_tpu_torch.experiment.registry", False),
+    ("determined_tpu_torch.devcluster", True),
+    ("determined_tpu_torch.experiment.cluster", False),
+])
+def test_cluster_modules_import_nothing_of_jax_or_requests(module, no_torch):
+    """The cluster path's modules are the port's own copies on the standard
+    library: each, imported alone, pulls in nothing of JAX, the JAX package
+    or ``requests``; the session, the launcher (an exec shim the agent
+    runs for every trial) and the trial process's entry import no torch
+    before the experiment's environment is applied."""
+    probe = textwrap.dedent(
+        """
+        import importlib, sys
+
+        BLOCKED = {blocked!r}
+
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                    raise ImportError("blocked import of " + name)
+                return None
+
+        sys.meta_path.insert(0, Blocker())
+        importlib.import_module({module!r})
+        print("torch" in sys.modules)
+        """
+    ).format(blocked=BLOCKED, module=module)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    if no_torch:
+        assert proc.stdout.strip() == "False"

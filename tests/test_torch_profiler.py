@@ -75,8 +75,25 @@ def test_metrics_context_writes_jsonl_like_the_jax_one(tmp_path):
     assert mem._thread is None
     assert mem.rows("training") == [("training", 1, {"loss": 2.0})]
     mem.close()
-    with pytest.raises(NotImplementedError, match="cluster slice"):
-        MetricsContext(session=object())
+    # with a session the rows go to the master's metrics route instead
+    # (tests/test_torch_cluster_trial.py holds them to the JAX shipper's)
+    from determined_tpu_torch.api import Session
+    from tests.torch_cluster_master import RecordingMaster
+
+    fake = RecordingMaster()
+    try:
+        shipped = MetricsContext(session=Session(fake.url, token="t"), trial_id=4,
+                                 run_id=1).start()
+        shipped.report("training", 3, {"loss": 1.5})
+        shipped.report("validation", 3, {"validation_loss": 1.25})
+        shipped.close()
+        rows = fake.metric_rows()
+    finally:
+        fake.close()
+    assert [(r["group"], r["steps_completed"], r["metrics"], r["trial_id"], r["trial_run_id"])
+            for r in rows] == [("training", 3, {"loss": 1.5}, 4, 1),
+                               ("validation", 3, {"validation_loss": 1.25}, 4, 1)]
+    assert shipped.rows("validation") == [("validation", 3, {"validation_loss": 1.25})]
 
 
 # ---------------------------------------------------------------------------
