@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--phases kernel,serve,parity,train,train_parity,experiment,search,observe,
-                  knobs,serve_ckpt,models,hf,moe,seq,gang,cluster]
+                  knobs,serve_ckpt,models,hf,moe,seq,gang,cluster,pipe]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -143,9 +143,10 @@ Phases, in order; any failure raises and the script exits non-zero:
       empty directory (its MISS line), a second loads them from there with
       nvcc made unavailable (its HIT line); each launches the flash forward
       from the cached library; both subprocesses' seconds are printed.
-11. serve_ckpt: const.yaml's flagship trains 4 steps and saves one
-   synchronous checkpoint (8.05 GB, under a fresh temporary directory whose
-   free space is checked first, deleted at the end).  A ServeWorker over
+11. serve_ckpt: const.yaml's flagship, cut in depth to phase 7's 2 layers
+   (SERVE_CKPT_CUTS, printed), trains 4 steps and saves one synchronous
+   checkpoint (3.22 GB, under a fresh temporary directory whose free space
+   is checked first, deleted at the end).  A ServeWorker over
    ServeEngine.from_checkpoint (manifest md5 check, load) answers 6 greedy
    requests whose tokens must equal those of an engine over the trainer's
    in-memory model; run_batch_inference then scores 8 batches of 8
@@ -351,6 +352,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    enqueue: the report's sync absorbs the device time), the time from the
    pause to the trial's exit, from the activation to the resumed run's
    first step, and the phase's seconds.
+18. pipe: examples/transformer_lm/pipeline.yaml (PIPE_CONST, a dict a CPU
+   test holds to the file) at its full width and depth: d 2048, 16 layers,
+   16 heads of 128, vocab 32768, seq 2048, bf16, flash, remat, fused
+   cross-entropy and fused AdamW, M = 8 microbatches; cut as PIPE_CUTS
+   prints (one card: the four stages on a VirtualPipe of 4, one pipe
+   group's 16 sequences a step, a 1-step warm-up).
+   U. the unpipelined reference: the same weights and data through
+      Trainer(LMTrial).fit with gradient aggregation over the same 8
+      microbatches (2 sequences each), PIPE_STEPS steps and a validation.
+   S. each of gpipe, 1f1b and interleaved (V = 2) through
+      train.init(virtual_pipe=4) -> Trainer(LMTrial).fit for PIPE_STEPS
+      steps and a validation: every step's loss and the validation loss
+      against U's within PIPE_TOL, the params' updates against U's within
+      its update_rel; the launch counts, set to 0 just before fit and read
+      just after, exactly: a layer's flash forward twice a microbatch a
+      step under remat and once a microbatch a validation batch, dq and
+      dk/dv once a microbatch a step, fused_adamw once a leaf a step (147
+      leaves); BubbleModel's fraction (3/11 for gpipe and 1f1b, 3/19
+      interleaved); the step time and the peak memory (1f1b's below
+      gpipe's).
+   K. flash_fwd, dq and dk/dv at a microbatch's attention ([2, 16, 2048,
+      128], causal), each held against its plain version and timed beside
+      its bound and scaled_dot_product_attention's; fused_adamw at a
+      stage's largest leaf [8192, 2048].  The kernels line carries them as
+      each row's pipe_shapes.
+   Printed: each part's seconds and the phase's.
 
 Prints, before the last line, the kernels line (JSON), the script's total
 seconds and the card's name and power limit, and as the last line
@@ -718,6 +745,12 @@ QUANT_LINEAR_F32_TOL = {"int8": dict(rtol=1e-5, atol=1e-5), "fp8": dict(rtol=2 *
 
 # phase 11: train const.yaml's flagship, save, serve from the checkpoint
 SERVE_CKPT_STEPS = 4
+# (hyperparameter, const.yaml's value, phase 11's value, why)
+SERVE_CKPT_CUTS = [
+    ("n_layers", 8, 2,
+     "the whole script's time (phase 18 adds about 45 s): phase 7's 2 layers at the full width, "
+     "a 3.22 GB checkpoint where 8 layers save 8.05 GB; phase 7 times the same save"),
+]
 SERVE_CKPT_DATASET = 64
 SERVE_CKPT_REQUESTS = 6
 SERVE_CKPT_NEW_TOKENS = 16
@@ -949,8 +982,47 @@ SEQ_RING_TOL = dict(out=dict(KERNEL_TOL["bfloat16"]["out"], atol=2e-3),
 SEQ_KERNEL_SHAPES = (("half_chunk_causal", 8192, True), ("half_chunk_full", 8192, False),
                      ("whole_causal", 32768, True))
 
+PIPE_CONST = {
+    "name": "lm-pipeline",
+    "entrypoint": "model_def:Trial",
+    "hyperparameters": dict(
+        lr=0.0003, global_batch_size=64, seq_len=2048, vocab_size=32768, d_model=2048,
+        n_layers=16, n_heads=16, dataset_size=65536, bf16=True, attention="flash", remat=True,
+        pipe_microbatches=8,
+    ),
+    "resources": {"mesh": {"pipe": 4, "data": 2, "fsdp": 2}},
+    "searcher": {"name": "single", "metric": "validation_loss",
+                 "max_length": {"batches": 10000}},
+    "min_validation_period": {"batches": 500},
+    "min_checkpoint_period": {"batches": 1000},
+    "checkpoint_storage": {"type": "shared_fs", "host_path": "/tmp/dtpu-checkpoints"},
+}
+PIPE_CUTS = [
+    ("resources.mesh", {"pipe": 4, "data": 2, "fsdp": 2}, None,
+     "the card's machine has one H100: the 4 stages run on a VirtualPipe of 4 on it "
+     "(train.init(virtual_pipe=4)); mesh_smoke.py P runs pipe 4 and pipe 2 x fsdp 2 on four"),
+    ("global_batch_size", 64, 16,
+     "one pipe group's share: data 2 x fsdp 2 give each pipe group 64 / 4 = 16 sequences"),
+    ("dataset_size", 65536, 48, "3 steps of 16; the validation pass reads its 3 batches"),
+    ("warmup_steps", None, 1,
+     "the file sets none (LMTrial's 100): 3 steps inside a 100-step warm-up update at lr <= "
+     "6e-6, too little for the updates to be compared"),
+]
+PIPE_STEPS = 3
+PIPE_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("interleaved", 2))
+PIPE_BUBBLE = {"gpipe": 3 / 11, "1f1b": 3 / 11, "interleaved": 3 / 19}
+# the same microbatches through the same kernels at the same shapes; what
+# may differ is the order in which each stage sums its microbatches'
+# gradients in f32 (gpipe and interleaved: reversed), and with it the next
+# steps' bf16 activations.  The bf16 tolerance of a loss, and 2% of the
+# updates' norm (measured on an NVIDIA H100 80GB HBM3 at 700 W: equal
+# losses, updates within 5e-9 of U's)
+PIPE_TOL = dict(loss=dict(rtol=2e-3, atol=2e-3), update_rel=2e-2)
+PIPE_MB_SHAPE = (2, 16, 2048, 128)  # a microbatch's attention: [b, h, s, d]
+
 PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search",
-          "observe", "knobs", "serve_ckpt", "models", "hf", "moe", "seq", "gang", "cluster")
+          "observe", "knobs", "serve_ckpt", "models", "hf", "moe", "seq", "gang", "cluster",
+          "pipe")
 
 
 def log(msg: str) -> None:
@@ -3684,6 +3756,10 @@ def phase_serve_ckpt(seed: int) -> dict:
     root = tempfile.mkdtemp(prefix="dtt-chip-serve-ckpt-")
     free = shutil.disk_usage(root).free
     hp = dict(EXPERIMENT_CONST["hyperparameters"], dataset_size=SERVE_CKPT_DATASET)
+    for key, old, value, why in SERVE_CKPT_CUTS:
+        assert hp[key] == old, (key, hp[key])
+        hp[key] = value
+        log(f"serve_ckpt cut: {key} {old} -> {value} ({why})")
     log(f"serve_ckpt: checkpoints under {root}, {free / 2**30:.1f} GiB free")
     tracer = get_tracer()
     out: dict = {}
@@ -5096,103 +5172,116 @@ def seq_main(seed: int) -> dict:
     return out
 
 
-def seq_kernel_rows(seed: int) -> dict:
-    """K: the flash kernels at the ring's shapes and fused_adamw at L's
-    largest leaf (the docstring at the top)."""
+def attention_kernel_rows(rows: dict, label: str, q, k, v, do, causal: bool, plain_fits: bool,
+                          tag: str) -> None:
+    """The three flash kernels on ``q, k, v`` (and ``do``) into ``rows``
+    under ``label``: each held against its plain version where that fits
+    (``plain_fits``) and timed beside it, its bound and SDPA's forward or
+    backward on the same inputs (k and v expanded to q's heads)."""
     import torch
     import torch.nn.functional as F
 
     import determined_tpu_torch.ops.flash_attention as fa
     from determined_tpu_torch.ops.attention import _repeat_kv
+
+    b, h, s, dh = q.shape
+    hkv = k.shape[1]
+    scale = dh ** -0.5
+    tol = KERNEL_TOL["bfloat16"]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    kernel_us = device_time_us(lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
+                               reps=5, trials=5)
+    err, plain_us = None, None
+    if plain_fits:
+        ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+        torch.testing.assert_close(out.float(), ref_out.float(), **tol["out"])
+        torch.testing.assert_close(lse, ref_lse, **tol["lse"])
+        err = _max_err(out, ref_out)
+        del ref_out, ref_lse
+        plain_us = device_time_us(
+            lambda: fa.flash_attention_fwd_reference(q, k, v, causal=causal), reps=2, trials=3)
+    qe, ke, ve = (t.detach().clone().requires_grad_() for t in
+                  (q, _repeat_kv(k, h // hkv), _repeat_kv(v, h // hkv)))
+    sdpa_fwd_us = device_time_us(
+        lambda: F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal), reps=5, trials=5)
+    bound_us, bound_by, flops = attention_bound_us(
+        b, h, hkv, s, s, dh, "bfloat16", causal, products=2, q_side=2, kv_side=2, rows=1)
+    rows["flash_fwd"][label] = dict(
+        shape=[b, h, s, dh], kv_heads=hkv, causal=causal, max_abs_err=err,
+        **timed_row(kernel_us, plain_us, sdpa_fwd_us, bound_us, bound_by, flops))
+    errs = {}
+    if plain_fits:
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal)
+        for grad, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+            errs[grad] = _max_err(g_, w_)
+            torch.testing.assert_close(
+                g_.float(), w_.float(), rtol=BWD_TOL["bfloat16"]["rtol"],
+                atol=BWD_TOL["bfloat16"]["atol"] * w_.float().abs().max().item())
+        del got, want
+        _free_cuda()
+        plain_us = device_time_us(
+            lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal),
+            reps=1, trials=3)
+    delta = fa._delta(out, do)
+    dq_us = device_time_us(lambda: fa._launch_dq(q, k, v, do, lse, delta, causal, scale),
+                           reps=5, trials=5)
+    dkv_us = device_time_us(lambda: fa._launch_dkv(q, k, v, do, lse, delta, causal, scale),
+                            reps=5, trials=5)
+    sdpa_both_us = device_time_us(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal), (qe, ke, ve), do),
+        reps=3, trials=5)
+    for row, kernel_us, products, q_side, kv_side, err in (
+        ("flash_bwd_dq", dq_us, 3, 3, 2, errs.get("dq")),
+        ("flash_bwd_dkv", dkv_us, 4, 2, 4, max(errs["dk"], errs["dv"]) if errs else None),
+    ):
+        bound_us, bound_by, flops = attention_bound_us(
+            b, h, hkv, s, s, dh, "bfloat16", causal, products=products, q_side=q_side,
+            kv_side=kv_side, rows=2)
+        rows[row][label] = dict(
+            shape=[b, h, s, dh], kv_heads=hkv, causal=causal, max_abs_err=err,
+            **timed_row(kernel_us, plain_us, sdpa_both_us - sdpa_fwd_us, bound_us, bound_by,
+                        flops))
+    for row in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        r = rows[row][label]
+        log(f"{tag} kernel {row} {label} {r['shape']}: kernel {r['ms'] * 1e3:.2f} us, "
+            f"sdpa {r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']}, share {r['bound_share']:.3f}), plain "
+            f"{'not measured' if r['plain_ms'] is None else '%.2f us' % (r['plain_ms'] * 1e3)}"
+            f", max_abs_err {r['max_abs_err']}")
+    del out, lse, qe, ke, ve, delta
+    _free_cuda()
+
+
+def adamw_kernel_row(seed: int, lr: float, shape, label: str, tag: str) -> dict:
+    """fused_adamw as LMTrial builds it (decay 0.01, clip 1.0, f32 mu) held
+    at leaf ``shape`` and timed beside its plain version, its bound and
+    the library's AdamW."""
     from determined_tpu_torch.ops.fused_adamw import fused_adamw
 
+    tx = fused_adamw(lr, weight_decay=0.01, clip_norm=1.0)
+    err = check_adamw_leaves(seed, [shape], [tx], f"{tag}'s {label} leaf")
+    row = dict(shape=list(shape), max_abs_err=err, **time_adamw_leaf(seed, tx, shape))
+    log(f"{tag} kernel fused_adamw {list(shape)}: kernel {row['ms'] * 1e3:.2f} us, plain "
+        f"{row['plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f} us, bound "
+        f"{row['bound_ms'] * 1e3:.2f} us (share {row['bound_share']:.3f})")
+    _free_cuda()
+    return row
+
+
+def seq_kernel_rows(seed: int) -> dict:
+    """K: the flash kernels at the ring's shapes and fused_adamw at L's
+    largest leaf (the docstring at the top)."""
     hp = SEQ_CONST["hyperparameters"]
-    h, hkv = hp["n_heads"], hp["n_kv_heads"]
-    dh = hp["d_model"] // h
-    scale = dh ** -0.5
     rows: dict = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
-    tol = KERNEL_TOL["bfloat16"]
     for label, s, causal in SEQ_KERNEL_SHAPES:
         q, k, v, do = _ring_inputs(seed + s + causal, s)
-        plain_fits = s <= 8192
-        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        kernel_us = device_time_us(lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
-                                   reps=5, trials=5)
-        err, plain_us = None, None
-        if plain_fits:
-            ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
-            torch.testing.assert_close(out.float(), ref_out.float(), **tol["out"])
-            torch.testing.assert_close(lse, ref_lse, **tol["lse"])
-            err = _max_err(out, ref_out)
-            del ref_out, ref_lse
-            plain_us = device_time_us(
-                lambda: fa.flash_attention_fwd_reference(q, k, v, causal=causal), reps=2,
-                trials=3)
-        # SDPA on the same inputs with k and v expanded to the 32 heads
-        qe, ke, ve = (t.detach().clone().requires_grad_() for t in
-                      (q, _repeat_kv(k, h // hkv), _repeat_kv(v, h // hkv)))
-        sdpa_fwd_us = device_time_us(
-            lambda: F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal), reps=5,
-            trials=5)
-        bound_us, bound_by, flops = attention_bound_us(
-            1, h, hkv, s, s, dh, "bfloat16", causal, products=2, q_side=2, kv_side=2, rows=1)
-        rows["flash_fwd"][label] = dict(
-            shape=[1, h, s, dh], kv_heads=hkv, causal=causal, max_abs_err=err,
-            **timed_row(kernel_us, plain_us, sdpa_fwd_us, bound_us, bound_by, flops))
-        errs = {}
-        if plain_fits:
-            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
-            want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal)
-            for grad, g_, w_ in zip(("dq", "dk", "dv"), got, want):
-                errs[grad] = _max_err(g_, w_)
-                torch.testing.assert_close(
-                    g_.float(), w_.float(), rtol=BWD_TOL["bfloat16"]["rtol"],
-                    atol=BWD_TOL["bfloat16"]["atol"] * w_.float().abs().max().item())
-            del got, want
-            _free_cuda()
-            plain_us = device_time_us(
-                lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal),
-                reps=1, trials=3)
-        delta = fa._delta(out, do)
-        dq_us = device_time_us(lambda: fa._launch_dq(q, k, v, do, lse, delta, causal, scale),
-                               reps=5, trials=5)
-        dkv_us = device_time_us(lambda: fa._launch_dkv(q, k, v, do, lse, delta, causal, scale),
-                                reps=5, trials=5)
-        sdpa_both_us = device_time_us(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal), (qe, ke, ve), do),
-            reps=3, trials=5)
-        for row, kernel_us, products, q_side, kv_side, err in (
-            ("flash_bwd_dq", dq_us, 3, 3, 2, errs.get("dq")),
-            ("flash_bwd_dkv", dkv_us, 4, 2, 4,
-             max(errs["dk"], errs["dv"]) if errs else None),
-        ):
-            bound_us, bound_by, flops = attention_bound_us(
-                1, h, hkv, s, s, dh, "bfloat16", causal, products=products, q_side=q_side,
-                kv_side=kv_side, rows=2)
-            rows[row][label] = dict(
-                shape=[1, h, s, dh], kv_heads=hkv, causal=causal, max_abs_err=err,
-                **timed_row(kernel_us, plain_us, sdpa_both_us - sdpa_fwd_us, bound_us,
-                             bound_by, flops))
-        for row in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            r = rows[row][label]
-            log(f"seq kernel {row} {label} {r['shape']}: kernel {r['ms'] * 1e3:.2f} us, "
-                f"sdpa {r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
-                f"({r['bound_by']}, share {r['bound_share']:.3f}), plain "
-                f"{'not measured' if r['plain_ms'] is None else '%.2f us' % (r['plain_ms'] * 1e3)}"
-                f", max_abs_err {r['max_abs_err']}")
-        del q, k, v, do, out, lse, qe, ke, ve, delta
+        attention_kernel_rows(rows, label, q, k, v, do, causal, s <= 8192, "seq")
+        del q, k, v, do
         _free_cuda()
     # L's optimizer: LMTrial's fused AdamW (decay 0.01, clip 1.0, f32 mu)
-    tx = fused_adamw(hp["lr"], weight_decay=0.01, clip_norm=1.0)
-    shape = (4 * hp["d_model"], hp["d_model"])
-    err = check_adamw_leaves(seed, [shape], [tx], "seq L's w_gate leaf")
-    rows["fused_adamw"] = {"w_gate": dict(shape=list(shape), max_abs_err=err,
-                                          **time_adamw_leaf(seed, tx, shape))}
-    r = rows["fused_adamw"]["w_gate"]
-    log(f"seq kernel fused_adamw {list(shape)}: kernel {r['ms'] * 1e3:.2f} us, plain "
-        f"{r['plain_ms'] * 1e3:.2f} us, library {r['library_ms'] * 1e3:.2f} us, bound "
-        f"{r['bound_ms'] * 1e3:.2f} us (share {r['bound_share']:.3f})")
-    _free_cuda()
+    rows["fused_adamw"] = {"w_gate": adamw_kernel_row(
+        seed, hp["lr"], (4 * hp["d_model"], hp["d_model"]), "w_gate", "seq L")}
     return rows
 
 
@@ -5211,6 +5300,153 @@ def phase_seq(seed: int) -> dict:
     out["launches"] = out["L"]["launches"]
     out["phase_s"] = time.monotonic() - t_phase
     log(f"seq: phase {out['phase_s']:.1f} s")
+    return out
+
+
+def _pipe_hparams() -> dict:
+    """S's hyperparameters: PIPE_CONST's with PIPE_CUTS."""
+    hp = dict(PIPE_CONST["hyperparameters"])
+    for key, _file, value, _why in PIPE_CUTS:
+        if "." not in key:
+            hp[key] = value
+    return hp
+
+
+def _pipe_fit(ctx, label: str, samples: int, against=None) -> dict:
+    """PIPE_STEPS steps of ``samples`` sequences and a validation through
+    Trainer(LMTrial).fit, the launch counters set to 0 just before and read
+    just after; the reported losses, the launches, the step time and the
+    peak memory; with ``against`` (the initial params and U's updates, on
+    the host) the relative norm and the largest difference of this run's
+    updates from U's, else the final params (on the host)."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.models import LMTrial
+
+    trainer = train.Trainer(LMTrial(ctx))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.monotonic()
+    trainer.fit(max_length=PIPE_STEPS, report_period=1, validation_period=PIPE_STEPS,
+                checkpoint_policy="none")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    rows = ctx.core.train.metrics("training")
+    val = ctx.core.train.metrics("validation")
+    step_ms = [1e3 * samples / m["samples_per_second"] for _, m in rows]
+    out = dict(
+        losses=[m["loss"] for _, m in rows], validation_loss=val[-1][1]["validation_loss"],
+        launches=launches, wall_s=wall, step_ms=step_ms,
+        steady_step_ms=sorted(step_ms[1:])[len(step_ms[1:]) // 2],
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        leaves=len(trainer._params),
+        bubble_fraction=trainer._bubble_model.fraction if trainer._bubble_model else None,
+    )
+    if against is None:
+        out["params"] = {k: p.detach().to("cpu", copy=True) for k, p in trainer._params.items()}
+    else:
+        init, upd_ref = against
+        num = den = worst = 0.0
+        with torch.no_grad():
+            for k, p in trainer._params.items():
+                ref = upd_ref[k].to(p.device)
+                diff = p - init[k].to(p.device) - ref
+                num += float(diff.norm()) ** 2
+                den += float(ref.norm()) ** 2
+                worst = max(worst, float(diff.abs().max()))
+        out.update(update_rel=(num / max(den, 1e-300)) ** 0.5, update_max_abs_diff=worst)
+    log(f"pipe {label}: losses {out['losses']}, validation {out['validation_loss']}, step "
+        f"{out['steady_step_ms']:.2f} ms (each {[round(x, 2) for x in step_ms]}), peak "
+        f"{out['peak_memory_gib']:.2f} GiB, launches {launches}, bubble "
+        f"{out['bubble_fraction']}, {wall:.1f} s")
+    del trainer
+    _free_cuda()
+    return out
+
+
+def pipe_main(seed: int) -> dict:
+    """U and S (the docstring at the top)."""
+    from determined_tpu_torch import train
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.models import LMTrial
+
+    hp = _pipe_hparams()
+    m, layers = hp["pipe_microbatches"], hp["n_layers"]
+    plain = {k: v for k, v in hp.items() if k != "pipe_microbatches"}
+    plain["global_batch_size"] = hp["global_batch_size"] // m
+    agg = ExperimentConfig.parse({"optimizations": {"aggregation_frequency": m}})
+    samples = hp["global_batch_size"]
+    ref = _pipe_fit(train.init(hparams=plain, seed=seed, exp_config=agg), "U (aggregation 8)",
+                    samples)
+    init = {k: p.detach().to("cpu", copy=True) for k, p in
+            LMTrial(train.init(hparams=plain, seed=seed)).build_model().named_parameters()}
+    upd_ref = {k: p - init[k] for k, p in ref.pop("params").items()}
+    _free_cuda()
+    val_batches = hp["dataset_size"] // hp["global_batch_size"]
+    out: dict = {"U": ref, "S": {}}
+    for name, v in PIPE_SCHEDULES:
+        shp = dict(hp, pipeline_schedule=name, virtual_stages=v)
+        got = _pipe_fit(train.init(hparams=shp, seed=seed, virtual_pipe=4), name, samples,
+                        against=(init, upd_ref))
+        want_launches = dict(
+            flash_fwd=PIPE_STEPS * 2 * layers * m + val_batches * layers * m,
+            flash_bwd_dq=PIPE_STEPS * layers * m, flash_bwd_dkv=PIPE_STEPS * layers * m,
+            fused_adamw=PIPE_STEPS * got["leaves"])
+        assert got["launches"] == want_launches, (name, got["launches"], want_launches)
+        assert ref["launches"] == want_launches, (ref["launches"], want_launches)
+        assert abs(got["bubble_fraction"] - PIPE_BUBBLE[name]) < 1e-12, got["bubble_fraction"]
+        np.testing.assert_allclose(got["losses"], ref["losses"], **PIPE_TOL["loss"],
+                                   err_msg=f"pipe {name} losses")
+        np.testing.assert_allclose(got["validation_loss"], ref["validation_loss"],
+                                   **PIPE_TOL["loss"], err_msg=f"pipe {name} validation")
+        assert got["update_rel"] <= PIPE_TOL["update_rel"], (name, got["update_rel"])
+        got["loss_max_abs_diff"] = float(np.max(np.abs(np.subtract(got["losses"],
+                                                                   ref["losses"]))))
+        out["S"][name] = got
+        log(f"pipe {name} against U: loss max |diff| {got['loss_max_abs_diff']:.3e}, "
+            f"updates rel {got['update_rel']:.3e} (max |diff| {got['update_max_abs_diff']:.3e})")
+        del got
+        _free_cuda()
+    assert out["S"]["1f1b"]["peak_memory_gib"] < out["S"]["gpipe"]["peak_memory_gib"], out
+    out["launches"] = out["S"]["1f1b"]["launches"]
+    return out
+
+
+def pipe_kernel_rows(seed: int) -> dict:
+    """K: the flash kernels at a microbatch's attention and fused_adamw at
+    a stage's largest leaf (the docstring at the top)."""
+    import torch
+
+    hp = PIPE_CONST["hyperparameters"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    q, k, v, do = (torch.randn(PIPE_MB_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    rows: dict = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    attention_kernel_rows(rows, "microbatch", q, k, v, do, True, True, "pipe")
+    del q, k, v, do
+    _free_cuda()
+    rows["fused_adamw"] = {"w_gate": adamw_kernel_row(
+        seed, hp["lr"], (4 * hp["d_model"], hp["d_model"]), "w_gate", "pipe")}
+    return rows
+
+
+def phase_pipe(seed: int) -> dict:
+    """Parts U, S and K of phase 18 (the docstring at the top)."""
+    t_phase = time.monotonic()
+    for key, old, value, why in PIPE_CUTS:
+        log(f"pipe cut (S): {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    out: dict = {}
+    for part, fn in (("S", lambda: pipe_main(seed)), ("K", lambda: pipe_kernel_rows(seed))):
+        t0 = time.monotonic()
+        out[part] = fn()
+        log(f"pipe {part}: {time.monotonic() - t0:.1f} s")
+        _free_cuda()
+    out["launches"] = out["S"]["launches"]
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"pipe: phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -5328,6 +5564,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         cluster = phase_cluster(args.seed, build, reference)
+    pipe = None
+    if "pipe" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        pipe = phase_pipe(args.seed)
 
     if kernel and serve is not None and trained is not None:
         rows = []
@@ -5380,6 +5621,13 @@ def main() -> int:
                 # the agent's trial process, from its log at the master:
                 # the resumed run's launches
                 by_phase["cluster_resume"] = cluster["launches"][name]
+            if pipe is not None:
+                # S's 1f1b run on the virtual pipe, and the rows at a
+                # microbatch's shapes
+                by_phase["pipe"] = pipe["launches"][name]
+                fields["pipe_shapes"] = pipe["K"][name]
+                fields["max_abs_err"] = max([fields["max_abs_err"]] + [
+                    r["max_abs_err"] for r in pipe["K"][name].values()])
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=trained["launches"][name], launches_by_phase=by_phase,

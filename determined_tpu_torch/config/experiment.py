@@ -5,7 +5,8 @@ parser of the versioned experiment YAML, section by section, as in the JAX
 package; the same YAML gives the same fields in both.  ``resources.mesh`` is
 this module's own ``MeshConfig``: the axis sizes and the one ``-1``
 wildcard, resolved against the world size by ``train.init`` (the Trainer
-runs the data, fsdp and expert axes; the others raise).  ``yaml`` is imported only
+runs every axis but ``dcn``).  ``pipeline_problems`` is the pipeline part of
+the JAX ``preflight_experiment_config``.  ``yaml`` is imported only
 where a file or a YAML string is read.  ``lint.suppress`` must name rule ids
 of the JAX package's lint registry (``LINT_RULE_IDS``, this module's own copy
 of the ids: the lint package itself is not ported).
@@ -970,3 +971,44 @@ class ExperimentConfig:
         (what a trial sees after the searcher samples)."""
         const = parse_hyperparameters(hparams)
         return dataclasses.replace(self, hyperparameters=const)
+
+
+def pipeline_problems(cfg: "ExperimentConfig") -> List[str]:
+    """The pipeline checks of the JAX ``preflight_experiment_config``
+    (``determined_tpu/config/experiment.py``), with its texts: an
+    interleaved schedule without a pipe axis, layers that the chunks do not
+    divide, a global batch that ``pipe_microbatches`` does not divide.  Only
+    concrete (Const/int) hyperparameters take part."""
+    problems: List[str] = []
+    opt = cfg.optimizations
+    pipe = getattr(cfg.resources.mesh, "pipe", 1)
+
+    def hp_int(name: str) -> Optional[int]:
+        v = cfg.hyperparameters.get(name)
+        v = getattr(v, "val", v)
+        return v if isinstance(v, int) and not isinstance(v, bool) else None
+
+    if opt.pipeline_schedule == "interleaved" and 0 <= pipe <= 1:
+        problems.append(
+            "optimizations.pipeline_schedule: interleaved needs a "
+            f"resources.mesh pipe axis > 1 (mesh pipe={pipe})"
+        )
+    if pipe > 1:
+        chunks = pipe * opt.virtual_stages
+        n_layers = hp_int("n_layers")
+        if n_layers is not None and n_layers % chunks:
+            problems.append(
+                f"hyperparameters.n_layers={n_layers} does not divide into "
+                f"{chunks} pipeline chunks (pipe={pipe} x "
+                f"virtual_stages={opt.virtual_stages}) for "
+                f"pipeline_schedule {opt.pipeline_schedule!r}"
+            )
+        gbs = hp_int("global_batch_size")
+        m = hp_int("pipe_microbatches")
+        if gbs is not None and m is not None and m > 0 and gbs % m:
+            problems.append(
+                f"hyperparameters.global_batch_size={gbs} not divisible by "
+                f"pipe_microbatches={m}: the pipeline schedule would reject "
+                "it at the first step"
+            )
+    return problems

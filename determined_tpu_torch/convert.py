@@ -33,6 +33,14 @@ become ``weight``, and every 2-D ``kernel`` becomes a transposed
 weight is (in, out); a flax ``nn.Dense`` kernel is (in, out) and a torch
 ``nn.Linear`` weight (out, in).
 
+A pipe-parallel JAX trial keeps its LM in ``split_pipeline_params``'s
+layout, ``{"outer": {"params": <embed, ln_f, lm_head>}, "blocks":
+{"layer_j": <layer j of every chunk stacked [P, ...], or [P, V, ...]
+interleaved: [p, v] is chunk v * P + p>}}``; the port keeps the whole
+model's names on every stage (``TransformerLM.shard_pipe``).
+``state_dict_from_split`` and ``split_from_state_dict`` map the two both
+ways; ``stage_state_dict`` is one pipe rank's part of a state dict.
+
 Optimizer moments (``mu``/``nu`` trees of a ``FusedAdamWState`` or of the
 ``ScaleByAdamState`` inside an optax chain state) are param-shaped and map
 through the same transforms (``opt_state_from_flax``,
@@ -41,7 +49,7 @@ through the same transforms (``opt_state_from_flax``,
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,6 +126,81 @@ def flax_from_state_dict(
                 name: {"kernel": arr(state[pre + f"mlp.{name}.weight"]).T} for name in _MLP
             }
     return {k: _contiguous(v) for k, v in tree.items()}
+
+
+def _tree_map(fn: Any, *trees: Any) -> Any:
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], Mapping):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _chunk_of(layer: int, lpc: int, n_stages: int) -> Tuple[int, int, int]:
+    """(stage p, virtual stage v, position j) of ``layer``: chunk c = v * P
+    + p holds layers [c * lpc, (c + 1) * lpc)."""
+    chunk, j = divmod(layer, lpc)
+    v, p = divmod(chunk, n_stages)
+    return p, v, j
+
+
+def state_dict_from_split(split: Mapping[str, Any], n_stages: int,
+                          virtual_stages: int = 1) -> Dict[str, np.ndarray]:
+    """The port's whole ``state_dict`` (as numpy) from JAX's
+    ``split_pipeline_params`` layout, unboxed."""
+    outer = split["outer"]
+    outer = outer.get("params", outer)
+    blocks = split["blocks"]
+    lpc = len(blocks)
+    tree = dict(outer)
+    for layer in range(lpc * n_stages * virtual_stages):
+        p, v, j = _chunk_of(layer, lpc, n_stages)
+        pos = (p, v) if virtual_stages > 1 else (p,)
+        tree[f"block_{layer}"] = _tree_map(lambda a: np.asarray(a)[pos], blocks[f"layer_{j}"])
+    return state_dict_from_flax(tree)
+
+
+def split_from_state_dict(state: Mapping[str, Any], n_heads: int, n_kv_heads: int,
+                          n_stages: int, virtual_stages: int = 1) -> Dict[str, Any]:
+    """The inverse: JAX's split layout (numpy leaves) from the port's
+    whole ``state_dict``."""
+    tree = flax_from_state_dict(state, n_heads, n_kv_heads)
+    n_layers = sum(1 for k in tree if k.startswith("block_"))
+    chunks = n_stages * virtual_stages
+    if n_layers % chunks:
+        raise ValueError(f"n_layers={n_layers} not divisible into {chunks} pipeline chunks")
+    lpc = n_layers // chunks
+    blocks = {}
+    for j in range(lpc):
+        def stack(*leaves: Any, j: int = j) -> np.ndarray:
+            by = {_chunk_of(layer, lpc, n_stages)[:2]: leaves[layer // lpc]
+                  for layer in range(j, n_layers, lpc)}
+            if virtual_stages == 1:
+                return np.stack([by[(p, 0)] for p in range(n_stages)])
+            return np.stack([np.stack([by[(p, v)] for v in range(virtual_stages)])
+                             for p in range(n_stages)])
+
+        blocks[f"layer_{j}"] = _tree_map(
+            stack, *(tree[f"block_{c * lpc + j}"] for c in range(chunks)))
+    outer = {k: v for k, v in tree.items() if not k.startswith("block_")}
+    return {"outer": {"params": outer}, "blocks": blocks}
+
+
+def stage_state_dict(state: Mapping[str, Any], rank: int, n_stages: int,
+                     virtual_stages: int = 1) -> Dict[str, Any]:
+    """Pipe rank ``rank``'s part of a whole ``state_dict``: the layers of
+    its chunks, ``embed`` on rank 0, ``ln_f`` and ``lm_head`` on the last
+    (``TransformerLM.shard_pipe``)."""
+    n_layers = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("blocks."))
+    lpc = n_layers // (n_stages * virtual_stages)
+
+    def mine(key: str) -> bool:
+        if key.startswith("blocks."):
+            return _chunk_of(int(key.split(".")[1]), lpc, n_stages)[0] == rank
+        if key.startswith("embed."):
+            return rank == 0
+        return rank == n_stages - 1
+
+    return {k: v for k, v in state.items() if mine(k)}
 
 
 def _contiguous(node: Any) -> Any:

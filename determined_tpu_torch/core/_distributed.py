@@ -13,6 +13,11 @@ process per device, as torchrun launches them.
 One DistributedContext per process.  ``rank``/``size`` are global,
 ``local_rank``/``local_size`` within a host, ``cross_rank``/``cross_size``
 across hosts.
+
+The pipe axis's activations move point to point (``p2p_exchange``): a
+pipeline tick's sends and receives go out as one ``batch_isend_irecv`` on
+the pipe group, NCCL on the card and gloo on the CPU.  ``warm_pipe`` makes
+each neighbour pair's communicator before anything is timed.
 """
 
 from __future__ import annotations
@@ -574,6 +579,39 @@ class DistributedContext:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def p2p_exchange(sends: List[Tuple[int, Any]], recvs: List[Tuple[int, Any]],
+                 group: Any) -> List[Any]:
+    """Send each ``(global rank, tensor)`` of ``sends`` and fill each
+    ``(global rank, buffer)`` of ``recvs`` over ``group``, all in one
+    ``batch_isend_irecv`` (so that ranks that both send to and receive from
+    each other in one call cannot deadlock), then wait; returns the
+    buffers.  A failed operation raises: there is no fallback."""
+    import torch.distributed as tdist
+
+    ops = [tdist.P2POp(tdist.isend, t.contiguous(), peer, group) for peer, t in sends]
+    ops += [tdist.P2POp(tdist.irecv, buf, peer, group) for peer, buf in recvs]
+    for work in tdist.batch_isend_irecv(ops):
+        work.wait()
+    return [buf for _, buf in recvs]
+
+
+def warm_pipe(group: Any, ranks: List[int], rank: int, like: Any) -> None:
+    """Make the pipe group's communicators: an all-reduce over the group
+    (NCCL wants the group's first operation to involve every rank), then
+    one round in which pipe rank ``rank`` sends a tensor shaped ``like`` to
+    the next rank and receives one from the previous, the circular wrap
+    included, which creates every neighbour pair's communicator.
+    ``ranks``: the group's global ranks in pipe order."""
+    import torch
+    import torch.distributed as tdist
+
+    tdist.all_reduce(torch.zeros(1, device=like.device), group=group)
+    n = len(ranks)
+    if n > 1:
+        p2p_exchange([(ranks[(rank + 1) % n], torch.zeros_like(like))],
+                     [(ranks[(rank - 1) % n], torch.empty_like(like))], group)
 
 
 class DummyDistributedContext(DistributedContext):

@@ -63,14 +63,16 @@ class DataLoader:
         )
         self._state = SamplerState()
 
-    def shard(self, shard_rank: int, num_shards: int) -> None:
+    def shard(self, shard_rank: int, num_shards: int, blocks: int = 1) -> None:
         """Read shard ``shard_rank`` of ``num_shards`` of every global batch
-        from now on (the Trainer's rank on a mesh); the global batch, the
-        order and the resume state stay as they are."""
+        from now on (the Trainer's rank on a mesh), or with ``blocks`` its
+        shard of each of that many contiguous blocks of the batch (a
+        pipeline's microbatches); the global batch, the order and the
+        resume state stay as they are."""
         s = self.sampler
         self.sampler = IndexSampler(
             s.dataset_len, s.global_batch, shard_rank=shard_rank, num_shards=num_shards,
-            shuffle=s.shuffle, seed=s.seed,
+            shuffle=s.shuffle, seed=s.seed, blocks=blocks,
         )
 
     # -- resume state ------------------------------------------------------

@@ -38,12 +38,18 @@ class IndexSampler:
         num_shards: int = 1,
         shuffle: bool = True,
         seed: int = 0,
+        blocks: int = 1,
     ) -> None:
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         if batch_size % num_shards:
             raise ValueError(
                 f"global batch size {batch_size} not divisible by {num_shards} shards"
+            )
+        if batch_size % (num_shards * blocks):
+            raise ValueError(
+                f"global batch size {batch_size} not divisible into {blocks} microbatches "
+                f"of {num_shards} shards"
             )
         if not (0 <= shard_rank < num_shards):
             raise ValueError(f"shard_rank {shard_rank} not in [0, {num_shards})")
@@ -54,6 +60,9 @@ class IndexSampler:
         self.num_shards = num_shards
         self.shuffle = shuffle
         self.seed = seed
+        # a pipeline's microbatches: the shard takes its part of each of
+        # ``blocks`` contiguous blocks of the global batch
+        self.blocks = blocks
         # full global batches per epoch (drop_last over the global stream)
         self.batches_per_epoch = dataset_len // batch_size
         if self.batches_per_epoch == 0:
@@ -73,12 +82,15 @@ class IndexSampler:
         """[batches_per_epoch, shard_batch] index array for this shard.
 
         Shuffle -> batch -> shard: batch b covers global slice
-        [b*B, (b+1)*B); this shard takes its contiguous sub-slice.
+        [b*B, (b+1)*B); this shard takes its contiguous sub-slice, or with
+        ``blocks`` its contiguous sub-slice of each of the batch's
+        ``blocks`` contiguous blocks, in block order.
         """
         order = self.epoch_indices(epoch)
         usable = order[: self.batches_per_epoch * self.global_batch]
-        batches = usable.reshape(self.batches_per_epoch, self.num_shards, self.shard_batch)
-        return batches[:, self.shard_rank, :]
+        batches = usable.reshape(self.batches_per_epoch, self.blocks, self.num_shards,
+                                 self.shard_batch // self.blocks)
+        return batches[:, :, self.shard_rank, :].reshape(self.batches_per_epoch, -1)
 
     def iter_from(self, state: SamplerState) -> Iterator[tuple]:
         """Infinite stream of (SamplerState, shard_indices) from a resume

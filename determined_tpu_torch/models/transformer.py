@@ -5,7 +5,7 @@ Port of ``determined_tpu/models/transformer.py``: rotary position
 embeddings that pair even and odd lanes, GQA, RMSNorm with the variance
 taken in f32, SwiGLU, f32 parameters with compute in ``cfg.dtype``; per-block
 ``torch.utils.checkpoint`` under ``cfg.remat``.  ``LMTrial`` is the JAX
-``LMTrial`` without its pipeline branches.  ``cfg.quantized_matmul`` (int8 or
+``LMTrial``; its pipeline branches run ``parallel/pipeline.py``.  ``cfg.quantized_matmul`` (int8 or
 fp8, ``train/_quant.py``) quantizes the training forward's q, k, v, o,
 gate, up and down products and the logits head, as the JAX package's flax
 modules do; the fused cross-entropy head keeps its own bf16 contraction,
@@ -50,7 +50,7 @@ empty decode lanes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +98,10 @@ class TransformerConfig:
     moe_aux_weight: float = 0.01
     quantized_matmul: str = "none"
     partition_params: bool = True             # no effect on one device
+    # JAX's manual-SPMD axis names inside a pipeline stage.  The port's
+    # stage blocks reach the seq and expert groups the way every block does
+    # (``shard_seq``: the ring through ``dot_product_attention``;
+    # ``shard_experts``), so these only mark a config as a stage's
     seq_axis_name: Optional[str] = None
     expert_axis_name: Optional[str] = None
 
@@ -107,16 +111,6 @@ class TransformerConfig:
                 "moe_every must be >= 1 when moe_experts > 0 "
                 f"(got moe_every={self.moe_every})"
             )
-        unported = [
-            (self.seq_axis_name is not None, "seq_axis_name (the pipeline slice)"),
-            (self.expert_axis_name is not None, "expert_axis_name (the pipeline slice)"),
-        ]
-        for hit, what in unported:
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported to determined_tpu_torch yet; it comes "
-                    "with a later slice of the port (ROADMAP.md, Queue 1)"
-                )
         if self.attention_impl not in ("auto", "reference", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
         check_mode(self.quantized_matmul)
@@ -310,6 +304,26 @@ class Block(nn.Module):
         return x + self.mlp(self.ln2(x)), None
 
 
+class _Layers(nn.Module):
+    """Some layers of the stack under their indices in the whole stack (a
+    pipeline rank's chunks), so that their parameters keep the whole
+    model's names (``blocks.<i>.``).  Iterates in layer order."""
+
+    def __init__(self, blocks: Dict[int, nn.Module]) -> None:
+        super().__init__()
+        for i in sorted(blocks):
+            self.add_module(str(i), blocks[i])
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __getitem__(self, i: int) -> nn.Module:
+        return self._modules[str(i)]
+
+
 class TransformerLM(nn.Module):
     """The flagship decoder-only LM.  Parameters are f32 on ``device``
     (CUDA unless named), initialised from ``generator`` (seed 0 when
@@ -342,6 +356,80 @@ class TransformerLM(nn.Module):
         # (group, size, rank) of the tensor and seq axes once sharded
         self.tensor: Optional[Tuple[Any, int, int]] = None
         self.seq: Optional[Tuple[Any, int, int]] = None
+        # the pipeline (shard_pipe): the pipe, and the layers of each chunk
+        # this process holds
+        self.pipe: Any = None
+        self.virtual_stages = 1
+        self.chunk_layers: Dict[int, List[int]] = {}
+        self._grad_sync = True
+
+    def shard_pipe(self, pipe: Any) -> None:
+        """Hold this process's chunks of the layer stack for the pipeline
+        (``parallel/pipeline.py``; ``pipe`` a ``PipeGroup`` or a
+        ``VirtualPipe``, which holds every chunk; ``virtual_stages`` set
+        first).  Chunk ``c = v * P + p`` is layers ``[c * L/(P*V), (c + 1) *
+        L/(P*V))`` on rank ``p``: JAX's ``split_pipeline_params`` layout,
+        the same init as one device.  The rank holding chunk 0 keeps
+        ``embed``, the one holding the last chunk ``ln_f`` and ``lm_head``; a
+        ``PipeGroup`` rank drops the rest, and what it keeps keeps the whole
+        model's names."""
+        from determined_tpu_torch.config.experiment import InvalidExperimentConfig
+
+        v, n = self.virtual_stages, pipe.size
+        total = n * v
+        n_layers = len(self.blocks)
+        if n_layers == 0 or n_layers % total:
+            raise InvalidExperimentConfig(
+                f"n_layers={n_layers} not divisible into {total} pipeline "
+                f"chunks (pipe={n} x virtual_stages={v})"
+            )
+        lpc = n_layers // total
+        for j in range(lpc):
+            kinds = {hasattr(self.blocks[c * lpc + j], "moe") for c in range(total)}
+            if len(kinds) > 1:
+                raise InvalidExperimentConfig(
+                    f"layer {j} differs in structure across pipeline chunks "
+                    "(is the MoE period a divisor of layers-per-chunk?)"
+                )
+        held = [c for c in range(total) if c % n in pipe.ranks()]
+        self.chunk_layers = {c: list(range(c * lpc, (c + 1) * lpc)) for c in held}
+        self.pipe = pipe
+        if len(held) < total:
+            keep = {i: self.blocks[i] for c in held for i in self.chunk_layers[c]}
+            self.blocks = _Layers(keep)
+            if 0 not in held:
+                self.embed = None
+            if total - 1 not in held:
+                self.ln_f = None
+                self.lm_head = None
+            # the pipe's communicators, made before anything is timed
+            pipe.warm(torch.zeros(1, device=next(self.parameters()).device))
+
+    def stage_chunks(self) -> List[Optional[List[nn.Module]]]:
+        """``pipeline_apply``'s stages: each chunk's blocks (None where
+        another rank holds it)."""
+        total = self.pipe.size * self.virtual_stages
+        return [[self.blocks[i] for i in self.chunk_layers[c]] if c in self.chunk_layers
+                else None for c in range(total)]
+
+    def set_requires_gradient_sync(self, requires: bool) -> None:
+        """Gradient accumulation's switch on a pipeline rank, whose blocks
+        are FSDP2 modules of their own: the pipeline reduces the gradients
+        at each chunk's last backward unit only when it is on."""
+        self._grad_sync = requires
+
+    def pipe_backward_hook(self, chunk: int, last: bool) -> None:
+        """Before each backward unit of ``chunk``: its FSDP2 blocks reduce
+        and reshard only on the step's last unit of the chunk (with
+        ``reshard_after_forward`` off, a step all-gathers each block once and
+        reduce-scatters it once, not M times)."""
+        from torch.distributed.fsdp import FSDPModule
+
+        for i in self.chunk_layers[chunk]:
+            blk = self.blocks[i]
+            if isinstance(blk, FSDPModule):
+                blk.set_requires_gradient_sync(self._grad_sync and last)
+                blk.set_reshard_after_backward(last)
 
     def shard_tensor(self, group: Any, size: int, rank: int) -> Dict[str, int]:
         """Keep this rank's vocabulary rows of ``embed`` and ``lm_head``
@@ -410,7 +498,12 @@ class TransformerLM(nn.Module):
         normed hidden states [b, s, d] in ``cfg.dtype``; with ``return_aux``
         also the MoE blocks' aux losses summed (f32 zero without experts).
         On a tensor group the logits are this rank's vocabulary columns; on
-        a seq group ``tokens`` are this rank's part of each sequence."""
+        a seq group ``tokens`` are this rank's part of each sequence.  A
+        pipeline rank holding part of the stack runs through the trial's
+        schedule instead (``LMTrial``)."""
+        if self.pipe is not None and len(self.chunk_layers) < self.pipe.size * self.virtual_stages:
+            raise RuntimeError("this model holds one pipeline rank's layers: run it through "
+                               "parallel.pipeline.pipeline_apply (LMTrial.loss)")
         if self.tensor is None:
             x = self.embed.weight[tokens].to(self.cfg.dtype)
         else:
@@ -742,9 +835,6 @@ def transformer_prefill_suffix(
 # training trial
 # ---------------------------------------------------------------------------
 
-_PIPE_HPARAMS = ("pipe_microbatches", "pipeline_schedule", "virtual_stages")
-
-
 class LMTrial(TorchTrial):
     """Language-model trial over synthetic token data.
 
@@ -758,9 +848,63 @@ class LMTrial(TorchTrial):
     trial (``_quant_mode``).  ``moe_experts``, ``moe_every``,
     ``moe_capacity_factor`` and ``moe_aux_weight`` put MoE blocks in the
     model; the loss then adds ``moe_aux_weight * aux`` and reports
-    ``moe_aux_loss``.  Pipeline hyperparameters raise
-    ``NotImplementedError``: they come with a later slice of the port.
+    ``moe_aux_loss``.
+
+    With a ``pipe`` axis of P > 1 (the mesh's, or the ``VirtualPipe`` that
+    ``train.init(virtual_pipe=P)`` asks for) the model is cut into stages
+    (``TransformerLM.shard_pipe``, the same init as one device) and the
+    loss runs through the schedule (``pipeline_schedule`` and
+    ``virtual_stages``: a hparam wins, else the experiment's
+    ``optimizations``, else gpipe; ``pipe_microbatches``, else 2 a stage
+    shrunk to a divisor of the batch), which also runs the backward
+    (``parallel/pipeline.py``).  Where the JAX trial runs embed, the final
+    norm and the head replicated on every pipe rank, the port runs embed on
+    the first stage and the norm, the head and the loss (fused
+    cross-entropy included) on the last, once a microbatch; the loss is
+    summed over the pipe group, so every rank reports it.
     """
+
+    def _pipe_microbatches(self, batch: int) -> int:
+        m = self.context.get_hparam("pipe_microbatches", None)
+        if m:
+            return int(m)
+        # default: 2 microbatches per stage (bubble fraction (P-1)/(M+P-1)),
+        # shrunk to the largest divisor of the batch
+        m = min(batch, 2 * self.context.pipe_stages)
+        while batch % m:
+            m -= 1
+        return m
+
+    def _pipe_schedule(self) -> Tuple[str, int]:
+        """(schedule, virtual_stages): a trial hparam wins, else the
+        experiment's ``optimizations`` knobs, else gpipe (``_quant_mode``'s
+        precedence)."""
+        g = self.context.get_hparam
+        opt = (self.context.exp_config.optimizations
+               if self.context.exp_config is not None else None)
+        name = g("pipeline_schedule", None)
+        if name is None:
+            name = opt.pipeline_schedule if opt is not None else "gpipe"
+        v = g("virtual_stages", None)
+        if v is None:
+            v = opt.virtual_stages if opt is not None else 1
+        return str(name), int(v)
+
+    def pipeline_schedule_spec(self) -> Any:
+        """The trial's ``PipelineSchedule`` (None without a pipe axis): the
+        Trainer's goodput ``step.bubble`` rows and its batch layout read
+        it."""
+        pipe = self.context.pipe_stages
+        if pipe <= 1:
+            return None
+        from determined_tpu_torch.parallel.pipeline import PipelineSchedule
+
+        name, v = self._pipe_schedule()
+        return PipelineSchedule(
+            name=name, n_stages=pipe,
+            num_microbatches=self._pipe_microbatches(self.context.get_global_batch_size()),
+            virtual_stages=v,
+        )
 
     def _quant_mode(self) -> str:
         """quantized_matmul resolution: a trial hparam wins, else the
@@ -776,11 +920,16 @@ class LMTrial(TorchTrial):
 
     def _cfg(self) -> TransformerConfig:
         g = self.context.get_hparam
-        for name in _PIPE_HPARAMS:
-            if g(name, None) is not None:
-                raise NotImplementedError(
-                    f"{name} (the pipeline slice) is not ported to determined_tpu_torch "
-                    "yet; it comes with a later slice of the port (ROADMAP.md, Queue 1)"
+        pipe = self.context.pipe_stages
+        if pipe > 1 and int(g("moe_experts", 0)) > 0:
+            # MoE composes with pipe when every chunk sees the same layer
+            # pattern: the MoE period must divide layers-per-chunk
+            _, vstages = self._pipe_schedule()
+            lps = int(g("n_layers", 2)) // (pipe * vstages)
+            if lps == 0 or lps % int(g("moe_every", 2)):
+                raise ValueError(
+                    f"pipe={pipe} with MoE needs moe_every ({g('moe_every', 2)}) "
+                    f"to divide layers-per-chunk ({lps})"
                 )
         return TransformerConfig(
             vocab_size=int(g("vocab_size", 2048)),
@@ -823,6 +972,12 @@ class LMTrial(TorchTrial):
             # 'ring' is whole-sequence attention there (shard_model says so
             # on a mesh)
             model.shard_seq(None, 1, 0)
+        spec = self.pipeline_schedule_spec()
+        if spec is not None:
+            # shard_model cuts a mesh's stages; a virtual pipe holds them all
+            model.virtual_stages = spec.virtual_stages
+            if self.context.virtual_pipe is not None:
+                model.shard_pipe(self.context.virtual_pipe)
         return model
 
     def build_optimizer(self) -> Any:
@@ -880,6 +1035,8 @@ class LMTrial(TorchTrial):
         fused = g("fused_ce", "auto")
         if fused == "auto":
             fused = model.cfg.vocab_size >= 8192
+        if model.pipe is not None:
+            return self._pipeline_loss(model, inputs, targets, fused)
         if fused:
             from determined_tpu_torch.ops.cross_entropy import fused_cross_entropy
 
@@ -913,6 +1070,70 @@ class LMTrial(TorchTrial):
         if model.cfg.moe_experts > 0:
             metrics["moe_aux_loss"] = moe_aux
             loss = loss + model.cfg.moe_aux_weight * moe_aux
+        return loss, metrics
+
+    def _head_loss(self, model: TransformerLM, y: torch.Tensor, targets: torch.Tensor,
+                   fused: bool) -> torch.Tensor:
+        """The final norm, the head and the mean cross-entropy of one
+        microbatch's last hidden states."""
+        g = self.context.get_hparam
+        x = model.ln_f(y)
+        if fused:
+            from determined_tpu_torch.ops.cross_entropy import fused_cross_entropy
+
+            chunk = g("ce_chunk", None)
+            return fused_cross_entropy(
+                x, model.lm_head.weight.t(), targets,
+                chunk_size=None if chunk in (None, "auto") else int(chunk),
+                compute_dtype=model.cfg.dtype, batch_shards=1,
+                bf16_residual=bool(g("ce_bf16_residual", False)),
+            )
+        logits = quant_linear(x, model.lm_head.weight, model.cfg.dtype,
+                              model.cfg.quantized_matmul).float()
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+
+    def _pipeline_loss(
+        self, model: TransformerLM, inputs: torch.Tensor, targets: torch.Tensor, fused: bool
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss through the schedule, its backward run with grad on
+        (the class docstring); a loss that carries no graph."""
+        from determined_tpu_torch.parallel.pipeline import pipeline_apply
+
+        cfg = model.cfg
+        m = self._pipe_microbatches(self.context.get_global_batch_size())
+        schedule, vstages = self._pipe_schedule()
+        b, s = inputs.shape
+        if model.embed is not None:
+            x = model.embed.weight[inputs].to(cfg.dtype)
+        else:  # only the shape and dtype reach the pipe
+            x = torch.empty((b, s, cfg.d_model), dtype=cfg.dtype, device=inputs.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def stage_fn(blocks: List[nn.Module], h: torch.Tensor):
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            for blk in blocks:
+                # remat: keep only each block's input; the backward reruns it
+                h, a = checkpoint(blk, h, use_reentrant=False) if remat else blk(h)
+                if a is not None:
+                    aux = aux + a
+            return h, aux
+
+        mb = b // m  # pipeline_apply raises first where m does not divide b
+
+        def loss_fn(y: torch.Tensor, k: int) -> torch.Tensor:
+            return self._head_loss(model, y, targets[k * mb:(k + 1) * mb], fused) / m
+
+        moe = cfg.moe_experts > 0
+        loss, aux = pipeline_apply(
+            stage_fn, model.stage_chunks(), x, model.pipe, m, with_aux=True,
+            schedule=schedule, virtual_stages=vstages, loss_fn=loss_fn,
+            aux_weight=cfg.moe_aux_weight if moe else 0.0,
+            on_backward=model.pipe_backward_hook,
+        )
+        metrics = {"perplexity": torch.exp(loss)}
+        if moe:
+            metrics["moe_aux_loss"] = aux
+            loss = loss + cfg.moe_aux_weight * aux
         return loss, metrics
 
     def evaluate_batch(

@@ -6,9 +6,10 @@ process per device (torchrun) and builds a ``DeviceMesh`` with
 ``init_device_mesh`` over the world of its process group, in the JAX mesh's
 axis order ``(pipe, data, fsdp, expert, seq, tensor)``, so rank ``r`` sits
 at the coordinate of the JAX mesh's device ``r``.  ``dcn`` (``num_slices``)
-is not an axis of the port's mesh.  The Trainer runs the ``data``, ``fsdp``,
-``expert``, ``tensor`` and ``seq`` axes; ``pipe`` and ``num_slices`` > 1
-raise ``NotImplementedError`` here (``sharding.check_ported``).
+is not an axis of the port's mesh.  The Trainer runs the ``pipe``,
+``data``, ``fsdp``, ``expert``, ``tensor`` and ``seq`` axes; ``num_slices``
+> 1 raises ``NotImplementedError`` here (``sharding.check_ported``), and so
+do the compositions of later slices.
 """
 
 from __future__ import annotations

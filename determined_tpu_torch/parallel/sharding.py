@@ -48,9 +48,22 @@ it this rank holds (``box``: a ``(start, stop)`` a dim, through the tensor
 split, the expert split and FSDP2's ``torch.chunk`` of its shard dim,
 uneven chunks and empty ones included).  Ranks whose boxes of a leaf are
 equal (data replicas, a whole ``wk``/``wv`` on the tensor ranks, a dense
-leaf on the expert ranks) hold the same values.  The mesh
-axes ``pipe`` and ``dcn``, and MoE blocks on ``tensor`` or ``seq``, raise
-``NotImplementedError`` (``check_ported``).
+leaf on the expert ranks) hold the same values.
+
+``pipe`` (``parallel/pipeline.py``): first the model keeps its pipe rank's
+stage (``shard_pipe``: its chunks of layers, embed on the first rank, the
+final norm and the head on the last, all under the whole model's names),
+then the other axes place what it kept.  FSDP2 shards each of the stage's
+blocks over the batch-like axes of the rank's own pipe coordinate, with
+``reshard_after_forward`` off (the schedule reduces and reshards at each
+chunk's last backward unit, so a step gathers a block once, not once a
+microbatch); the outer leaves stay whole and their gradients are averaged
+over the same ranks (``sync_grads``).  A stage's MoE blocks route their
+own tokens (no ``shard_batch``), as JAX's do inside its ``shard_map``.  The
+clip's norm is summed over the pipe group too.  The mesh axis ``dcn``, MoE
+blocks on ``tensor`` or ``seq`` (``pipe`` x ``seq`` x ``expert`` with them)
+and ``tensor`` beside ``pipe`` raise ``NotImplementedError``
+(``check_ported``).
 """
 
 from __future__ import annotations
@@ -89,7 +102,6 @@ DEFAULT_RULES: LogicalAxisRules = {
 
 # the mesh axes the port does not run yet, and the slice each comes with
 _LATER_AXES = {
-    MeshAxes.PIPELINE: "the pipeline slice",
     MeshAxes.DCN: "the multislice slice",
 }
 # the axes MoE blocks do not run on yet
@@ -228,19 +240,29 @@ def check_ported(axis_sizes: Mapping[str, int], moe: bool = False) -> None:
                 f"{name} ({what}) is not ported to determined_tpu_torch yet; it comes "
                 "with a later slice of the port (ROADMAP.md, Queue 1)"
             )
+    pipe = int(axis_sizes.get(MeshAxes.PIPELINE, 1)) > 1
     for axis in _MOE_LATER_AXES if moe else ():
         if int(axis_sizes.get(axis, 1)) > 1:
+            also = (" (pipe x seq x expert waits for MoE x seq)"
+                    if pipe and axis == MeshAxes.SEQUENCE else "")
             raise NotImplementedError(
                 f"MoE blocks on the {axis!r} mesh axis are not ported to determined_tpu_torch "
-                "yet; they come with a later slice of the port (ROADMAP.md, Queue 1)"
+                f"yet{also}; they come with a later slice of the port (ROADMAP.md, Queue 1)"
             )
+    if pipe and int(axis_sizes.get(MeshAxes.TENSOR, 1)) > 1:
+        raise NotImplementedError(
+            "the 'tensor' mesh axis beside 'pipe' is not ported to determined_tpu_torch yet "
+            "(JAX's stages replicate over tensor); it comes with a later slice of the port "
+            "(ROADMAP.md, Queue 1)"
+        )
 
 
 class ShardPlan:
     """Where each parameter of a sharded model lives (``shard_model``)."""
 
     def __init__(self, model: torch.nn.Module, mesh: Any, expert_params: Set[str],
-                 tensor_dims: Optional[Dict[str, int]] = None) -> None:
+                 tensor_dims: Optional[Dict[str, int]] = None,
+                 synced: Sequence[str] = (), sync_group: Any = None) -> None:
         self.mesh = mesh
         self.params: Dict[str, torch.nn.Parameter] = dict(model.named_parameters())
         self.expert_params = expert_params
@@ -252,6 +274,28 @@ class ShardPlan:
         self.tensor_size = mesh.shape[MeshAxes.TENSOR]
         self.tensor_group = mesh.group(MeshAxes.TENSOR) if self.tensor_dims else None
         self.tensor_rank = mesh.coordinate(MeshAxes.TENSOR)
+        # a pipeline stage: its whole (not FSDP) leaves whose gradients are
+        # averaged over ``sync_group``, and the pipe group the norm sums over
+        self.pipe_size = mesh.shape[MeshAxes.PIPELINE]
+        self.pipe_group = mesh.group(MeshAxes.PIPELINE) if self.pipe_size > 1 else None
+        self.synced = [k for k in synced if k in self.params]
+        self.sync_group = sync_group
+
+    @torch.no_grad()
+    def sync_grads(self, params: Dict[str, torch.nn.Parameter]) -> None:
+        """Average the gradients of the stage's whole leaves over the ranks
+        of its pipe coordinate that read other tokens (FSDP2 averages the
+        blocks')."""
+        import torch.distributed as tdist
+
+        if self.sync_group is None:
+            return
+        n = tdist.get_world_size(self.sync_group)
+        for k in self.synced:
+            g = params[k].grad
+            if g is not None:
+                tdist.all_reduce(g, group=self.sync_group)
+                g.div_(n)
 
     @staticmethod
     def local(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -280,24 +324,34 @@ class ShardPlan:
         sum of squares over every leaf's FSDP shards, then over the expert
         group for the expert leaves and over the tensor group for the
         tensor-split leaves (a replicated leaf is the same on every rank of
-        those groups and counts once)."""
+        those groups and counts once), then over the pipe group (each stage
+        holds other leaves)."""
         import torch.distributed as tdist
 
         first = next(iter(grads.values()))
-        # [replicated, expert, tensor]
-        sq = torch.zeros(3, dtype=torch.float32, device=first.device)
+        # rows: FSDP-sharded, whole on this rank; columns: [replicated,
+        # expert, tensor]
+        sq = torch.zeros(2, 3, dtype=torch.float32, device=first.device)
+        group = None
         for k, g in grads.items():
             cat = 1 if k in self.expert_params else 2 if k in self.tensor_dims else 0
-            sq[cat] += g.float().square().sum()
-        group = self._shard_group(next(iter(grads)))
+            shard_group = self._shard_group(k)
+            group = group or shard_group
+            sq[0 if shard_group is not None else 1, cat] += g.float().square().sum()
         if group is not None:
-            tdist.all_reduce(sq, group=group)
+            part = sq[0].clone()
+            tdist.all_reduce(part, group=group)
+            sq[0] = part
+        sq = sq.sum(dim=0)
         for i, split_over in ((1, self.expert_group), (2, self.tensor_group)):
             if split_over is not None:
                 part = sq[i:i + 1].clone()
                 tdist.all_reduce(part, group=split_over)
                 sq[i:i + 1] = part
-        return torch.sqrt(sq.sum())
+        total = sq.sum()
+        if self.pipe_group is not None:
+            tdist.all_reduce(total, group=self.pipe_group)
+        return torch.sqrt(total)
 
     @torch.no_grad()
     def full(self, name: str, local: torch.Tensor) -> torch.Tensor:
@@ -376,10 +430,22 @@ def _dp_mesh(mesh: Any) -> Tuple[Any, int]:
     return (dm[MeshAxes.DATA, name] if replicate else dm[name]), n
 
 
+def _group_over(mesh: Any, axes: Sequence[str]) -> Any:
+    """The process group of this rank's ranks along ``axes`` together
+    (None when they hold one rank)."""
+    axes = [a for a in axes if mesh.shape[a] > 1]
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.group(axes[0])
+    return mesh.device_mesh[tuple(axes)]._flatten("_".join(axes)).get_group()
+
+
 def shard_model(model: torch.nn.Module, mesh: Any) -> ShardPlan:
-    """Place ``model`` on ``mesh`` in place: expert parallelism over
-    ``expert``, tensor parallelism over ``tensor``, the sequence over
-    ``seq``, then FSDP2 over the batch-like axes (module docstring)."""
+    """Place ``model`` on ``mesh`` in place: its pipe rank's stage over
+    ``pipe``, expert parallelism over ``expert``, tensor parallelism over
+    ``tensor``, the sequence over ``seq``, then FSDP2 over the batch-like
+    axes (module docstring)."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -387,6 +453,15 @@ def shard_model(model: torch.nn.Module, mesh: Any) -> ShardPlan:
 
     sizes = mesh.shape
     check_ported(sizes)
+    n_pipe = sizes[MeshAxes.PIPELINE]
+    if n_pipe > 1:
+        from determined_tpu_torch.parallel.pipeline import PipeGroup
+
+        if not hasattr(model, "shard_pipe"):
+            raise ValueError(f"{type(model).__name__} has no pipeline stages (shard_pipe): "
+                             "it cannot run on a 'pipe' mesh axis")
+        model.shard_pipe(PipeGroup(mesh.group(MeshAxes.PIPELINE), n_pipe,
+                                   mesh.coordinate(MeshAxes.PIPELINE)))
     expert_params: Set[str] = set()
     n_exp = sizes[MeshAxes.EXPERT]
     if n_exp > 1:
@@ -409,7 +484,7 @@ def shard_model(model: torch.nn.Module, mesh: Any) -> ShardPlan:
         if hasattr(mod, "shard_seq"):
             mod.shard_seq(group, sizes[MeshAxes.SEQUENCE], idx)
     b_rank, b_shards = batch_shard(mesh)
-    if b_shards > 1:
+    if b_shards > 1 and n_pipe == 1:
         group = batch_group(mesh)
         for mod in model.modules():
             if hasattr(mod, "shard_batch"):
@@ -419,7 +494,19 @@ def shard_model(model: torch.nn.Module, mesh: Any) -> ShardPlan:
     def placement(param: torch.nn.Parameter) -> Any:
         return Shard(fsdp_shard_dim(param.shape, n_shard) or 0)
 
-    for blk in getattr(model, "blocks", ()):
-        fully_shard(blk, mesh=dp_mesh, shard_placement_fn=placement)
-    fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
-    return ShardPlan(model, mesh, expert_params, tensor_dims)
+    if n_pipe == 1:
+        for blk in getattr(model, "blocks", ()):
+            fully_shard(blk, mesh=dp_mesh, shard_placement_fn=placement)
+        fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
+        return ShardPlan(model, mesh, expert_params, tensor_dims)
+    # a pipeline stage: FSDP2 on its blocks only, the outer leaves whole
+    batch_like = (MeshAxes.DATA, MeshAxes.FSDP, MeshAxes.SEQUENCE)
+    sync_group = _group_over(mesh, batch_like)
+    in_blocks: Set[str] = set()
+    if sync_group is not None:
+        for name, blk in model.blocks.named_children():
+            fully_shard(blk, mesh=dp_mesh, shard_placement_fn=placement,
+                        reshard_after_forward=False)
+            in_blocks.update(f"blocks.{name}.{k}" for k, _ in blk.named_parameters())
+    synced = [k for k, _ in model.named_parameters() if k not in in_blocks]
+    return ShardPlan(model, mesh, expert_params, tensor_dims, synced, sync_group)

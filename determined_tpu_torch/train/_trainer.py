@@ -28,11 +28,12 @@ buffers are allocated once, at the first asynchronous save.
 On a mesh (``train.init(mesh_config=...)`` or ``resources.mesh``, resolved
 against the world of the torch.distributed process group, one process a
 device) the Trainer places the model with ``parallel.sharding.shard_model``:
-experts over ``expert``, heads, hidden units and vocabulary over
-``tensor``, the sequence over ``seq`` (ring attention), FSDP2 over
-``(data, fsdp, seq)``.  Each rank reads its ``(data, fsdp)`` slice of every
-global batch (the tensor and seq ranks of one slice read the same batch;
-the trial's loss takes its seq part), the optimizer updates each rank's
+a pipeline stage over ``pipe``, experts over ``expert``, heads, hidden
+units and vocabulary over ``tensor``, the sequence over ``seq`` (ring
+attention), FSDP2 over ``(data, fsdp, seq)``.  Each rank reads its
+``(data, fsdp)`` slice of every global batch (the tensor and seq ranks of
+one slice read the same batch; the trial's loss takes its seq part), the
+optimizer updates each rank's
 local shards (the clip's norm global over the mesh), the reported training
 and validation metrics are averaged over the ranks (tensor ranks hold
 equal values and seq parts are equal in size, so a mean over examples is
@@ -55,12 +56,25 @@ many stacked microbatches, summing the gradients in ``.grad``, then one
 update), ``fetch_workers`` (passed to loaders that set none),
 ``compilation_cache_dir`` (the kernels' build directory,
 ``utils/compilation_cache.py``) and ``quantized_matmul`` (read by the
-trial's model, ``train/_quant.py``).  The pipeline mesh axis,
-``num_slices``, MoE blocks on the tensor or seq axis, overlapped or
-hierarchical gradient sync, pipeline schedules and the retrace sentinel
-come with later slices of the port.  ``profiling.trace``
-bounds a ``torch.profiler`` window that the core context's profiler opened
-(``core.profiler.on(trace=True)``) to ``profiling.end_after_batch`` steps,
+trial's model, ``train/_quant.py``).  ``num_slices``, MoE blocks on the
+tensor or seq axis, tensor beside pipe, overlapped or hierarchical
+gradient sync and the retrace sentinel come with later slices of the
+port.
+
+A trial with a ``pipeline_schedule_spec`` (``LMTrial`` on a ``pipe`` axis,
+or on ``train.init(virtual_pipe=P)``) runs its loss through the schedule
+(``parallel/pipeline.py``), which runs the backward too, so the step calls
+no ``backward()`` of its own; on a mesh each rank reads its part of each
+microbatch, the stage's whole leaves have their gradients averaged
+(``ShardPlan.sync_grads``), and the goodput ledger gets the schedule's
+``step.bubble`` rows (``BubbleModel``: the ``step.bubble.exposed_us``
+counter a report segment, the fraction and tick gauges at setup), as the
+JAX Trainer's.  The preflight's pipeline checks (``pipeline_problems``)
+raise ``InvalidExperimentConfig`` in ``check_exp_config``.
+
+``profiling.trace`` bounds a ``torch.profiler`` window that the core
+context's profiler opened (``core.profiler.on(trace=True)``) to
+``profiling.end_after_batch`` steps,
 counted from the resume point.
 ``jit_cache`` has nothing to share in the port: its steps are eager and
 compile nothing per trial, so either value gives the same run.
@@ -79,7 +93,12 @@ import torch
 
 from determined_tpu_torch import core as core_mod
 from determined_tpu_torch._device import DeviceLike, resolve_device
-from determined_tpu_torch.config.experiment import Length, MeshConfig
+from determined_tpu_torch.config.experiment import (
+    InvalidExperimentConfig,
+    Length,
+    MeshConfig,
+    pipeline_problems,
+)
 from determined_tpu_torch.data._prefetch import EpochFeed, InputPipeline
 from determined_tpu_torch.observability import chip_peak_flops, get_tracer
 from determined_tpu_torch.parallel.mesh import resolve_mesh
@@ -116,8 +135,9 @@ def check_exp_config(exp_config: Any) -> None:
     check_ported(exp_config.resources.mesh.shape, moe=_has_moe(exp_config.hyperparameters))
     if opt.overlap_grad_sync or opt.hierarchical_collectives:
         raise _later("optimizations.overlap_grad_sync / hierarchical_collectives")
-    if opt.pipeline_schedule != "gpipe" or opt.virtual_stages != 1:
-        raise _later(f"optimizations.pipeline_schedule={opt.pipeline_schedule!r}")
+    problems = pipeline_problems(exp_config)
+    if problems:
+        raise InvalidExperimentConfig("; ".join(problems))
     if exp_config.lint.retrace_sentinel:
         raise _later("lint.retrace_sentinel")
 
@@ -130,6 +150,7 @@ def init(
     seed: Optional[int] = None,
     device: DeviceLike = None,
     mesh_config: Optional[MeshConfig] = None,
+    virtual_pipe: Optional[int] = None,
 ) -> TrialContext:
     """Build a TrialContext on ``device`` (CUDA unless named; raises without
     a GPU).  Off-cluster the core services are ``core._dummy_init()``.  With
@@ -141,7 +162,12 @@ def init(
     ``mesh_config`` (or ``resources.mesh``) is resolved against the world
     of the process group (``core.init`` under torchrun opens it; each rank
     then runs on its own device, the core context's ``distributed.device``).
-    Without a process group a mesh of one device is the single-device path."""
+    Without a process group a mesh of one device is the single-device path.
+
+    ``virtual_pipe`` (P > 1) runs a pipe-parallel trial's P stages in this
+    process on its one device (``parallel/pipeline.py``'s ``VirtualPipe``:
+    the schedule and the kernel launches of P pipe ranks), never with a
+    mesh of more than one device."""
     check_ported((mesh_config or MeshConfig()).shape, moe=_has_moe(hparams))
     if exp_config is not None:
         check_exp_config(exp_config)
@@ -161,9 +187,16 @@ def init(
     if mesh_config is None and exp_config is not None:
         mesh_config = exp_config.resources.mesh
     mesh = resolve_mesh(mesh_config, dev.type)
+    vpipe = None
+    if virtual_pipe is not None and virtual_pipe > 1:
+        from determined_tpu_torch.parallel.pipeline import VirtualPipe
+
+        if mesh is not None:
+            raise ValueError("virtual_pipe runs every stage on one device: it takes no mesh")
+        vpipe = VirtualPipe(virtual_pipe)
     return TrialContext(
         core=core, device=dev, hparams=hparams, seed=seed or 0, exp_config=exp_config,
-        mesh=mesh,
+        mesh=mesh, virtual_pipe=vpipe,
     )
 
 
@@ -228,6 +261,16 @@ def _snapshot(tree: Any) -> Any:
     raise TypeError(f"cannot snapshot a {type(tree).__name__}")
 
 
+def _merge(a: Any, b: Any) -> Any:
+    """``a`` with the leaves of ``b`` it lacks (dicts merged by key, named
+    tuples field by field): pipeline stages' states joined."""
+    if isinstance(a, dict):
+        return {**b, **{k: _merge(v, b[k]) if k in b else v for k, v in a.items()}}
+    if hasattr(a, "_fields"):
+        return type(a)(*(_merge(x, y) for x, y in zip(a, b)))
+    return a
+
+
 def _pinned_like(tree: Any) -> Any:
     """Pinned host buffers shaped like a snapshot's CUDA tensors (None for
     the leaves already on the host)."""
@@ -286,6 +329,10 @@ class Trainer:
         # the step at which the profiler's trace window closes (None: no
         # bounded window)
         self._trace_stop_step: Optional[int] = None
+        # the trial's pipeline schedule and its goodput model
+        # (parallel/pipeline.py), None without a pipe axis; set by _setup
+        self._pipe_schedule: Any = None
+        self._bubble_model: Any = None
         self._pending_save: Optional[_PendingSave] = None
         # pinned host buffers the async writer copies the snapshot into,
         # allocated at the first async save on CUDA and kept (at most one
@@ -307,6 +354,14 @@ class Trainer:
 
     def _setup(self) -> None:
         trial, cfg = self.trial, self.context.exp_config
+        spec_fn = getattr(trial, "pipeline_schedule_spec", None)
+        self._pipe_schedule = spec_fn() if spec_fn is not None else None
+        if self._pipe_schedule is not None:
+            from determined_tpu_torch.parallel.pipeline import BubbleModel
+
+            self._bubble_model = BubbleModel(schedule=self._pipe_schedule)
+            logger.info("pipeline schedule %s (bubble fraction %.4f)",
+                        self._pipe_schedule.fingerprint(), self._bubble_model.fraction)
         self.model = trial.build_model()
         if self.mesh is not None:
             # experts over `expert`, FSDP2 over (data, fsdp); every rank
@@ -316,11 +371,14 @@ class Trainer:
         self.train_loader = trial.build_training_data_loader()
         self.val_loader = trial.build_validation_data_loader()
         if self.mesh is not None:
-            # each rank reads its (data, fsdp) slice of every global batch
+            # each rank reads its (data, fsdp) slice of every global batch;
+            # under a pipeline schedule its slice of each microbatch, as
+            # JAX's shard_map lays the microbatch rows over the batch axes
             rank, shards = batch_shard(self.mesh)
+            blocks = self._pipe_schedule.num_microbatches if self._pipe_schedule else 1
             for ld in (self.train_loader, self.val_loader):
                 if ld is not None:
-                    ld.shard(rank, shards)
+                    ld.shard(rank, shards, blocks)
         self.callbacks = dict(trial.build_callbacks())
         if cfg is not None:
             self._searcher_metric = cfg.searcher.metric
@@ -361,6 +419,13 @@ class Trainer:
             fpt = getattr(trial, "flops_per_token", None)
             if fpt:
                 tracer.gauge("train.flops_per_token", float(fpt))
+            if self._bubble_model is not None:
+                # the schedule's facts for the ledger: its modeled idle
+                # fraction and the tick counts behind it
+                sched = self._bubble_model.schedule
+                tracer.gauge("step.bubble.fraction", float(self._bubble_model.fraction))
+                tracer.gauge("step.bubble.ticks_total", float(sched.total_ticks))
+                tracer.gauge("step.bubble.ticks_idle", float(sched.bubble_ticks))
 
     def _input_opts(self):
         """(prefetch_depth, device_prefetch) from the configuration,
@@ -389,11 +454,14 @@ class Trainer:
             p.grad = None
         if self.agg == 1:
             loss, metrics = self._loss(batch)
-            loss.backward()
+            self._backward(loss)
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["loss"] = loss.detach()
         else:
             metrics = self._accumulate(batch)
+        if self._plan is not None:
+            # a pipeline stage's replicated leaves: their gradients averaged
+            self._plan.sync_grads(params)
         grads = {
             k: p.grad if p.grad is not None else torch.zeros_like(p)
             for k, p in params.items()
@@ -426,6 +494,13 @@ class Trainer:
         state.metric_count.add_(1.0)
         state.step.add_(1)
 
+    def _backward(self, loss: torch.Tensor) -> None:
+        """``loss.backward()``; under a pipeline schedule the trial's loss
+        has run its backward already (``parallel/pipeline.py``: the
+        schedule interleaves it with the forward)."""
+        if self._pipe_schedule is None:
+            loss.backward()
+
     def _loss(self, batch: Dict[str, torch.Tensor]):
         """The trial's loss on ``batch``; with the step's generator, reseeded
         here (``TrainState.step_seed``), where the trial's loss takes one."""
@@ -447,7 +522,7 @@ class Trainer:
                 # microbatch only, over the summed gradients
                 self.model.set_requires_gradient_sync(i == agg - 1)
             loss, m = self._loss({k: v[i] for k, v in batch.items()})
-            loss.backward()
+            self._backward(loss)
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             for k, v in m.items():
@@ -519,7 +594,12 @@ class Trainer:
         rank takes part) onto the chief's host; None leaves elsewhere.  No
         checkpoint uses it: it is what a check of a sharded run compares
         with one device."""
-        plan, chief = self._plan, self.core.distributed.is_chief
+        plan, dist = self._plan, self.core.distributed
+        # a pipeline stage's leaves land on its first rank, which sends
+        # them to the chief
+        pipe = plan.pipe_size > 1
+        chief = all(self.mesh.coordinate(a) == 0 for a in self.mesh.shape
+                    if a != "pipe" and self.mesh.shape[a] > 1) if pipe else dist.is_chief
 
         def gather(name: str, local: torch.Tensor) -> Optional[torch.Tensor]:
             full = plan.full(name, local)
@@ -538,12 +618,21 @@ class Trainer:
                 return node.detach().to("cpu", copy=True)
             return node
 
-        return {
+        out = {
             "step": self.state.step.detach().cpu(),
             "params": walk(self._opt_params),
             "opt_state": walk(self.state.opt_state),
             "rng": self.state.rng.get_state(),
         }
+        if not pipe:
+            return out
+        stages = dist.gather(out if chief else None)
+        if not dist.is_chief:
+            return out
+        for stage in stages[1:]:
+            if stage is not None:
+                out = _merge(out, stage)
+        return out
 
     def _place(self, part: str, name: str, leaf: Any) -> Optional[Tuple[Tuple[int, ...], Any]]:
         """(whole shape, this rank's box) of a leaf the mesh splits: a
@@ -798,6 +887,8 @@ class Trainer:
             serialization.restore_arrays(
                 path, self._array_state(),
                 place=self._place if self._plan is not None else None,
+                # a pipeline rank holds its stage's leaves of the stored ones
+                partial=self._plan is not None and self._plan.pipe_size > 1,
             )
         # The JAX Trainer grafts freshly built optax ``hyperparams`` over the
         # restored opt_state here (``_reinject_runtime_hparams``), so that a
@@ -1027,6 +1118,12 @@ class Trainer:
                             "train.tokens",
                             float(steps_since_report * gbs * self._tokens_per_sample),
                         )
+                    if self._bubble_model is not None:
+                        # step.bubble rows: pipe-axis idle time by the
+                        # schedule's tick model, on the segment's mean step
+                        bubble_s, _ = self._bubble_model.split(hot_time / steps_since_report)
+                        tracer.counter("step.bubble.exposed_us",
+                                       bubble_s * 1e6 * float(steps_since_report))
                 self.state.reset_metrics()
                 metrics["samples_per_second"] = steps_since_report * gbs / max(hot_time, 1e-9)
                 hot_time = 0.0

@@ -37,10 +37,14 @@ class TrialContext:
         seed: int = 0,
         exp_config: Optional[Any] = None,
         mesh: Optional[Any] = None,
+        virtual_pipe: Optional[Any] = None,
     ) -> None:
         self.core = core
         self.device = device
         self.mesh = mesh
+        # a pipeline whose stages all live in this process
+        # (parallel/pipeline.py VirtualPipe), only ever the caller's choice
+        self.virtual_pipe = virtual_pipe
         self.hparams = dict(hparams or {})
         self.seed = seed
         self.exp_config = exp_config
@@ -64,6 +68,14 @@ class TrialContext:
         if self.mesh is None:
             return 1
         return self.mesh.shape["data"] * self.mesh.shape["fsdp"]
+
+    @property
+    def pipe_stages(self) -> int:
+        """Pipeline stages: the virtual pipe's, else the mesh's ``pipe``
+        axis (1 without either)."""
+        if self.virtual_pipe is not None:
+            return self.virtual_pipe.size
+        return self.mesh.shape["pipe"] if self.mesh is not None else 1
 
     def get_global_batch_size(self) -> int:
         return int(self.get_hparam("global_batch_size", 32))

@@ -30,8 +30,10 @@ Each rank describes the leaves it holds (``describe``: the whole shape, the
 dtype and its box, ``parallel.sharding.Box``); ``build_layout`` joins every
 rank's description and names one writer for each distinct piece, the
 lowest rank that holds it, so a leaf that several ranks hold the same
-(a data replica, a replicated leaf) is written once.  Every rank writes
-its own file (``save_shard``), the chief writes the layout.
+(a data replica, a replicated leaf) is written once.  A pipeline rank
+holds its stage's leaves only, under the whole model's names: a leaf's
+pieces come from the ranks that hold it.  Every rank writes its own file
+(``save_shard``), the chief writes the layout.
 
 ``restore_arrays`` reads either format and copies the stored values INTO
 the live tensors (``copy_``), so the module's parameters, the optimizer's
@@ -146,21 +148,20 @@ def describe(tree: Dict[str, Any], place: Optional[PlaceFn] = None) -> Dict[str,
 def build_layout(descriptions: List[Dict[str, Any]]) -> Tuple[Dict[str, Any], List[Set[str]]]:
     """Every rank's ``describe`` joined: the layout (each leaf's whole
     shape, dtype and distinct pieces, each with the rank that writes it,
-    the lowest that holds it) and, for each rank, the keys it writes."""
-    keys = set(descriptions[0])
-    for r, d in enumerate(descriptions):
-        if set(d) != keys:
-            raise ValueError(f"rank {r} holds other leaves than rank 0: "
-                             f"{sorted(set(d) ^ keys)[:5]}")
+    the lowest that holds it) and, for each rank, the keys it writes.  A
+    leaf may be held by some ranks only (a pipeline stage's)."""
+    keys = set().union(*descriptions)
     leaves: Dict[str, Any] = {}
     writes: List[Set[str]] = [set() for _ in descriptions]
     for key in sorted(keys):
-        shape, dtype, _ = descriptions[0][key]
+        holders = [r for r, d in enumerate(descriptions) if key in d]
+        shape, dtype, _ = descriptions[holders[0]][key]
         pieces: Dict[Box, int] = {}
-        for r, d in enumerate(descriptions):
+        for r in holders:
+            d = descriptions[r]
             if d[key][:2] != (shape, dtype):
                 raise ValueError(f"{key}: rank {r} holds {d[key][1]}{list(d[key][0])}, "
-                                 f"rank 0 {dtype}{list(shape)}")
+                                 f"rank {holders[0]} {dtype}{list(shape)}")
             if d[key][2] not in pieces:
                 pieces[d[key][2]] = r
                 writes[r].add(key)
@@ -252,11 +253,13 @@ def restore_arrays(
     ckpt_dir: str,
     live: Dict[str, Any],
     place: Optional[PlaceFn] = None,
+    partial: bool = False,
 ) -> None:
     """Fill the live tree in place from the checkpoint, either format: the
-    same names, every leaf the same whole shape and dtype as stored, and
-    each live tensor filled with its box of the stored leaf (``place``;
-    None, or no placement for a leaf: the whole leaf)."""
+    same names (with ``partial``, a pipeline rank's, some of them), every
+    leaf the same whole shape and dtype as stored, and each live tensor
+    filled with its box of the stored leaf (``place``; None, or no
+    placement for a leaf: the whole leaf)."""
     layout = load_layout(ckpt_dir)
     pieces = _Pieces(ckpt_dir, layout) if layout is not None else None
     for part, node in live.items():
@@ -268,7 +271,7 @@ def restore_arrays(
         else:
             stored = _mmap(_part_path(ckpt_dir, part))
             names = set(stored)
-        if names != set(want):
+        if names != set(want) and not (partial and set(want) <= names):
             missing, extra = sorted(set(want) - names), sorted(names - set(want))
             raise ValueError(
                 f"checkpoint part {part!r} does not match the live state: "

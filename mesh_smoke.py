@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Multi-GPU check of the port's mesh path on the GPUs of one host.
 
-    python3 mesh_smoke.py [--gpus 4] [--seed N] [--parts G,E,S,X,C]
+    python3 mesh_smoke.py [--gpus 4] [--seed N] [--parts G,E,S,X,C,P]
 
 (``X`` is X1, X2 and X3, each of which ``--parts`` also takes alone.)
 
@@ -91,6 +91,29 @@ C. the cluster path on every GPU of the host: dtpu-master and dtpu-agent
    it, the reference's and the cluster search's seconds, the kill and the
    restart.
 
+P. examples/transformer_lm/pipeline.yaml (chip_smoke.PIPE_CONST) at its full
+   width and depth: 16 layers, d 2048, 64 sequences of 2048 a step, M = 8
+   microbatches, bf16, flash, remat; P_CUTS printed (its 16-card mesh cut to
+   four cards, a 1-step warm-up, 3 steps' data).
+   R. one GPU: gradient aggregation over the same 8 microbatches of 8
+      sequences, P_STEPS steps.
+   each mesh of P_MESHES (pipe 4; pipe 2 x fsdp 2) and each schedule (gpipe,
+   1f1b, interleaved V = 2): a gang of four ranks, NCCL point-to-point
+   between the pipe ranks (parallel/pipeline.py PipeGroup), P_STEPS steps
+   through train.init(mesh_config=...) -> Trainer(LMTrial).fit: every
+   step's loss against R's within P_LOSS_TOL; each rank's launches exactly
+   (a layer of its stage: the flash forward twice a microbatch a step under
+   remat, dq and dk/dv once; fused_adamw once a local leaf a step); each
+   rank's step time and peak memory; each rank's measured idle share over a
+   2-step torch.profiler window of the device alone (1 - its compute
+   kernels' time over the wall: time in NCCL's send/recv kernels counts as
+   idle) beside BubbleModel's fraction, and the traced step.
+   PC. a checkpoint round trip on pipe 4 (gpipe): 2 steps and a sharded
+      save, each rank its stage's leaves; one GPU restores it and its
+      params and moments equal the ranks' bitwise; a second gang on pipe 4
+      resumes it and its step-3 loss is held against the uninterrupted
+      run's.
+
 Each gang has a hard timeout (GANG_TIMEOUT_S); its ranks are killed on
 expiry and the run fails.  Prints a JSON line a part, the card's name and
 power limit, and last {"ok": true, "device": {...}}; exits non-zero on any
@@ -138,7 +161,26 @@ SEQ_CKPT_CUTS = [
     ("seq_len", 32768, 256, "the same, in length"),
 ]
 SEQ_CKPT_STEPS = 3
-PARTS = ("G", "E", "S", "X", "C")
+PARTS = ("G", "E", "S", "X", "C", "P")
+# P: pipeline.yaml (chip_smoke.PIPE_CONST) with these changes
+P_CUTS = [
+    ("resources.mesh", {"pipe": 4, "data": 2, "fsdp": 2}, "each of P_MESHES",
+     "four cards: the file's 16-card mesh keeps its pipe axis (pipe 4) or its pipe and fsdp "
+     "axes (pipe 2 x fsdp 2)"),
+    ("dataset_size", 65536, 192, "3 steps of 64"),
+    ("warmup_steps", None, 1,
+     "the file sets none (LMTrial's 100): 3 steps inside it update at lr <= 6e-6"),
+]
+P_MESHES = (dict(pipe=4), dict(pipe=2, fsdp=2))
+P_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("interleaved", 2))
+P_STEPS = 3
+# the same microbatches and kernels; on pipe 4 the same shapes as R, on
+# pipe 2 x fsdp 2 half of each microbatch a rank (other matmul shapes), and
+# each stage sums its microbatches' gradients in its schedule's order
+P_LOSS_TOL = dict(rtol=1e-4, atol=0.0)
+# a P gang (start, 3 steps and a 3-step profile) takes about a minute: a
+# hung point-to-point fails the part well before GANG_TIMEOUT_S
+P_GANG_TIMEOUT_S = 180.0
 X_PARTS = ("X1", "X2", "X3")
 # X2: moe_ep.yaml (chip_smoke.MOE_EP_CONST) at MOE_CUTS' hyperparameters,
 # and these changes: (dotted key, the file's value, X2's value, why)
@@ -208,8 +250,9 @@ def _seq_hparams(cuts=()) -> dict:
     return hp
 
 
-def _fit(ctx, steps: int) -> dict:
-    """Trainer(LMTrial(ctx)).fit for ``steps`` steps, reporting each."""
+def _fit(ctx, steps: int, keep: bool = False) -> dict:
+    """Trainer(LMTrial(ctx)).fit for ``steps`` steps, reporting each (with
+    ``keep`` the trainer too, under ``trainer``)."""
     import torch
 
     from chip_smoke import _launch_counts, _reset_launches
@@ -223,8 +266,8 @@ def _fit(ctx, steps: int) -> dict:
     trainer.fit(max_length=steps, report_period=1, checkpoint_policy="none")
     torch.cuda.synchronize()
     rows = ctx.core.train.metrics("training")
-    gbs = ctx.get_global_batch_size()
-    return dict(
+    gbs = ctx.get_global_batch_size() * trainer.agg
+    out = dict(
         losses=[m["loss"] for _, m in rows], aux=[m.get("moe_aux_loss") for _, m in rows],
         step_ms=[1e3 * gbs / m["samples_per_second"] for _, m in rows],
         wall_s=time.monotonic() - t0, launches=_launch_counts(),
@@ -232,6 +275,9 @@ def _fit(ctx, steps: int) -> dict:
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         params=sum(p.numel() for p in trainer._params.values()),
     )
+    if keep:
+        out["trainer"] = trainer
+    return out
 
 
 def _rank_gang(workdir: str, mesh: dict, seed: int) -> dict:
@@ -253,6 +299,10 @@ def _rank_gang(workdir: str, mesh: dict, seed: int) -> dict:
             return _rank_ckpt(core_ctx, workdir, seed)
         if mesh.get("part") == "X2R":
             return _rank_x2_restore(core_ctx, workdir, dict(mesh, seed=seed))
+        if mesh.get("part") == "P":
+            return _rank_pipe(core_ctx, mesh, seed)
+        if mesh.get("part") == "PC":
+            return _rank_pipe_ckpt(core_ctx, workdir, mesh, seed)
         ctx = train.init(hparams=_hparams(), seed=seed, core_context=core_ctx,
                          mesh_config=MeshConfig(**mesh))
         out = _fit(ctx, STEPS)
@@ -261,6 +311,187 @@ def _rank_gang(workdir: str, mesh: dict, seed: int) -> dict:
         return out
     finally:
         dist.close()
+
+
+def _pipe_hparams(schedule: str = "gpipe", v: int = 1) -> dict:
+    from chip_smoke import PIPE_CONST
+
+    hp = dict(PIPE_CONST["hyperparameters"])
+    for key, _old, value, _why in P_CUTS:
+        if "." not in key:
+            hp[key] = value
+    return dict(hp, pipeline_schedule=schedule, virtual_stages=v)
+
+
+def _idle_share(trainer, steps: int) -> dict:
+    """This rank's device over ``steps`` more steps under torch.profiler,
+    tracing the device alone (CUPTI's kernel records; recording the host's
+    ops too slows the host enough to starve the pipe): its compute
+    kernels' time and the NCCL kernels' (a pipeline's send/recv waits),
+    each over the wall, and the traced step against the untraced one."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from determined_tpu_torch.data import to_device
+    from determined_tpu_torch.utils import kineto
+
+    it = iter(trainer.train_loader)
+    batches = [to_device(next(it), trainer.device) for _ in range(steps + 1)]
+    trainer._train_step(batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for b in batches[1:]:
+            trainer._train_step(b)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    with tempfile.TemporaryDirectory(prefix="dtt-mesh-profile-") as d:
+        path = os.path.join(d, "pipe.pt.trace.json")
+        prof.export_chrome_trace(path)
+        compute_us, collective_us = kineto.split_collectives(kineto.op_table([path]))
+    return dict(idle_share=1.0 - compute_us / wall_us, nccl_share=collective_us / wall_us,
+                traced_step_ms=wall_us / steps / 1e3)
+
+
+def _rank_pipe(core_ctx, inp: dict, seed: int) -> dict:
+    """One rank of P: the schedule's fit on the mesh, then its idle share."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.parallel import MeshConfig
+
+    ctx = train.init(hparams=_pipe_hparams(inp["schedule"], inp["v"]), seed=seed,
+                     core_context=core_ctx, mesh_config=MeshConfig(**inp["mesh"]))
+    out = _fit(ctx, P_STEPS, keep=True)
+    trainer = out.pop("trainer")
+    out["layers"] = len(trainer.model.blocks)
+    out["bubble_fraction"] = trainer._bubble_model.fraction
+    out["coords"] = {a: ctx.mesh.coordinate(a) for a in ("pipe", "fsdp")}
+    out.update(_idle_share(trainer, 2))
+    torch.cuda.synchronize()
+    return out
+
+
+def _rank_pipe_ckpt(core_ctx, workdir: str, inp: dict, seed: int) -> dict:
+    """One rank of PC: 2 steps and a save (each rank's local params and
+    moments kept beside it for the one-GPU restore), or the resume of
+    ``inp["sid"]`` to step 3."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.parallel import MeshConfig
+
+    ctx = train.init(hparams=_pipe_hparams(), seed=seed, core_context=core_ctx,
+                     mesh_config=MeshConfig(**inp["mesh"]))
+    trainer = train.Trainer(LMTrial(ctx))
+    if inp.get("sid") is None:
+        summary = trainer.fit(max_length=2, checkpoint_period=2, checkpoint_policy="all",
+                              report_period=1)
+        rank = core_ctx.distributed.rank
+        torch.save({"params": {k: v.detach().cpu() for k, v in trainer._opt_params.items()},
+                    "mu": {k: v.cpu() for k, v in trainer.state.opt_state.mu.items()},
+                    "nu": {k: v.cpu() for k, v in trainer.state.opt_state.nu.items()}},
+                   os.path.join(workdir, f"pipe_state_rank{rank}.pt"))
+        return dict(storage_id=summary["latest_checkpoint"])
+    trainer.fit(max_length=P_STEPS, latest_checkpoint=inp["sid"], report_period=1,
+                checkpoint_policy="none")
+    return dict(losses=[m["loss"] for _, m in ctx.core.train.metrics("training")])
+
+
+def _pipe_part(args, root: str) -> None:
+    """P (the docstring at the top)."""
+    import torch
+
+    from chip_smoke import PIPE_BUBBLE
+    from determined_tpu_torch import core, train
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.models import LMTrial
+
+    t_part = time.monotonic()
+    for key, old, value, why in P_CUTS:
+        log(f"P cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    hp = _pipe_hparams()
+    m, layers = hp["pipe_microbatches"], hp["n_layers"]
+    plain = {k: v for k, v in hp.items()
+             if k not in ("pipe_microbatches", "pipeline_schedule", "virtual_stages")}
+    agg = ExperimentConfig.parse({"optimizations": {"aggregation_frequency": m}})
+    t0 = time.monotonic()
+    ref = _fit(train.init(hparams=dict(plain, global_batch_size=hp["global_batch_size"] // m),
+                          seed=args.seed, exp_config=agg), P_STEPS)
+    torch.cuda.empty_cache()
+    log(f"P R (one GPU, aggregation {m}): " + json.dumps(dict(
+        losses=ref["losses"], step_ms=ref["step_ms"], peak_memory_gib=ref["peak_memory_gib"],
+        seconds=time.monotonic() - t0)))
+    gpipe4 = None
+    for mesh in P_MESHES:
+        for name, v in P_SCHEDULES:
+            t0 = time.monotonic()
+            tag = "_".join(f"{a}{n}" for a, n in mesh.items()) + f"_{name}"
+            outs = _launch_gang(args.gpus, os.path.join(root, f"p_{tag}"),
+                                dict(part="P", mesh=mesh, schedule=name, v=v), args.seed,
+                                P_GANG_TIMEOUT_S)
+            chief = outs[0]
+            np.testing.assert_allclose(chief["losses"], ref["losses"], err_msg=tag, **P_LOSS_TOL)
+            for rank, o in enumerate(outs):
+                n = o["layers"]
+                want = dict(flash_fwd=2 * n * m * P_STEPS, flash_bwd_dq=n * m * P_STEPS,
+                            flash_bwd_dkv=n * m * P_STEPS, fused_adamw=o["local_leaves"] * P_STEPS)
+                assert o["launches"] == want, (tag, rank, o["launches"], want)
+                assert o["bubble_fraction"] == chief["bubble_fraction"]
+            if mesh == dict(pipe=4):
+                assert abs(chief["bubble_fraction"] - PIPE_BUBBLE[name]) < 1e-12
+                if name == "gpipe":
+                    gpipe4 = chief["losses"]
+            log("P " + json.dumps(dict(
+                mesh=mesh, schedule=name, losses=chief["losses"], ref_losses=ref["losses"],
+                max_loss_rel=max(abs(a - b) / abs(b) for a, b in
+                                 zip(chief["losses"], ref["losses"])),
+                step_ms=[o["step_ms"] for o in outs],
+                peak_memory_gib=[o["peak_memory_gib"] for o in outs],
+                idle_share=[o["idle_share"] for o in outs],
+                nccl_share=[o["nccl_share"] for o in outs],
+                traced_step_ms=[o["traced_step_ms"] for o in outs],
+                bubble_fraction=chief["bubble_fraction"],
+                layers=[o["layers"] for o in outs], local_leaves=[o["local_leaves"] for o in outs],
+                coords=[o["coords"] for o in outs], launches=[o["launches"] for o in outs],
+                seconds=time.monotonic() - t0)))
+    # PC: save on pipe 4, restore on one GPU, resume on pipe 4
+    t0 = time.monotonic()
+    ck = os.path.join(root, "pc_ck")
+    saved = _launch_gang(args.gpus, os.path.join(root, "pc_save"),
+                         dict(part="PC", mesh=dict(pipe=4), ckpt_dir=ck), args.seed,
+                         P_GANG_TIMEOUT_S)
+    sid = saved[0]["storage_id"]
+    want: dict = {"params": {}, "mu": {}, "nu": {}}
+    for rank in range(args.gpus):
+        got = torch.load(os.path.join(root, "pc_save", f"pipe_state_rank{rank}.pt"))
+        for part in want:
+            want[part].update(got[part])
+    ctx = train.init(hparams=_pipe_hparams(), seed=args.seed,
+                     core_context=core._dummy_init(checkpoint_dir=ck))
+    trainer = train.Trainer(LMTrial(ctx))
+    summary = trainer.fit(max_length=2, latest_checkpoint=sid, checkpoint_policy="none")
+    assert summary["steps_completed"] == 2
+    assert set(trainer._params) == set(want["params"])
+    for name, p in trainer._params.items():
+        assert torch.equal(p.detach().cpu(), want["params"][name]), name
+    for which in ("mu", "nu"):
+        for name, t in getattr(trainer.state.opt_state, which).items():
+            assert torch.equal(t.cpu(), want[which][name]), (which, name)
+    del trainer, want
+    torch.cuda.empty_cache()
+    resumed = _launch_gang(args.gpus, os.path.join(root, "pc_resume"),
+                           dict(part="PC", mesh=dict(pipe=4), ckpt_dir=ck, sid=sid),
+                           args.seed, P_GANG_TIMEOUT_S)
+    step3 = resumed[0]["losses"][-1]
+    np.testing.assert_allclose(step3, gpipe4[-1], **P_LOSS_TOL)
+    log("PC " + json.dumps(dict(storage_id=sid, restored_on_one_gpu="bitwise",
+                                resumed_step3_loss=step3, uninterrupted_step3_loss=gpipe4[-1],
+                                bitwise=step3 == gpipe4[-1], seconds=time.monotonic() - t0)))
+    log(f"P: {time.monotonic() - t_part:.1f} s")
 
 
 def _rank_seq(core_ctx, mesh: dict, seed: int) -> dict:
@@ -386,9 +617,11 @@ def _rank_layer(dist) -> dict:
     return dict(max_abs_err=errs)
 
 
-def _launch_gang(n: int, workdir: str, mesh: dict, seed: int) -> list:
+def _launch_gang(n: int, workdir: str, mesh: dict, seed: int,
+                 timeout: float = GANG_TIMEOUT_S) -> list:
     """``n`` rank processes of this script with a torchrun environment;
-    their results, or a failure naming the ranks (killed on timeout)."""
+    their results, or a failure naming the ranks (killed after ``timeout``
+    seconds)."""
     from determined_tpu_torch.core import allocate_port
 
     os.makedirs(workdir, exist_ok=True)
@@ -405,7 +638,7 @@ def _launch_gang(n: int, workdir: str, mesh: dict, seed: int) -> list:
             env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)), cwd=REPO,
             stdout=log_f, stderr=subprocess.STDOUT,
         ))
-    deadline = time.monotonic() + GANG_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     hung = False
     try:
         for p in procs:
@@ -1024,6 +1257,8 @@ def main() -> int:
             t0 = time.monotonic()
             _cluster_part(args, root)
             log(f"C: {time.monotonic() - t0:.1f} s")
+        if "P" in parts:
+            _pipe_part(args, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"mesh_smoke: {time.monotonic() - t_start:.1f} s")

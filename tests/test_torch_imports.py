@@ -155,6 +155,7 @@ def test_step_knob_and_train_to_serve_modules_import_nothing_of_jax(module):
     "determined_tpu_torch.parallel.mesh",
     "determined_tpu_torch.parallel.sharding",
     "determined_tpu_torch.parallel.tensor_parallel",
+    "determined_tpu_torch.parallel.pipeline",
     "determined_tpu_torch.ops.ring_attention",
 ])
 def test_moe_and_parallel_modules_import_nothing_of_jax(module):

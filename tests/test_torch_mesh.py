@@ -116,6 +116,13 @@ def test_axes_of_later_slices_raise_naming_the_slice(axis):
         check_ported({axis: 2})
         with pytest.raises(NotImplementedError, match="MoE blocks .* later slice"):
             check_ported({axis: 2}, moe=True)
+    elif axis == "pipe":
+        # ported: what still waits is tensor beside it, and MoE x seq
+        check_ported({axis: 2, "data": 2, "fsdp": 2, "seq": 2, "expert": 2})
+        with pytest.raises(NotImplementedError, match="'tensor' mesh axis beside 'pipe'"):
+            check_ported({axis: 2, "tensor": 2})
+        with pytest.raises(NotImplementedError, match="MoE blocks on the 'seq' .* MoE x seq"):
+            check_ported({axis: 2, "seq": 2, "expert": 2}, moe=True)
     else:
         with pytest.raises(NotImplementedError, match="later slice"):
             check_ported({axis: 2})

@@ -186,11 +186,12 @@ def test_checkpoint_resumes_across_a_mesh_change(tmp_path):
 
 @pytest.mark.parametrize(
     "axes",
-    [dict(tensor=2), dict(seq=2), dict(pipe=2), dict(num_slices=2)],
+    [dict(tensor=2), dict(seq=2), dict(pipe=2, tensor=2), dict(num_slices=2)],
     ids=["tensor", "seq", "pipe", "num_slices"],
 )
 def test_mesh_axes_of_later_slices_raise(axes):
-    # tensor and seq are ported; MoE blocks on them are not
+    # tensor, seq and pipe are ported; MoE blocks on tensor or seq are not,
+    # nor tensor beside pipe
     hp = dict(MOE_HP) if set(axes) <= {"tensor", "seq"} else dict(MNIST_HP)
     with pytest.raises(NotImplementedError, match="later slice"):
         train.init(hparams=hp, device="cpu", mesh_config=MeshConfig(**axes))

@@ -24,6 +24,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from determined_tpu.config import ExperimentConfig as JaxExperimentConfig
 from determined_tpu.config.experiment import InvalidExperimentConfig as JaxInvalidConfig
@@ -309,7 +310,27 @@ def _fingerprint(exp):
                   for rid, r in exp.results.items())
 
 
-def test_asha_experiment_stops_early_journals_and_resumes(tmp_path):
+@pytest.fixture
+def one_intra_op_thread():
+    """Run the CPU kernels on one thread for the test's runs.  Their f32
+    results depend on how many threads split each product and reduction (a
+    [32, 784] x [784, 16] product differs in its last bits between 1, 2 and 8
+    threads), and the test compares two whole experiments bit for bit.
+    Under the full suite's load the oracle's first trial once ended 2 ulps
+    off in validation loss, where its straight and its resumed training
+    agree bit for bit alone: the work was split another way (MKL's dynamic
+    threading gives a loaded host fewer threads; tests/test_torch_gang.py
+    pins its ranks' threads for the same reason).  One thread splits
+    nothing."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def test_asha_experiment_stops_early_journals_and_resumes(tmp_path, one_intra_op_thread):
     cfg = ExperimentConfig.parse(ASHA_RAW)
     oracle = LocalExperiment(cfg, MnistTrial, checkpoint_dir=str(tmp_path / "o"), device="cpu")
     summary = oracle.run()

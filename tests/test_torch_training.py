@@ -373,9 +373,15 @@ def test_fit_checkpoint_options_work(kwargs, tmp_path):
 
 
 def test_unported_options_raise():
+    # the pipeline hparams are ported: without a pipe axis they change
+    # nothing, as in the JAX trial; tensor beside pipe still waits
     ctx = train.init(hparams=dict(HP, pipe_microbatches=2), device="cpu")
+    from determined_tpu_torch.parallel import MeshConfig as PortMeshConfig
+
+    assert LMTrial(ctx).build_model().pipe is None
     with pytest.raises(NotImplementedError, match="later slice"):
-        LMTrial(ctx).build_model()
+        train.init(hparams=dict(HP, pipe_microbatches=2), device="cpu",
+                   mesh_config=PortMeshConfig(pipe=2, tensor=2))
     # ring attention is ported; on one device (the JAX Trainer's mesh of
     # one) it is whole-sequence attention (plain on the CPU), as JAX's ring
     # falls back without a seq axis, and the bare model without a mesh

@@ -264,8 +264,14 @@ def test_unported_configs_raise(field, value):
         with pytest.raises(ValueError, match="ring attention requires the mesh"):
             model(torch.zeros((1, 4), dtype=torch.long))
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TransformerConfig(**{field: value})
+    # the pipeline stage's axis names are ported: the config takes them, and
+    # the KV-cache serving path refuses a stage's config as the JAX one does
+    cfg = TransformerConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2, **{field: value})
+    model = TransformerLM(cfg, device="cpu")
+    cache = init_kv_cache(cfg, 4, 4, device="cpu")
+    with pytest.raises(ValueError, match="KV-cache serving runs outside pipeline stages"):
+        transformer_prefill(model, torch.zeros((1, 4), dtype=torch.long), torch.tensor([4]),
+                            torch.tensor([[1]]), cache)
 
 
 def test_config_keeps_every_field_of_the_jax_config():

@@ -180,6 +180,68 @@ def case_train(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+def case_train_runs(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """Each of ``inp["cases"]`` (``case_train``'s inputs) in turn in this
+    process group: its reported rows and, on the chief, its final params
+    gathered whole (every pipeline stage's)."""
+    from determined_tpu_torch import core, train
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.parallel import MeshConfig
+
+    runs = []
+    for c in inp["cases"]:
+        core_ctx = core._dummy_init(distributed=dist,
+                                    checkpoint_dir=os.path.join(inp["ckpt_dir"], c["name"]))
+        exp = ExperimentConfig.parse(c["exp_config"]) if c.get("exp_config") else None
+        ctx = train.init(hparams=c["hparams"], seed=c.get("seed", 0), device="cpu",
+                         core_context=core_ctx, mesh_config=MeshConfig(**c["mesh"]),
+                         exp_config=exp)
+        trainer = train.Trainer(_trial_class(c["trial"], c.get("init_state"))(ctx))
+        summary = trainer.fit(**c["fit"])
+        params = trainer._full_array_state()["params"]
+        runs.append({
+            "name": c["name"], "summary": summary,
+            "training": ctx.core.train.metrics("training"),
+            "validation": ctx.core.train.metrics("validation"),
+            "params": {k: _numpy(v) for k, v in params.items()} if dist.is_chief else None,
+            "local_keys": sorted(trainer._params),
+        })
+    return {"runs": runs}
+
+
+def case_pipe_ckpt(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """A pipeline run that checkpoints every 2 steps up to ``steps``, then
+    fresh Trainers that resume its checkpoints: ``resumed`` on the same mesh
+    from the one before the last, ``restored`` on the same mesh from the
+    last (no steps), and each of ``inp["other"]`` meshes from the last;
+    each run's gathered state and the last checkpoint's storage id."""
+    from determined_tpu_torch import core, train
+    from determined_tpu_torch.parallel import MeshConfig
+
+    trial_cls = _trial_class("lm", inp.get("init_state"))
+    steps = inp["steps"]
+
+    def run(mesh: Dict[str, int], sid: Any, period: Any) -> Any:
+        core_ctx = core._dummy_init(distributed=dist, checkpoint_dir=inp["ckpt_dir"])
+        ctx = train.init(hparams=inp["hparams"], seed=0, device="cpu", core_context=core_ctx,
+                         mesh_config=MeshConfig(**mesh))
+        trainer = train.Trainer(trial_cls(ctx))
+        summary = trainer.fit(max_length=steps, latest_checkpoint=sid, checkpoint_period=period,
+                              report_period=1, checkpoint_policy="none" if period is None
+                              else "all")
+        return summary, _gathered(trainer, dist.is_chief), core_ctx
+
+    summary, first, core_ctx = run(inp["mesh"], None, 2)
+    last = summary["latest_checkpoint"]
+    before = core_ctx.checkpoint.get_checkpoint_parent(last)
+    out = {"last": last, "before": before, "first": first,
+           "steps": core_ctx.checkpoint.get_metadata(before)["steps_completed"]}
+    out["resumed"] = run(inp["mesh"], before, None)[1]
+    out["restored"] = run(inp["mesh"], last, None)[1]
+    out["other"] = [run(m, last, None)[1] for m in inp["other"]]
+    return out
+
+
 def _gathered(trainer: Any, chief: bool) -> Any:
     """The trainer's whole array state gathered onto the chief, flat:
     ``{part/name: (dtype name, float32 numpy)}`` (None elsewhere)."""
@@ -377,7 +439,8 @@ def _vocab_parallel_ce(inp: Dict[str, Any]) -> Dict[str, Any]:
 
 
 CASES = {"moe_ep": case_moe_ep, "train": case_train, "sharded": case_sharded, "mesh": case_mesh,
-         "collectives": case_collectives, "ring": case_ring}
+         "collectives": case_collectives, "ring": case_ring, "train_runs": case_train_runs,
+         "pipe_ckpt": case_pipe_ckpt}
 
 
 def main(case: str, rank: int, world: int, workdir: str) -> None:
