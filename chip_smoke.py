@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--phases kernel,serve,parity,train,train_parity,experiment,search,observe,
-                  knobs,serve_ckpt,models,hf,moe,seq,gang,cluster,pipe]
+                  knobs,serve_ckpt,models,hf,moe,seq,gang,cluster,pipe,fleet]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -351,7 +351,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    7's host-clock step, the trial's host-clock step between reports (the
    enqueue: the report's sync absorbs the device time), the time from the
    pause to the trial's exit, from the activation to the resumed run's
-   first step, and the phase's seconds.
+   first step, and the phase's seconds.  The master runs with phase 19's
+   flags (FLEET_MASTER_CUTS, printed) and keeps the pause's checkpoint
+   through its GC (CLUSTER_CUTS: save_trial_latest 3); with phase 19 to
+   follow, the cluster, its registry and its checkpoints stay up for it.
 18. pipe: examples/transformer_lm/pipeline.yaml (PIPE_CONST, a dict a CPU
    test holds to the file) at its full width and depth: d 2048, 16 layers,
    16 heads of 128, vocab 32768, seq 2048, bf16, flash, remat, fused
@@ -378,6 +381,39 @@ Phases, in order; any failure raises and the script exits non-zero:
       stage's largest leaf [8192, 2048].  The kernels line carries them as
       each row's pipe_shapes.
    Printed: each part's seconds and the phase's.
+19. fleet: the serving fleet through phase 17's master and agent (run
+   right after phase 17, on its cluster; asked for alone, it runs phase 17
+   first and says so).  The pause's step-14 checkpoint is registered as
+   lm-const v2 through the port's CLI (``model register``, a subprocess);
+   v1 is phase 17's promoted winner.  v1 and v2 are loaded in this process
+   with ServeEngine.from_checkpoint on the card and serve FLEET_PROMPTS of
+   phase 11's prompts (cut as FLEET_CUTS prints) one at a time: the
+   expected greedy tokens of each version (they must differ); both loads
+   run at once, and both engines are freed.  ``fleet set lm-const@1 --target 1`` (the port's CLI): the
+   master's supervisor launches a serve task, the agent execs the port's
+   exec/serve_replica through the launcher, which loads v1 on the card and
+   registers.  Checks: its task log at the master names the card (``device:
+   cuda``); the prompts through the master's router (client.generate) give
+   v1's tokens; one request straight to the replica gives the router's
+   share of the round trip.  ``model deploy lm-const@2`` (the CLI) under
+   FLEET_LOAD_THREADS clients sending other prompts back to back through
+   the router: the replica drains (its log: the master's drain, a clean
+   exit; its slot: no failure, so it exited 75 or 0), the supervisor
+   relaunches it on v2, the deploy completes; every answer is 16 tokens
+   from the replica the router names, none from the v1 replica after one
+   from the v2 replica, the drained replica completed every request it
+   took (those in flight at the drain included), and the router's 503s in
+   the gap are counted.  The prompts then give v2's tokens (cold on the
+   new replica).  SIGKILL of the v2 replica's process: its slot counts the
+   failure (exit 137), the master reaps it at its heartbeat TTL and the
+   supervisor relaunches it on v2, which serves v2's tokens.  Each
+   replica's last ``kernel launches:`` line in its task log: flash_fwd
+   equals its layers x the prefills it ran (requests less prefix hits, as
+   phase 3 counts), no backward or AdamW launch.  Printed: fleet set ->
+   registered -> ready, TTFT and the decode step through the router and
+   direct, deploy -> drained -> relaunched -> registered on v2, SIGKILL
+   -> relaunched -> registered, each replica's from_checkpoint seconds with
+   the md5 part, and the phase's seconds.
 
 Prints, before the last line, the kernels line (JSON), the script's total
 seconds and the card's name and power limit, and as the last line
@@ -612,7 +648,31 @@ CLUSTER_CUTS = [
      "the search's winner is promoted to the master's registry"),
     (f"environment.env.{CLUSTER_DIR_ENV}", None, "<events dir>",
      "where the trial writes its events (a fresh temporary directory)"),
+    ("checkpoint_storage.save_trial_latest", None, 3,
+     "the master's GC at the search's end keeps the pause's step-14 checkpoint (the newest "
+     "three: 24, 18, 14), which phase 19 serves as lm-const v2"),
 ]
+
+# phase 19: the serving fleet on phase 17's cluster.  The master's flags
+# (flag, the master's default, this run's, why), the prompts' cut (what,
+# phase 11's, this phase's, why), the concurrent clients during the
+# deploy, and the phase's time limit for each wait
+FLEET_MASTER_CUTS = [
+    ("--serve-replica-timeout-sec", 15, 5,
+     "a SIGKILLed replica is reaped (and relaunched) 5 s after its last heartbeat (every 2 s)"),
+    ("--fleet-backoff-initial-ms", 1000, 200, "the relaunch after the SIGKILL waits 0.2 s"),
+    ("--deploy-step-timeout-sec", 180, 120, "a deploy step that hangs fails the phase sooner"),
+]
+FLEET_PROMPTS = 4
+FLEET_PROMPT_LEN = 128
+FLEET_CUTS = [
+    ("prompts", f"phase 11's first {FLEET_PROMPTS} (64-1000 tokens)",
+     f"their last {FLEET_PROMPT_LEN} tokens",
+     "a fleet replica serves the default ServeConfig (max_prompt_len 128): `fleet set` sets no "
+     "serve override, as the JAX CLI's does not"),
+]
+FLEET_LOAD_THREADS = 3
+FLEET_TIMEOUT_S = 300.0
 
 # phase 8: searches.  S1 (ASHA) and S2 (PBT) are const.yaml (EXPERIMENT_CONST)
 # with these changes, S3 is examples/mnist/adaptive.yaml (MNIST_ADAPTIVE, a
@@ -1022,7 +1082,7 @@ PIPE_MB_SHAPE = (2, 16, 2048, 128)  # a microbatch's attention: [b, h, s, d]
 
 PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search",
           "observe", "knobs", "serve_ckpt", "models", "hf", "moe", "seq", "gang", "cluster",
-          "pipe")
+          "pipe", "fleet")
 
 
 def log(msg: str) -> None:
@@ -2319,7 +2379,11 @@ def cluster_trial():
 
             return {"record": Record()}
 
+    # recorded in its checkpoints as chip_smoke:ClusterLMTrial, which
+    # resolves through the module's __getattr__ (phase 19's replicas load
+    # the class by that name)
     ClusterLMTrial.__module__ = __name__
+    ClusterLMTrial.__qualname__ = ClusterLMTrial.__name__
     _CLUSTER_TRIALS["ClusterLMTrial"] = ClusterLMTrial
     return ClusterLMTrial
 
@@ -2346,16 +2410,18 @@ def _wait_for(what: str, fn, timeout: float, alive=None, poll: float = 0.05):
         time.sleep(poll)
 
 
-def _log_lines(session, tid: int) -> list:
-    """The trial's log lines at the master (the agent relays the trial
-    process's output), as strings."""
-    recs = session.get(f"/api/v1/trials/{tid}/logs", params={"limit": 10000}).json()
+def _log_lines(session, what: str) -> list:
+    """The log lines at the master of ``what`` (``trials/<id>`` or
+    ``tasks/<id>``: the agent relays the process's output), as strings."""
+    recs = session.get(f"/api/v1/{what}/logs", params={"limit": 10000}).json()
     return [r if isinstance(r, str) else str(r.get("line", r)) for r in recs]
 
 
-def phase_cluster(seed: int, build: NativeBuild, reference=None) -> dict:
+def phase_cluster(seed: int, build: NativeBuild, reference=None, keep: bool = False) -> dict:
     """Phase 17 (the docstring at the top); ``reference`` is phase 7's C
-    (its final state, initial params and host steps), run here when None."""
+    (its final state, initial params and host steps), run here when None.
+    With ``keep`` the cluster, its state and checkpoints outlive the phase:
+    ``out["_kept"]`` hands them to phase 19, which stops and deletes them."""
     import os
     import shutil
     import tempfile
@@ -2383,9 +2449,12 @@ def phase_cluster(seed: int, build: NativeBuild, reference=None) -> dict:
         log(f"cluster cut: {path} {json.dumps(const)} -> {json.dumps(value)} ({why})")
     default, interval, why = CLUSTER_HEARTBEAT_CUT
     log(f"cluster cut: the trial's HeartbeatReporter.INTERVAL {default} -> {interval} ({why})")
+    for flag, default, value, why in FLEET_MASTER_CUTS:
+        log(f"cluster cut: dtpu-master {flag} {default} -> {value} ({why})")
     out: dict = dict(native_build_s=build_s, native_build_waited_s=waited_s)
     cluster = None
     driver = None
+    kept = False
     try:
         if reference is None:
             reference = reference_c(seed, root)
@@ -2397,6 +2466,8 @@ def phase_cluster(seed: int, build: NativeBuild, reference=None) -> dict:
         cluster = devcluster.LocalCluster(
             os.path.join(root, "state"), ckpt_dir, agents=1, slots=1,
             cwd=os.path.dirname(os.path.abspath(__file__)), where=where,
+            master_args=[str(x) for flag, _, value, _ in FLEET_MASTER_CUTS
+                         for x in (flag, value)],
         )
         t0 = time.monotonic()
         cluster.start()
@@ -2491,7 +2562,7 @@ def phase_cluster(seed: int, build: NativeBuild, reference=None) -> dict:
         assert drained is not None and final is not None, sorted(by_step)
         trial_json = session.get(f"/api/v1/trials/{tid}").json()
         assert trial_json["latest_checkpoint"] == final["uuid"], trial_json
-        lines = _log_lines(session, tid)
+        lines = _log_lines(session, f"trials/{tid}")
         device_lines = [ln for ln in lines if "device: cuda" in ln]
         beat_lines = [ln for ln in lines if "beat acknowledged by the master" in ln]
         launch_lines = [ln for ln in lines if "kernel launches: " in ln]
@@ -2537,11 +2608,337 @@ def phase_cluster(seed: int, build: NativeBuild, reference=None) -> dict:
         )
         out["wall_s"] = time.monotonic() - t_phase
         log("cluster: " + json.dumps(out))
+        if keep:
+            out["_kept"] = dict(cluster=cluster, root=root, ckpt_dir=ckpt_dir,
+                                drained=drained["uuid"], final=final["uuid"],
+                                checkpoint_states={s: c["state"] for s, c in by_step.items()})
+            kept = True
     finally:
-        if cluster is not None:
-            cluster.stop()
         if driver is not None:
             driver.join(10)
+        if not kept:
+            if cluster is not None:
+                cluster.stop()
+            shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _last_json(lines: list, prefix: str, before: str = None) -> dict:
+    """The JSON of the last line that starts with ``prefix`` (before the
+    first line equal to ``before``, when given)."""
+    if before is not None and before in lines:
+        lines = lines[:lines.index(before)]
+    hits = [ln[len(prefix):] for ln in lines if ln.startswith(prefix)]
+    assert hits, f"no {prefix!r} line in {lines[-40:]}"
+    return json.loads(hits[-1])
+
+
+class _FleetLoad:
+    """Clients sending prompts back to back through the master's router
+    (``POST /v1/generate`` on the port's session); each answer is kept with
+    the replica the router names (``X-DTPU-Replica``) and its answer time,
+    a refusal (503) is counted and retried after a pause."""
+
+    def __init__(self, session, prompts: list, threads: int) -> None:
+        import threading
+
+        self.session, self.prompts = session, prompts
+        self.answers: list = []   # (replica id, answer time)
+        self.refused: list = []   # answer times of 503s
+        self.errors: list = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(i,), daemon=True)
+                         for i in range(threads)]
+
+    def _run(self, k: int) -> None:
+        from determined_tpu_torch.api.session import APIError
+
+        i = k
+        while not self._stop.is_set():
+            body = {"prompt_tokens": self.prompts[i % len(self.prompts)],
+                    "max_new_tokens": SERVE_CKPT_NEW_TOKENS}
+            try:
+                resp = self.session.post("/v1/generate", json=body)
+                assert len(resp.json()["tokens"]) == SERVE_CKPT_NEW_TOKENS, resp.text
+                with self._lock:
+                    self.answers.append((resp.headers.get("X-DTPU-Replica"), time.time()))
+                i += 1
+            except APIError as e:
+                with self._lock:
+                    (self.refused if e.status == 503 else self.errors).append(
+                        (time.time(), str(e)))
+                time.sleep(0.05)
+            except Exception as e:  # noqa: BLE001 - reported and failed on
+                with self._lock:
+                    self.errors.append((time.time(), repr(e)))
+                time.sleep(0.05)
+
+    def start(self) -> "_FleetLoad":
+        for t in self._threads:
+            t.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(120)
+
+    def served_by(self, rid: str) -> list:
+        with self._lock:
+            return [t for r, t in self.answers if r == rid]
+
+
+def phase_fleet(seed: int, kept: dict) -> dict:
+    """Phase 19 (the docstring at the top), on the cluster phase 17 kept."""
+    import os
+    import shutil
+    import signal
+
+    import torch
+
+    from determined_tpu_torch.client import Determined
+    from determined_tpu_torch.serve import ServeEngine, ServeWorker
+
+    t_phase = time.monotonic()
+    cluster, root = kept["cluster"], kept["root"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    for what, old, new, why in FLEET_CUTS:
+        log(f"fleet cut: {what} {old} -> {new} ({why})")
+    log(f"fleet: phase 17's checkpoints at the master {json.dumps(kept['checkpoint_states'])}")
+    out: dict = dict(card=card_line())
+    load = None
+    try:
+        session = cluster.session()
+        client = Determined(cluster.url, session=session)
+        env = dict(os.environ, DTPU_TOKEN=session.token)
+        env.pop("DTPU_MASTER", None)
+
+        def cli(*argv: str) -> float:
+            """The port's CLI in a subprocess; its seconds."""
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [sys.executable, "-m", "determined_tpu_torch.cli", "-m", cluster.url, *argv],
+                cwd=here, env=env, capture_output=True, text=True, timeout=FLEET_TIMEOUT_S)
+            took = time.monotonic() - t0
+            log(f"fleet: $ cli {' '.join(argv)} -> {proc.returncode} in {took:.2f} s: "
+                + " | ".join(proc.stdout.strip().splitlines()))
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            return took
+
+        def replicas(**match) -> list:
+            return [r for r in client.get_serving()
+                    if all(r.get(k) == v for k, v in match.items())]
+
+        def slot() -> dict:
+            return client.get_serving_fleet()["slots"][0]
+
+        # ---- v2: the checkpoint phase 17's pause drained ----------------------
+        v2_path = os.path.join(kept["ckpt_dir"], kept["drained"])
+        assert os.path.isdir(v2_path), f"the drained checkpoint {v2_path} is gone"
+        cli("model", "register", CLUSTER_MODEL, kept["drained"], "--storage-path", v2_path)
+        versions = {int(v["version"]): v for v in client.get_model(CLUSTER_MODEL)["versions"]}
+        assert versions[1]["checkpoint_uuid"] == kept["final"], versions
+        assert versions[2]["checkpoint_uuid"] == kept["drained"], versions
+        paths = {v: versions[v]["storage_path"] for v in (1, 2)}
+        registry = {v: (versions[v]["checkpoint_uuid"], paths[v]) for v in paths}
+        log(f"fleet: registry {json.dumps(registry)}")
+
+        # ---- the expected tokens, in this process -----------------------------
+        vocab = EXPERIMENT_CONST["hyperparameters"]["vocab_size"]
+        prompts = [p[-FLEET_PROMPT_LEN:] for p in make_prompts(seed + 1, vocab)[:FLEET_PROMPTS]]
+        extra = [p[-FLEET_PROMPT_LEN:] for p in make_prompts(seed + 2, vocab)[:2]]
+        # the deploy's traffic: other prompts, so that the token checks'
+        # prompts reach each replica cold (a prefix-cache hit takes the
+        # suffix prefill, whose bf16 sums may flip a near-tied greedy token)
+        load_prompts = [p[-FLEET_PROMPT_LEN:] for p in make_prompts(seed + 3, vocab)]
+        def load(v: int) -> tuple:
+            t0 = time.monotonic()
+            engine = ServeEngine.from_checkpoint(paths[v], None)
+            torch.cuda.synchronize()
+            return engine, time.monotonic() - t0
+
+        # both at once: each load is mostly the md5 of its files
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            loaded = dict(zip((1, 2), pool.map(load, (1, 2))))
+        expected, inproc_load_s = {}, {}
+        for v in (1, 2):
+            engine, inproc_load_s[v] = loaded.pop(v)
+            n_layers = engine.kernels.model.cfg.n_layers
+            expected[v], _, _ = _serve_tokens(ServeWorker(engine), prompts)
+            del engine
+        _free_cuda()
+        assert expected[1] != expected[2], "v1 and v2 give the same tokens"
+        log(f"fleet: expected tokens in process: v1 and v2 differ on "
+            f"{sum(a != b for a, b in zip(expected[1], expected[2]))} of {len(prompts)} prompts; "
+            f"from_checkpoint {json.dumps(inproc_load_s)} s")
+
+        def through_router(want: dict) -> list:
+            answers = [client.generate(p, max_new_tokens=SERVE_CKPT_NEW_TOKENS)
+                       for p in prompts]
+            got = [a["tokens"] for a in answers]
+            assert got == want, f"router tokens {got} != expected {want}"
+            return answers
+
+        # ---- fleet set: the supervisor launches the replica on v1 -------------
+        t_set = time.time()
+        set_s = cli("fleet", "set", f"{CLUSTER_MODEL}@1", "--target", "1")
+        rep1 = _wait_for("the v1 replica registered", lambda: replicas(model_version=1),
+                         FLEET_TIMEOUT_S, cluster.alive, poll=0.02)[0]
+        t_reg1 = time.time()
+        task1 = slot()["task_id"]
+        _wait_for("the v1 task ready", lambda: client.get_task(task1).get("ready"),
+                  FLEET_TIMEOUT_S, cluster.alive, poll=0.02)
+        t_ready1 = time.time()
+        lines = _log_lines(session, f"tasks/{task1}")
+        device_lines = [ln for ln in lines if "device: cuda" in ln]
+        assert device_lines and torch.cuda.get_device_name(0) in device_lines[0], lines[-40:]
+        log(f"fleet: replica {rep1['id']} ({rep1['model']}) at {rep1['url']} as {task1}; "
+            f"{device_lines[0]}")
+        sent = {task1: 0}
+        answers = through_router(expected[1])
+        sent[task1] += len(prompts)
+        # the router's share: one prompt through it, one straight to the replica
+        t0 = time.monotonic()
+        via = client.generate(extra[0], max_new_tokens=SERVE_CKPT_NEW_TOKENS)
+        via_wall = time.monotonic() - t0
+        t0 = time.monotonic()
+        status, direct = post(rep1["url"], "/v1/generate", {
+            "prompt_tokens": extra[1], "max_new_tokens": SERVE_CKPT_NEW_TOKENS})
+        direct_wall = time.monotonic() - t0
+        assert status == 200, direct
+        sent[task1] += 2
+
+        def step_ms(a: dict) -> float:
+            return (a["latency_ms"] - a["ttft_ms"]) / (SERVE_CKPT_NEW_TOKENS - 1)
+
+        out.update(
+            fleet_set_cli_s=set_s, set_to_registered_s=t_reg1 - t_set,
+            set_to_ready_s=t_ready1 - t_set,
+            router=dict(ttft_ms=[a["ttft_ms"] for a in answers] + [via["ttft_ms"]],
+                        decode_step_ms=[step_ms(a) for a in answers] + [step_ms(via)],
+                        round_trip_ms=1e3 * via_wall, server_latency_ms=via["latency_ms"]),
+            direct=dict(ttft_ms=direct["ttft_ms"], decode_step_ms=step_ms(direct),
+                        round_trip_ms=1e3 * direct_wall, server_latency_ms=direct["latency_ms"]),
+        )
+        out["router_overhead_ms"] = ((out["router"]["round_trip_ms"] - via["latency_ms"])
+                                     - (out["direct"]["round_trip_ms"] - direct["latency_ms"]))
+
+        # ---- model deploy @2 under load ---------------------------------------
+        load = _FleetLoad(session, load_prompts, FLEET_LOAD_THREADS).start()
+        _wait_for("traffic through the router", lambda: len(load.served_by(rep1["id"])) >= 2,
+                  FLEET_TIMEOUT_S, cluster.alive)
+        t_deploy = time.time()
+        deploy = subprocess.Popen(
+            [sys.executable, "-m", "determined_tpu_torch.cli", "-m", cluster.url, "model",
+             "deploy", f"{CLUSTER_MODEL}@2", "--timeout", str(FLEET_TIMEOUT_S)],
+            cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            _wait_for("the v1 replica's exit",
+                      lambda: client.get_task(task1)["state"] == "TERMINATED",
+                      FLEET_TIMEOUT_S, cluster.alive, poll=0.02)
+            t_drained = time.time()
+            task2 = _wait_for("the relaunch", lambda: slot()["task_id"] not in ("", task1)
+                              and slot()["task_id"], FLEET_TIMEOUT_S, cluster.alive, poll=0.02)
+            t_relaunch = time.time()
+            rep2 = _wait_for("the v2 replica registered", lambda: replicas(model_version=2),
+                             FLEET_TIMEOUT_S, cluster.alive, poll=0.02)[0]
+            t_reg2 = time.time()
+            deploy_out, _ = deploy.communicate(timeout=FLEET_TIMEOUT_S)
+        finally:
+            if deploy.poll() is None:
+                deploy.kill()
+                deploy.wait()
+        t_deployed = time.time()
+        log("fleet: $ cli model deploy -> " + " | ".join(deploy_out.strip().splitlines()))
+        assert deploy.returncode == 0, deploy_out
+        _wait_for("v2 answers through the router", lambda: len(load.served_by(rep2["id"])) >= 2,
+                  FLEET_TIMEOUT_S, cluster.alive)
+        load.stop()
+        assert not load.errors, load.errors[:5]
+        v1_done, v2_done = load.served_by(rep1["id"]), load.served_by(rep2["id"])
+        assert len(v1_done) + len(v2_done) == len(load.answers), "an answer of another replica"
+        assert max(v1_done) <= min(v2_done), "the v1 replica answered after the v2 one"
+        sent[task1] += len(v1_done)
+        sent[task2] = len(v2_done)
+        lines1 = _log_lines(session, f"tasks/{task1}")
+        assert f"deploy drain requested by master (target {CLUSTER_MODEL}@v2)" in lines1, \
+            lines1[-40:]
+        assert lines1[-1] == "drained (clean); exiting", lines1[-40:]
+        s1 = slot()
+        assert s1["failures"] == 0 and s1["launches"] == 2, s1
+        at_drain = _last_json(lines1, "serve stats: ", before="drain requested: rejecting "
+                              "new requests, finishing in-flight")
+        final1 = _last_json(lines1, "serve stats: ")
+        in_flight = at_drain["submitted"] - at_drain["completed"] - at_drain["errored"]
+        assert final1["completed"] == sent[task1] and final1["errored"] == 0, (final1, sent)
+        answers = through_router(expected[2])
+        sent[task2] += len(prompts)
+        out.update(
+            deploy_to_drained_s=t_drained - t_deploy, deploy_to_relaunched_s=t_relaunch - t_deploy,
+            deploy_to_registered_v2_s=t_reg2 - t_deploy, deploy_cli_s=t_deployed - t_deploy,
+            load=dict(threads=FLEET_LOAD_THREADS, v1_answers=len(v1_done),
+                      v2_answers=len(v2_done), refused_503=len(load.refused),
+                      in_flight_at_drain=in_flight,
+                      gap_s=min(v2_done) - max(v1_done)),
+        )
+        log(f"fleet: deploy: replica {rep1['id']} drained with {in_flight} request(s) in "
+            f"flight, all {final1['completed']} it took answered; {rep2['id']} on v2 as "
+            f"{task2}; the router refused {len(load.refused)} request(s) (503) in the gap")
+
+        # ---- SIGKILL the v2 replica -------------------------------------------
+        _wait_for("the v2 replica's counts", lambda: _last_json(
+            _log_lines(session, f"tasks/{task2}"), "serve stats: ")["completed"] == sent[task2],
+            FLEET_TIMEOUT_S, cluster.alive, poll=0.05)
+        pid = cluster.task_pid(task2)
+        assert pid, f"no pid for {task2}"
+        t_kill = time.time()
+        os.kill(pid, signal.SIGKILL)
+        task3 = _wait_for("the relaunch after the SIGKILL",
+                          lambda: slot()["task_id"] not in ("", task2) and slot()["task_id"],
+                          FLEET_TIMEOUT_S, cluster.alive, poll=0.02)
+        t_relaunch3 = time.time()
+        rep3 = _wait_for("the relaunched replica registered", lambda: [
+            r for r in replicas(model_version=2) if r["id"] != rep2["id"]],
+            FLEET_TIMEOUT_S, cluster.alive, poll=0.02)[0]
+        t_reg3 = time.time()
+        s3 = slot()
+        assert s3["failures"] == 1 and s3["last_error"] == f"task {task2} exited 137", s3
+        through_router(expected[2])
+        sent[task3] = len(prompts)
+        _wait_for("the relaunched replica's counts", lambda: _last_json(
+            _log_lines(session, f"tasks/{task3}"), "serve stats: ")["completed"] == sent[task3],
+            FLEET_TIMEOUT_S, cluster.alive, poll=0.05)
+        out.update(kill_to_relaunched_s=t_relaunch3 - t_kill,
+                   kill_to_registered_s=t_reg3 - t_kill)
+        log(f"fleet: SIGKILL of {task2} (pid {pid}): {s3['last_error']}; {rep3['id']} on v2 "
+            f"as {task3}")
+
+        # ---- each replica's launches, from its log at the master --------------
+        replicas_out, total = {}, dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+                                       fused_adamw=0)
+        for task in (task1, task2, task3):
+            lines = _log_lines(session, f"tasks/{task}")
+            launches = _last_json(lines, "kernel launches: ")
+            stats = _last_json(lines, "serve stats: ")
+            loaded = _last_json(lines, "load seconds: ")
+            want = dict(flash_fwd=n_layers * (stats["completed"] - stats["prefix_hits"]),
+                        flash_bwd_dq=0, flash_bwd_dkv=0, fused_adamw=0)
+            got = {k: launches[k] for k in want}
+            assert stats["completed"] == sent[task], (task, stats, sent)
+            assert got == want, f"{task}: launches {got} != expected {want}"
+            for k in total:
+                total[k] += got[k]
+            replicas_out[task] = dict(launches=got, requests=stats["completed"],
+                                      prefix_hits=stats["prefix_hits"], **loaded)
+        out.update(replicas=replicas_out, launches=total,
+                   inproc_from_checkpoint_s=inproc_load_s)
+        out["phase_s"] = time.monotonic() - t_phase
+        log("fleet: " + json.dumps(out))
+    finally:
+        if load is not None:
+            load.stop()
+        cluster.stop()
         shutil.rmtree(root, ignore_errors=True)
     return out
 
@@ -5472,6 +5869,10 @@ def main() -> int:
 
     card = card_line()
     log(f"card: {card}")
+    if "fleet" in phases and "cluster" not in phases:
+        log("fleet: phase 19 serves phase 17's registry on its cluster: running phase 17 "
+            "(cluster) first")
+        phases.add("cluster")
     # the native control plane compiles beside the GPU phases (phase 17)
     build = NativeBuild() if "cluster" in phases else None
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
@@ -5563,7 +5964,12 @@ def main() -> int:
     if "cluster" in phases:
         gc.collect()
         torch.cuda.empty_cache()
-        cluster = phase_cluster(args.seed, build, reference)
+        cluster = phase_cluster(args.seed, build, reference, keep="fleet" in phases)
+    fleet = None
+    if "fleet" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        fleet = phase_fleet(args.seed, cluster.pop("_kept"))
     pipe = None
     if "pipe" in phases:
         gc.collect()
@@ -5621,6 +6027,10 @@ def main() -> int:
                 # the agent's trial process, from its log at the master:
                 # the resumed run's launches
                 by_phase["cluster_resume"] = cluster["launches"][name]
+            if fleet is not None:
+                # the fleet's three replica processes, from their logs at
+                # the master
+                by_phase["fleet_replicas"] = fleet["launches"][name]
             if pipe is not None:
                 # S's 1f1b run on the virtual pipe, and the rows at a
                 # microbatch's shapes

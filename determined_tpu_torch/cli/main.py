@@ -1,5 +1,5 @@
-"""Command line of the port: the experiment, search and cluster verbs of
-``determined_tpu/cli/main.py``.
+"""Command line of the port: the experiment, search, cluster, serving,
+registry and fleet verbs of ``determined_tpu/cli/main.py``.
 
     python -m determined_tpu_torch.cli run-local CONFIG pkg.module:TrialClass \\
         [--checkpoint-dir DIR]
@@ -12,6 +12,12 @@
         [--seed N] [--period N] [--journal PATH] [--json]
     python -m determined_tpu_torch.cli preview-search CONFIG [--native]
     python -m determined_tpu_torch.cli cluster up [--agents N] [--slots N] [--gpus]
+    python -m determined_tpu_torch.cli [-m URL] serve [CHECKPOINT | --model NAME@VERSION]
+    python -m determined_tpu_torch.cli [-m URL] model create|list|show|register|promote|pull|
+        deploy|register-version ...
+    python -m determined_tpu_torch.cli [-m URL] fleet set NAME@VERSION --target N [--env K=V]
+    python -m determined_tpu_torch.cli [-m URL] fleet status [--json]
+    python -m determined_tpu_torch.cli [-m URL] master info
 
 The search runs in this process on the GPU (it raises without one; the
 Python API takes ``device="cpu"`` for small runs).  With ``--cluster`` the
@@ -32,6 +38,16 @@ it was preempted and ``experiment resume`` carries it on.  ``experiment status``
 device: they replay search methods against curve models (``--native`` asks
 the master's C++ searcher, ``dtpu-master --simulate``, built from
 ``native/``).
+
+The master verbs (``serve``, ``model``, ``fleet``, ``master``) go through
+the SDK (``determined_tpu_torch.client``) and keep the JAX CLI's arguments,
+output lines and exit codes; an error answer of the master exits 1.
+``serve`` loads its checkpoint on the GPU (``DTPU_TORCH_DEVICE`` names
+another device, as for a cluster trial) and drains on SIGTERM/SIGINT or a
+rolling deploy, then exits 75.  ``fleet set`` hands the master a replica
+count of a registry version: its supervisor launches each replica as an
+agent task, which the port's launcher runs as ``exec/serve_replica``
+(``--env DTPU_TORCH_DEVICE=cpu`` serves on the CPU).
 """
 
 from __future__ import annotations
@@ -378,6 +394,385 @@ def cluster_up(args) -> int:
         cluster.stop()
 
 
+def _client(args):
+    from determined_tpu_torch.client import Determined
+
+    url = args.master or os.environ.get("DTPU_MASTER", "http://127.0.0.1:8080")
+    # --cert rides the env so every Session picks it up without threading
+    # it through each constructor
+    if getattr(args, "cert", None):
+        os.environ["DTPU_MASTER_CERT"] = args.cert
+    return Determined(url, user=getattr(args, "user", None) or None)
+
+
+# ---- model registry ---------------------------------------------------------
+
+
+def model_create(args) -> int:
+    m = _client(args).create_model(args.name, description=args.description or "")
+    print(f"created model {m.name}")
+    return 0
+
+
+def model_list(args) -> int:
+    rows = []
+    for m in _client(args).get_models():
+        versions = m.get("versions") or []
+        latest = max((int(v.get("version") or 0) for v in versions), default=0)
+        rows.append(
+            {
+                "name": m.name,
+                "versions": len(versions),
+                "latest": f"v{latest}" if latest else "-",
+            }
+        )
+    _table(rows, ["name", "versions", "latest"])
+    return 0
+
+
+def model_show(args) -> int:
+    model = _client(args).get_model(args.name).to_dict()
+    if args.json:
+        _print_json(model)
+        return 0
+    print(f"model {model['name']}")
+    if model.get("labels"):
+        print(f"  labels: {', '.join(model['labels'])}")
+    for v in model.get("versions") or []:
+        lineage = []
+        if v.get("source_trial_id"):
+            lineage.append(f"trial {v['source_trial_id']}")
+        if v.get("source_experiment_id"):
+            lineage.append(f"experiment {v['source_experiment_id']}")
+        print(
+            f"  v{v['version']}: checkpoint {v.get('checkpoint_uuid')}"
+            + (f" ({', '.join(lineage)})" if lineage else "")
+        )
+        if v.get("storage_path"):
+            print(f"      path: {v['storage_path']}")
+        if v.get("metrics"):
+            print(f"      metrics: {json.dumps(v['metrics'], sort_keys=True)}")
+    return 0
+
+
+def model_register(args) -> int:
+    from determined_tpu_torch.experiment import registry as registry_mod
+
+    metrics = {}
+    for kv in args.metric or []:
+        key, _, val = kv.partition("=")
+        try:
+            metrics[key] = float(val)
+        except ValueError:
+            metrics[key] = val
+    v = registry_mod.register_version(
+        _client(args).session,
+        args.name,
+        checkpoint_uuid=args.checkpoint_uuid,
+        storage_path=args.storage_path,
+        source_trial_id=args.trial_id,
+        source_experiment_id=args.experiment_id,
+        metrics=metrics or None,
+        labels=args.label or None,
+        version=args.version,
+    )
+    print(f"registered {args.name}@v{v['version']} "
+          f"(checkpoint {v['checkpoint_uuid']})")
+    return 0
+
+
+def model_promote(args) -> int:
+    from determined_tpu_torch.experiment import registry as registry_mod
+
+    session = _client(args).session
+    registry_mod.ensure_model(session, args.name)
+    v = session.post(
+        f"/api/v1/models/{args.name}/promote", json={"trial_id": args.trial_id}
+    ).json()
+    print(f"promoted trial {args.trial_id} -> {args.name}@v{v['version']} "
+          f"(checkpoint {v['checkpoint_uuid']})")
+    return 0
+
+
+def model_pull(args) -> int:
+    """Materialize a registry version's checkpoint locally: copy from its
+    shared-storage path when this host can see it, else download through
+    the master's checkpoint route."""
+    import shutil as _shutil
+
+    from determined_tpu_torch.experiment import registry as registry_mod
+
+    client = _client(args)
+    ver = registry_mod.resolve_version(client.session, args.ref)
+    target = args.output or f"{ver['model']}-v{ver['version']}"
+    src = ver.get("storage_path") or ""
+    if os.path.isdir(src):
+        if os.path.exists(target):
+            print(f"error: {target} already exists", file=sys.stderr)
+            return 2
+        _shutil.copytree(src, target)
+        print(target)
+        return 0
+    path = client.get_checkpoint(ver["checkpoint_uuid"]).download(target)
+    print(path)
+    return 0
+
+
+def model_deploy(args) -> int:
+    """Rolling deploy: walk the serving fleet one replica at a time onto
+    a registry version (drain -> relaunch -> next; docs/registry.md).
+    ``--canary F`` rolls only that cohort first and bakes it against the
+    pre-roll error-rate/latency baseline before finishing the roll."""
+    import time as _time
+
+    from determined_tpu_torch.experiment import registry as registry_mod
+
+    session = _client(args).session
+    name, version = registry_mod.parse_model_ref(args.ref)
+    body = {"model": name, "version": version}
+    if args.canary is not None:
+        body["canary_fraction"] = args.canary
+        body["bake_seconds"] = args.bake_seconds
+        body["min_requests"] = args.canary_min_requests
+        if args.rollback_on_regression:
+            body["rollback_on_regression"] = True
+    state = session.post("/api/v1/serving/deploy", json=body).json()
+    mode = ""
+    canary = state.get("canary") or {}
+    if canary.get("count"):
+        mode = f" (canary cohort: {canary['count']})"
+    print(f"deploy {state['id']}: rolling {state['target']} "
+          f"over {len(state.get('pending') or [])} replica(s){mode}")
+    if not args.wait:
+        print(state["status"])
+        return 0
+    deadline = _time.time() + args.timeout
+    phase = state.get("phase")
+    while _time.time() < deadline:
+        state = session.get("/api/v1/serving/deploy").json()
+        if state.get("phase") != phase:
+            phase = state.get("phase")
+            print(f"deploy {state['id']}: phase {phase}")
+        if state["status"] != "rolling":
+            break
+        _time.sleep(1.0)
+    detail = f" ({state['detail']})" if state.get("detail") else ""
+    print(f"deploy {state['id']}: {state['status']}{detail}")
+    canary = state.get("canary") or {}
+    if canary.get("verdict"):
+        stat = f" — regressed stat: {canary['offending_stat']}" \
+            if canary.get("offending_stat") else ""
+        print(f"canary verdict: {canary['verdict']}{stat}")
+    return 0 if state["status"] == "completed" else 1
+
+
+# ---- serving fleet (master-side replica supervisor) -------------------------
+
+
+def fleet_set(args) -> int:
+    """Declare the fleet spec: the master's supervisor launches replicas
+    as agent tasks and relaunches any that die (docs/serving.md)."""
+    config = {}
+    if args.slots is not None:
+        config["resources"] = {"slots": args.slots}
+    for kv in args.env or []:
+        key, _, val = kv.partition("=")
+        config.setdefault("env", {})[key] = val
+    fleet = _client(args).set_serving_fleet(
+        args.ref, args.target, pool=args.pool, config=config or None
+    )
+    print(f"fleet: {fleet['model']}@v{fleet['version']} "
+          f"target {fleet['target']} ({fleet['status']})")
+    return 0
+
+
+def fleet_status(args) -> int:
+    from determined_tpu_torch.api.session import NotFoundError
+
+    try:
+        fleet = _client(args).get_serving_fleet()
+    except NotFoundError:
+        print("no fleet spec declared", file=sys.stderr)
+        return 1
+    if args.json:
+        _print_json(fleet)
+        return 0
+    detail = f" — {fleet['detail']}" if fleet.get("detail") else ""
+    print(f"{fleet['model']}@v{fleet['version']} target {fleet['target']} "
+          f"status {fleet['status']}{detail}")
+    for slot in fleet.get("slots") or []:
+        state = "gave-up" if slot.get("gave_up") else (
+            "live" if slot.get("replica_id") else "launching")
+        err = f" last_error={slot['last_error']!r}" if slot.get("last_error") else ""
+        print(f"  slot {slot['index']}: {state} task={slot.get('task_id') or '-'} "
+              f"replica={slot.get('replica_id') or '-'} "
+              f"launches={slot.get('launches', 0)} "
+              f"failures={slot.get('failures', 0)}{err}")
+    return 0 if fleet["status"] != "degraded" else 1
+
+
+def model_register_version(args) -> int:
+    v = _client(args).get_model(args.name).register_version(args.checkpoint_uuid)
+    print(f"registered {args.name} version {v.version}")
+    return 0
+
+
+def master_info(args) -> int:
+    _print_json(_client(args).master_info())
+    return 0
+
+
+class _ServeSignalFlag:
+    """Signal-handler-safe drain flag: a plain attribute write holds no
+    lock (a handler that takes a lock can deadlock the thread it
+    interrupted; same pattern as ``experiment/local.py _PreemptFlag``).
+    The serve main loop polls it
+    and runs the actual drain — which touches Events — on the main
+    thread, never in handler context."""
+
+    __slots__ = ("_flag",)
+
+    def __init__(self) -> None:
+        self._flag = False
+
+    def set(self) -> None:
+        self._flag = True
+
+    def is_set(self) -> bool:
+        return self._flag
+
+
+def serve_cmd(args) -> int:
+    """Run one online-serving replica from a trial checkpoint.
+
+    Loads the checkpoint (``train.load_trial_from_checkpoint``) on the GPU
+    (or the device ``DTPU_TORCH_DEVICE`` names, as a cluster trial reads
+    it; without a GPU and without it this raises), and serves ``POST
+    /v1/generate``
+    (+ ``/healthz``, ``/stats``).  With ``--master`` the replica registers
+    under ``/api/v1/serving`` and heartbeats until shutdown.  SIGTERM or
+    SIGINT drains: new requests are rejected (503), queued + in-flight
+    requests finish, and the process exits 75 (EX_TEMPFAIL) so a
+    supervisor knows the stop was orderly, not a crash.
+
+    ``--model name[@version|@latest]`` serves a registry version instead
+    of a raw path: the checkpoint is resolved through the master
+    (``docs/registry.md``), the replica's listing label becomes
+    ``name@vN``, and the resolved version rides registration — which is
+    also what lets a rolling deploy (``model deploy``) find and
+    drain replicas on older versions.  A master-requested drain exits 75
+    exactly like a signal drain.
+    """
+    import signal as _signal
+    import time as _time
+
+    from determined_tpu_torch._device import DEVICE_ENV
+    from determined_tpu_torch.experiment import PREEMPTED_EXIT_CODE
+    from determined_tpu_torch.serve import ServeConfig, ServeEngine, ServeWorker
+
+    try:
+        serve_cfg = ServeConfig(
+            block_size=args.block_size,
+            num_blocks=args.num_blocks,
+            max_batch=args.max_batch,
+            max_prompt_len=args.max_prompt_len,
+            max_new_tokens=args.max_new_tokens,
+            queue_depth=args.queue_depth,
+            prefix_cache=args.prefix_cache,
+            decode_chunk_blocks=args.decode_chunk_blocks,
+            host=args.host,
+            port=args.port,
+        )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    session = None
+    if args.master or os.environ.get("DTPU_MASTER"):
+        session = _client(args).session
+    checkpoint = args.checkpoint
+    model_name, model_version = "", 0
+    if args.model:
+        from determined_tpu_torch.experiment import registry as registry_mod
+
+        if checkpoint:
+            print("error: pass a checkpoint path OR --model, not both",
+                  file=sys.stderr)
+            return 2
+        if session is None:
+            print("error: --model resolves through the master "
+                  "(pass -m/--master or set DTPU_MASTER)", file=sys.stderr)
+            return 2
+        try:
+            ver = registry_mod.resolve_version(session, args.model)
+        except Exception as e:  # noqa: BLE001 - CLI boundary
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        model_name = ver["model"]
+        model_version = int(ver["version"])
+        checkpoint = ver.get("storage_path") or ""
+        if not checkpoint or not os.path.isdir(checkpoint):
+            print(f"error: {model_name}@v{model_version} resolves to "
+                  f"storage path {checkpoint!r}, which is not a directory "
+                  "on this host (serve replicas load via shared storage)",
+                  file=sys.stderr)
+            return 2
+        print(f"resolved {args.model} -> {model_name}@v{model_version} "
+              f"({checkpoint})", flush=True)
+    elif not checkpoint:
+        print("error: pass a checkpoint path or --model name@version",
+              file=sys.stderr)
+        return 2
+    print(f"loading checkpoint {checkpoint} ...", flush=True)
+    engine = ServeEngine.from_checkpoint(checkpoint, serve_cfg,
+                                         device=os.environ.get(DEVICE_ENV) or None)
+    # listing label precedence: explicit --model-name, then the registry
+    # ref (name@vN), then the trial class name for raw-path launches
+    if model_name:
+        label = f"{model_name}@v{model_version}"
+    else:
+        label = args.model_name or engine.model_label
+    worker = ServeWorker(
+        engine,
+        host=serve_cfg.host,
+        port=serve_cfg.port,
+        session=session,
+        model=args.model_name or label,
+        checkpoint=checkpoint,
+        model_name=model_name,
+        model_version=model_version,
+    )
+    url = worker.start()
+    # the parseable contract scripts/tests rely on: one line, stable prefix
+    print(f"serving on {url}", flush=True)
+
+    drain_flag = _ServeSignalFlag()
+    prev = {}
+
+    def _on_signal(signum, frame):  # noqa: ARG001 - signal handler shape
+        drain_flag.set()  # plain write: safe at any bytecode boundary
+
+    for sig in (_signal.SIGTERM, _signal.SIGINT):
+        prev[sig] = _signal.signal(sig, _on_signal)
+    try:
+        while not drain_flag.is_set() and not worker.master_drain_requested():
+            _time.sleep(0.2)
+        if worker.master_drain_requested() and not drain_flag.is_set():
+            target = worker.master_drain_info.get("target") or "?"
+            print(f"deploy drain requested by master (target {target})",
+                  flush=True)
+        print("drain requested: rejecting new requests, finishing in-flight",
+              flush=True)
+        worker.request_drain()
+        clean = worker.wait_drained(timeout=serve_cfg.drain_grace_s)
+        worker.shutdown()
+        print(f"drained ({'clean' if clean else 'grace expired'}); exiting",
+              flush=True)
+        return PREEMPTED_EXIT_CODE
+    finally:
+        for sig, handler in prev.items():
+            _signal.signal(sig, handler)
+
+
 def _find_binary(name: str) -> str:
     import shutil
 
@@ -452,6 +847,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m determined_tpu_torch.cli",
                                 description="determined_tpu_torch CLI")
     p.add_argument("-m", "--master", help="master url (default $DTPU_MASTER)")
+    p.add_argument("--cert", help="CA bundle for an https master (default $DTPU_MASTER_CERT)")
     p.add_argument("-u", "--user", help="user to log in as (default: the cached token's, "
                    "else determined)")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -532,12 +928,151 @@ def build_parser() -> argparse.ArgumentParser:
     cu.add_argument("--checkpoint-dir", default=os.path.join(os.getcwd(),
                                                              "dtt-cluster-checkpoints"))
     cu.set_defaults(fn=cluster_up)
+
+    model = sub.add_parser(
+        "model", help="model registry: versioned checkpoints promoted from "
+        "trials, served and rolled onto the fleet (docs/registry.md)"
+    ).add_subparsers(dest="verb", required=True)
+    mc = model.add_parser("create")
+    mc.add_argument("name")
+    mc.add_argument("--description")
+    mc.set_defaults(fn=model_create)
+    model.add_parser("list").set_defaults(fn=model_list)
+    ms = model.add_parser("show", help="model + every version with lineage")
+    ms.add_argument("name")
+    ms.add_argument("--json", action="store_true")
+    ms.set_defaults(fn=model_show)
+    mg = model.add_parser(
+        "register", help="register a checkpoint as the model's next version"
+    )
+    mg.add_argument("name")
+    mg.add_argument("checkpoint_uuid")
+    mg.add_argument("--storage-path",
+                    help="checkpoint directory (required when the master "
+                         "does not track this checkpoint)")
+    mg.add_argument("--trial-id", type=int, help="source trial lineage")
+    mg.add_argument("--experiment-id", type=int, help="source experiment lineage")
+    mg.add_argument("--metric", action="append", metavar="KEY=VALUE",
+                    help="metrics snapshot entry (repeatable)")
+    mg.add_argument("--label", action="append", help="version label (repeatable)")
+    mg.add_argument("--version", type=int,
+                    help="pin an explicit version number (409 if taken)")
+    mg.set_defaults(fn=model_register)
+    mp = model.add_parser(
+        "promote", help="promote a trial's latest checkpoint to the next "
+        "version (the master resolves lineage + metrics)"
+    )
+    mp.add_argument("name")
+    mp.add_argument("trial_id", type=int)
+    mp.set_defaults(fn=model_promote)
+    mpl = model.add_parser("pull", help="materialize a version's checkpoint locally")
+    mpl.add_argument("ref", metavar="NAME[@VERSION]")
+    mpl.add_argument("--output", help="target directory (default: NAME-vN)")
+    mpl.set_defaults(fn=model_pull)
+    md = model.add_parser(
+        "deploy", help="rolling-deploy a version onto the serving fleet "
+        "(drain one replica at a time; supervisors relaunch on the target)"
+    )
+    md.add_argument("ref", metavar="NAME[@VERSION]")
+    md.add_argument("--no-wait", dest="wait", action="store_false",
+                    help="start the roll and return immediately")
+    md.add_argument("--timeout", type=float, default=600.0,
+                    help="seconds to wait for the roll to finish")
+    md.add_argument("--canary", type=float, metavar="FRACTION",
+                    help="roll this fraction of the fleet first and bake "
+                         "it against the pre-roll error-rate/latency "
+                         "baseline before finishing the roll")
+    md.add_argument("--bake-seconds", type=float, default=30.0,
+                    help="canary bake window (default: 30)")
+    md.add_argument("--canary-min-requests", type=int, default=1,
+                    help="minimum canary-cohort requests before the bake "
+                         "verdict counts (default: 1)")
+    md.add_argument("--rollback-on-regression", action="store_true",
+                    help="on a canary regression, roll the cohort back to "
+                         "the prior version instead of holding")
+    md.set_defaults(fn=model_deploy, wait=True)
+
+    fleet = sub.add_parser(
+        "fleet", help="supervised serving fleet: the master relaunches "
+        "replicas that die to hold the declared target (docs/serving.md)"
+    ).add_subparsers(dest="verb", required=True)
+    fs = fleet.add_parser(
+        "set", help="declare the fleet spec (model version + replica count)"
+    )
+    fs.add_argument("ref", metavar="NAME[@VERSION]")
+    fs.add_argument("--target", type=int, required=True,
+                    help="replica count the supervisor holds")
+    fs.add_argument("--pool", help="resource pool for replica tasks")
+    fs.add_argument("--slots", type=int, help="slots per replica task")
+    fs.add_argument("--env", action="append", metavar="KEY=VALUE",
+                    help="environment override for replica tasks (repeatable)")
+    fs.set_defaults(fn=fleet_set)
+    fst = fleet.add_parser("status", help="fleet spec + per-slot health")
+    fst.add_argument("--json", action="store_true")
+    fst.set_defaults(fn=fleet_status)
+    mr = model.add_parser("register-version")
+    mr.add_argument("name")
+    mr.add_argument("checkpoint_uuid")
+    mr.set_defaults(fn=model_register_version)
+
+    master = sub.add_parser("master").add_subparsers(dest="verb", required=True)
+    master.add_parser("info").set_defaults(fn=master_info)
+
+    sv = sub.add_parser(
+        "serve",
+        help="run an online-serving replica from a trial checkpoint "
+        "(docs/serving.md)",
+    )
+    sv.add_argument("checkpoint", nargs="?", default=None,
+                    help="trial checkpoint directory to serve "
+                         "(or use --model to resolve one via the registry)")
+    sv.add_argument("--model", default=None, metavar="NAME[@VERSION]",
+                    help="serve a registry model version resolved through "
+                         "the master, e.g. lm@latest or lm@v3 "
+                         "(docs/registry.md)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument(
+        "--port", type=int, default=0,
+        help="HTTP port (default 0: OS-assigned, printed at startup)",
+    )
+    sv.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV-cache block")
+    sv.add_argument("--num-blocks", type=int, default=256,
+                    help="KV-cache pool size in blocks")
+    sv.add_argument("--max-batch", type=int, default=8,
+                    help="decode lanes (max sequences in flight)")
+    sv.add_argument("--max-prompt-len", type=int, default=128)
+    sv.add_argument("--max-new-tokens", type=int, default=64)
+    sv.add_argument("--queue-depth", type=int, default=16,
+                    help="admission queue depth (full -> 429)")
+    sv.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true", default=True,
+                    help="share KV blocks across requests with a common "
+                         "prompt prefix (default on; docs/serving.md)")
+    sv.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false",
+                    help="disable prefix sharing: every request prefills "
+                         "private blocks")
+    sv.add_argument("--decode-chunk-blocks", type=int, default=1,
+                    help="lazy decode: gather the block table this many "
+                         "columns per attention pass, skipping columns "
+                         "past the longest live sequence (0 = legacy "
+                         "full-table gather; must divide the table width)")
+    sv.add_argument("--model-name", default=None,
+                    help="label shown in the master's replica listing")
+    sv.set_defaults(fn=serve_cmd)
+
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from determined_tpu_torch.api.session import APIError
+
     args = build_parser().parse_args(argv)
     try:
         return args.fn(args)
     except KeyboardInterrupt:
         return 130
+    except APIError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1

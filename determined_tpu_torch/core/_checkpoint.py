@@ -35,7 +35,12 @@ import uuid as uuid_mod
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from determined_tpu_torch.observability import get_tracer
-from determined_tpu_torch.storage.base import StorageManager, file_md5, list_directory
+from determined_tpu_torch.storage.base import (
+    StorageManager,
+    file_md5,
+    list_directory,
+    md5_files,
+)
 from determined_tpu_torch.utils.errors import (
     CheckpointCorruptError,
     CheckpointNotFoundError,
@@ -101,6 +106,7 @@ def verify_manifest(path: str, require_manifest: bool = False) -> bool:
     except (OSError, ValueError, KeyError, TypeError) as e:
         raise CheckpointCorruptError(f"unreadable manifest at {mf}: {e}") from e
     problems: List[str] = []
+    to_hash: List[str] = []
     for rel, entry in files.items():
         full = os.path.join(path, rel)
         if not os.path.isfile(full):
@@ -110,8 +116,10 @@ def verify_manifest(path: str, require_manifest: bool = False) -> bool:
         if size != entry.get("size"):
             problems.append(f"{rel}: size {size} != manifest {entry.get('size')}")
             continue
-        want = entry.get("md5")
-        if want and file_md5(full) != want:
+        if entry.get("md5"):
+            to_hash.append(rel)
+    for rel, got in md5_files(path, to_hash).items():
+        if got != files[rel]["md5"]:
             problems.append(f"{rel}: md5 mismatch")
     if problems:
         raise CheckpointCorruptError(
@@ -251,11 +259,9 @@ class CheckpointContext:
         paths = self._selected(ckpt_dir, selector)
         selected = set(paths)
         resources = {p: sz for p, sz in list_directory(ckpt_dir).items() if p in selected}
-        digests = {
-            p: file_md5(os.path.join(ckpt_dir, p))
-            for p in paths
-            if not p.endswith("/") and p != METADATA_FILE
-        }
+        digests = md5_files(
+            ckpt_dir, [p for p in paths if not p.endswith("/") and p != METADATA_FILE]
+        )
         return resources, digests, paths
 
     def _upload_sharded(
@@ -443,7 +449,7 @@ class CheckpointContext:
             mine = files[rank::size]
             resources = {p: listed[p] for p in mine}
             resources.update({p: sz for p, sz in listed.items() if p.endswith("/")})
-            digests = {p: file_md5(os.path.join(path, p)) for p in mine}
+            digests = md5_files(path, mine)
         return resources, digests
 
     # -- read path ---------------------------------------------------------

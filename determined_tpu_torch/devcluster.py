@@ -44,12 +44,25 @@ def binaries_built(where: Optional[str] = None) -> bool:
 
 def build_binaries(where: Optional[str] = None, force: bool = False) -> float:
     """Build dtpu-master and dtpu-agent into ``where`` (``build_dir()``);
-    returns the seconds it took (0 when they were there)."""
+    returns the seconds it took (0 when they were there, or another
+    process built them while this one waited for the directory's lock)."""
+    import fcntl
+
     where = where or build_dir()
     if binaries_built(where) and not force:
         return 0.0
-    t0 = time.monotonic()
     os.makedirs(where, exist_ok=True)
+    # one build at a time per directory (parallel test workers share
+    # native/build): a second caller waits, then finds the binaries there
+    with open(os.path.join(where, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if binaries_built(where) and not force:
+            return 0.0
+        return _build(where)
+
+
+def _build(where: str) -> float:
+    t0 = time.monotonic()
     native = os.path.join(REPO, "native")
     if shutil.which("cmake"):
         steps = [[["cmake", "-S", native, "-B", where, "-DCMAKE_BUILD_TYPE=Release"]],
@@ -79,9 +92,14 @@ def _get(url: str, timeout: float = 2.0):
 
 class LocalCluster:
     """A master and ``agents`` agents on this host, each agent running the
-    port's trials through the launcher.  ``stop()`` ends every process it
-    started (SIGTERM, then SIGKILL of what is left, with each process
-    group, so a trial an agent forked goes too)."""
+    port's trials and serving replicas through the launcher.  The cluster
+    lives from ``start()`` to ``stop()``, so one cluster can carry several
+    runs (a training run, then the fleet serving its checkpoints);
+    ``master_args`` are extra ``dtpu-master`` flags, as
+    ``scripts/devcluster.py``'s ``DevCluster(master_args=...)`` takes them.
+    ``stop()`` ends every process it started (SIGTERM, then SIGKILL of what
+    is left, with each process group, so a trial an agent forked goes
+    too)."""
 
     def __init__(
         self,
@@ -95,6 +113,7 @@ class LocalCluster:
         scheduler: str = "priority",
         cwd: Optional[str] = None,
         where: Optional[str] = None,
+        master_args: Sequence[str] = (),
     ) -> None:
         from determined_tpu_torch.core import allocate_port
 
@@ -110,6 +129,8 @@ class LocalCluster:
         self.log_dir = os.path.join(state_dir, "logs")
         self.cwd = cwd or REPO
         self.where = where or build_dir()
+        #: extra dtpu-master flags (``--serve-replica-timeout-sec 5``, ...)
+        self.master_args = list(master_args)
         self.url = f"http://127.0.0.1:{self.port}"
         self.procs: Dict[str, subprocess.Popen] = {}
 
@@ -128,6 +149,7 @@ class LocalCluster:
             binary("dtpu-master", self.where), "--host", "127.0.0.1", "--port", str(self.port),
             "--state-dir", os.path.join(self.state_dir, "master"),
             "--checkpoint-dir", self.checkpoint_dir, "--scheduler", self.scheduler,
+            *self.master_args,
         ])
         deadline = time.monotonic() + timeout
         while True:
@@ -197,6 +219,18 @@ class LocalCluster:
                 p.wait(timeout=5)
             except subprocess.TimeoutExpired:
                 pass
+
+    def task_pid(self, task_id: str) -> Optional[int]:
+        """The pid of the process an agent runs for ``task_id`` (a trial's
+        allocation or a generic task such as a serving replica), from the
+        agent's pidfile; None when no agent runs it."""
+        for i in range(self.n_agents):
+            try:
+                with open(os.path.join(self.state_dir, f"agent-{i}", f"{task_id}.pid")) as f:
+                    return int(f.read().strip())
+            except (OSError, ValueError):
+                continue
+        return None
 
     def _kill_trials(self) -> None:
         """SIGKILL the process group of every trial an agent left running

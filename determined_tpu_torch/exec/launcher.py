@@ -4,7 +4,8 @@
 
 The native agent execs ``<python> -m determined_tpu.exec.<name> [args]`` for
 every trial (``run_trial``) and checkpoint-GC task (``gc_checkpoints``), and
-``<python> -m <module>`` for the module the master names.  This launcher
+``<python> -m <module>`` for the module the master names (the serving
+fleet's replicas: ``serve_replica``).  This launcher
 takes that argv and execs ``python -m determined_tpu_torch.exec.<name>
 [args]`` with the interpreter that runs it, so the port's trial process runs
 where the JAX package's would, with no change to the agent.  A module the
@@ -27,7 +28,8 @@ from typing import List, Optional, Tuple
 JAX_PREFIX = "determined_tpu."
 PORT_PREFIX = "determined_tpu_torch."
 #: the exec modules the port has
-PORTED = ("determined_tpu_torch.exec.run_trial", "determined_tpu_torch.exec.gc_checkpoints")
+PORTED = ("determined_tpu_torch.exec.run_trial", "determined_tpu_torch.exec.gc_checkpoints",
+          "determined_tpu_torch.exec.serve_replica")
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 

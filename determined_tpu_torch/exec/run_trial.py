@@ -47,8 +47,6 @@ import sys
 # applied (tests/test_torch_imports.py holds this module to it)
 from determined_tpu_torch.exec._tls import urlopen as _tls_urlopen
 
-#: names the device a cluster trial trains on (``cuda`` when unset)
-DEVICE_ENV = "DTPU_TORCH_DEVICE"
 RUN_TRIAL = "determined_tpu_torch.exec.run_trial"
 
 
@@ -65,31 +63,6 @@ def _apply_environment_early() -> None:
             env = {}
         for k, v in env.items():
             os.environ[str(k)] = str(v)
-
-
-def _extract_context(data: bytes, dst: str) -> None:
-    """Unpack a context tarball, refusing path traversal (a copy of
-    ``determined_tpu/common/context.py``'s ``extract_context``)."""
-    import io
-    import tarfile
-
-    os.makedirs(dst, exist_ok=True)
-    dst_real = os.path.realpath(dst)
-    with tarfile.open(fileobj=io.BytesIO(data), mode="r:gz") as tar:
-        for member in tar.getmembers():
-            target = os.path.realpath(os.path.join(dst_real, member.name))
-            if not (target == dst_real or target.startswith(dst_real + os.sep)):
-                raise RuntimeError(f"context entry escapes workdir: {member.name}")
-            if member.issym() or member.islnk():
-                link_target = os.path.realpath(
-                    os.path.join(os.path.dirname(target), member.linkname)
-                )
-                if not link_target.startswith(dst_real + os.sep):
-                    raise RuntimeError(
-                        f"context link escapes workdir: {member.name} -> {member.linkname}"
-                    )
-        # "data" filter re-checks traversal/links/permissions
-        tar.extractall(dst_real, filter="data")
 
 
 def _prepare_context(logger) -> None:
@@ -126,7 +99,9 @@ def _prepare_context(logger) -> None:
     workdir = tempfile.mkdtemp(
         prefix=f"dtt-ctx-{os.environ.get('DTPU_ALLOCATION_ID', 'alloc')}-"
     )
-    _extract_context(data, workdir)
+    from determined_tpu_torch.common.context import extract_context
+
+    extract_context(data, workdir)
     os.chdir(workdir)
     logger.info("context: unpacked %d bytes into %s", len(data), workdir)
 
@@ -460,7 +435,7 @@ def main() -> int:
     import torch
 
     from determined_tpu_torch import core, train
-    from determined_tpu_torch._device import resolve_device
+    from determined_tpu_torch._device import task_device
     from determined_tpu_torch.config.experiment import ExperimentConfig, Length
     from determined_tpu_torch.core._cluster_info import get_cluster_info
     from determined_tpu_torch.exec.gang_rank import launch_counts
@@ -474,15 +449,7 @@ def main() -> int:
     exp_config = ExperimentConfig.parse(cluster.exp_config or {})
     _check_lint(exp_config.lint, logger)
 
-    device = resolve_device(os.environ.get(DEVICE_ENV) or None)
-    if device.type == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device() if device.index is None
-                              else device.index)
-        logger.info("device: %s (%s), CUDA_VISIBLE_DEVICES=%s", device,
-                    torch.cuda.get_device_name(device),
-                    os.environ.get("CUDA_VISIBLE_DEVICES", "(unset)"))
-    else:
-        logger.info("device: %s (%s=%s)", device, DEVICE_ENV, os.environ.get(DEVICE_ENV))
+    device = task_device(logger)
 
     module_name, _, class_name = sys.argv[1].partition(":")
     _prepare_context(logger)

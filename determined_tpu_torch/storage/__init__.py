@@ -5,6 +5,7 @@ from determined_tpu_torch.storage.base import (  # noqa: F401
     StorageManager,
     file_md5,
     from_string,
+    md5_files,
     list_directory,
 )
 from determined_tpu_torch.storage.shared_fs import (  # noqa: F401

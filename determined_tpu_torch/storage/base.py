@@ -4,17 +4,19 @@ A StorageManager moves checkpoint directories between a local staging path
 and durable storage.  The port has the shared_fs and directory backends
 (``storage/shared_fs.py``); the S3, GCS and Azure backends raise
 ``NotImplementedError`` (a later slice of the port).  ``from_string`` parses
-"s3://bucket/prefix"-style URLs as the JAX package's does.
+"s3://bucket/prefix"-style URLs as the JAX package's does.  ``md5_files``
+digests a checkpoint's files at once, a thread a file.
 """
 
 from __future__ import annotations
 
 import abc
+import concurrent.futures
 import contextlib
 import hashlib
 import os
 import shutil
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 from determined_tpu_torch.utils import faults
 
@@ -28,6 +30,18 @@ def file_md5(path: str, chunk: int = 1 << 20) -> str:
                 break
             h.update(b)
     return h.hexdigest()
+
+
+def md5_files(root: str, rels: Iterable[str]) -> Dict[str, str]:
+    """``file_md5`` of each file under ``root``, a thread a file (hashlib
+    and file reads release the GIL), so a checkpoint's digest takes the
+    time of its largest file rather than of all of them."""
+    rels = list(rels)
+    if len(rels) < 2:
+        return {r: file_md5(os.path.join(root, r)) for r in rels}
+    workers = min(len(rels), os.cpu_count() or 1, 8)
+    with concurrent.futures.ThreadPoolExecutor(workers, thread_name_prefix="dtpu-md5") as pool:
+        return dict(zip(rels, pool.map(lambda r: file_md5(os.path.join(root, r)), rels)))
 
 
 def list_directory(root: str) -> Dict[str, int]:

@@ -243,6 +243,8 @@ def test_cluster_info_reads_the_jax_fields_and_round_trips(monkeypatch):
     ("determined_tpu.exec.run_trial", "determined_tpu_torch.exec.run_trial"),
     ("determined_tpu.exec.gc_checkpoints", "determined_tpu_torch.exec.gc_checkpoints"),
     ("determined_tpu_torch.exec.run_trial", "determined_tpu_torch.exec.run_trial"),
+    # the module the master's fleet supervisor launches for every replica
+    ("determined_tpu.exec.serve_replica", "determined_tpu_torch.exec.serve_replica"),
 ])
 def test_launcher_maps_the_agents_module_to_the_ports(module, mapped):
     exe, argv = launcher.command(["-m", module, "pkg.mod:Trial"])
@@ -252,9 +254,11 @@ def test_launcher_maps_the_agents_module_to_the_ports(module, mapped):
 
 @pytest.mark.parametrize("argv", [
     ["-m", "determined_tpu.exec.shell"],
-    ["-m", "determined_tpu.exec.serve_replica"],
+    ["-m", "determined_tpu.exec.tensorboard"],
     ["-m", "some.other.module"],
     ["determined_tpu/exec/run_trial.py"],
+    ["-m", "determined_tpu.exec.notebook"],
+    ["-m", "determined_tpu.exec.command"],
 ])
 def test_launcher_refuses_what_the_port_lacks(argv):
     with pytest.raises(launcher.LauncherError):
@@ -276,3 +280,25 @@ def test_launcher_execs_the_ports_module_and_exits_2_for_others(tmp_path):
                              env=env, capture_output=True, text=True, timeout=60)
     assert refused.returncode == 2
     assert "determined_tpu.exec.notebook" in refused.stderr
+
+
+@pytest.mark.parametrize("module, code, says", [
+    # the port's replica runs: a task config with no storage fails fast
+    ("determined_tpu.exec.serve_replica", 1,
+     "serve replica: storage path '' is not a directory"),
+    ("determined_tpu.exec.tensorboard", 2, "'determined_tpu.exec.tensorboard' has no counterpart"),
+    ("determined_tpu.exec.notebook", 2, "'determined_tpu.exec.notebook' has no counterpart"),
+    ("determined_tpu.exec.shell", 2, "'determined_tpu.exec.shell' has no counterpart"),
+    ("determined_tpu.exec.command", 2, "'determined_tpu.exec.command' has no counterpart"),
+])
+def test_launcher_runs_the_ports_serve_replica_and_refuses_the_task_containers(
+        tmp_path, module, code, says):
+    """The master starts each task by module name (``serve_replica`` for
+    the fleet, ``master.cpp:1610``): the port's replica answers, and the
+    four task containers the port lacks exit 2 naming themselves."""
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "DTPU_TASK_CONFIG")}
+    path = os.path.join(REPO, "determined_tpu_torch", "exec", "launcher.py")
+    ran = subprocess.run([path, "-m", module], cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert ran.returncode == code, ran.stderr
+    assert says in ran.stderr

@@ -333,7 +333,8 @@ def test_run_trial_ships_its_own_logs_and_exit_as_the_jax_one(tmp_path):
 @pytest.mark.parametrize("named, code", [
     ("determined_tpu.exec.gc_checkpoints", 0),    # the port's counterpart runs
     ("determined_tpu_torch.exec.gc_checkpoints", 0),
-    ("determined_tpu.exec.serve_replica", 2),     # the port lacks it: refused
+    ("determined_tpu.exec.serve_replica", 1),     # the port's replica runs; no storage: 1
+    ("determined_tpu.exec.shell", 2),             # the port lacks it: refused
     ("determined_tpu.exec.run_trial", 2),         # not a task: refused
     ("json.tool", 2),                             # outside the port: refused
 ])
@@ -350,6 +351,9 @@ def test_run_trial_dispatches_a_task_to_the_ports_module_only(tmp_path, named, c
     if code == 0:
         assert not (store / "ck-1").exists()
         assert "gc: deleted checkpoint ck-1" in proc.stderr
+    elif code == 1:
+        assert (store / "ck-1").exists()
+        assert "serve replica: storage path '' is not a directory" in proc.stderr
     else:
         assert (store / "ck-1").exists()
         assert f"task module {named!r} has no counterpart in determined_tpu_torch" in proc.stderr

@@ -294,6 +294,13 @@ def test_run_local_without_a_gpu_raises_instead_of_training_on_cpu(tmp_path):
     ("determined_tpu_torch.experiment.registry", False),
     ("determined_tpu_torch.devcluster", True),
     ("determined_tpu_torch.experiment.cluster", False),
+    ("determined_tpu_torch.exec.serve_replica", True),
+    ("determined_tpu_torch.serve.replica", False),
+    ("determined_tpu_torch.client", True),
+    ("determined_tpu_torch.common.context", True),
+    ("determined_tpu_torch.cli.main", True),
+    # the package's names load when read: the registry client alone stays light
+    ("determined_tpu_torch.experiment", True),
 ])
 def test_cluster_modules_import_nothing_of_jax_or_requests(module, no_torch):
     """The cluster path's modules are the port's own copies on the standard
