@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--phases kernel,serve,parity,train,train_parity,experiment,search,observe,
-                  knobs,serve_ckpt,models,hf,moe,seq,gang,cluster,pipe,fleet]
+                  knobs,serve_ckpt,models,hf,moe,seq,gang,cluster,pipe,fleet,overlap]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -414,6 +414,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    direct, deploy -> drained -> relaunched -> registered on v2, SIGKILL
    -> relaunched -> registered, each replica's from_checkpoint seconds with
    the md5 part, and the phase's seconds.
+
+20. overlap: phase 5's workload again through an experiment configuration
+   with ``optimizations.overlap_grad_sync: true``.  On one card the mesh
+   has no gradient-reduction axis, so the Trainer builds no plan (JAX's
+   ``build_plan`` returns None there): the reported losses and the
+   validation loss equal phase 5's bitwise, with phase 5's launches (the
+   counters set to 0 just before fit, read just after; asked for without
+   phase 5, phase 5 runs first and says so).  Printed: the overlapped
+   sync's plan (train/_overlap.py) for the flagship's leaves at full width
+   on data 4 and on dcn 2 x data 2, flat and hierarchical, at the default
+   4 MiB buckets: the buckets, the synced leaves, the FSDP2 units they
+   give, the ring bytes a step over each hop, the links' bandwidths (the
+   card's table entry, or its labelled placeholder) and the comm model's
+   exposed and hidden milliseconds at phase 5's step time.
 
 Prints, before the last line, the kernels line (JSON), the script's total
 seconds and the card's name and power limit, and as the last line
@@ -1082,7 +1096,10 @@ PIPE_MB_SHAPE = (2, 16, 2048, 128)  # a microbatch's attention: [b, h, s, d]
 
 PHASES = ("kernel", "serve", "parity", "train", "train_parity", "experiment", "search",
           "observe", "knobs", "serve_ckpt", "models", "hf", "moe", "seq", "gang", "cluster",
-          "pipe", "fleet")
+          "pipe", "fleet", "overlap")
+OVERLAP_BUCKET_MB = 4  # optimizations.overlap_bucket_mb's default
+OVERLAP_MESHES = (("data4", {"data": 4}, False), ("dcn2_data2_flat", {"dcn": 2, "data": 2}, False),
+                  ("dcn2_data2_hier", {"dcn": 2, "data": 2}, True))
 
 
 def log(msg: str) -> None:
@@ -1677,6 +1694,7 @@ def phase_train(seed: int) -> dict:
         tokens_per_s=tokens_per_s, flops_per_token=trial.flops_per_token,
         mfu_vs_989_tflops=mfu, first_report_loss=first_loss, last_report_loss=last_loss,
         validation_loss=val_loss, peak_memory_gib=peak_gib, launches=launches,
+        losses=[m["loss"] for _, m in reports],
     )
     log("train: " + json.dumps(out))
     out["profile"] = profile_train(trainer)
@@ -1907,23 +1925,39 @@ def _dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
 
+# a checkpoint directory's manifest verdict, kept while its files keep the
+# sizes and mtimes it was checked at: a phase that lists its checkpoints
+# again reads only the new ones
+_VERDICTS: dict = {}
+
+
+def _verified(d: str) -> bool:
+    from determined_tpu_torch.core import file_stats, verify_manifest
+
+    stats = file_stats(d)
+    known = _VERDICTS.get(d)
+    if known is not None and known[0] == stats:
+        return known[1]
+    verdict = verify_manifest(d, require_manifest=True)
+    _VERDICTS[d] = (stats, verdict)
+    return verdict
+
+
 def _checkpoint_steps(root: str) -> dict:
     """uuid -> steps_completed of every checkpoint under ``root``, and the
-    manifest verdict of each."""
+    manifest verdict of each (the directories checked at once, each one
+    once while its files are unchanged)."""
     import os
 
-    from determined_tpu_torch.core import verify_manifest
-
-    out = {}
+    dirs = {}
     for d, _, files in os.walk(root):
         if "metadata.json" in files:
             with open(os.path.join(d, "metadata.json")) as f:
-                steps = json.load(f)["steps_completed"]
-            out[os.path.basename(d)] = dict(
-                steps=steps, verified=verify_manifest(d, require_manifest=True),
-                bytes=_dir_bytes(d),
-            )
-    return out
+                dirs[d] = json.load(f)["steps_completed"]
+    with concurrent.futures.ThreadPoolExecutor(max(len(dirs), 1)) as pool:
+        verdicts = dict(zip(dirs, pool.map(_verified, dirs)))
+    return {os.path.basename(d): dict(steps=steps, verified=verdicts[d], bytes=_dir_bytes(d))
+            for d, steps in dirs.items()}
 
 
 def _final_state(trainer) -> dict:
@@ -2123,7 +2157,7 @@ def load_compared(path: str, trial_class):
 
     from determined_tpu_torch.train import _load
 
-    with mock.patch.object(_load, "verify_manifest", lambda path: None):
+    with mock.patch.object(_load, "verify_manifest", lambda path, **kw: None):
         return _load.load_trial_from_checkpoint(path, trial_class=trial_class, device="cuda")
 
 
@@ -5847,6 +5881,71 @@ def phase_pipe(seed: int) -> dict:
     return out
 
 
+def phase_overlap(seed: int, trained: dict) -> dict:
+    """Phase 20 (module docstring): phase 5 with overlap_grad_sync on one
+    card, equal to it bitwise, and the plan of the flagship's leaves on
+    four cards' meshes."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.train import _overlap
+
+    t0 = time.monotonic()
+    cfg = ExperimentConfig.parse({"hyperparameters": dict(TRAIN_HPARAMS),
+                                  "optimizations": {"overlap_grad_sync": True}})
+    ctx = train.init(exp_config=cfg, seed=seed)
+    trainer = train.Trainer(LMTrial(ctx))
+    _reset_launches()
+    summary = trainer.fit(max_length=TRAIN_STEPS, report_period=TRAIN_REPORT,
+                          validation_period=TRAIN_STEPS, checkpoint_policy="none")
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    losses = [m["loss"] for _, m in ctx.core.train.metrics("training")]
+    val_loss = summary["validation_metrics"]["validation_loss"]
+    assert trainer._overlap_plan is None and trainer._comm_model is None, \
+        "one card has no gradient-reduction axis: no plan"
+    assert losses == trained["losses"], f"losses {losses} != phase 5's {trained['losses']}"
+    assert val_loss == trained["validation_loss"], (val_loss, trained["validation_loss"])
+    assert launches == trained["launches"], f"launches {launches} != phase 5's"
+    train_s = time.monotonic() - t0
+
+    kind = torch.cuda.get_device_name(0)
+    ici_bw, dcn_bw = _overlap.link_bandwidths(kind)
+    # the within-slice figure is the card's table entry unless none exists;
+    # the cross-slice one is always the placeholder on one host
+    table_ici = _overlap._table_bw(kind, _overlap.ICI_BW_BY_KIND, 0.0) or None
+    step_s = trained["mean_step_ms_last_20"] / 1e3
+    leaves = _overlap.model_leaves(trainer.model)
+    plans = {}
+    for label, mesh, hier in OVERLAP_MESHES:
+        plan = _overlap.build_plan(leaves, mesh, enabled=True,
+                                   bucket_bytes=OVERLAP_BUCKET_MB << 20, hierarchical=hier,
+                                   device_kind=kind)
+        sizes = plan.bucket_bytes()
+        plans[label] = dict(
+            mesh=mesh, hierarchical=bool(plan.hierarchical_dcn), buckets=len(plan.buckets),
+            synced_leaves=plan.synced_leaves, leaves=len(leaves),
+            bucket_mib=[min(sizes) / 2 ** 20, max(sizes) / 2 ** 20],
+            fsdp_units=len(_overlap.fsdp_units(plan, trainer.model)),
+            ici_bytes_per_step=plan.comm.bytes_per_step,
+            dcn_bytes_per_step=plan.comm.dcn_bytes_per_step,
+            fingerprint=plan.fingerprint(),
+            split_ms_at_phase5_step={hop: [e * 1e3, h * 1e3] for hop, (e, h) in
+                                     plan.comm.split_hops(step_s).items()},
+        )
+    flat, hier = plans["dcn2_data2_flat"], plans["dcn2_data2_hier"]
+    assert hier["dcn_bytes_per_step"] == flat["dcn_bytes_per_step"] // 2
+    out = dict(card=card_line(), plan_on_one_card=None, losses_bitwise_phase5=True,
+               launches=launches, train_s=train_s, phase5_step_ms=step_s * 1e3,
+               bandwidth_gb_per_s={"ici": ici_bw / 1e9, "dcn": dcn_bw / 1e9},
+               ici_table_entry_gb_per_s=table_ici and table_ici / 1e9, plans=plans,
+               phase_s=time.monotonic() - t0)
+    log("overlap: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     t_start = time.monotonic()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5869,6 +5968,9 @@ def main() -> int:
 
     card = card_line()
     log(f"card: {card}")
+    if "overlap" in phases and "train" not in phases:
+        log("overlap: phase 20 holds phase 5's run: running phase 5 (train) first")
+        phases.add("train")
     if "fleet" in phases and "cluster" not in phases:
         log("fleet: phase 19 serves phase 17's registry on its cluster: running phase 17 "
             "(cluster) first")
@@ -5976,6 +6078,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         pipe = phase_pipe(args.seed)
 
+    overlap = None
+    if "overlap" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        overlap = phase_overlap(args.seed, trained)
+
     if kernel and serve is not None and trained is not None:
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -6038,6 +6146,9 @@ def main() -> int:
                 fields["pipe_shapes"] = pipe["K"][name]
                 fields["max_abs_err"] = max([fields["max_abs_err"]] + [
                     r["max_abs_err"] for r in pipe["K"][name].values()])
+            if overlap is not None:
+                # phase 5 again with overlap_grad_sync on one card
+                by_phase["overlap"] = overlap["launches"][name]
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=trained["launches"][name], launches_by_phase=by_phase,

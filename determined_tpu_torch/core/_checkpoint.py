@@ -79,14 +79,17 @@ def build_manifest(
     return {"version": MANIFEST_VERSION, "parent": parent, "files": files}
 
 
-def verify_manifest(path: str, require_manifest: bool = False) -> bool:
+def verify_manifest(path: str, require_manifest: bool = False,
+                    only: Optional[Callable[[str], bool]] = None) -> bool:
     """Check a local checkpoint directory against its manifest.
 
     Returns True when verified, False when no manifest exists (legacy /
     foreign checkpoint) and ``require_manifest`` is unset.  Raises
     ``CheckpointCorruptError`` on a missing-but-required manifest, an
     unreadable manifest, or any size/digest mismatch — the caller must
-    treat the checkpoint as poison and fall back.
+    treat the checkpoint as poison and fall back.  ``only`` checks the
+    manifest's files it accepts (the ones a partial load reads) and no
+    other.
     """
     mf = os.path.join(path, MANIFEST_FILE)
     if not os.path.exists(mf):
@@ -108,6 +111,8 @@ def verify_manifest(path: str, require_manifest: bool = False) -> bool:
     problems: List[str] = []
     to_hash: List[str] = []
     for rel, entry in files.items():
+        if only is not None and not only(rel):
+            continue
         full = os.path.join(path, rel)
         if not os.path.isfile(full):
             problems.append(f"{rel}: missing")
@@ -449,7 +454,7 @@ class CheckpointContext:
             mine = files[rank::size]
             resources = {p: listed[p] for p in mine}
             resources.update({p: sz for p, sz in listed.items() if p.endswith("/")})
-            digests = md5_files(path, mine)
+            digests = md5_files(path, mine, written=True)
         return resources, digests
 
     # -- read path ---------------------------------------------------------

@@ -99,7 +99,16 @@ class LocalCluster:
     ``scripts/devcluster.py``'s ``DevCluster(master_args=...)`` takes them.
     ``stop()`` ends every process it started (SIGTERM, then SIGKILL of what
     is left, with each process group, so a trial an agent forked goes
-    too)."""
+    too).
+
+    ``slices`` splits the agents into that many contiguous blocks, each
+    agent started with ``--slice-id slice-<s>`` (``native/agent``): the
+    master then stamps each gang with the slices it spans
+    (``DTPU_NUM_SLICES``) and applies a trial's ``resources.elastic``
+    policy to slice losses and returning capacity.  Agent ids follow the
+    blocks, so a gang's node ranks are slice-major.  ``kill_agents`` takes
+    agents down as a lost host goes (SIGKILL of the agent and of the
+    trials it runs), and ``start_agents`` brings them back."""
 
     def __init__(
         self,
@@ -114,6 +123,7 @@ class LocalCluster:
         cwd: Optional[str] = None,
         where: Optional[str] = None,
         master_args: Sequence[str] = (),
+        slices: int = 1,
     ) -> None:
         from determined_tpu_torch.core import allocate_port
 
@@ -124,6 +134,9 @@ class LocalCluster:
         self.gpus = list(gpus) if gpus is not None else None
         if self.gpus is not None and len(self.gpus) != agents:
             raise ValueError(f"{agents} agents need {agents} GPUs, got {self.gpus}")
+        if slices < 1 or agents % slices:
+            raise ValueError(f"{agents} agents do not split into {slices} slices")
+        self.slices = slices
         self.port = port or allocate_port()
         self.scheduler = scheduler
         self.log_dir = os.path.join(state_dir, "logs")
@@ -161,25 +174,51 @@ class LocalCluster:
                 if time.monotonic() > deadline:
                     raise RuntimeError(f"dtpu-master did not come up in {timeout:.0f} s")
                 time.sleep(0.1)
-        for i in range(self.n_agents):
+        self.start_agents(range(self.n_agents), timeout=max(deadline - time.monotonic(), 1.0))
+        return self
+
+    def slice_of(self, i: int) -> int:
+        """The slice agent ``i`` belongs to."""
+        return i * self.slices // self.n_agents
+
+    def start_agents(self, agents: Sequence[int], timeout: float = 30.0) -> None:
+        """Start (or restart) the agents ``agents`` and wait until the
+        master lists them."""
+        for i in agents:
             env = dict(os.environ)
             env["PYTHONPATH"] = REPO + (os.pathsep + env["PYTHONPATH"]
                                         if env.get("PYTHONPATH") else "")
             if self.gpus is not None:
                 env["CUDA_VISIBLE_DEVICES"] = str(self.gpus[i])
+            slice_id = ["--slice-id", f"slice-{self.slice_of(i)}"] if self.slices > 1 else []
             self._spawn(f"agent-{i}", [
                 binary("dtpu-agent", self.where), "--master-host", "127.0.0.1",
                 "--master-port", str(self.port), "--id", f"agent-{i}",
                 "--slots", str(self.slots), "--python", LAUNCHER,
-                "--state-dir", os.path.join(self.state_dir, f"agent-{i}"),
+                "--state-dir", os.path.join(self.state_dir, f"agent-{i}"), *slice_id,
             ], env=env)
+        deadline = time.monotonic() + timeout
         session = self.session()
-        while len(session.get("/api/v1/agents").json()) < self.n_agents:
+        want = {f"agent-{i}" for i in agents}
+        while not want <= {a["id"] for a in session.get("/api/v1/agents").json()
+                           if a.get("alive", True)}:
             self._check_alive()
             if time.monotonic() > deadline:
-                raise RuntimeError(f"{self.n_agents} agents did not register in {timeout:.0f} s")
+                raise RuntimeError(f"agents {sorted(want)} did not register in {timeout:.0f} s")
             time.sleep(0.1)
-        return self
+
+    def kill_agents(self, agents: Sequence[int]) -> None:
+        """SIGKILL the agents ``agents`` and every trial process they run,
+        as a lost host takes them: the master sees the agents stop polling."""
+        for i in agents:
+            self._kill_trials([i])
+            p = self.procs.pop(f"agent-{i}", None)
+            if p is not None and p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except OSError:
+                    pass
+                p.wait()
 
     def _check_alive(self) -> None:
         for name, p in self.procs.items():
@@ -232,11 +271,12 @@ class LocalCluster:
                 continue
         return None
 
-    def _kill_trials(self) -> None:
-        """SIGKILL the process group of every trial an agent left running
-        (the agent forks each into a group of its own and records its pid
-        under its state directory)."""
-        for i in range(self.n_agents):
+    def _kill_trials(self, agents: Optional[Sequence[int]] = None) -> None:
+        """SIGKILL the process group of every trial an agent (of
+        ``agents``, by default all) left running (the agent forks each into
+        a group of its own and records its pid under its state
+        directory)."""
+        for i in range(self.n_agents) if agents is None else agents:
             state = os.path.join(self.state_dir, f"agent-{i}")
             for name in os.listdir(state) if os.path.isdir(state) else ():
                 if not name.endswith(".pid"):

@@ -37,11 +37,13 @@ master's Kubernetes and Slurm paths exec the JAX package's module today
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import logging
 import os
 import sys
+from typing import Any
 
 # stdlib only: torch must not load before the experiment's environment is
 # applied (tests/test_torch_imports.py holds this module to it)
@@ -390,6 +392,28 @@ def _check_lint(lint_cfg, logger) -> None:
         logger.info("preflight: the lint package is not ported yet; the trial runs unchecked")
 
 
+def elastic_num_slices(exp_config: Any, logger: Any = None) -> Any:
+    """JAX run_trial's elastic reshard: under ``resources.elastic`` the
+    master stamps each launch with the number of slices its gang spans
+    (``DTPU_NUM_SLICES``), and the mesh's ``num_slices`` (never a wildcard)
+    takes it before any mesh is built; the wildcard axis then absorbs the
+    placed width (``DTPU_ELASTIC_SLOTS`` ranks) when the mesh resolves
+    against the world.  Without the stamp or the policy the configuration
+    is returned as it is."""
+    stamped = os.environ.get("DTPU_NUM_SLICES")
+    if not stamped or exp_config.resources.elastic is None:
+        return exp_config
+    mesh = exp_config.resources.mesh
+    if mesh.num_slices == int(stamped):
+        return exp_config
+    if logger is not None:
+        logger.info("elastic: mesh num_slices %d -> %s for this allocation "
+                    "(placed width %s slots)", mesh.num_slices, stamped,
+                    os.environ.get("DTPU_ELASTIC_SLOTS", "?"))
+    return dataclasses.replace(exp_config, resources=dataclasses.replace(
+        exp_config.resources, mesh=dataclasses.replace(mesh, num_slices=int(stamped))))
+
+
 def main() -> int:
     # external-RM jobs ship their own logs; fd redirect must precede any
     # output (and the rank prefixer, which wraps whatever stdout is)
@@ -446,7 +470,7 @@ def main() -> int:
     if cluster is None:
         print("run_trial requires DTPU_* env (set by the agent)")
         return 2
-    exp_config = ExperimentConfig.parse(cluster.exp_config or {})
+    exp_config = elastic_num_slices(ExperimentConfig.parse(cluster.exp_config or {}), logger)
     _check_lint(exp_config.lint, logger)
 
     device = task_device(logger)

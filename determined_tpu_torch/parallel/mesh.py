@@ -4,12 +4,15 @@ Port of ``determined_tpu/parallel/mesh.py``.  Where the JAX package builds a
 ``jax.sharding.Mesh`` over every device of one controller, the port runs one
 process per device (torchrun) and builds a ``DeviceMesh`` with
 ``init_device_mesh`` over the world of its process group, in the JAX mesh's
-axis order ``(pipe, data, fsdp, expert, seq, tensor)``, so rank ``r`` sits
-at the coordinate of the JAX mesh's device ``r``.  ``dcn`` (``num_slices``)
-is not an axis of the port's mesh.  The Trainer runs the ``pipe``,
-``data``, ``fsdp``, ``expert``, ``tensor`` and ``seq`` axes; ``num_slices``
-> 1 raises ``NotImplementedError`` here (``sharding.check_ported``), and so
-do the compositions of later slices.
+axis order ``(dcn, pipe, data, fsdp, expert, seq, tensor)``, so rank ``r``
+sits at the coordinate of the JAX mesh's device ``r``.  ``dcn``
+(``num_slices``) is outermost and slice-major, as JAX's
+``_slice_major_order`` lays it: the ranks of slice ``s`` are the ``s``-th
+contiguous block of the world (JAX's virtual slices on the CPU, and on one
+host a block of its GPUs; through the master a gang's node ranks follow its
+agents' order, so agents are numbered slice by slice).  The Trainer runs
+every axis; the compositions of later slices raise ``NotImplementedError``
+(``sharding.check_ported``).
 """
 
 from __future__ import annotations
@@ -40,9 +43,9 @@ class MeshAxes:
     ICI_BATCH_AXES = (DATA, FSDP)
 
 
-# init_device_mesh's dims: the JAX mesh's order without dcn
+# init_device_mesh's dims: the JAX mesh's order
 MESH_ORDER = (
-    MeshAxes.PIPELINE, MeshAxes.DATA, MeshAxes.FSDP, MeshAxes.EXPERT,
+    MeshAxes.DCN, MeshAxes.PIPELINE, MeshAxes.DATA, MeshAxes.FSDP, MeshAxes.EXPERT,
     MeshAxes.SEQUENCE, MeshAxes.TENSOR,
 )
 

@@ -100,9 +100,11 @@ DEFAULT_RULES: LogicalAxisRules = {
     "fsdp_shard": MeshAxes.FSDP,
 }
 
-# the mesh axes the port does not run yet, and the slice each comes with
-_LATER_AXES = {
-    MeshAxes.DCN: "the multislice slice",
+# the mesh axes the port does not run yet beside ``pipe``, and the slice
+# each comes with
+_LATER_BESIDE_PIPE = {
+    MeshAxes.DCN: "num_slices beside 'pipe' (a pipeline stage's blocks over dcn)",
+    MeshAxes.TENSOR: "the 'tensor' mesh axis beside 'pipe' (JAX's stages replicate over tensor)",
 }
 # the axes MoE blocks do not run on yet
 _MOE_LATER_AXES = (MeshAxes.TENSOR, MeshAxes.SEQUENCE)
@@ -230,16 +232,9 @@ def chunk_range(lo: int, hi: int, n: int, i: int) -> Tuple[int, int]:
 
 
 def check_ported(axis_sizes: Mapping[str, int], moe: bool = False) -> None:
-    """Raise ``NotImplementedError`` for a mesh axis of size > 1 that the
-    port does not run yet; with ``moe`` (a model with MoE blocks) also for
-    the axes MoE blocks do not run on yet."""
-    for axis, what in _LATER_AXES.items():
-        if int(axis_sizes.get(axis, 1)) > 1:
-            name = "num_slices" if axis == MeshAxes.DCN else f"the {axis!r} mesh axis"
-            raise NotImplementedError(
-                f"{name} ({what}) is not ported to determined_tpu_torch yet; it comes "
-                "with a later slice of the port (ROADMAP.md, Queue 1)"
-            )
+    """Raise ``NotImplementedError`` for a composition of mesh axes that the
+    port does not run yet: ``dcn`` or ``tensor`` beside ``pipe``, and with
+    ``moe`` (a model with MoE blocks) MoE blocks on ``tensor`` or ``seq``."""
     pipe = int(axis_sizes.get(MeshAxes.PIPELINE, 1)) > 1
     for axis in _MOE_LATER_AXES if moe else ():
         if int(axis_sizes.get(axis, 1)) > 1:
@@ -249,12 +244,57 @@ def check_ported(axis_sizes: Mapping[str, int], moe: bool = False) -> None:
                 f"MoE blocks on the {axis!r} mesh axis are not ported to determined_tpu_torch "
                 f"yet{also}; they come with a later slice of the port (ROADMAP.md, Queue 1)"
             )
-    if pipe and int(axis_sizes.get(MeshAxes.TENSOR, 1)) > 1:
-        raise NotImplementedError(
-            "the 'tensor' mesh axis beside 'pipe' is not ported to determined_tpu_torch yet "
-            "(JAX's stages replicate over tensor); it comes with a later slice of the port "
-            "(ROADMAP.md, Queue 1)"
-        )
+    for axis, what in _LATER_BESIDE_PIPE.items() if pipe else ():
+        if int(axis_sizes.get(axis, 1)) > 1:
+            raise NotImplementedError(
+                f"{what} is not ported to determined_tpu_torch yet; it comes with a later "
+                "slice of the port (ROADMAP.md, Queue 1)"
+            )
+
+
+def grad_sync_spec(shape: Sequence[int], param_spec: Sequence[Any], mesh: Any,
+                   sync_axes: Sequence[str]) -> Optional[Tuple[Any, ...]]:
+    """The spec of a gradient leaf synced by reduce-scatter
+    (``train/_overlap.py``), JAX's ``grad_sync_spec``: the leaf sharded over
+    ``sync_axes`` on a dim already carrying one of them in ``param_spec``,
+    else on its largest free dim; the dim's whole shard count must divide
+    its size.  None when the leaf is already sharded over every sync axis,
+    when the missing axes hold one device, or when no dim fits (the leaf
+    rides the final all-reduce).  ``mesh`` is anything ``logical_to_mesh_spec``
+    takes; a spec entry is a mesh axis, a tuple of them, or None."""
+    sizes = _axis_sizes(mesh) or {}
+    entries = list(param_spec or ())
+    entries += [None] * (len(shape) - len(entries))
+    norm = [tuple(e) if isinstance(e, (tuple, list)) else ((e,) if e else ()) for e in entries]
+    used = {a for e in norm for a in e}
+    missing = [a for a in sync_axes if a not in used]
+    if not missing:
+        return None
+    missing_n = 1
+    for a in missing:
+        missing_n *= sizes.get(a, 1)
+    if missing_n <= 1:
+        return None
+
+    def dim_ok(d: int, extra: int) -> bool:
+        have = 1
+        for a in norm[d]:
+            have *= sizes.get(a, 1)
+        return shape[d] >= have * extra and shape[d] % (have * extra) == 0
+
+    carrier = None
+    for d in range(len(shape)):
+        if any(a in sync_axes for a in norm[d]) and dim_ok(d, missing_n):
+            carrier = d
+            break
+    if carrier is None:
+        free = [d for d in range(len(shape)) if not norm[d] and dim_ok(d, missing_n)]
+        if not free:
+            return None
+        carrier = max(free, key=lambda d: shape[d])
+    out = list(norm)
+    out[carrier] = out[carrier] + tuple(missing)
+    return tuple(e if len(e) > 1 else (e[0] if e else None) for e in out)
 
 
 class ShardPlan:
@@ -280,6 +320,11 @@ class ShardPlan:
         self.pipe_group = mesh.group(MeshAxes.PIPELINE) if self.pipe_size > 1 else None
         self.synced = [k for k in synced if k in self.params]
         self.sync_group = sync_group
+        # FSDP2's units as shard_model made them: (their leaves, whether a
+        # step gathers them twice: resharded after the forward, gathered
+        # again for the backward), the shard and replicate axes
+        self.units: List[Tuple[List[str], bool]] = []
+        self.dp_axes: Tuple[List[str], Optional[str]] = ([], None)
 
     @torch.no_grad()
     def sync_grads(self, params: Dict[str, torch.nn.Parameter]) -> None:
@@ -411,23 +456,37 @@ class ShardPlan:
         return tuple(box)
 
 
-def _dp_mesh(mesh: Any) -> Tuple[Any, int]:
-    """FSDP2's mesh over the batch-like axes (module docstring) and the
-    size of its shard dim."""
+def dp_axes(sizes: Mapping[str, int],
+            hierarchical: bool = False) -> Tuple[List[str], Optional[str]]:
+    """FSDP2's shard axes over the batch-like axes (module docstring) and
+    its replicate axis, if any.  On a mesh of several slices (``dcn`` over
+    1) the shard dim is every batch-like axis, or with ``hierarchical`` the
+    slice's own (``data``, ``fsdp``, ``seq``) with ``dcn`` the replicate
+    dim: HSDP's reduce-scatter within a slice and all-reduce of the
+    fragment across slices, JAX's two-level sync."""
+    ici = [a for a in (MeshAxes.FSDP, MeshAxes.SEQUENCE) if sizes[a] > 1]
+    if sizes[MeshAxes.DCN] > 1:
+        in_slice = [a for a in (MeshAxes.DATA, *ici) if sizes[a] > 1]
+        replicate = MeshAxes.DCN if hierarchical and in_slice else None
+        return (in_slice if replicate else [MeshAxes.DCN, *in_slice]), replicate
+    replicate = MeshAxes.DATA if sizes[MeshAxes.DATA] > 1 and ici else None
+    return (ici if replicate else [a for a in (MeshAxes.DATA, *ici) if sizes[a] > 1]
+            or [MeshAxes.FSDP]), replicate
+
+
+def _dp_mesh(mesh: Any, hierarchical: bool = False) -> Tuple[Any, int]:
+    """FSDP2's mesh over ``dp_axes`` and the size of its shard dim."""
     sizes = mesh.shape
-    shard = [a for a in (MeshAxes.FSDP, MeshAxes.SEQUENCE) if sizes[a] > 1]
-    replicate = sizes[MeshAxes.DATA] > 1 and bool(shard)
-    if not replicate:
-        shard = [a for a in (MeshAxes.DATA, *shard) if sizes[a] > 1] or [MeshAxes.FSDP]
+    shard, replicate = dp_axes(sizes, hierarchical)
     n = 1
     for a in shard:
         n *= sizes[a]
     dm, name = mesh.device_mesh, "_".join(shard)
     if len(shard) > 1:
         flat = dm[tuple(shard)]._flatten(name)
-        if not replicate:
+        if replicate is None:
             return flat, n
-    return (dm[MeshAxes.DATA, name] if replicate else dm[name]), n
+    return (dm[replicate, name] if replicate else dm[name]), n
 
 
 def _group_over(mesh: Any, axes: Sequence[str]) -> Any:
@@ -441,11 +500,16 @@ def _group_over(mesh: Any, axes: Sequence[str]) -> Any:
     return mesh.device_mesh[tuple(axes)]._flatten("_".join(axes)).get_group()
 
 
-def shard_model(model: torch.nn.Module, mesh: Any) -> ShardPlan:
+def shard_model(model: torch.nn.Module, mesh: Any, *, hierarchical: bool = False,
+                units: Sequence[Sequence[str]] = ()) -> ShardPlan:
     """Place ``model`` on ``mesh`` in place: its pipe rank's stage over
     ``pipe``, expert parallelism over ``expert``, tensor parallelism over
     ``tensor``, the sequence over ``seq``, then FSDP2 over the batch-like
-    axes (module docstring)."""
+    axes (module docstring; ``hierarchical`` as ``_dp_mesh``).  ``units``
+    are the overlapped sync's buckets (``train/_overlap.py``
+    ``fsdp_units``): each list of blocks becomes one FSDP2 unit, one
+    reduce-scatter issued when the backward has produced its gradients; the
+    other blocks are a unit each and the root takes what is left."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -489,24 +553,47 @@ def shard_model(model: torch.nn.Module, mesh: Any) -> ShardPlan:
         for mod in model.modules():
             if hasattr(mod, "shard_batch"):
                 mod.shard_batch(group, b_shards, b_rank)
-    dp_mesh, n_shard = _dp_mesh(mesh)
+    dp_mesh, n_shard = _dp_mesh(mesh, hierarchical)
 
     def placement(param: torch.nn.Parameter) -> Any:
         return Shard(fsdp_shard_dim(param.shape, n_shard) or 0)
 
+    def leaves(prefixes: Sequence[str]) -> List[str]:
+        return [k for k, _ in model.named_parameters()
+                if any(k.startswith(p + ".") for p in prefixes)]
+
+    made: List[Tuple[List[str], bool]] = []
     if n_pipe == 1:
-        for blk in getattr(model, "blocks", ()):
+        for unit in units:
+            mods = [model.get_submodule(name) for name in unit]
+            fully_shard(mods if len(mods) > 1 else mods[0], mesh=dp_mesh,
+                        shard_placement_fn=placement)
+            made.append((leaves(unit), True))
+        in_units = {name for unit in units for name in unit}
+        for name, blk in getattr(model, "blocks", torch.nn.Module()).named_children():
+            if f"blocks.{name}" in in_units:
+                continue
             fully_shard(blk, mesh=dp_mesh, shard_placement_fn=placement)
+            made.append((leaves([f"blocks.{name}"]), True))
         fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
-        return ShardPlan(model, mesh, expert_params, tensor_dims)
-    # a pipeline stage: FSDP2 on its blocks only, the outer leaves whole
-    batch_like = (MeshAxes.DATA, MeshAxes.FSDP, MeshAxes.SEQUENCE)
-    sync_group = _group_over(mesh, batch_like)
-    in_blocks: Set[str] = set()
-    if sync_group is not None:
-        for name, blk in model.blocks.named_children():
-            fully_shard(blk, mesh=dp_mesh, shard_placement_fn=placement,
-                        reshard_after_forward=False)
-            in_blocks.update(f"blocks.{name}.{k}" for k, _ in blk.named_parameters())
-    synced = [k for k, _ in model.named_parameters() if k not in in_blocks]
-    return ShardPlan(model, mesh, expert_params, tensor_dims, synced, sync_group)
+        # the root is not resharded after its forward: the backward starts
+        # with it
+        taken = {k for unit, _ in made for k in unit}
+        made.append(([k for k, _ in model.named_parameters() if k not in taken], False))
+        plan = ShardPlan(model, mesh, expert_params, tensor_dims)
+    else:
+        # a pipeline stage: FSDP2 on its blocks only, the outer leaves whole
+        batch_like = (MeshAxes.DATA, MeshAxes.FSDP, MeshAxes.SEQUENCE)
+        sync_group = _group_over(mesh, batch_like)
+        in_blocks: Set[str] = set()
+        if sync_group is not None:
+            for name, blk in model.blocks.named_children():
+                fully_shard(blk, mesh=dp_mesh, shard_placement_fn=placement,
+                            reshard_after_forward=False)
+                made.append((leaves([f"blocks.{name}"]), False))
+                in_blocks.update(made[-1][0])
+        synced = [k for k, _ in model.named_parameters() if k not in in_blocks]
+        plan = ShardPlan(model, mesh, expert_params, tensor_dims, synced, sync_group)
+    plan.units = made
+    plan.dp_axes = dp_axes(sizes, hierarchical)
+    return plan

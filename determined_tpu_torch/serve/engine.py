@@ -522,9 +522,10 @@ class ServeEngine(_EngineBase):
         *,
         device: DeviceLike = None,
     ) -> "ServeEngine":
-        """Load a trial checkpoint (``train.load_trial_from_checkpoint``,
-        which checks the directory against its manifest first) and serve its
-        model on ``device`` (CUDA unless named).  The trial's
+        """Load a trial checkpoint's params (``train.load_trial_from_checkpoint``
+        with ``parts=("params",)``: the files that hold them are checked
+        against the manifest first, the optimizer's moments are neither read
+        nor verified) and serve its model on ``device`` (CUDA unless named).  The trial's
         ``build_model()`` must return a module exposing ``cfg`` (a
         TransformerConfig): the LMTrial contract.  The port writes no
         pipeline-stage layout, so the JAX function's second check has
@@ -532,7 +533,7 @@ class ServeEngine(_EngineBase):
         from determined_tpu_torch import train
 
         trial, trainer = train.load_trial_from_checkpoint(
-            path, trial_class=trial_class, device=device
+            path, trial_class=trial_class, device=device, parts=("params",)
         )
         if getattr(trainer.model, "cfg", None) is None:
             raise ValueError(

@@ -5,7 +5,12 @@ and durable storage.  The port has the shared_fs and directory backends
 (``storage/shared_fs.py``); the S3, GCS and Azure backends raise
 ``NotImplementedError`` (a later slice of the port).  ``from_string`` parses
 "s3://bucket/prefix"-style URLs as the JAX package's does.  ``md5_files``
-digests a checkpoint's files at once, a thread a file.
+digests a checkpoint's files at once, a thread a file.  A file written
+through ``DigestingWriter`` is digested as it is written (on a thread of
+its own, beside the write), and a save's finalize takes that digest
+instead of reading the file again
+(``md5_files(..., written=True)``) while the file keeps the size and
+mtime it was written with; a restore's verification always reads.
 """
 
 from __future__ import annotations
@@ -15,8 +20,10 @@ import concurrent.futures
 import contextlib
 import hashlib
 import os
+import queue
 import shutil
-from typing import Callable, Dict, Iterable, Iterator, List, Optional
+import threading
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 from determined_tpu_torch.utils import faults
 
@@ -32,16 +39,120 @@ def file_md5(path: str, chunk: int = 1 << 20) -> str:
     return h.hexdigest()
 
 
-def md5_files(root: str, rels: Iterable[str]) -> Dict[str, str]:
+# the files DigestingWriter wrote: real path -> (size, mtime_ns, the writer);
+# a save's finalize takes its own files' digests and forgets the rest of its
+# directory (the files another process finalizes)
+_WRITTEN: Dict[str, Tuple[int, int, "DigestingWriter"]] = {}
+_WRITTEN_LOCK = threading.Lock()
+
+#: a write is hashed in pieces of this many bytes, and at most
+#: ``_DIGEST_QUEUED`` pieces wait for the hash: a writer that outruns md5
+#: waits for it instead of holding copies of the file in memory
+_DIGEST_CHUNK = 8 << 20
+_DIGEST_QUEUED = 2
+
+
+class DigestingWriter:
+    """A binary file opened for writing whose md5 is taken from what is
+    written to it (``torch.save`` takes it as a file object).  Each write
+    goes to the file and to a thread of this file's own a piece at a time
+    (a copy of at most ``_DIGEST_CHUNK`` bytes, at most ``_DIGEST_QUEUED``
+    of them queued), which hashes them in order while the writer goes on:
+    the file's digest runs beside its write and beside the next files'
+    (md5 is sequential within a file, not across them).  ``close`` records
+    the file for ``md5_files``, which waits for the hash."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        self._f = open(path, "wb")
+        self._md5 = hashlib.md5()
+        self._queue: "queue.Queue" = queue.Queue(maxsize=_DIGEST_QUEUED)
+        self._hasher = threading.Thread(target=self._hash, name="dtpu-md5w", daemon=True)
+        self._hasher.start()
+
+    def _hash(self) -> None:
+        while True:
+            chunk = self._queue.get()
+            if chunk is None:
+                return
+            self._md5.update(chunk)
+
+    def write(self, data) -> int:
+        view = memoryview(data).cast("B")
+        for at in range(0, view.nbytes, _DIGEST_CHUNK):
+            piece = view[at:at + _DIGEST_CHUNK]
+            self._f.write(piece)
+            self._queue.put(bytes(piece))
+        return view.nbytes
+
+    def flush(self) -> None:
+        self._f.flush()
+
+    def close(self) -> None:
+        if self._f.closed:
+            return
+        self._f.close()
+        self._queue.put(None)
+        st = os.stat(self.path)
+        with _WRITTEN_LOCK:
+            _WRITTEN[os.path.realpath(self.path)] = (st.st_size, st.st_mtime_ns, self)
+
+    def hexdigest(self) -> str:
+        """The file's md5, once every write is hashed."""
+        self._hasher.join()
+        return self._md5.hexdigest()
+
+    def __enter__(self) -> "DigestingWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _written_md5(path: str) -> Optional[str]:
+    """The digest ``DigestingWriter`` took of ``path``, if the file still
+    has the size and mtime it was written with."""
+    real = os.path.realpath(path)
+    with _WRITTEN_LOCK:
+        known = _WRITTEN.pop(real, None)
+    if known is None:
+        return None
+    digest = known[2].hexdigest()
+    st = os.stat(real)
+    return digest if (st.st_size, st.st_mtime_ns) == known[:2] else None
+
+
+def _forget_under(root: str) -> None:
+    """Drop what ``DigestingWriter`` recorded under ``root``: the files of a
+    finalized save that another process digested."""
+    prefix = os.path.realpath(root) + os.sep
+    with _WRITTEN_LOCK:
+        for real in [p for p in _WRITTEN if p.startswith(prefix)]:
+            del _WRITTEN[real]
+
+
+def md5_files(root: str, rels: Iterable[str], written: bool = False) -> Dict[str, str]:
     """``file_md5`` of each file under ``root``, a thread a file (hashlib
     and file reads release the GIL), so a checkpoint's digest takes the
-    time of its largest file rather than of all of them."""
+    time of its largest file rather than of all of them.  With ``written``
+    (a save's finalize) a file ``DigestingWriter`` wrote is not read again:
+    its digest is the one taken as it was written."""
+    out: Dict[str, str] = {}
     rels = list(rels)
+    if written:
+        for r in rels:
+            got = _written_md5(os.path.join(root, r))
+            if got is not None:
+                out[r] = got
+        rels = [r for r in rels if r not in out]
+        _forget_under(root)
     if len(rels) < 2:
-        return {r: file_md5(os.path.join(root, r)) for r in rels}
+        out.update({r: file_md5(os.path.join(root, r)) for r in rels})
+        return out
     workers = min(len(rels), os.cpu_count() or 1, 8)
     with concurrent.futures.ThreadPoolExecutor(workers, thread_name_prefix="dtpu-md5") as pool:
-        return dict(zip(rels, pool.map(lambda r: file_md5(os.path.join(root, r)), rels)))
+        out.update(zip(rels, pool.map(lambda r: file_md5(os.path.join(root, r)), rels)))
+    return out
 
 
 def list_directory(root: str) -> Dict[str, int]:

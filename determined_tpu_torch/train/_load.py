@@ -19,7 +19,7 @@ host, so a model trained on a mesh serves from its own checkpoint.
 from __future__ import annotations
 
 import importlib
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 from determined_tpu_torch._device import DeviceLike
 from determined_tpu_torch.core import verify_manifest
@@ -34,6 +34,7 @@ def load_trial_from_checkpoint(
     trial_class: Optional[type] = None,
     core_context: Any = None,
     device: DeviceLike = None,
+    parts: Optional[Sequence[str]] = None,
 ) -> Tuple[TorchTrial, Trainer]:
     """Reconstruct the Trial and a ready Trainer from a local checkpoint
     directory, on ``device`` (CUDA unless named).
@@ -44,9 +45,18 @@ def load_trial_from_checkpoint(
     one loads with a warning).  The returned trainer has
     its params, optimizer state and generator restored at the checkpoint's
     step; call ``trainer.fit`` to continue training or use ``trainer.model``.
+
+    ``parts`` (``("params",)`` for serving) restores those parts of the
+    array state alone, and reads and verifies only the files that hold
+    them (``serialization.part_files``) with the trainer state: the
+    optimizer's moments of a whole-state checkpoint are never read.
     """
+    only = None
+    if parts is not None:
+        keep = set(serialization.part_files(path, parts)) | {serialization.TRAINER_STATE_FILE}
+        only = keep.__contains__
     with get_tracer().span("checkpoint.verify", cat="restore"):
-        verify_manifest(path)
+        verify_manifest(path, only=only)
     tstate = serialization.load_trainer_state(path)
     if trial_class is None:
         ref = tstate.get("trial_class")
@@ -76,5 +86,5 @@ def load_trial_from_checkpoint(
     trial = trial_class(ctx)
     trainer = Trainer(trial)
     trainer._setup()
-    trainer.restore_from_path(path)
+    trainer.restore_from_path(path, parts=parts)
     return trial, trainer

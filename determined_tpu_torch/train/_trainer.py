@@ -56,10 +56,17 @@ many stacked microbatches, summing the gradients in ``.grad``, then one
 update), ``fetch_workers`` (passed to loaders that set none),
 ``compilation_cache_dir`` (the kernels' build directory,
 ``utils/compilation_cache.py``) and ``quantized_matmul`` (read by the
-trial's model, ``train/_quant.py``).  ``num_slices``, MoE blocks on the
-tensor or seq axis, tensor beside pipe, overlapped or hierarchical
-gradient sync and the retrace sentinel come with later slices of the
-port.
+trial's model, ``train/_quant.py``), ``overlap_grad_sync`` with
+``overlap_bucket_mb`` (``train/_overlap.py``: the plan's buckets become
+FSDP2 units, each reduce-scattered as the backward produces it) and
+``hierarchical_collectives`` (on ``num_slices`` > 1: HSDP, reduce-scatter
+within a slice and the fragment all-reduced over ``dcn``; without it the
+sync is one flat shard group over every batch axis).  On every mesh with
+gradient-reduction axes the goodput ledger gets the JAX Trainer's
+``step.comm`` counters at each report, counted over what the port runs
+(``_overlap.fsdp_comm``: FSDP2's units, with the knob on or off).  MoE blocks on the
+tensor or seq axis, tensor or ``dcn`` beside pipe, overlap beside pipe and
+the retrace sentinel come with later slices of the port.
 
 A trial with a ``pipeline_schedule_spec`` (``LMTrial`` on a ``pipe`` axis,
 or on ``train.init(virtual_pipe=P)``) runs its loss through the schedule
@@ -101,7 +108,7 @@ from determined_tpu_torch.config.experiment import (
 )
 from determined_tpu_torch.data._prefetch import EpochFeed, InputPipeline
 from determined_tpu_torch.observability import chip_peak_flops, get_tracer
-from determined_tpu_torch.parallel.mesh import resolve_mesh
+from determined_tpu_torch.parallel.mesh import MeshAxes, resolve_mesh
 from determined_tpu_torch.parallel.sharding import batch_shard, check_ported, shard_model
 from determined_tpu_torch.train import serialization
 from determined_tpu_torch.train._reducer import MEAN, get_reducer
@@ -133,8 +140,8 @@ def check_exp_config(exp_config: Any) -> None:
     run; what passes is honoured."""
     opt = exp_config.optimizations
     check_ported(exp_config.resources.mesh.shape, moe=_has_moe(exp_config.hyperparameters))
-    if opt.overlap_grad_sync or opt.hierarchical_collectives:
-        raise _later("optimizations.overlap_grad_sync / hierarchical_collectives")
+    if opt.overlap_grad_sync and exp_config.resources.mesh.shape[MeshAxes.PIPELINE] > 1:
+        raise _later("optimizations.overlap_grad_sync beside the 'pipe' mesh axis")
     problems = pipeline_problems(exp_config)
     if problems:
         raise InvalidExperimentConfig("; ".join(problems))
@@ -333,6 +340,10 @@ class Trainer:
         # (parallel/pipeline.py), None without a pipe axis; set by _setup
         self._pipe_schedule: Any = None
         self._bubble_model: Any = None
+        # the overlapped sync's plan and its comm model (train/_overlap.py),
+        # None without gradient-reduction axes; set by _setup
+        self._overlap_plan: Any = None
+        self._comm_model: Any = None
         self._pending_save: Optional[_PendingSave] = None
         # pinned host buffers the async writer copies the snapshot into,
         # allocated at the first async save on CUDA and kept (at most one
@@ -364,9 +375,28 @@ class Trainer:
                         self._pipe_schedule.fingerprint(), self._bubble_model.fraction)
         self.model = trial.build_model()
         if self.mesh is not None:
-            # experts over `expert`, FSDP2 over (data, fsdp); every rank
+            # the overlapped sync's plan (train/_overlap.py), built whenever
+            # the mesh has gradient-reduction axes, as the JAX Trainer's:
+            # with the knob on its buckets are FSDP2's units; the comm model
+            # of the units FSDP2 runs feeds the goodput ledger's step.comm rows
+            from determined_tpu_torch.train import _overlap
+
+            opt = cfg.optimizations if cfg is not None else None
+            hier = bool(opt is not None and opt.hierarchical_collectives)
+            kind = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else ""
+            self._overlap_plan = _overlap.build_plan(
+                _overlap.model_leaves(self.model), self.mesh,
+                enabled=bool(opt is not None and opt.overlap_grad_sync),
+                bucket_bytes=(opt.overlap_bucket_mb if opt is not None else 4) * 1024 * 1024,
+                hierarchical=hier, device_kind=kind,
+            )
+            plan = self._overlap_plan
+            units = _overlap.fsdp_units(plan, self.model) if plan and plan.enabled else ()
+            # experts over `expert`, FSDP2 over the batch axes; every rank
             # built the same full model from the trial's seed first
-            self._plan = shard_model(self.model, self.mesh)
+            self._plan = shard_model(self.model, self.mesh, hierarchical=hier, units=units)
+            if plan is not None:
+                self._comm_model = _overlap.fsdp_comm(self._plan, kind)
         self.tx = trial.build_optimizer()
         self.train_loader = trial.build_training_data_loader()
         self.val_loader = trial.build_validation_data_loader()
@@ -865,13 +895,14 @@ class Trainer:
         with get_tracer().span("checkpoint.restore", cat="restore", storage_id=storage_id):
             self._restore_checkpoint(storage_id)
 
-    def restore_from_path(self, path: str) -> None:
+    def restore_from_path(self, path: str, parts: Optional[Any] = None) -> None:
         """Load the array state and the trainer state from a local
         checkpoint directory, in place (also the tail of
         ``train.load_trial_from_checkpoint``).  Either format, written on
         any mesh: each rank reads its box of every leaf.  A checkpoint
         written on another mesh is restored inside a ``trial.resize``
-        span, as the JAX Trainer's elastic reshard is."""
+        span, as the JAX Trainer's elastic reshard is.  ``parts`` restores
+        those parts of the array state alone (serving reads ``params``)."""
         tstate = serialization.load_trainer_state(path)
         # a checkpoint of a mesh axis the port does not run raises
         check_ported(tstate.get("mesh_axes") or {})
@@ -884,8 +915,9 @@ class Trainer:
             resize = get_tracer().span("trial.resize", cat="restore",
                                        from_mesh=_fmt_axes(stored), to_mesh=_fmt_axes(live))
         with resize, get_tracer().span("checkpoint.load", cat="restore"):
+            live = self._array_state()
             serialization.restore_arrays(
-                path, self._array_state(),
+                path, live if parts is None else {p: live[p] for p in parts},
                 place=self._place if self._plan is not None else None,
                 # a pipeline rank holds its stage's leaves of the stored ones
                 partial=self._plan is not None and self._plan.pipe_size > 1,
@@ -1118,6 +1150,27 @@ class Trainer:
                             "train.tokens",
                             float(steps_since_report * gbs * self._tokens_per_sample),
                         )
+                    if self._comm_model is not None:
+                        # step.comm rows: FSDP2's bytes, exposed and
+                        # hidden by the bucket model on the segment's mean
+                        # step, a row a hop that moves bytes (counters: the
+                        # spans' nesting stays as it was)
+                        n = float(steps_since_report)
+                        hops = self._comm_model.split_hops(hot_time / steps_since_report)
+                        tracer.counter("step.comm.bytes",
+                                       float(self._comm_model.total_bytes_per_step) * n)
+                        tracer.counter("step.comm.exposed_us",
+                                       sum(e for e, _ in hops.values()) * 1e6 * n)
+                        tracer.counter("step.comm.hidden_us",
+                                       sum(h for _, h in hops.values()) * 1e6 * n)
+                        hop_bytes = {"ici": self._comm_model.bytes_per_step,
+                                     "dcn": self._comm_model.dcn_bytes_per_step}
+                        for hop, (he, hh) in hops.items():
+                            if hop_bytes[hop]:
+                                tracer.counter(f"step.comm.{hop}.bytes",
+                                               float(hop_bytes[hop]) * n)
+                                tracer.counter(f"step.comm.{hop}.exposed_us", he * 1e6 * n)
+                                tracer.counter(f"step.comm.{hop}.hidden_us", hh * 1e6 * n)
                     if self._bubble_model is not None:
                         # step.bubble rows: pipe-axis idle time by the
                         # schedule's tick model, on the segment's mean step

@@ -33,7 +33,10 @@ lowest rank that holds it, so a leaf that several ranks hold the same
 (a data replica, a replicated leaf) is written once.  A pipeline rank
 holds its stage's leaves only, under the whole model's names: a leaf's
 pieces come from the ranks that hold it.  Every rank writes its own file
-(``save_shard``), the chief writes the layout.
+(``save_shard``), the chief writes the layout.  A whole-state part is
+written through ``storage.DigestingWriter``: the save's finalize takes its
+md5 from the write instead of reading it back (a rank's shard is digested
+by the rank the finalize assigns it, which may be another process).
 
 ``restore_arrays`` reads either format and copies the stored values INTO
 the live tensors (``copy_``), so the module's parameters, the optimizer's
@@ -53,9 +56,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Callable, Dict, Iterator, List, Optional, Set, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
 import torch
+
+from determined_tpu_torch.storage.base import DigestingWriter
 
 ARRAY_SUBDIR = "state"
 TRAINER_STATE_FILE = "trainer_state.json"
@@ -108,13 +113,25 @@ def save_arrays(ckpt_dir: str, tree: Dict[str, Any]) -> None:
     os.makedirs(os.path.join(ckpt_dir, ARRAY_SUBDIR), exist_ok=True)
     for part, node in tree.items():
         flat = {k: _stored(v) for k, v in flatten(node).items()}
-        torch.save(flat, _part_path(ckpt_dir, part))
+        with DigestingWriter(_part_path(ckpt_dir, part)) as f:
+            torch.save(flat, f)
 
 
 def _mmap(path: str) -> Dict[str, torch.Tensor]:
     """A saved flat dict, memory-mapped: a tensor's bytes are read when it
     is."""
     return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+
+def part_files(ckpt_dir: str, parts: Sequence[str]) -> List[str]:
+    """The files (relative to ``ckpt_dir``) a restore of ``parts`` reads:
+    their ``state/<part>.pt`` files, or in the sharded format the layout
+    and every rank's file (each holds all of that rank's parts)."""
+    if load_layout(ckpt_dir) is not None:
+        shards = os.path.join(ckpt_dir, ARRAY_SUBDIR, SHARD_SUBDIR)
+        return [os.path.join(ARRAY_SUBDIR, LAYOUT_FILE)] + sorted(
+            os.path.join(ARRAY_SUBDIR, SHARD_SUBDIR, f) for f in os.listdir(shards))
+    return [os.path.join(ARRAY_SUBDIR, f"{part}.pt") for part in parts]
 
 
 def load_arrays(ckpt_dir: str, part: str) -> Dict[str, torch.Tensor]:

@@ -5,7 +5,8 @@ package folds a ``jax.profiler`` xplane into an op table, the port folds
 the Chrome trace that ``torch.profiler`` exports (``core/_profiler.py``
 writes one per trace window).  The same functions under the same roles:
 ``trace_files`` (``xplane_files``), ``op_table`` (``hlo_op_table``),
-``split_collectives`` and ``category_totals``.
+``split_collectives`` and ``category_totals``; ``collective_bytes`` reads
+the bytes each collective moved from the records c10d writes for NCCL.
 
 A device op is a Chrome ``X`` event of category ``kernel``, ``gpu_memcpy``
 or ``gpu_memset``; ops merge by name, and each is put in a category from
@@ -118,6 +119,46 @@ def split_collectives(ops: List[Dict[str, object]]) -> Tuple[float, float]:
         else:
             other += float(op["time_us"])
     return coll, other
+
+
+#: bytes an element of the dtype names a trace's collective records carry
+_DTYPE_BYTES = {"float": 4, "float32": 4, "bfloat16": 2, "half": 2, "float16": 2,
+                "double": 8, "float64": 8, "int": 4, "int32": 4, "long": 8, "int64": 8,
+                "byte": 1, "char": 1, "bool": 1, "uint8": 1, "int8": 1}
+
+
+def collective_bytes(trace_source: TraceSource) -> Dict[Tuple[str, Tuple[int, ...]], Dict[str, int]]:
+    """The collectives of a trace by (name, the ranks of the group): calls,
+    and the bytes in and out of each rank's calls, from the collective
+    records ``torch.profiler`` writes for c10d's NCCL calls (the device's
+    NCCL kernel events, or else the host's ``record_param_comms``: each
+    names the collective, its element counts, dtype and group).  Empty for
+    a trace without them (gloo's)."""
+    files = (
+        list(trace_source)
+        if isinstance(trace_source, (list, tuple))
+        else trace_files(trace_source)
+    )
+    events = _events(files)
+    out: Dict[Tuple[str, Tuple[int, ...]], Dict[str, int]] = {}
+    for cats in (DEVICE_CATS, HOST_CATS + ("cuda_runtime",)):
+        for e in events:
+            args = e.get("args") or {}
+            if e.get("ph") != "X" or e.get("cat") not in cats or "In msg nelems" not in args:
+                continue
+            name = str(args.get("Collective name") or e.get("name"))
+            ranks = args.get("Process Group Ranks") or []
+            if isinstance(ranks, str):
+                ranks = json.loads(ranks) if ranks.startswith("[") else []
+            size = _DTYPE_BYTES.get(str(args.get("dtype", "")).lower(), 0)
+            row = out.setdefault((name, tuple(int(r) for r in ranks)),
+                                 {"calls": 0, "in_bytes": 0, "out_bytes": 0})
+            row["calls"] += 1
+            row["in_bytes"] += int(args.get("In msg nelems") or 0) * size
+            row["out_bytes"] += int(args.get("Out msg nelems") or 0) * size
+        if out:
+            return out
+    return out
 
 
 def category_totals(ops: List[Dict[str, object]]) -> Dict[str, float]:

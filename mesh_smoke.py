@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Multi-GPU check of the port's mesh path on the GPUs of one host.
 
-    python3 mesh_smoke.py [--gpus 4] [--seed N] [--parts G,E,S,X,C,P]
+    python3 mesh_smoke.py [--gpus 4] [--seed N] [--parts G,E,S,X,C,P,O,R]
 
 (``X`` is X1, X2 and X3, each of which ``--parts`` also takes alone.)
 
@@ -114,6 +114,31 @@ P. examples/transformer_lm/pipeline.yaml (chip_smoke.PIPE_CONST) at its full
       resumes it and its step-3 loss is held against the uninterrupted
       run's.
 
+O. the overlapped gradient sync: chip_smoke's phase 5 workload (the
+   flagship at full width) as a gang of four ranks for O_STEPS steps on each
+   run of O_RUNS: data 4 with overlap_grad_sync on, then off (the losses
+   within O_LOSS_REL: the same mesh, kernels and reduction groups), and
+   dcn 2 x data 2 flat and hierarchical (the losses within MESH_LOSS_TOL of
+   each other and of data 4).  Each rank's launches exactly, its step time
+   and peak memory, the plan and the Trainer's step.comm counters; then 2
+   steps traced for the NCCL and compute kernels' time, and 2 more with
+   the collectives' records, beside the c10d calls each rank issues.
+   Checks: the comm model of the Trainer's counters (the FSDP2 units it
+   runs) against the ring bytes each rank issues, a hop at a time; the
+   hierarchical sync's all-reduce over each dcn group against the plan's
+   fragment.  Before the runs: NVLink's all-reduce bus bandwidth
+   (O_BW_BYTES, O_BW_REPS), the figure of train/_overlap.py's table.
+
+R. an elastic trial through the native master: phase 7's configuration
+   with R_CUTS (data -1, num_slices from the master's stamp, min_slices 1,
+   resize_cooldown_s cut to R_COOLDOWN_S) over four one-GPU agents in two
+   slices (devcluster.LocalCluster(slices=2)).  One slice's agents are
+   SIGKILLed: the master shrinks the trial to one slice and it resumes from
+   its newest checkpoint on the new mesh; the agents start again and after
+   the cooldown it grows back to two.  Printed: shrink -> first step and
+   grow -> first step in seconds; checked: each restore's params md5
+   against the checkpoint it names.
+
 Each gang has a hard timeout (GANG_TIMEOUT_S); its ranks are killed on
 expiry and the run fails.  Prints a JSON line a part, the card's name and
 power limit, and last {"ok": true, "device": {...}}; exits non-zero on any
@@ -161,7 +186,7 @@ SEQ_CKPT_CUTS = [
     ("seq_len", 32768, 256, "the same, in length"),
 ]
 SEQ_CKPT_STEPS = 3
-PARTS = ("G", "E", "S", "X", "C", "P")
+PARTS = ("G", "E", "S", "X", "C", "P", "O", "R")
 # P: pipeline.yaml (chip_smoke.PIPE_CONST) with these changes
 P_CUTS = [
     ("resources.mesh", {"pipe": 4, "data": 2, "fsdp": 2}, "each of P_MESHES",
@@ -181,6 +206,56 @@ P_LOSS_TOL = dict(rtol=1e-4, atol=0.0)
 # a P gang (start, 3 steps and a 3-step profile) takes about a minute: a
 # hung point-to-point fails the part well before GANG_TIMEOUT_S
 P_GANG_TIMEOUT_S = 180.0
+# O: chip_smoke's phase 5 workload (the flagship at full width) on the four
+# cards under the overlapped gradient sync: (name, mesh, optimizations)
+O_RUNS = (
+    # on before off: the second run of a gang's processes has run slower
+    ("data4-on", {"data": 4}, {"overlap_grad_sync": True}),
+    ("data4-off", {"data": 4}, {}),
+    ("dcn2-data2-flat", {"num_slices": 2, "data": 2}, {"overlap_grad_sync": True}),
+    ("dcn2-data2-hier", {"num_slices": 2, "data": 2}, {"overlap_grad_sync": True,
+                                                       "hierarchical_collectives": True}),
+)
+O_STEPS = 8
+# the same mesh, kernels and reduction groups: overlap changes FSDP2's
+# units, not what a step computes
+O_LOSS_REL = 1e-5
+# NVLink's bus bandwidth: an all-reduce of this many bytes, timed this often
+O_BW_BYTES = 256 << 20
+O_BW_REPS = 20
+# R: phase 7's configuration (chip_smoke.EXPERIMENT_CONST at
+# EXPERIMENT_CUTS' depth and data) as an elastic trial of the native
+# master over four one-GPU agents in two slices, with these changes:
+# (dotted key, phase 7's value, R's value, why)
+R_ENTRY = "mesh_smoke:ElasticLMTrial"
+R_DIR_ENV = "DTT_SMOKE_ELASTIC_DIR"
+R_COOLDOWN_S = 15
+R_CKPT_EVERY = 100
+R_TIMEOUT_S = 300.0
+R_CUTS = [
+    ("entrypoint", "model_def:Trial", R_ENTRY,
+     "LMTrial whose chief records each run's start (its world, its mesh, the checkpoint it "
+     "restored and the md5 of its params gathered whole), its first step and its checkpoints"),
+    ("searcher.max_length", {"batches": 24}, {"batches": 100000},
+     "longer than the part: the part kills the experiment once the grown gang has stepped"),
+    ("min_validation_period", {"batches": 12}, {"batches": 100000}, "no validation in the part"),
+    ("min_checkpoint_period", {"batches": 18}, {"batches": R_CKPT_EVERY},
+     "a checkpoint every 100 steps for a shrink to resume from"),
+    ("optimizations.async_checkpointing", True, False,
+     "each save is finalized before the next step, so the newest one is what a shrink resumes"),
+    ("resources.mesh", None, {"data": -1, "num_slices": 2},
+     "data absorbs the placed width; num_slices is the master's stamp (DTPU_NUM_SLICES)"),
+    ("resources.elastic", None,
+     {"max_slots": 4, "min_slices": 1, "resize_cooldown_s": R_COOLDOWN_S},
+     f"shrink to one slice, grow back to two; the cooldown cut from 60 s to {R_COOLDOWN_S} s"),
+    (f"environment.env.{R_DIR_ENV}", None, "<events dir>",
+     "where the trial's chief writes its events (a fresh temporary directory)"),
+]
+# the master's flags: (flag, its default, R's, why)
+R_MASTER_CUTS = [
+    ("--agent-timeout-sec", 90, 5, "the killed slice's agents are reaped 5 s after their last "
+     "poll"),
+]
 X_PARTS = ("X1", "X2", "X3")
 # X2: moe_ep.yaml (chip_smoke.MOE_EP_CONST) at MOE_CUTS' hyperparameters,
 # and these changes: (dotted key, the file's value, X2's value, why)
@@ -225,7 +300,10 @@ def log(msg: str) -> None:
 
 def __getattr__(name: str):
     """``X2SigtermLMTrial``, the gang trial X2's driver runs
-    (``chip_smoke.sigterm_trial``), built on first use."""
+    (``chip_smoke.sigterm_trial``), and ``ElasticLMTrial``, R's, built on
+    first use."""
+    if name == "ElasticLMTrial":
+        return _elastic_trial()
     if name != "X2SigtermLMTrial":
         raise AttributeError(name)
     from chip_smoke import sigterm_trial
@@ -265,7 +343,8 @@ def _fit(ctx, steps: int, keep: bool = False) -> dict:
     t0 = time.monotonic()
     trainer.fit(max_length=steps, report_period=1, checkpoint_policy="none")
     torch.cuda.synchronize()
-    rows = ctx.core.train.metrics("training")
+    # this fit's rows (a rank's core context may have carried earlier fits)
+    rows = ctx.core.train.metrics("training")[-steps:]
     gbs = ctx.get_global_batch_size() * trainer.agg
     out = dict(
         losses=[m["loss"] for _, m in rows], aux=[m.get("moe_aux_loss") for _, m in rows],
@@ -303,6 +382,8 @@ def _rank_gang(workdir: str, mesh: dict, seed: int) -> dict:
             return _rank_pipe(core_ctx, mesh, seed)
         if mesh.get("part") == "PC":
             return _rank_pipe_ckpt(core_ctx, workdir, mesh, seed)
+        if mesh.get("part") == "O":
+            return _rank_overlap(core_ctx, mesh, seed)
         ctx = train.init(hparams=_hparams(), seed=seed, core_context=core_ctx,
                          mesh_config=MeshConfig(**mesh))
         out = _fit(ctx, STEPS)
@@ -350,7 +431,7 @@ def _idle_share(trainer, steps: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="dtt-mesh-profile-") as d:
         path = os.path.join(d, "pipe.pt.trace.json")
         prof.export_chrome_trace(path)
-        compute_us, collective_us = kineto.split_collectives(kineto.op_table([path]))
+        collective_us, compute_us = kineto.split_collectives(kineto.op_table([path]))
     return dict(idle_share=1.0 - compute_us / wall_us, nccl_share=collective_us / wall_us,
                 traced_step_ms=wall_us / steps / 1e3)
 
@@ -492,6 +573,487 @@ def _pipe_part(args, root: str) -> None:
                                 resumed_step3_loss=step3, uninterrupted_step3_loss=gpipe4[-1],
                                 bitwise=step3 == gpipe4[-1], seconds=time.monotonic() - t0)))
     log(f"P: {time.monotonic() - t_part:.1f} s")
+
+
+def _busbw() -> dict:
+    """NVLink's all-reduce bus bandwidth over the world: O_BW_BYTES of f32,
+    timed with CUDA events over O_BW_REPS calls after a warm-up;
+    busbw = 2 (n - 1) / n x bytes / seconds (NCCL's definition)."""
+    import torch
+    import torch.distributed as tdist
+
+    x = torch.ones(O_BW_BYTES // 4, device="cuda")
+    for _ in range(5):
+        tdist.all_reduce(x)
+    torch.cuda.synchronize()
+    tdist.barrier()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(O_BW_REPS):
+        tdist.all_reduce(x)
+    end.record()
+    torch.cuda.synchronize()
+    sec = start.elapsed_time(end) / 1e3 / O_BW_REPS
+    n = tdist.get_world_size()
+    return dict(bytes=O_BW_BYTES, seconds=sec, algbw_gb_per_s=O_BW_BYTES / sec / 1e9,
+                busbw_gb_per_s=2 * (n - 1) / n * O_BW_BYTES / sec / 1e9)
+
+
+class _IssuedCollectives:
+    """The collectives this rank issues while open, by (name, the group's
+    ranks): calls and bytes in and out, from the c10d calls themselves (the
+    trace's records are read first; this is the cross-check)."""
+
+    # name: (the positions and keywords of its output, input and group);
+    # FSDP2 calls the _single forms or, in older torch, the _tensor ones
+    SIGNATURES = {
+        "all_reduce": ((0, "tensor"), (0, "tensor"), (2, "group")),
+        "reduce_scatter_tensor": ((0, "output"), (1, "input"), (3, "group")),
+        "reduce_scatter_single": ((0, "output"), (1, "input"), (3, "group")),
+        "all_gather_into_tensor": ((0, "output_tensor"), (1, "input_tensor"), (2, "group")),
+        "all_gather_single": ((0, "output_tensor"), (1, "input_tensor"), (2, "group")),
+    }
+
+    def __init__(self) -> None:
+        self.rows: dict = {}
+        self._saved: dict = {}
+
+    def __enter__(self):
+        import torch.distributed as tdist
+
+        def arg(a, k, where):
+            pos, key = where
+            return a[pos] if len(a) > pos else k.get(key)
+
+        for name, (out_at, in_at, group_at) in self.SIGNATURES.items():
+            fn = getattr(tdist, name, None)
+            if fn is None:
+                continue
+            self._saved[name] = fn
+
+            def wrapped(*a, _fn=fn, _name=name, _at=(out_at, in_at, group_at), **k):
+                out_t, in_t, group = (arg(a, k, w) for w in _at)
+                ranks = tuple(tdist.get_process_group_ranks(group) if group is not None
+                              else range(tdist.get_world_size()))
+                row = self.rows.setdefault((_name, ranks),
+                                           {"calls": 0, "in_bytes": 0, "out_bytes": 0})
+                row["calls"] += 1
+                row["in_bytes"] += in_t.numel() * in_t.element_size()
+                row["out_bytes"] += out_t.numel() * out_t.element_size()
+                return _fn(*a, **k)
+
+            setattr(tdist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import torch.distributed as tdist
+
+        for name, fn in self._saved.items():
+            setattr(tdist, name, fn)
+
+
+def _ring_bytes(rows: dict, steps: int) -> dict:
+    """Each group's ring bytes a step from collective rows: an all-reduce
+    moves 2 (n - 1) / n of its buffer, a reduce-scatter (n - 1) / n of its
+    input, an all-gather (n - 1) / n of its output."""
+    out: dict = {}
+    for (name, ranks), row in rows.items():
+        n = max(len(ranks), 1)
+        low = name.lower().replace("_", "")
+        if "allreduce" in low:
+            ring = 2 * (n - 1) / n * row["in_bytes"]
+        elif "reducescatter" in low:
+            ring = (n - 1) / n * row["in_bytes"]
+        elif "allgather" in low:
+            ring = (n - 1) / n * row["out_bytes"]
+        else:
+            continue
+        key = f"{name}@{','.join(map(str, ranks))}"
+        out[key] = dict(calls=row["calls"] / steps, ring_bytes=ring / steps)
+    return out
+
+
+def _comm_window(trainer, steps: int) -> dict:
+    """``steps`` more steps traced twice: the device alone (its NCCL and
+    compute kernels' time over the wall), then host and device for the
+    collectives' records (bytes by group), with the issued collectives
+    counted beside them."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from determined_tpu_torch.data import to_device
+    from determined_tpu_torch.utils import kineto
+
+    it = iter(trainer.train_loader)
+    batches = [to_device(next(it), trainer.device) for _ in range(2 * steps + 1)]
+    trainer._train_step(batches[0])
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="dtt-mesh-comm-") as d:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for b in batches[1:steps + 1]:
+                trainer._train_step(b)
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+        prof.export_chrome_trace(os.path.join(d, "device.pt.trace.json"))
+        collective_us, compute_us = kineto.split_collectives(
+            kineto.op_table([os.path.join(d, "device.pt.trace.json")]))
+        with _IssuedCollectives() as issued, profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for b in batches[steps + 1:]:
+                trainer._train_step(b)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(os.path.join(d, "both.pt.trace.json"))
+        traced = kineto.collective_bytes([os.path.join(d, "both.pt.trace.json")])
+    return dict(wall_ms=wall_us / steps / 1e3, collective_ms=collective_us / steps / 1e3,
+                compute_ms=compute_us / steps / 1e3, idle_share=1.0 - compute_us / wall_us,
+                trace_ring_bytes=_ring_bytes(traced, steps),
+                issued_ring_bytes=_ring_bytes(issued.rows, steps))
+
+
+def _rank_overlap(core_ctx, inp: dict, seed: int) -> dict:
+    """One rank of O: the bus bandwidth, then each of ``inp["runs"]``:
+    O_STEPS steps of phase 5's workload on its mesh and knobs (the plan,
+    the Trainer's step.comm counters, launches, step time, peak memory),
+    then its comm window."""
+    import gc
+
+    import torch
+
+    from chip_smoke import TRAIN_HPARAMS
+    from determined_tpu_torch import train
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.observability import get_tracer
+    from determined_tpu_torch.train import _overlap
+
+    out = dict(busbw=_busbw(), runs={})
+    tracer = get_tracer()
+    for name, mesh, opt in inp["runs"]:
+        cfg = ExperimentConfig.parse({"hyperparameters": dict(TRAIN_HPARAMS),
+                                      "optimizations": opt, "resources": {"mesh": mesh}})
+        tracer.reset()
+        tracer.configure(enabled=True)
+        tracer.start()
+        ctx = train.init(exp_config=cfg, seed=seed, core_context=core_ctx)
+        res = _fit(ctx, O_STEPS, keep=True)
+        tracer.stop()
+        counters: dict = {}
+        for e in tracer.chrome_events():
+            if e.get("ph") == "C" and e["name"].startswith("step.comm"):
+                counters[e["name"]] = counters.get(e["name"], 0.0) + e["args"]["value"]
+        tracer.reset()
+        trainer = res.pop("trainer")
+        plan = trainer._overlap_plan
+        res.update(
+            counters_per_step={k: v / O_STEPS for k, v in counters.items()},
+            plan=dict(enabled=plan.enabled, buckets=len(plan.buckets),
+                      units=len(_overlap.fsdp_units(plan, trainer.model)),
+                      fingerprint=plan.fingerprint(), ici_bytes=plan.comm.bytes_per_step,
+                      dcn_bytes=plan.comm.dcn_bytes_per_step,
+                      bandwidth_gb_per_s=[plan.comm.bandwidth / 1e9,
+                                          plan.comm.dcn_bandwidth / 1e9]),
+            comm_model=dict(ici=trainer._comm_model.bytes_per_step,
+                            dcn=trainer._comm_model.dcn_bytes_per_step,
+                            n_buckets=trainer._comm_model.n_buckets),
+            coords={a: ctx.mesh.coordinate(a) for a in ("dcn", "data")},
+            comm=_comm_window(trainer, 2))
+        out["runs"][name] = res
+        del trainer, ctx
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _overlap_part(args, root: str) -> None:
+    """O (the docstring at the top)."""
+    from chip_smoke import TRAIN_HPARAMS
+
+    t0 = time.monotonic()
+    outs = _launch_gang(args.gpus, os.path.join(root, "o"), dict(part="O", runs=O_RUNS),
+                        args.seed)
+    log("O busbw: " + json.dumps([o["busbw"] for o in outs]))
+    runs = {name: [o["runs"][name] for o in outs] for name, _, _ in O_RUNS}
+    for name, mesh, opt in O_RUNS:
+        for rank, r in enumerate(runs[name]):
+            want = dict(flash_fwd=r["layers"] * O_STEPS, flash_bwd_dq=r["layers"] * O_STEPS,
+                        flash_bwd_dkv=r["layers"] * O_STEPS,
+                        fused_adamw=r["local_leaves"] * O_STEPS)
+            assert r["launches"] == want, (name, rank, r["launches"], want)
+        chief = runs[name][0]
+        log("O " + json.dumps(dict(
+            name=name, mesh=mesh, optimizations=opt, losses=chief["losses"],
+            step_ms=[r["step_ms"] for r in runs[name]],
+            peak_memory_gib=[r["peak_memory_gib"] for r in runs[name]],
+            plan=chief["plan"], counters_per_step=chief["counters_per_step"],
+            comm=[r["comm"] for r in runs[name]], coords=[r["coords"] for r in runs[name]])))
+    # the Trainer's step.comm bytes (the comm model of the FSDP2 units it
+    # runs) against the ring bytes of the collectives each rank issues and
+    # the trace records, a hop at a time: a group spanning slices is dcn's
+    model_check = {}
+    for name, mesh, _ in O_RUNS:
+        per_slice = args.gpus // mesh.get("num_slices", 1)
+        for rank, r in enumerate(runs[name]):
+            got = {}
+            for source in ("issued_ring_bytes", "trace_ring_bytes"):
+                hops = {"ici": 0.0, "dcn": 0.0}
+                for key, v in r["comm"][source].items():
+                    ranks = [int(x) for x in key.split("@")[1].split(",") if x]
+                    hops["dcn" if len({x // per_slice for x in ranks}) > 1 else "ici"] += (
+                        v["ring_bytes"])
+                got[source] = hops
+            model = r["comm_model"]
+            issued = got["issued_ring_bytes"]
+            for hop in ("ici", "dcn"):
+                # the model's bytes are every FSDP2 collective's; what else
+                # a step issues is the norm's scalars
+                assert model[hop] <= issued[hop] <= model[hop] + 4096, (name, rank, hop, model,
+                                                                         issued)
+            model_check.setdefault(name, []).append(dict(model=model, **got))
+    log("O comm model against the collectives: " + json.dumps(model_check))
+    off, on = runs["data4-off"][0]["losses"], runs["data4-on"][0]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(on, off))
+    assert rel <= O_LOSS_REL, ("data4 overlap on vs off", rel, on, off)
+    flat, hier = runs["dcn2-data2-flat"][0], runs["dcn2-data2-hier"][0]
+    np.testing.assert_allclose(hier["losses"], flat["losses"], **MESH_LOSS_TOL)
+    np.testing.assert_allclose(flat["losses"], off, **MESH_LOSS_TOL)
+    assert hier["plan"]["dcn_bytes"] == flat["plan"]["dcn_bytes"] // 2
+    # the hierarchical sync's cross-slice bytes: the all-reduces over the
+    # dcn groups (ranks r and r + 2), against the plan's fragment
+    dcn_groups = {f"{r},{r + 2}" for r in range(args.gpus // 2)}
+    summary = {}
+    for source in ("trace_ring_bytes", "issued_ring_bytes"):
+        dcn = [sum(v["ring_bytes"] for k, v in r["comm"][source].items()
+                   if "reduce" in k.lower() and k.split("@")[1] in dcn_groups
+                   and "scatter" not in k.lower())
+               for r in runs["dcn2-data2-hier"]]
+        summary[source] = dict(dcn_ring_bytes_per_rank=dcn,
+                               plan_dcn_bytes=hier["plan"]["dcn_bytes"],
+                               ratio=[d / hier["plan"]["dcn_bytes"] for d in dcn])
+    log("O dcn bytes: " + json.dumps(summary))
+    measured = [v["ratio"] for v in summary.values() if all(v["dcn_ring_bytes_per_rank"])]
+    assert measured, "neither the trace nor the c10d calls show the dcn all-reduce"
+    assert all(0.98 <= x <= 1.05 for ratios in measured for x in ratios), measured
+    log("O " + json.dumps(dict(
+        data4_on_vs_off_max_loss_rel=rel,
+        dcn_flat_vs_hier_max_loss_rel=max(abs(a - b) / abs(b) for a, b in
+                                          zip(hier["losses"], flat["losses"])),
+        busbw_gb_per_s=min(o["busbw"]["busbw_gb_per_s"] for o in outs),
+        hparams=TRAIN_HPARAMS, seconds=time.monotonic() - t0)))
+
+
+def _params_md5(named) -> str:
+    """md5 over ``(name, tensor)`` pairs in name order: each name, then its
+    tensor's bytes on the host."""
+    import hashlib
+
+    h = hashlib.md5()
+    for name, t in sorted(named):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _checkpoint_params_md5(path: str) -> str:
+    """``_params_md5`` of a checkpoint's params, each leaf read whole from
+    either format."""
+    import torch
+
+    from determined_tpu_torch.train import serialization
+
+    layout = serialization.load_layout(path)
+    if layout is None:
+        return _params_md5(serialization.load_arrays(path, "params").items())
+    live = {}
+    for key, leaf in layout["leaves"].items():
+        part, _, name = key.partition(serialization.SEP)
+        if part == "params":
+            live[name] = torch.empty(leaf["shape"], dtype=getattr(torch, leaf["dtype"]))
+    serialization.restore_arrays(path, {"params": live})
+    return _params_md5(live.items())
+
+
+def _restore_check(ckpt: str, start: dict) -> dict:
+    """A run's restore (its chief's ``start`` event) against the checkpoint
+    it names: the md5 of the params it restored, gathered whole, equal to
+    the checkpoint's."""
+    want = _checkpoint_params_md5(os.path.join(ckpt, start["restored"]))
+    return dict(step=start["step"], world=start["world"], mesh=start["mesh"],
+                checkpoint=start["restored"], bitwise=start["params_md5"] == want)
+
+
+_ELASTIC: dict = {}
+
+
+def _elastic_trial():
+    """R's trial (``ElasticLMTrial``): LMTrial whose chief appends its
+    events as JSON lines under ``$DTT_SMOKE_ELASTIC_DIR``: each run's start
+    (its world, its mesh, the checkpoint it restored and ``_params_md5`` of
+    its params gathered whole, every rank taking part), its first step
+    and each checkpoint."""
+    if "ElasticLMTrial" in _ELASTIC:
+        return _ELASTIC["ElasticLMTrial"]
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.train import Callback
+
+    def event(**rec) -> None:
+        rec["t"] = time.time()
+        with open(os.path.join(os.environ[R_DIR_ENV], "events.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    class ElasticLMTrial(LMTrial):
+        def build_callbacks(self):
+            dist = self.context.core.distributed
+
+            class Record(Callback):
+                def on_training_start(self, trainer) -> None:
+                    from torch.distributed.tensor import DTensor
+
+                    from determined_tpu_torch.utils import faults
+
+                    if dist.is_chief:
+                        # the train.step site fires before each step: at the
+                        # second, this run's first step has been dispatched
+                        from chip_smoke import _StepHook
+
+                        faults.set_fault_injector(_StepHook(
+                            trainer.steps_completed + 1,
+                            lambda: event(event="first_step", world=dist.size)))
+
+                    digest = None
+                    if trainer.steps_completed:
+                        whole = [(k, p.full_tensor() if isinstance(p, DTensor) else p)
+                                 for k, p in sorted(trainer._params.items())]
+                        digest = _params_md5(whole) if dist.is_chief else None
+                    if dist.is_chief:
+                        event(event="start", step=trainer.steps_completed, world=dist.size,
+                              mesh=trainer.mesh.shape if trainer.mesh is not None else None,
+                              restored=os.environ.get("DTPU_LATEST_CHECKPOINT") or None,
+                              params_md5=digest)
+
+
+                def on_checkpoint_write_end(self, storage_id: str) -> None:
+                    if dist.is_chief:
+                        event(event="checkpoint", storage_id=storage_id, world=dist.size)
+
+            return {"record": Record()}
+
+    ElasticLMTrial.__module__ = __name__
+    ElasticLMTrial.__qualname__ = ElasticLMTrial.__name__
+    _ELASTIC["ElasticLMTrial"] = ElasticLMTrial
+    return ElasticLMTrial
+
+
+def _elastic_part(args, root: str, build) -> dict:
+    """R (the docstring at the top)."""
+    import signal
+    import threading
+
+    from chip_smoke import EXPERIMENT_CONST, EXPERIMENT_CUTS, _apply_cuts, _read_events
+    from determined_tpu_torch import devcluster
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.experiment import ClusterExperiment
+
+    assert args.gpus == 4, "R runs two slices of two GPUs"
+    for key, old, value, why in R_CUTS:
+        log(f"R cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    for flag, old, value, why in R_MASTER_CUTS:
+        log(f"R cut: dtpu-master {flag} {old} -> {value} ({why})")
+    where, t_build = build
+    t0 = time.monotonic()
+    out, _ = t_build.communicate(timeout=R_TIMEOUT_S)
+    assert t_build.returncode == 0, f"native build failed:\n{out[-4000:]}"
+    log(f"R: native build {float(out.strip().splitlines()[-1]):.1f} s, waited "
+        f"{time.monotonic() - t0:.1f} s for it")
+    events_dir = tempfile.mkdtemp(prefix="r-events-", dir=root)
+    ckpt = os.path.join(root, "r-ckpt")
+    raw = _apply_cuts(EXPERIMENT_CONST, EXPERIMENT_CUTS + R_CUTS, {
+        "<temp dir>": ckpt, "<--seed>": args.seed, "<events dir>": events_dir})
+    flags = [str(x) for flag, _old, value, _why in R_MASTER_CUTS for x in (flag, value)]
+    cluster = devcluster.LocalCluster(
+        os.path.join(root, "r-state"), ckpt, agents=4, slots=1,
+        gpus=[str(i) for i in range(4)], cwd=REPO, where=where, slices=2, master_args=flags)
+    result: dict = {}
+    try:
+        cluster.start()
+        session = cluster.session()
+        exp = ClusterExperiment(ExperimentConfig.parse(raw), session=session,
+                                checkpoint_dir=os.path.join(root, "r-driver"), poll_interval=0.5)
+        summary: dict = {}
+        driver = threading.Thread(target=lambda: summary.update(exp.run()), daemon=True)
+        t_submit = time.time()
+        driver.start()
+        path = os.path.join(events_dir, "events.jsonl")
+
+        def wait(what, pred):
+            deadline = time.monotonic() + R_TIMEOUT_S
+            while time.monotonic() < deadline:
+                got = [e for e in _read_events(path) if pred(e)]
+                if got:
+                    return got[0]
+                assert driver.is_alive(), f"the experiment ended before {what}: {summary}"
+                time.sleep(0.2)
+            raise AssertionError(f"R: no {what} in {R_TIMEOUT_S:.0f} s")
+
+        started = wait("the first step on two slices",
+                       lambda e: e["event"] == "first_step" and e["world"] == 4)
+        saved = wait("a checkpoint on two slices",
+                     lambda e: e["event"] == "checkpoint" and e["world"] == 4)
+        t_kill = time.time()
+        cluster.kill_agents([2, 3])
+        log(f"R: slice 1's agents (2, 3) and their trials SIGKILLed, {t_kill - t_submit:.1f} s "
+            f"after the submit; the newest checkpoint {saved['storage_id']}")
+        shrunk = wait("the first step on one slice",
+                      lambda e: e["event"] == "first_step" and e["world"] == 2
+                      and e["t"] > t_kill)
+        # each restore against its checkpoint, read before the master's GC
+        # may take it
+        restores = [_restore_check(ckpt, e) for e in _read_events(path)
+                    if e["event"] == "start" and e["restored"]]
+        t_restart = time.time()
+        cluster.start_agents([2, 3])
+        log(f"R: agents 2, 3 restarted {t_restart - t_kill:.1f} s after the kill")
+        grown = wait("the first step back on two slices",
+                     lambda e: e["event"] == "first_step" and e["world"] == 4
+                     and e["t"] > t_restart)
+        restores += [_restore_check(ckpt, e) for e in _read_events(path)
+                     if e["event"] == "start" and e["restored"] and e["t"] > t_restart]
+        mexp = exp.master_experiment_id
+        session.post(f"/api/v1/experiments/{mexp}/kill")
+        driver.join(timeout=120)
+        events = _read_events(path)
+        # the master's elastic records of the trial: its log's "elastic:"
+        # lines (time, text) and the trial's resize count
+        tid = session.get(f"/api/v1/experiments/{mexp}").json()["trials"][0]["id"]
+        recs = session.get(f"/api/v1/trials/{tid}/logs", params={"limit": 100000}).json()
+        elastic = [(r["ts"] / 1e3, r["line"]) for r in recs
+                   if isinstance(r, dict) and "elastic:" in str(r.get("line", ""))]
+        trial = session.get(f"/api/v1/trials/{tid}").json()
+        grow_at = [t for t, line in elastic if "growing trial" in line]
+        completed = [int(line.split(" now ")[1].split("/")[0]) for _, line in elastic
+                     if "resize complete" in line]
+        result = dict(
+            submit_to_first_step_s=started["t"] - t_submit,
+            shrink_to_first_step_s=shrunk["t"] - t_kill,
+            restart_to_first_step_s=grown["t"] - t_restart,
+            grow_to_first_step_s=grown["t"] - grow_at[0] if grow_at else None,
+            elastic_log=[(t - t_submit, line) for t, line in elastic],
+            resizes=trial.get("resizes"), completed_slots=completed, restores=restores,
+            steps=[(e["event"], e.get("step"), e["world"]) for e in events],
+            cooldown_s=R_COOLDOWN_S)
+        log("R " + json.dumps(result, default=str))
+        assert trial.get("resizes") == 2 and completed == [2, 4], (trial, elastic)
+        assert grow_at, elastic
+        assert [(r["world"], r["mesh"]["dcn"]) for r in restores][:2] == [(2, 1), (4, 2)], \
+            restores
+        assert all(r["bitwise"] for r in restores), restores
+        return result
+    finally:
+        cluster.stop()
+        if t_build.poll() is None:
+            os.killpg(t_build.pid, signal.SIGKILL)
+            t_build.wait()
 
 
 def _rank_seq(core_ctx, mesh: dict, seed: int) -> dict:
@@ -1242,6 +1804,15 @@ def main() -> int:
     for key, old, value, why in MOE_CUTS:
         log(f"cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
     root = tempfile.mkdtemp(prefix="dtt-mesh-smoke-")
+    build = None
+    if "R" in parts:
+        # the native control plane compiles while the earlier parts run
+        where = tempfile.mkdtemp(prefix="native-", dir=root)
+        build = (where, subprocess.Popen(
+            [sys.executable, "-c", "import sys; from determined_tpu_torch import devcluster; "
+             "print(devcluster.build_binaries(sys.argv[1], force=True))", where],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True))
     try:
         if "G" in parts:
             _mesh_part(args, root)
@@ -1259,6 +1830,12 @@ def main() -> int:
             log(f"C: {time.monotonic() - t0:.1f} s")
         if "P" in parts:
             _pipe_part(args, root)
+        if "O" in parts:
+            _overlap_part(args, root)
+        if "R" in parts:
+            t0 = time.monotonic()
+            _elastic_part(args, root, build)
+            log(f"R: {time.monotonic() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"mesh_smoke: {time.monotonic() - t_start:.1f} s")

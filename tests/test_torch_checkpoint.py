@@ -12,9 +12,11 @@ package's on the CPU.
 - The retention planner keeps and deletes the same checkpoints.
 """
 
+import hashlib
 import json
 import os
 import time
+import types
 
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ from determined_tpu_torch.core import _checkpoint as port_ckpt
 from determined_tpu_torch.exec import gc_checkpoints as port_gc
 from determined_tpu_torch.models import LMTrial
 from determined_tpu_torch.utils.errors import CheckpointCorruptError
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.faults import FaultInjector
 
 HP = dict(lr=1e-2, global_batch_size=4, seq_len=32, vocab_size=256, d_model=64, n_layers=2,
@@ -187,6 +190,77 @@ def test_restore_reuses_a_manifest_verdict_only_for_unchanged_files(tmp_path, mo
         with ctx.restore_path(sid, require_manifest=True):
             pass
     assert checked == [ckpt, ckpt]
+
+
+@pytest.mark.parametrize("save", ["sync", "async"])
+def test_a_save_takes_its_digests_from_the_write(tmp_path, monkeypatch, save):
+    """The Trainer's array files are digested as they are written: the
+    save's finalize reads none of them again, its manifest holds their
+    true md5, and a restore still reads and checks every file."""
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.storage import base
+
+    hashed = []
+    md5 = base.file_md5
+    monkeypatch.setattr(base, "file_md5", lambda p, *a: (hashed.append(p), md5(p, *a))[1])
+    exp = ExperimentConfig.parse({"optimizations": {"async_checkpointing": save == "async"}})
+    ctx = train.init(hparams=dict(HP, attention="reference"), seed=0, device="cpu",
+                     exp_config=exp,
+                     core_context=core._dummy_init(checkpoint_dir=str(tmp_path / "ck")))
+    sid = train.Trainer(LMTrial(ctx)).fit(max_length=2, checkpoint_period=2,
+                                          checkpoint_policy="all")["latest_checkpoint"]
+    ckpt = str(tmp_path / "ck" / sid)
+    assert not [p for p in hashed if p.endswith(".pt")]
+    with open(os.path.join(ckpt, port_ckpt.MANIFEST_FILE)) as f:
+        files = json.load(f)["files"]
+    pts = [rel for rel in files if rel.endswith(".pt")]
+    assert pts and all(files[rel]["md5"] == md5(os.path.join(ckpt, rel)) for rel in pts)
+    hashed.clear()
+    assert port_ckpt.verify_manifest(ckpt, require_manifest=True)
+    assert sorted(os.path.relpath(p, ckpt) for p in hashed if p.endswith(".pt")) == sorted(pts)
+    FaultInjector.bit_flip(os.path.join(ckpt, pts[0]))
+    with pytest.raises(CheckpointCorruptError, match="md5"):
+        port_ckpt.verify_manifest(ckpt, require_manifest=True)
+
+
+def test_a_digesting_writer_bounds_what_waits_for_the_hash(tmp_path, monkeypatch):
+    """One write larger than what may wait for the hash (a whole tensor, as
+    torch.save writes a storage) behind a slow hasher: the writer waits
+    for it, holding at most ``_DIGEST_QUEUED`` pieces of at most
+    ``_DIGEST_CHUNK`` bytes; the digest is the file's, and a finalize
+    forgets the files it did not take."""
+    from determined_tpu_torch.storage import base
+
+    monkeypatch.setattr(base, "_DIGEST_CHUNK", 1 << 16)
+    data = np.random.default_rng(0).bytes(10 * (1 << 16) + 123)
+    queued, pieces = [], []
+    w = base.DigestingWriter(str(tmp_path / "big.pt"))
+    put, update = w._queue.put, w._md5.update
+
+    def slow_update(b):
+        time.sleep(0.01)
+        update(b)
+
+    def counted_put(item):
+        if item is not None:
+            pieces.append(len(item))
+        put(item)
+        queued.append(w._queue.qsize())
+
+    w._md5 = types.SimpleNamespace(update=slow_update, hexdigest=w._md5.hexdigest)
+    w._queue.put = counted_put
+    assert w.write(data) == len(data)
+    w.close()
+    assert max(pieces) == 1 << 16 and len(pieces) == 11
+    assert max(queued) <= base._DIGEST_QUEUED == w._queue.maxsize
+    assert base.md5_files(str(tmp_path), ["big.pt"], written=True) == {
+        "big.pt": hashlib.md5(data).hexdigest()}
+    # a file this process wrote but another finalizes is forgotten
+    other = base.DigestingWriter(str(tmp_path / "other.pt"))
+    other.write(b"x")
+    other.close()
+    base.md5_files(str(tmp_path), [], written=True)
+    assert os.path.realpath(str(tmp_path / "other.pt")) not in base._WRITTEN
 
 
 def test_cloud_storage_raises_naming_the_later_slice():

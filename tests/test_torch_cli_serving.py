@@ -32,6 +32,7 @@ from determined_tpu.models.transformer import LMTrial as JaxLMTrial
 from determined_tpu.parallel.mesh import MeshConfig
 from determined_tpu_torch import core, train
 from determined_tpu_torch.models import LMTrial
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.torch_cluster_master import RecordingMaster
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -24,6 +24,7 @@ from determined_tpu.api.session import APIError as JaxAPIError
 from determined_tpu.api.session import Session as JaxSession
 from determined_tpu_torch import client
 from determined_tpu_torch.api.session import APIError, NotFoundError, Session
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.torch_cluster_master import RecordingMaster
 
 CLIENTS = {"jax": (jax_client, JaxSession), "port": (client, Session)}

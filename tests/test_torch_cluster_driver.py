@@ -45,6 +45,7 @@ from determined_tpu_torch.config.experiment import InvalidExperimentConfig
 from determined_tpu_torch.experiment import ClusterExperiment, LocalExperiment, journal_path
 from determined_tpu_torch.experiment import read_journal, registry
 from determined_tpu_torch.models import MnistTrial
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_cluster_experiment import FakeMaster, _loss_plan
 from tests.torch_cluster_master import RecordingMaster
 

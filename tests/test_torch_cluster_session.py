@@ -35,6 +35,7 @@ from determined_tpu_torch.api import session as port_session
 from determined_tpu_torch.api.authentication import TokenStore
 from determined_tpu_torch.core import ClusterInfo
 from determined_tpu_torch.exec import launcher
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

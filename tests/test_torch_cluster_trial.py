@@ -53,6 +53,7 @@ from determined_tpu_torch.core import ClusterInfo, HeartbeatReporter, LogShipper
 from determined_tpu_torch.models import MnistTrial
 from determined_tpu_torch.train import Callback
 from determined_tpu_torch.utils import faults
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_torch_training import F32_TOL
 from tests.torch_cluster_master import RecordingMaster
 

@@ -14,6 +14,7 @@ from determined_tpu.ops.cross_entropy import fused_cross_entropy as jax_fused_ce
 from determined_tpu.ops.cross_entropy import naive_cross_entropy as jax_naive_ce
 import determined_tpu_torch.ops.cross_entropy as port_ce_mod
 from determined_tpu_torch.ops.cross_entropy import fused_cross_entropy, naive_cross_entropy
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 # f32 compute: the same f32 products and logsumexp summed in another order
 TOL = dict(rtol=1e-5, atol=1e-6)

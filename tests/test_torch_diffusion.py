@@ -54,6 +54,7 @@ from determined_tpu_torch.models import diffusion as pd
 from determined_tpu_torch.ops.fused_adamw import FusedAdamW
 from determined_tpu_torch.train import Callback
 from determined_tpu_torch.utils import faults
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_torch_mnist import ADAM_TOL
 from tests.test_torch_training import F32_TOL, _compare_trees, _rel
 
@@ -99,9 +100,11 @@ HP = dict(lr=1e-3, base_channels=16, timesteps=50, global_batch_size=4, dataset_
 STEPS = 3
 
 
+@functools.lru_cache(maxsize=None)
 def _flax_unet(base, dtype, seed=1):
     """A flax UNet and its params with every leaf moved off its init (the
-    zero-initialised conv2, proj and head would hide their paths)."""
+    zero-initialised conv2, proj and head would hide their paths), once per
+    arguments (the module's tests only read them)."""
     rng = np.random.default_rng(seed)
     model = jd.UNet(base_channels=base, dtype=dtype)
     params = nn.meta.unbox(unfreeze(model.init(

@@ -23,6 +23,7 @@ from determined_tpu.core import DummyDistributedContext as JaxDummy
 from determined_tpu_torch import core
 from determined_tpu_torch.core import DistributedContext, DummyDistributedContext, allocate_port
 from determined_tpu_torch.core._distributed import _StarClient, _StarServer
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.torch_rank_worker import launch
 
 

@@ -38,6 +38,7 @@ from determined_tpu_torch.experiment import LocalExperiment, journal_path, read_
 from determined_tpu_torch.models import LMTrial
 from determined_tpu_torch.train import Callback
 from determined_tpu_torch.utils import faults
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_torch_training import F32_TOL, _compare_trees
 
 # lr 1e-3: over 8 steps the two frameworks' f32 rounding stays inside

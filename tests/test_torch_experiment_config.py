@@ -25,6 +25,7 @@ from determined_tpu.searcher import Searcher as JaxSearcher
 from determined_tpu.searcher import method_from_config as jax_method_from_config
 from determined_tpu_torch.config import ExperimentConfig, InvalidExperimentConfig
 from determined_tpu_torch.searcher import Searcher, method_from_config
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = sorted(glob.glob(os.path.join(REPO, "examples", "**", "*.yaml"), recursive=True))

@@ -35,6 +35,7 @@ from determined_tpu_torch.utils.errors import (
     TransientError,
     classify_failure,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.faults import FaultInjector as JaxFaultInjector
 
 pytestmark = pytest.mark.faults

@@ -34,6 +34,7 @@ from determined_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_fwd,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 # the JAX package's own bound for its flash kernel against the reference
 # (tests/test_ops.py:27-59): f32 reassociation of the qk and pv sums

@@ -31,6 +31,7 @@ from determined_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_attention_fwd,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 # f32 against the Pallas backward: both sum the same f32 products in
 # another order (XLA's CPU dot over blocks vs one torch matmul over the

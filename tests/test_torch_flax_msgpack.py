@@ -30,6 +30,7 @@ import transformers
 from flax import serialization
 
 from determined_tpu_torch.models import _flax_msgpack as fm
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def _assert_trees_equal(got, want, path=""):

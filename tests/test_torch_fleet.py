@@ -30,6 +30,7 @@ from determined_tpu_torch import core, devcluster, serve, train
 from determined_tpu_torch.cli.main import main as cli
 from determined_tpu_torch.client import Determined
 from determined_tpu_torch.models import LMTrial
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 HP = dict(lr=1e-2, global_batch_size=4, seq_len=32, vocab_size=128, d_model=32, n_layers=2,
           n_heads=4, n_kv_heads=2, dataset_size=16, attention="reference", fused_ce=False,

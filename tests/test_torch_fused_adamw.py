@@ -26,6 +26,7 @@ from determined_tpu_torch.ops.fused_adamw import (
     global_norm,
 )
 from determined_tpu_torch.train._optim import ClipAdamW, warmup_cosine_decay_schedule
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 # the JAX package's bound for its fused sweep against optax
 # (tests/test_ops.py:222-260): f32 rounding of the same operations

@@ -43,6 +43,7 @@ from determined_tpu_torch.convert import mnist_state_dict_from_flax
 from determined_tpu_torch.experiment import LocalExperiment, TrialNotImportableError, _gang
 from determined_tpu_torch.models import MnistTrial
 from determined_tpu_torch.observability import get_tracer
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.torch_gang_trials import FromNpzMnistTrial, KillOneRankMnistTrial
 from tests.torch_rank_worker import launch
 

@@ -24,6 +24,7 @@ clip) against the JAX package's trial over transformers'
 """
 
 import dataclasses
+import functools
 import logging
 
 import jax
@@ -40,6 +41,7 @@ from determined_tpu_torch.convert import _adam_state, bert_state_dict_from_flax
 from determined_tpu_torch.models import BertClassifyTrial, BertForSequenceClassification
 from determined_tpu_torch.models import hf_bert as pb
 from determined_tpu_torch.train._optim import ClipAdamW, warmup_cosine_decay_schedule
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_torch_hf_gpt2 import (
     _jax_ids,
     _jax_trial,
@@ -106,10 +108,17 @@ def test_synthetic_classification_equals_jax(size, seq, vocab, labels, seed):
         np.testing.assert_array_equal(got[k], want[k])
 
 
-def _flax_and_port(hp):
-    trial = _jax_trial(JaxNoDropoutBert, hp)
+@functools.lru_cache(maxsize=None)
+def _flax_side(hp_items):
+    """The JAX trial, its module and its params off their init, once per
+    hparams (the module's tests only read them)."""
+    trial = _jax_trial(JaxNoDropoutBert, dict(hp_items))
     holder = trial.build_model()
-    params = off_init(holder.init(jax.random.key(0), jnp.asarray(_jax_ids())))
+    return trial, holder, off_init(holder.init(jax.random.key(0), jnp.asarray(_jax_ids())))
+
+
+def _flax_and_port(hp):
+    trial, holder, params = _flax_side(tuple(hp.items()))
     ptrial = PortNoDropoutBert(train.init(hparams=dict(hp), device="cpu"))
     model = BertForSequenceClassification(ptrial.config(), device="cpu")
     state = bert_state_dict_from_flax(params)

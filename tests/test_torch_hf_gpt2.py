@@ -28,6 +28,7 @@ The helpers ``jax_steps``, ``port_steps`` and ``compare_steps`` serve
 """
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -56,6 +57,7 @@ from determined_tpu_torch.ops.fused_adamw import FusedAdamW
 from determined_tpu_torch.train import Callback
 from determined_tpu_torch.train._optim import ClipAdamW
 from determined_tpu_torch.utils import faults
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_torch_training import F32_TOL, _rel
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -143,12 +145,21 @@ def test_synthetic_lm_equals_jax(size, seq, vocab, seed):
     np.testing.assert_array_equal(got["input_ids"], want["input_ids"])
 
 
+@functools.lru_cache(maxsize=None)
+def _flax_side(hp_items, scale):
+    """The JAX trial, its module and its weights off their init
+    (``off_init``'s ``scale``), once per hparams and scale (the module's
+    tests only read them)."""
+    trial = _jax_trial(JaxNoDropoutGPT2, dict(hp_items))
+    holder = trial.build_model()
+    return trial, holder, off_init(holder.init(jax.random.key(0), jnp.asarray(_jax_ids())),
+                                   scale=scale)
+
+
 def _flax_and_port(trial_hp, scale=0.1):
     """The JAX trial's module with weights off their init (``off_init``'s
     ``scale``), and the port's model holding the same weights."""
-    trial = _jax_trial(JaxNoDropoutGPT2, trial_hp)
-    holder = trial.build_model()
-    params = off_init(holder.init(jax.random.key(0), jnp.asarray(_jax_ids())), scale=scale)
+    trial, holder, params = _flax_side(tuple(trial_hp.items()), scale)
     ptrial = PortNoDropoutGPT2(train.init(hparams=dict(trial_hp), device="cpu"))
     return trial, holder, params, ptrial, _port_model(ptrial.config(),
                                                       gpt2_state_dict_from_flax(params))

@@ -5,17 +5,33 @@ imports it only where a file is read); and its entry points never fall back
 to the CPU on their own."""
 
 import os
-import subprocess
-import sys
 import textwrap
 
 import pytest
 import torch
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
+from tests.torch_fork_probe import REPO, Zygote
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "determined_tpu", "yaml",
            "transformers", "msgpack", "requests")
+
+
+# Each probe runs in a child forked from one interpreter that has the
+# blocker installed (and, for ``forked``, torch imported once): a fresh
+# interpreter a probe without a torch import of its own each time.
+@pytest.fixture(scope="module")
+def forked():
+    zygote = Zygote(BLOCKED, "torch")
+    yield zygote
+    zygote.close()
+
+
+@pytest.fixture(scope="module")
+def forked_bare():
+    zygote = Zygote(BLOCKED, "none")
+    yield zygote
+    zygote.close()
 
 _PROBE = textwrap.dedent(
     """
@@ -49,12 +65,8 @@ _PROBE = textwrap.dedent(
 ).format(blocked=BLOCKED)
 
 
-def test_port_and_chip_smoke_import_nothing_of_jax():
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run(
-        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120,
-    )
+def test_port_and_chip_smoke_import_nothing_of_jax(forked):
+    proc = forked.run(_PROBE)
     assert proc.returncode == 0, proc.stderr
     # every module of the slices was walked, not a stub of the package
     assert int(proc.stdout.strip().splitlines()[-1]) >= 75
@@ -68,7 +80,7 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     "determined_tpu_torch.core._profiler",
     "determined_tpu_torch.utils.kineto",
 ])
-def test_observability_and_profiler_modules_import_nothing_of_jax(module):
+def test_observability_and_profiler_modules_import_nothing_of_jax(forked_bare, module):
     """The tracer, the ledger, the metrics shipper, the profiler and the op
     table are the port's own copies: each, imported alone, pulls in
     nothing of JAX or the JAX package (nor torch.profiler: that is
@@ -91,11 +103,7 @@ def test_observability_and_profiler_modules_import_nothing_of_jax(module):
         print("ok")
         """
     ).format(blocked=BLOCKED, module=module)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run(
-        [sys.executable, "-c", probe], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120,
-    )
+    proc = forked_bare.run(probe)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
 
@@ -113,7 +121,7 @@ def test_observability_and_profiler_modules_import_nothing_of_jax(module):
     "determined_tpu_torch.models._hf_common",
     "determined_tpu_torch.models._flax_msgpack",
 ])
-def test_step_knob_and_train_to_serve_modules_import_nothing_of_jax(module):
+def test_step_knob_and_train_to_serve_modules_import_nothing_of_jax(forked, module):
     """The quantized matmuls, the build cache, batch inference, the ResNet,
     the DDPM UNet and sampler, their layers and the SGD optimizer, and the
     GPT-2 and BERT modules with their Flax weight reader are the port's own
@@ -139,11 +147,7 @@ def test_step_knob_and_train_to_serve_modules_import_nothing_of_jax(module):
         print("ok")
         """
     ).format(blocked=BLOCKED, module=module)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run(
-        [sys.executable, "-c", probe], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120,
-    )
+    proc = forked.run(probe)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
 
@@ -157,10 +161,11 @@ def test_step_knob_and_train_to_serve_modules_import_nothing_of_jax(module):
     "determined_tpu_torch.parallel.tensor_parallel",
     "determined_tpu_torch.parallel.pipeline",
     "determined_tpu_torch.ops.ring_attention",
+    "determined_tpu_torch.train._overlap",
 ])
-def test_moe_and_parallel_modules_import_nothing_of_jax(module):
-    """The MoE layer, the distributed context and the mesh and sharding
-    rules are the port's own copies: each, imported alone, pulls in nothing
+def test_moe_and_parallel_modules_import_nothing_of_jax(forked, module):
+    """The MoE layer, the distributed context, the mesh and sharding rules
+    and the overlapped sync's plan are the port's own copies: each, imported alone, pulls in nothing
     of JAX or the JAX package (not its ``core/_distributed.py`` or
     ``parallel/mesh.py``, which import no JAX themselves), opens no process
     group and loads no FSDP (imported where a mesh is built)."""
@@ -184,11 +189,7 @@ def test_moe_and_parallel_modules_import_nothing_of_jax(module):
         print("ok")
         """
     ).format(blocked=BLOCKED, module=module)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run(
-        [sys.executable, "-c", probe], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120,
-    )
+    proc = forked.run(probe)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
 
@@ -200,7 +201,7 @@ def test_moe_and_parallel_modules_import_nothing_of_jax(module):
     "determined_tpu_torch.train.serialization",
     "mesh_smoke",
 ])
-def test_scheduler_gang_and_sharded_checkpoint_modules_import_nothing_of_jax(module):
+def test_scheduler_gang_and_sharded_checkpoint_modules_import_nothing_of_jax(forked, module):
     """The concurrent trial scheduler, the gang launcher, the gang's rank
     entry point and the sharded array plane are the port's own copies (not
     the JAX package's ``experiment/scheduler.py``, which imports no JAX
@@ -228,24 +229,17 @@ def test_scheduler_gang_and_sharded_checkpoint_modules_import_nothing_of_jax(mod
         print("ok")
         """
     ).format(blocked=BLOCKED, module=module)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run(
-        [sys.executable, "-c", probe], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120,
-    )
+    proc = forked.run(probe)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
 
 
-def test_chip_smoke_fails_without_cuda():
+def test_chip_smoke_fails_without_cuda(forked):
     """Without a GPU the smoke run prints no result and exits non-zero."""
-    proc = subprocess.run(
-        [sys.executable, "-c",
-         "import torch; torch.cuda.is_available = lambda: False; "
-         "import runpy, sys; sys.argv = ['chip_smoke.py']; "
-         "runpy.run_path('chip_smoke.py', run_name='__main__')"],
-        cwd=REPO, capture_output=True, text=True, timeout=120,
-    )
+    proc = forked.run(
+        "import torch; torch.cuda.is_available = lambda: False; "
+        "import runpy, sys; sys.argv = ['chip_smoke.py']; "
+        "runpy.run_path('chip_smoke.py', run_name='__main__')")
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
 
@@ -262,20 +256,19 @@ def test_decode_kernels_without_device_raises_instead_of_running_on_cpu(monkeypa
         DecodeKernels(model, ServeConfig())
 
 
-def test_run_local_without_a_gpu_raises_instead_of_training_on_cpu(tmp_path):
+def test_run_local_without_a_gpu_raises_instead_of_training_on_cpu(forked, tmp_path):
     """``python -m determined_tpu_torch.cli run-local`` on a machine without
     a GPU raises before it trains or writes a checkpoint."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
     ckpt = tmp_path / "ckpts"
-    proc = subprocess.run(
-        [sys.executable, "-c",
-         "import sys, torch; torch.cuda.is_available = lambda: False; "
-         "from determined_tpu_torch.cli.main import main; sys.exit(main(sys.argv[1:]))",
-         "run-local", os.path.join(REPO, "examples/transformer_lm/const.yaml"),
-         "determined_tpu_torch.models.transformer:LMTrial", "--checkpoint-dir", str(ckpt)],
-        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=120,
-    )
+    argv = ["run-local", os.path.join(REPO, "examples/transformer_lm/const.yaml"),
+            "determined_tpu_torch.models.transformer:LMTrial", "--checkpoint-dir", str(ckpt)]
+    # the CLI reads yaml: the probe takes the import blocker off first
+    proc = forked.run(
+        "import sys; sys.meta_path[:] = [m for m in sys.meta_path "
+        "if type(m).__name__ != '_Blocker']; "
+        "import torch; torch.cuda.is_available = lambda: False; "
+        "from determined_tpu_torch.cli.main import main; "
+        f"sys.exit(main({argv!r}))", cwd=str(tmp_path), path=[REPO])
     assert proc.returncode != 0
     assert "device='cpu'" in proc.stderr
     assert not ckpt.exists()
@@ -302,7 +295,8 @@ def test_run_local_without_a_gpu_raises_instead_of_training_on_cpu(tmp_path):
     # the package's names load when read: the registry client alone stays light
     ("determined_tpu_torch.experiment", True),
 ])
-def test_cluster_modules_import_nothing_of_jax_or_requests(module, no_torch):
+def test_cluster_modules_import_nothing_of_jax_or_requests(forked, forked_bare, module,
+                                                          no_torch):
     """The cluster path's modules are the port's own copies on the standard
     library: each, imported alone, pulls in nothing of JAX, the JAX package
     or ``requests``; the session, the launcher (an exec shim the agent
@@ -325,11 +319,7 @@ def test_cluster_modules_import_nothing_of_jax_or_requests(module, no_torch):
         print("torch" in sys.modules)
         """
     ).format(blocked=BLOCKED, module=module)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run(
-        [sys.executable, "-c", probe], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120,
-    )
+    proc = (forked_bare if no_torch else forked).run(probe)
     assert proc.returncode == 0, proc.stderr
     if no_torch:
         assert proc.stdout.strip() == "False"

@@ -5,7 +5,8 @@ package's.
 - A checkpoint the port's Trainer wrote serves, through
   ``from_checkpoint``, the greedy tokens of an engine built from the
   trainer's in-memory model and of the JAX engine over the same weights;
-  it names its trial, refuses a model without ``.cfg`` and a corrupt file.
+  it names its trial, refuses a model without ``.cfg`` and a corrupt file,
+  and reads and verifies the params' file alone (not the moments).
 - ``run_batch_inference`` hands the processor the JAX function's batches,
   and the three cases of tests/test_inference.py hold on the port: the
   whole shard, a resume from recorded progress, and the tail's progress.
@@ -30,6 +31,7 @@ from determined_tpu_torch.models import LMTrial
 from determined_tpu_torch.models.mnist import MnistTrial
 from determined_tpu_torch.serve import DecodeKernels, ServeConfig, ServeEngine
 from determined_tpu_torch.utils.errors import CheckpointCorruptError
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.faults import FaultInjector
 
 HP = dict(
@@ -104,6 +106,28 @@ def test_from_checkpoint_verifies_the_manifest(tmp_path):
     FaultInjector.bit_flip(os.path.join(path, "state", "params.pt"))
     with pytest.raises(CheckpointCorruptError, match="md5"):
         ServeEngine.from_checkpoint(path, ServeConfig(**SERVE_KW), device="cpu")
+
+
+def test_from_checkpoint_reads_and_verifies_the_params_alone(tmp_path, monkeypatch):
+    """A server loads the params: the optimizer's moments (two thirds of a
+    checkpoint's bytes) are neither hashed nor read, so a flipped bit there
+    does not stop it serving the trained tokens, where a full load refuses
+    the checkpoint."""
+    from determined_tpu_torch.storage import base
+
+    path, trainer = _trained(tmp_path)
+    FaultInjector.bit_flip(os.path.join(path, "state", "opt_state.pt"))
+    hashed = []
+    md5 = base.file_md5
+    monkeypatch.setattr(base, "file_md5", lambda p, *a: (hashed.append(p), md5(p, *a))[1])
+    scfg = ServeConfig(**SERVE_KW)
+    eng = ServeEngine.from_checkpoint(path, scfg, device="cpu")
+    assert sorted(os.path.relpath(p, path) for p in hashed) == [
+        os.path.join("state", "params.pt"), "trainer_state.json"]
+    assert _drive(eng, PROMPTS) == _drive(
+        ServeEngine(DecodeKernels(trainer.model, scfg, device="cpu")), PROMPTS)
+    with pytest.raises(CheckpointCorruptError, match="opt_state.pt: md5"):
+        train.load_trial_from_checkpoint(path, device="cpu")
 
 
 # ---------------------------------------------------------------------------

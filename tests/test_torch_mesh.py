@@ -26,6 +26,7 @@ from determined_tpu_torch.parallel import (
     fsdp_shard_dim,
     logical_to_mesh_spec,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.torch_rank_worker import launch
 
 
@@ -124,8 +125,10 @@ def test_axes_of_later_slices_raise_naming_the_slice(axis):
         with pytest.raises(NotImplementedError, match="MoE blocks on the 'seq' .* MoE x seq"):
             check_ported({axis: 2, "seq": 2, "expert": 2}, moe=True)
     else:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            check_ported({axis: 2})
+        # ported: what still waits is dcn beside pipe
+        check_ported({axis: 2, "data": 2, "fsdp": 2, "seq": 2, "expert": 2, "tensor": 2})
+        with pytest.raises(NotImplementedError, match="num_slices beside 'pipe'.*later slice"):
+            check_ported({axis: 2, "pipe": 2})
     check_ported({"data": 2, "fsdp": 2, "expert": 8, axis: 1}, moe=True)
 
 

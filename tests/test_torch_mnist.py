@@ -53,6 +53,7 @@ from determined_tpu_torch.convert import flax_from_mnist_state_dict, mnist_state
 from determined_tpu_torch.data import mnist_like, to_device
 from determined_tpu_torch.models import MnistCNN, MnistMLP, MnistTrial
 from determined_tpu_torch.ops.fused_adamw import FusedAdamW
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_torch_training import F32_TOL, _compare_trees
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

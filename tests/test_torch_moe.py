@@ -53,6 +53,7 @@ from determined_tpu_torch.models.transformer import (
     init_kv_cache,
     transformer_prefill,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.torch_rank_worker import launch
 
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -19,6 +19,7 @@ import pytest
 import determined_tpu.observability as jax_obs
 import determined_tpu_torch.observability as port_obs
 from determined_tpu_torch.observability import Tracer, get_tracer
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -18,8 +18,8 @@ mesh.
   only) ends at one device's params.
 - Preemption asked of one rank stops every rank at the same boundary,
   with one checkpoint that every rank names.
-- The mesh axes of later slices (and MoE blocks on tensor or seq) raise
-  ``NotImplementedError``.
+- The mesh compositions of later slices (tensor or ``num_slices`` beside
+  pipe, MoE blocks on tensor or seq) raise ``NotImplementedError``.
 """
 
 import functools
@@ -43,6 +43,7 @@ from determined_tpu_torch.data import to_device
 from determined_tpu_torch.models import LMTrial, MnistTrial
 from determined_tpu_torch.ops.fused_adamw import global_norm
 from determined_tpu_torch.parallel import MeshConfig
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.torch_rank_worker import launch
 
 MOE_HP = dict(
@@ -186,12 +187,12 @@ def test_checkpoint_resumes_across_a_mesh_change(tmp_path):
 
 @pytest.mark.parametrize(
     "axes",
-    [dict(tensor=2), dict(seq=2), dict(pipe=2, tensor=2), dict(num_slices=2)],
+    [dict(tensor=2), dict(seq=2), dict(pipe=2, tensor=2), dict(num_slices=2, pipe=2)],
     ids=["tensor", "seq", "pipe", "num_slices"],
 )
 def test_mesh_axes_of_later_slices_raise(axes):
-    # tensor, seq and pipe are ported; MoE blocks on tensor or seq are not,
-    # nor tensor beside pipe
+    # tensor, seq, pipe and num_slices are ported; MoE blocks on tensor or
+    # seq are not, nor tensor or num_slices beside pipe
     hp = dict(MOE_HP) if set(axes) <= {"tensor", "seq"} else dict(MNIST_HP)
     with pytest.raises(NotImplementedError, match="later slice"):
         train.init(hparams=hp, device="cpu", mesh_config=MeshConfig(**axes))

@@ -49,6 +49,7 @@ from determined_tpu_torch.models import LMTrial, MnistTrial
 from determined_tpu_torch.train import Callback
 from determined_tpu_torch.train._optim import warmup_cosine_decay_schedule
 from determined_tpu_torch.utils import faults
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_torch_training import F32_TOL
 
 GEN = 4  # batches a generation

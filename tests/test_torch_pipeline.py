@@ -39,6 +39,7 @@ from determined_tpu_torch.convert import (
     state_dict_from_split,
 )
 from determined_tpu_torch.models import LMTrial
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_torch_pipeline_schedules import (
     HP,
     _init_state,

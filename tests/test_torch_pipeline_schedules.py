@@ -61,6 +61,7 @@ from determined_tpu_torch.parallel.pipeline import (
     stack_stage_params,
     tick_table,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.torch_rank_worker import launch
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from determined_tpu_torch.config import ExperimentConfig
 from determined_tpu_torch.core import MetricsContext, ProfilerContext
 from determined_tpu_torch.models import LMTrial
 from determined_tpu_torch.utils import kineto
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 HP = dict(lr=1e-3, global_batch_size=4, seq_len=32, vocab_size=64, d_model=64, n_layers=2,
           n_heads=4, dataset_size=32, bf16=False, attention="flash")

@@ -43,6 +43,7 @@ from determined_tpu_torch.models import LMTrial
 from determined_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 from determined_tpu_torch.serve import DecodeKernels, ServeConfig
 from determined_tpu_torch.train import _quant
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = torch.float32

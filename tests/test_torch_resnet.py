@@ -43,6 +43,7 @@ from determined_tpu_torch.convert import flax_from_resnet_state_dict, resnet_sta
 from determined_tpu_torch.data import cifar_like, to_device
 from determined_tpu_torch.models import CifarTrial, ResidualBlock, ResNet
 from determined_tpu_torch.train._optim import SGD, sgd
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_torch_training import F32_TOL, _compare_trees
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

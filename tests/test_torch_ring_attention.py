@@ -31,6 +31,7 @@ from determined_tpu_torch.ops.ring_attention import (
     ring_attention_local,
     ring_block_counts,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.torch_rank_worker import launch
 
 # f32 on both sides; the port merges flash blocks in log2 space where JAX

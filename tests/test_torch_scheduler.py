@@ -36,6 +36,7 @@ from determined_tpu_torch.config import ExperimentConfig
 from determined_tpu_torch.experiment import LocalExperiment, SlotPool, TrialScheduler
 from determined_tpu_torch.models import MnistTrial
 from determined_tpu_torch.searcher import Searcher, method_from_config
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 IMPLS = {
     "jax": (JaxSlotPool, JaxTrialScheduler, JaxExperimentConfig, JaxSearcher,
@@ -205,6 +206,14 @@ def _mnist_raw(search):
 
 @pytest.mark.parametrize("search", ["grid", "asha"])
 def test_a_search_on_four_cpu_slots_runs_four_trials_at_once(tmp_path, search):
+    with torch_threads.default_threads():
+        _four_trials_at_once(tmp_path, search)
+
+
+def _four_trials_at_once(tmp_path, search):
+    """The serial search runs its trials in this thread, the packed one in
+    the scheduler's threads: both at torch's default threads, so their
+    metrics and params compare bitwise (tests/torch_threads.py)."""
     raw = _mnist_raw(search)
     serial = LocalExperiment(ExperimentConfig.parse(raw), MnistTrial,
                              checkpoint_dir=str(tmp_path / "s"), device="cpu")

@@ -37,6 +37,7 @@ from determined_tpu_torch.experiment import LocalExperiment, journal_path, read_
 from determined_tpu_torch.models import MnistTrial
 from determined_tpu_torch.searcher import ExitedReason
 from determined_tpu_torch.utils import faults
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 jax_cli = importlib.import_module("determined_tpu.cli.main")

@@ -50,6 +50,7 @@ from determined_tpu_torch.models import LMTrial
 from determined_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 from determined_tpu_torch.serve import ReplicaRegistration
 from determined_tpu_torch.serve import replica as port_replica
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.torch_cluster_master import RecordingMaster
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -24,6 +24,7 @@ from determined_tpu_torch.convert import load_flax_params
 from determined_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 from determined_tpu_torch.observability import get_tracer
 from determined_tpu_torch.utils import faults
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 # ---------------------------------------------------------------------------
 # the copied allocator and scheduler behave as the JAX package's

@@ -46,6 +46,7 @@ from determined_tpu_torch.storage.shared_fs import SharedFSStorageManager
 from determined_tpu_torch.train import serialization
 from determined_tpu_torch.utils import faults
 from determined_tpu_torch.utils.errors import CheckpointCorruptError
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.parallel_utils import Execution
 from tests.test_torch_distributed import _run
 from tests.test_torch_parallel_training import MOE_HP, _jax_moe_mesh_run, _rel

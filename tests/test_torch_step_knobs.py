@@ -46,6 +46,7 @@ from determined_tpu_torch.experiment import LocalExperiment
 from determined_tpu_torch.models import LMTrial
 from determined_tpu_torch.ops import _build
 from determined_tpu_torch.utils import compilation_cache as cc
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_torch_training import F32_TOL, _compare_trees
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -17,8 +17,8 @@ the CPU (tests/torch_rank_worker.py, each launch under a hard timeout of
 - ``MnistTrial`` learns past 0.5 validation accuracy at fsdp 2 x tensor 2,
   resumed there from a checkpoint saved at data 2; the checkpoint also
   resumes on one rank, and both end at the params of an uninterrupted run.
-- The tensor axis beside the pipeline axis, ``num_slices`` and MoE blocks
-  on the tensor or seq axis still raise ``NotImplementedError``.
+- The tensor axis or ``num_slices`` beside the pipeline axis and MoE
+  blocks on the tensor or seq axis still raise ``NotImplementedError``.
 """
 
 import functools
@@ -43,6 +43,7 @@ from determined_tpu_torch.models import LMTrial, MnistTrial
 from determined_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 from determined_tpu_torch.ops.fused_adamw import global_norm
 from determined_tpu_torch.parallel import MeshConfig
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 from tests.torch_rank_worker import launch
 
 LM_HP = dict(
@@ -220,7 +221,7 @@ def test_data2_checkpoint_resumes_at_fsdp2_tensor2_and_on_one_rank(mnist_runs):
                                    atol=2e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("axes", [dict(pipe=2, tensor=2), dict(num_slices=2)],
+@pytest.mark.parametrize("axes", [dict(pipe=2, tensor=2), dict(num_slices=2, pipe=2)],
                          ids=["pipe", "num_slices"])
 def test_axes_of_later_slices_still_raise(axes):
     with pytest.raises(NotImplementedError, match="later slice"):

@@ -49,6 +49,7 @@ from determined_tpu_torch.models import LMTrial
 from determined_tpu_torch.models.transformer import TransformerLM
 from determined_tpu_torch.train import MetricReducer, get_reducer
 from determined_tpu_torch.utils import faults
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 HP = dict(
     lr=1e-2, global_batch_size=4, seq_len=128, vocab_size=512, d_model=128, n_layers=2,
@@ -398,8 +399,9 @@ def test_unported_options_raise():
 
 @pytest.mark.parametrize(
     "raw",
-    # tensor and seq are ported: MoE blocks on them are what waits
-    [{"optimizations": {"overlap_grad_sync": True}},
+    # tensor, seq and overlap are ported: MoE blocks on them and overlap
+    # beside pipe are what waits
+    [{"optimizations": {"overlap_grad_sync": True}, "resources": {"mesh": {"pipe": 2}}},
      {"resources": {"mesh": {"data": 2, "tensor": 2}}, "moe_experts": 2},
      {"resources": {"mesh": {"fsdp": 2, "data": -1, "seq": 2}}, "moe_experts": 2}],
     ids=["overlap_grad_sync", "mesh_data2", "mesh_fsdp2"],

@@ -30,6 +30,7 @@ from determined_tpu_torch.models.transformer import (
     transformer_prefill,
     transformer_prefill_suffix,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BLOCK = 4

@@ -9,17 +9,30 @@ compute their JAX references in the parent.  Every launch has a hard
 timeout; on expiry every rank is killed and the launch fails, so a hung
 collective fails one test.
 
-Run as a script: ``python tests/torch_rank_worker.py CASE RANK WORLD DIR``.
+The ranks are forked from one interpreter of this file (``_Zygote``: it
+imports torch and the port once, under the launch's environment, and forks
+the ``world`` ranks of each launch), so a launch starts no interpreter and
+imports nothing again; a launch whose environment differs from the
+interpreter's gets a new one.  Each rank sets its own ``RANK``/
+``LOCAL_RANK`` and runs ``main`` in the launch's directory.
+
+Run as a script: ``python tests/torch_rank_worker.py CASE RANK WORLD DIR``
+(one rank), or ``python tests/torch_rank_worker.py --zygote`` (the forking
+interpreter, one JSON request a line on standard input).
 """
 
 from __future__ import annotations
 
+import atexit
+import json
 import os
 import pickle
+import select
+import signal
 import subprocess
 import sys
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,31 +50,7 @@ def launch(case: str, world: int, workdir: str, payload: Dict[str, Any],
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS", "PYTEST_XDIST_WORKER")}
     env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="2", MKL_NUM_THREADS="2",
                WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
-    procs, logs = [], []
-    for rank in range(world):
-        log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
-        logs.append(log)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), case, str(rank), str(world), workdir],
-            env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)),
-            stdout=log, stderr=subprocess.STDOUT, cwd=workdir,
-        ))
-    deadline = time.monotonic() + timeout
-    hung = False
-    try:
-        for p in procs:
-            try:
-                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
-            except subprocess.TimeoutExpired:
-                hung = True
-                break
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
+    rcs, hung = _zygote(env).run(case, world, workdir, timeout)
 
     def tail(rank: int) -> str:
         with open(os.path.join(workdir, f"rank{rank}.log")) as f:
@@ -72,7 +61,7 @@ def launch(case: str, world: int, workdir: str, payload: Dict[str, Any],
             f"{case} on {world} ranks did not finish within {timeout:.0f} s; ranks killed\n"
             + "\n".join(f"--- rank {r}:\n{tail(r)}" for r in range(world))
         )
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    bad = [r for r, rc in enumerate(rcs) if rc != 0]
     if bad:
         raise AssertionError(
             f"{case}: ranks {bad} failed\n" + "\n".join(f"--- rank {r}:\n{tail(r)}" for r in bad)
@@ -82,6 +71,136 @@ def launch(case: str, world: int, workdir: str, payload: Dict[str, Any],
         with open(os.path.join(workdir, f"out{rank}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+class _Zygote:
+    """The forking interpreter of one environment (module docstring)."""
+
+    def __init__(self, env: Dict[str, str]) -> None:
+        self.env = env
+        self._buf = b""
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--zygote"], env=env, cwd=REPO,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+        )
+
+    def _read(self, deadline: float) -> Optional[Dict[str, Any]]:
+        """The interpreter's next reply, None at ``deadline`` (the pipe is
+        read by its descriptor: a buffered reader would hide a line that
+        came with the one before)."""
+        fd = self.proc.stdout.fileno()
+        while b"\n" not in self._buf:
+            ready, _, _ = select.select([fd], [], [], max(deadline - time.monotonic(), 0.0))
+            if not ready:
+                return None
+            chunk = os.read(fd, 65536)
+            if not chunk:
+                raise AssertionError("the rank interpreter exited")
+            self._buf += chunk
+        line, _, self._buf = self._buf.partition(b"\n")
+        return json.loads(line)
+
+    def run(self, case: str, world: int, workdir: str, timeout: float):
+        """Fork ``world`` ranks of ``case``; their exit codes by rank, and
+        whether the launch outlived ``timeout`` (its ranks then killed)."""
+        self.proc.stdin.write(json.dumps(dict(case=case, world=world, workdir=workdir)) + "\n")
+        self.proc.stdin.flush()
+        deadline = time.monotonic() + timeout
+        # the first launch waits for the interpreter's imports too
+        pids = self._read(time.monotonic() + max(timeout, 120.0))["pids"]
+        rcs: Dict[int, int] = {}
+        hung = False
+        while len(rcs) < world:
+            reply = self._read(deadline if not hung else time.monotonic() + 60.0)
+            if reply is None:
+                if hung:
+                    raise AssertionError("killed ranks were not reaped")
+                hung = True
+                for pid in pids:
+                    try:
+                        os.kill(pid, signal.SIGKILL)
+                    except ProcessLookupError:
+                        pass
+                continue
+            rcs[reply["rank"]] = reply["rc"]
+        return [rcs[r] for r in range(world)], hung
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+_ZYGOTE: Optional[_Zygote] = None
+
+
+def _zygote(env: Dict[str, str]) -> _Zygote:
+    """The forking interpreter of ``env`` (rank variables aside), started
+    at its first launch and kept for the next."""
+    global _ZYGOTE
+    base = {k: v for k, v in env.items() if k not in ("WORLD_SIZE", "LOCAL_WORLD_SIZE")}
+    if _ZYGOTE is not None and (_ZYGOTE.env != base or _ZYGOTE.proc.poll() is not None):
+        _ZYGOTE.close()
+        _ZYGOTE = None
+    if _ZYGOTE is None:
+        _ZYGOTE = _Zygote(base)
+        atexit.register(_ZYGOTE.close)
+    return _ZYGOTE
+
+
+def _serve() -> None:
+    """The forking interpreter: import what every rank imports, then for
+    each request fork its ranks, name their pids, and report each one's
+    exit code as it ends."""
+    import traceback
+
+    import torch  # noqa: F401
+    import torch.distributed  # noqa: F401
+
+    from determined_tpu_torch import core, models, parallel, train  # noqa: F401
+    from determined_tpu_torch.core import DistributedContext  # noqa: F401
+
+    reply = sys.stdout
+    for line in sys.stdin:
+        req = json.loads(line)
+        world, workdir = req["world"], req["workdir"]
+        pids = []
+        for rank in range(world):
+            pid = os.fork()
+            if pid == 0:
+                rc = 0
+                try:
+                    log = os.open(os.path.join(workdir, f"rank{rank}.log"),
+                                  os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+                    os.dup2(log, 1)
+                    os.dup2(log, 2)
+                    os.close(log)
+                    sys.stdin = open(os.devnull)
+                    os.chdir(workdir)
+                    os.environ.update(WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                                      RANK=str(rank), LOCAL_RANK=str(rank))
+                    main(req["case"], rank, world, workdir)
+                except BaseException:  # noqa: BLE001 - a rank reports any failure by its code
+                    traceback.print_exc()
+                    rc = 1
+                finally:
+                    sys.stdout.flush()
+                    sys.stderr.flush()
+                    os._exit(rc)
+            pids.append(pid)
+        reply.write(json.dumps(dict(pids=pids)) + "\n")
+        reply.flush()
+        left = dict(zip(pids, range(world)))
+        while left:
+            pid, status = os.wait()
+            if pid in left:
+                reply.write(json.dumps(dict(rank=left.pop(pid),
+                                            rc=os.waitstatus_to_exitcode(status))) + "\n")
+                reply.flush()
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +326,196 @@ def case_train_runs(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
             "local_keys": sorted(trainer._params),
         })
     return {"runs": runs}
+
+
+class _IssuedRingBytes:
+    """While open, the ring bytes of the all-gathers, reduce-scatters and
+    all-reduces this rank issues (an all-reduce moves 2 (n - 1) / n of its
+    buffer, the others (n - 1) / n of the whole one), by hop: ``dcn`` for a
+    group that spans slices (its ranks differ in the mesh's outermost
+    coordinate, ``rank // per_slice``), ``ici`` for one within a slice."""
+
+    # name: (position and keyword of the whole buffer, of the group, the
+    # share of it a rank moves over (n - 1) / n); FSDP2 calls the _single
+    # forms or, in older torch, the _tensor ones
+    SIGNATURES = {
+        "all_reduce": ((0, "tensor"), (2, "group"), 2.0),
+        "reduce_scatter_tensor": ((1, "input"), (3, "group"), 1.0),
+        "reduce_scatter_single": ((1, "input"), (3, "group"), 1.0),
+        "all_gather_into_tensor": ((0, "output_tensor"), (2, "group"), 1.0),
+        "all_gather_single": ((0, "output_tensor"), (2, "group"), 1.0),
+    }
+
+    def __init__(self) -> None:
+        self.ring_bytes = {"ici": 0.0, "dcn": 0.0}
+        self.per_slice = 0  # ranks a slice (0: one slice)
+        self._saved: Dict[str, Any] = {}
+
+    def __enter__(self) -> "_IssuedRingBytes":
+        import torch.distributed as tdist
+
+        for name, (buf_at, group_at, factor) in self.SIGNATURES.items():
+            fn = getattr(tdist, name, None)
+            if fn is None:
+                continue
+            self._saved[name] = fn
+
+            def wrapped(*a, _fn=fn, _buf=buf_at, _group=group_at, _f=factor, **k):
+                buf = a[_buf[0]] if len(a) > _buf[0] else k.get(_buf[1])
+                group = a[_group[0]] if len(a) > _group[0] else k.get(_group[1])
+                ranks = (tdist.get_process_group_ranks(group) if group is not None
+                         else list(range(tdist.get_world_size())))
+                n = len(ranks)
+                spans = self.per_slice and len({r // self.per_slice for r in ranks}) > 1
+                self.ring_bytes["dcn" if spans else "ici"] += (
+                    _f * (n - 1) / n * buf.numel() * buf.element_size())
+                return _fn(*a, **k)
+
+            setattr(tdist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import torch.distributed as tdist
+
+        for name, fn in self._saved.items():
+            setattr(tdist, name, fn)
+        self._saved.clear()
+
+
+def case_sync_runs(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """``case_train_runs`` with the gradient sync in view: each run's rows
+    and the chief's final params, the ``step.*`` counters the tracer saw,
+    the FSDP2 unit reductions (``foreach_reduce``: one reduce-scatter a
+    unit) issued a step, the plan's buckets and each unit's modules, and
+    the placements of the params."""
+    import torch.distributed.fsdp._fully_shard._fsdp_param_group as pg
+    from torch.distributed.tensor import DTensor
+
+    from determined_tpu_torch import core, train
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.observability import get_tracer
+    from determined_tpu_torch.parallel import MeshConfig
+
+    reductions = [0]
+    reduce = pg.foreach_reduce
+
+    def counted(*a, **k):
+        reductions[0] += 1
+        return reduce(*a, **k)
+
+    pg.foreach_reduce = counted
+    issued = _IssuedRingBytes()
+    tracer = get_tracer()
+    runs = []
+    for c in inp["cases"]:
+        tracer.reset()
+        tracer.configure(enabled=True)
+        tracer.start()
+        core_ctx = core._dummy_init(distributed=dist,
+                                    checkpoint_dir=os.path.join(inp["ckpt_dir"], c["name"]))
+        exp = ExperimentConfig.parse(c["exp_config"]) if c.get("exp_config") else None
+        ctx = train.init(hparams=c["hparams"], seed=c.get("seed", 0), device="cpu",
+                         core_context=core_ctx, mesh_config=MeshConfig(**c["mesh"]),
+                         exp_config=exp)
+        trainer = train.Trainer(_trial_class(c["trial"], c.get("init_state"))(ctx))
+        reductions[0] = 0
+        train_step = trainer._train_step
+
+        def issuing_step(*a, **k):
+            with issued:
+                return train_step(*a, **k)
+
+        trainer._train_step = issuing_step
+        issued.ring_bytes = {"ici": 0.0, "dcn": 0.0}
+        slices = int(c["mesh"].get("num_slices", 1))
+        issued.per_slice = dist.size // slices if slices > 1 else 0
+        summary = trainer.fit(**c["fit"])
+        tracer.stop()
+        counters: Dict[str, float] = {}
+        for e in tracer.chrome_events():
+            if e.get("ph") == "C" and e["name"].startswith("step."):
+                counters[e["name"]] = counters.get(e["name"], 0.0) + e["args"]["value"]
+        tracer.reset()
+        plan = trainer._overlap_plan
+        from determined_tpu_torch.train._overlap import fsdp_units
+
+        units = fsdp_units(plan, trainer.model) if plan is not None and plan.enabled else []
+        params = trainer._full_array_state()["params"]
+        runs.append({
+            "name": c["name"], "summary": summary,
+            "training": ctx.core.train.metrics("training"),
+            "params": {k: _numpy(v) for k, v in params.items()} if dist.is_chief else None,
+            "counters": counters,
+            "reductions": reductions[0],
+            "issued_ring_bytes": issued.ring_bytes,
+            "comm_model": None if trainer._comm_model is None else dict(
+                ici=trainer._comm_model.bytes_per_step,
+                dcn=trainer._comm_model.dcn_bytes_per_step,
+                n_buckets=trainer._comm_model.n_buckets),
+            "units": units,
+            "coords": {a: ctx.mesh.coordinate(a) for a in ("dcn", "data", "fsdp")},
+            "batch_shard": (trainer.train_loader.sampler.shard_rank,
+                            trainer.train_loader.sampler.num_shards),
+            "plan": None if plan is None else dict(
+                enabled=plan.enabled, buckets=plan.bucket_names(),
+                fingerprint=plan.fingerprint(), synced=plan.synced_leaves,
+                bytes=plan.comm.bytes_per_step, dcn_bytes=plan.comm.dcn_bytes_per_step,
+                n_buckets=plan.comm.n_buckets),
+            "placements": {k: (tuple(type(pl).__name__ for pl in p.placements),
+                               tuple(p.device_mesh.mesh_dim_names or ()))
+                           for k, p in trainer._params.items() if isinstance(p, DTensor)},
+        })
+    pg.foreach_reduce = reduce
+    return {"runs": runs}
+
+
+def case_resize(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """An elastic resize's two sides on ``inp["mesh"]``.  ``save``: train
+    to ``steps[0]`` with a checkpoint there, then a fresh Trainer continues
+    from it to ``steps[1]``.  ``restore``: a fresh Trainer restores that
+    checkpoint (``fit`` to ``steps[0]``: no step), then another continues
+    to ``steps[1]``.  Each side's params whole on the chief, the sampler's
+    state, and the ``trial.resize`` spans of the restore."""
+    from determined_tpu_torch import core, train
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.observability import get_tracer
+    from determined_tpu_torch.parallel import MeshConfig
+
+    def trainer():
+        core_ctx = core._dummy_init(distributed=dist, checkpoint_dir=inp["ckpt_dir"])
+        exp = ExperimentConfig.parse(inp["exp_config"]) if inp.get("exp_config") else None
+        ctx = train.init(hparams=inp["hparams"], seed=0, device="cpu", core_context=core_ctx,
+                         mesh_config=MeshConfig(**inp["mesh"]), exp_config=exp)
+        return train.Trainer(_trial_class("lm", inp.get("init_state"))(ctx))
+
+    def whole(t):
+        params = t._full_array_state()["params"]
+        return {k: _numpy(v) for k, v in params.items()} if dist.is_chief else None
+
+    first, last = inp["steps"]
+    tracer = get_tracer()
+    tracer.reset()
+    tracer.configure(enabled=True)
+    tracer.start()
+    t = trainer()
+    if inp["mode"] == "save":
+        sid = t.fit(max_length=first, checkpoint_period=first, report_period=first,
+                    checkpoint_policy="all")["latest_checkpoint"]
+    else:
+        sid = inp["sid"]
+        t.fit(max_length=first, latest_checkpoint=sid, report_period=first,
+              checkpoint_policy="none")
+    out = {"sid": sid, "at_ckpt": whole(t), "loader": t.train_loader.state_dict(),
+           "steps": t.steps_completed}
+    t2 = trainer()
+    t2.fit(max_length=last, latest_checkpoint=sid, report_period=last,
+           checkpoint_policy="none")
+    tracer.stop()
+    out["resize"] = [e.get("args") or {} for e in tracer.chrome_events()
+                     if e.get("name") == "trial.resize"]
+    tracer.reset()
+    out.update(continued=whole(t2), continued_steps=t2.steps_completed)
+    return out
 
 
 def case_pipe_ckpt(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
@@ -440,7 +749,7 @@ def _vocab_parallel_ce(inp: Dict[str, Any]) -> Dict[str, Any]:
 
 CASES = {"moe_ep": case_moe_ep, "train": case_train, "sharded": case_sharded, "mesh": case_mesh,
          "collectives": case_collectives, "ring": case_ring, "train_runs": case_train_runs,
-         "pipe_ckpt": case_pipe_ckpt}
+         "pipe_ckpt": case_pipe_ckpt, "sync_runs": case_sync_runs, "resize": case_resize}
 
 
 def main(case: str, rank: int, world: int, workdir: str) -> None:
@@ -464,4 +773,7 @@ def main(case: str, rank: int, world: int, workdir: str) -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
-    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1] == "--zygote":
+        _serve()
+    else:
+        main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
