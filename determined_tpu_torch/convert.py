@@ -39,7 +39,9 @@ layout, ``{"outer": {"params": <embed, ln_f, lm_head>}, "blocks":
 interleaved: [p, v] is chunk v * P + p>}}``; the port keeps the whole
 model's names on every stage (``TransformerLM.shard_pipe``).
 ``state_dict_from_split`` and ``split_from_state_dict`` map the two both
-ways; ``stage_state_dict`` is one pipe rank's part of a state dict.
+ways; ``stage_state_dict`` is one pipe rank's part of a state dict, and
+``state_dict_box`` one rank's boxes of its leaves on any other mesh (an
+expert leaf on tensor x expert cut on two dims).
 
 Optimizer moments (``mu``/``nu`` trees of a ``FusedAdamWState`` or of the
 ``ScaleByAdamState`` inside an optax chain state) are param-shaped and map
@@ -201,6 +203,16 @@ def stage_state_dict(state: Mapping[str, Any], rank: int, n_stages: int,
         return rank == n_stages - 1
 
     return {k: v for k, v in state.items() if mine(k)}
+
+
+def state_dict_box(state: Mapping[str, Any],
+                   boxes: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Each leaf's part of a whole ``state_dict`` that one rank of a mesh
+    holds: ``boxes[name]``, a ``(start, stop)`` a dim (``ShardPlan.box``:
+    the tensor split, the expert split and the FSDP chunk, on two dims
+    where a leaf is split over tensor and expert)."""
+    return {k: np.asarray(state[k])[tuple(slice(lo, hi) for lo, hi in box)]
+            for k, box in boxes.items()}
 
 
 def _contiguous(node: Any) -> Any:

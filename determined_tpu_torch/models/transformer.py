@@ -40,6 +40,9 @@ On a mesh, ``parallel.sharding.shard_model`` calls ``shard_tensor`` and
   then be ``auto`` or ``ring``: flash and reference see one shard only.
   With a seq axis of 1, ``ring`` is the whole-sequence ``auto``
   (``ops/attention.py``'s ``dot_product_attention`` holds the rule).
+- MoE blocks (``models/moe.py``): the experts split their FFN dim over
+  tensor and their stack over expert, and route groups cut from the global
+  batch's tokens, this rank's part of each sequence among them.
 
 The paged pool is ``[n_layers, num_blocks, block_size, kv_heads, head_dim]``
 with keys stored after rope; physical block 0 is scratch (padded prefill
@@ -433,12 +436,7 @@ class TransformerLM(nn.Module):
 
     def shard_tensor(self, group: Any, size: int, rank: int) -> Dict[str, int]:
         """Keep this rank's vocabulary rows of ``embed`` and ``lm_head``
-        (the blocks' modules split their own).  MoE blocks do not split."""
-        if self.cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "MoE blocks on the 'tensor' mesh axis are not ported to determined_tpu_torch "
-                "yet; they come with a later slice of the port (ROADMAP.md, Queue 1)"
-            )
+        (the blocks' modules, the experts' too, split their own)."""
         _check_tensor_parallel(self.cfg)
         lo, hi = split_range(self.cfg.vocab_size, size, rank, "vocab_size")
         keep_slice(self.embed, "weight", 0, lo, hi)
@@ -456,12 +454,10 @@ class TransformerLM(nn.Module):
         attention through the ring over ``group``.  ``shard_model`` calls it
         on every mesh: with ``size`` 1, ``attention_impl='ring'`` is
         whole-sequence attention (flash on CUDA), as JAX's ring falls back
-        without a seq axis."""
-        if size > 1 and self.cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "MoE blocks on the 'seq' mesh axis are not ported to determined_tpu_torch yet; "
-                "they come with a later slice of the port (ROADMAP.md, Queue 1)"
-            )
+        without a seq axis.  MoE blocks take their routing groups from
+        ``shard_model`` (``MoE.shard_tokens``: the global batch's tokens,
+        this rank's part of each sequence among them) or, in a pipeline
+        stage, from their own tokens."""
         if size > 1 and self.cfg.attention_impl not in ("auto", "ring"):
             raise ValueError(
                 f"attention_impl={self.cfg.attention_impl!r} on a 'seq' mesh axis: the port "

@@ -11,14 +11,17 @@ places them itself (``shard_model``), one process per device:
 
 - ``expert``: every module with ``shard_experts`` (``models/moe.py``'s
   ``MoE``) keeps its ``e / n`` experts of the stacked leaves (the rule
-  ``expert -> expert`` on their leading dim) and all-reduces its combine
-  over the expert group; every other parameter is replicated over it.
-  Modules with ``shard_batch`` learn their slice of the global batch and
-  the group of the ranks that hold the others (``batch_group``);
+  ``expert -> expert`` on their leading dim) and sums its combine over the
+  expert group; every other parameter is replicated over it.  Outside a
+  pipeline, modules with ``shard_tokens`` learn their part of the global
+  batch, its batch shard by its seq part, and the group of the ranks that
+  hold the rest (``token_group``): MoE routing groups are cut from the
+  global batch's tokens, as GSPMD cuts them;
 - ``tensor``: every module with ``shard_tensor`` (the LM's attention, MLP,
-  embedding and head; the MNIST models' hidden layer) keeps its rank's rows
-  or columns of the leaves the rules ``heads``, ``mlp`` and ``vocab ->
-  tensor`` shard, as plain parameters, and puts Megatron's collectives in
+  experts, embedding and head; the MNIST models' hidden layer) keeps its
+  rank's rows or columns of the leaves the rules ``heads``, ``mlp`` and
+  ``vocab -> tensor`` shard, as plain parameters (an expert leaf on an
+  expert axis too is split on two dims), and puts Megatron's collectives in
   its forward (``parallel/tensor_parallel.py``).  Every other parameter is
   replicated over tensor and gets a whole gradient there;
 - ``seq``: every module with ``shard_seq`` (the LM) runs on its rank's
@@ -42,11 +45,13 @@ places them itself (``shard_model``), one process per device:
 
 ``ShardPlan`` carries what the Trainer needs of that placement: each
 rank's local shards for the optimizer (``local``), the global gradient norm
-(``global_norm``), the whole tensor of a leaf (``full`` gathers it), and
-the layout a sharded checkpoint carries: a leaf's whole shape (``full_shape``) and the box of
-it this rank holds (``box``: a ``(start, stop)`` a dim, through the tensor
-split, the expert split and FSDP2's ``torch.chunk`` of its shard dim,
-uneven chunks and empty ones included).  Ranks whose boxes of a leaf are
+(``global_norm``: a leaf's squares summed over each group it is split
+over, the expert group, the tensor group or both), the whole tensor of a
+leaf (``full`` gathers it), and the layout a sharded checkpoint carries: a
+leaf's whole shape (``full_shape``) and the box of it this rank holds
+(``box``: a ``(start, stop)`` a dim, through the tensor split, the expert
+split and FSDP2's ``torch.chunk`` of its shard dim, uneven chunks and empty
+ones included).  Ranks whose boxes of a leaf are
 equal (data replicas, a whole ``wk``/``wv`` on the tensor ranks, a dense
 leaf on the expert ranks) hold the same values.
 
@@ -59,11 +64,10 @@ blocks over the batch-like axes of the rank's own pipe coordinate, with
 chunk's last backward unit, so a step gathers a block once, not once a
 microbatch); the outer leaves stay whole and their gradients are averaged
 over the same ranks (``sync_grads``).  A stage's MoE blocks route their
-own tokens (no ``shard_batch``), as JAX's do inside its ``shard_map``.  The
-clip's norm is summed over the pipe group too.  The mesh axis ``dcn``, MoE
-blocks on ``tensor`` or ``seq`` (``pipe`` x ``seq`` x ``expert`` with them)
-and ``tensor`` beside ``pipe`` raise ``NotImplementedError``
-(``check_ported``).
+own tokens (no ``shard_tokens``), as JAX's do inside its ``shard_map``, on
+a ``seq`` axis too.  The clip's norm is summed over the pipe group too.
+The mesh axes ``dcn`` and ``tensor`` beside ``pipe`` raise
+``NotImplementedError`` (``check_ported``).
 """
 
 from __future__ import annotations
@@ -106,8 +110,6 @@ _LATER_BESIDE_PIPE = {
     MeshAxes.DCN: "num_slices beside 'pipe' (a pipeline stage's blocks over dcn)",
     MeshAxes.TENSOR: "the 'tensor' mesh axis beside 'pipe' (JAX's stages replicate over tensor)",
 }
-# the axes MoE blocks do not run on yet
-_MOE_LATER_AXES = (MeshAxes.TENSOR, MeshAxes.SEQUENCE)
 
 
 def _axis_sizes(mesh: Any) -> Optional[Dict[str, int]]:
@@ -185,12 +187,15 @@ def batch_shard(mesh: Any) -> Tuple[int, int]:
     return idx, n
 
 
-def batch_group(mesh: Any) -> Any:
-    """The process group of the ranks that hold the other slices of this
-    rank's global batch, ranked in batch order (None: one slice)."""
+def token_group(mesh: Any) -> Any:
+    """The process group of the ranks that hold the other parts of this
+    rank's global batch: the batch axes and ``seq`` (None: it holds it
+    all).  Ranked batch shard major: the mesh's order of those axes (each
+    of its rows ascends in rank)."""
     import torch.distributed as tdist
 
-    axes = batch_axes(mesh)
+    axes = list(batch_axes(mesh)) + (
+        [MeshAxes.SEQUENCE] if mesh.shape[MeshAxes.SEQUENCE] > 1 else [])
     if not axes:
         return None
     if len(axes) == 1:
@@ -205,7 +210,7 @@ def batch_group(mesh: Any) -> Any:
     mine = None
     # every rank creates every group, in the same order (new_group's rule)
     for row in dm.mesh.permute(*rest, *keep).reshape(-1, n).tolist():
-        group = tdist.new_group(row)  # ascending rank order is batch order
+        group = tdist.new_group(row)
         if tdist.get_rank() in row:
             mine = group
     return mine
@@ -231,20 +236,12 @@ def chunk_range(lo: int, hi: int, n: int, i: int) -> Tuple[int, int]:
     return lo + min(i * step, size), lo + min((i + 1) * step, size)
 
 
-def check_ported(axis_sizes: Mapping[str, int], moe: bool = False) -> None:
+def check_ported(axis_sizes: Mapping[str, int]) -> None:
     """Raise ``NotImplementedError`` for a composition of mesh axes that the
-    port does not run yet: ``dcn`` or ``tensor`` beside ``pipe``, and with
-    ``moe`` (a model with MoE blocks) MoE blocks on ``tensor`` or ``seq``."""
-    pipe = int(axis_sizes.get(MeshAxes.PIPELINE, 1)) > 1
-    for axis in _MOE_LATER_AXES if moe else ():
-        if int(axis_sizes.get(axis, 1)) > 1:
-            also = (" (pipe x seq x expert waits for MoE x seq)"
-                    if pipe and axis == MeshAxes.SEQUENCE else "")
-            raise NotImplementedError(
-                f"MoE blocks on the {axis!r} mesh axis are not ported to determined_tpu_torch "
-                f"yet{also}; they come with a later slice of the port (ROADMAP.md, Queue 1)"
-            )
-    for axis, what in _LATER_BESIDE_PIPE.items() if pipe else ():
+    port does not run yet: ``dcn`` or ``tensor`` beside ``pipe``."""
+    if int(axis_sizes.get(MeshAxes.PIPELINE, 1)) <= 1:
+        return
+    for axis, what in _LATER_BESIDE_PIPE.items():
         if int(axis_sizes.get(axis, 1)) > 1:
             raise NotImplementedError(
                 f"{what} is not ported to determined_tpu_torch yet; it comes with a later "
@@ -366,20 +363,20 @@ class ShardPlan:
     @torch.no_grad()
     def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The f32 global norm of the local gradient shards ``grads``: the
-        sum of squares over every leaf's FSDP shards, then over the expert
-        group for the expert leaves and over the tensor group for the
-        tensor-split leaves (a replicated leaf is the same on every rank of
-        those groups and counts once), then over the pipe group (each stage
-        holds other leaves)."""
+        sum of squares over every leaf's FSDP shards, then over each group a
+        leaf is split over, the expert group, the tensor group or both (a
+        leaf replicated over a group is the same on its ranks and counts
+        once there), then over the pipe group (each stage holds other
+        leaves)."""
         import torch.distributed as tdist
 
         first = next(iter(grads.values()))
         # rows: FSDP-sharded, whole on this rank; columns: [replicated,
-        # expert, tensor]
-        sq = torch.zeros(2, 3, dtype=torch.float32, device=first.device)
+        # expert, tensor, expert and tensor]
+        sq = torch.zeros(2, 4, dtype=torch.float32, device=first.device)
         group = None
         for k, g in grads.items():
-            cat = 1 if k in self.expert_params else 2 if k in self.tensor_dims else 0
+            cat = (k in self.expert_params) + 2 * (k in self.tensor_dims)
             shard_group = self._shard_group(k)
             group = group or shard_group
             sq[0 if shard_group is not None else 1, cat] += g.float().square().sum()
@@ -388,11 +385,11 @@ class ShardPlan:
             tdist.all_reduce(part, group=group)
             sq[0] = part
         sq = sq.sum(dim=0)
-        for i, split_over in ((1, self.expert_group), (2, self.tensor_group)):
+        for cols, split_over in (([1, 3], self.expert_group), ([2, 3], self.tensor_group)):
             if split_over is not None:
-                part = sq[i:i + 1].clone()
+                part = sq[cols].clone()
                 tdist.all_reduce(part, group=split_over)
-                sq[i:i + 1] = part
+                sq[cols] = part
         total = sq.sum()
         if self.pipe_group is not None:
             tdist.all_reduce(total, group=self.pipe_group)
@@ -548,11 +545,12 @@ def shard_model(model: torch.nn.Module, mesh: Any, *, hierarchical: bool = False
         if hasattr(mod, "shard_seq"):
             mod.shard_seq(group, sizes[MeshAxes.SEQUENCE], idx)
     b_rank, b_shards = batch_shard(mesh)
-    if b_shards > 1 and n_pipe == 1:
-        group = batch_group(mesh)
-        for mod in model.modules():
-            if hasattr(mod, "shard_batch"):
-                mod.shard_batch(group, b_shards, b_rank)
+    n_seq = sizes[MeshAxes.SEQUENCE]
+    routed = [mod for mod in model.modules() if hasattr(mod, "shard_tokens")]
+    if routed and b_shards * n_seq > 1 and n_pipe == 1:
+        group = token_group(mesh)
+        for mod in routed:
+            mod.shard_tokens(group, (b_shards, b_rank), (n_seq, mesh.coordinate(MeshAxes.SEQUENCE)))
     dp_mesh, n_shard = _dp_mesh(mesh, hierarchical)
 
     def placement(param: torch.nn.Parameter) -> Any:

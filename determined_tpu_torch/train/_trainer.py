@@ -64,9 +64,10 @@ within a slice and the fragment all-reduced over ``dcn``; without it the
 sync is one flat shard group over every batch axis).  On every mesh with
 gradient-reduction axes the goodput ledger gets the JAX Trainer's
 ``step.comm`` counters at each report, counted over what the port runs
-(``_overlap.fsdp_comm``: FSDP2's units, with the knob on or off).  MoE blocks on the
-tensor or seq axis, tensor or ``dcn`` beside pipe, overlap beside pipe and
-the retrace sentinel come with later slices of the port.
+(``_overlap.fsdp_comm``: FSDP2's units, with the knob on or off).  MoE blocks
+run on every axis (``models/moe.py``); tensor or ``dcn`` beside pipe,
+overlap beside pipe and the retrace sentinel come with later slices of the
+port.
 
 A trial with a ``pipeline_schedule_spec`` (``LMTrial`` on a ``pipe`` axis,
 or on ``train.init(virtual_pipe=P)``) runs its loss through the schedule
@@ -127,19 +128,11 @@ def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to determined_tpu_torch yet; {_LATER}")
 
 
-def _has_moe(hparams: Optional[Dict[str, Any]]) -> bool:
-    """Whether the hyperparameters put MoE blocks in the LM (a fixed
-    ``moe_experts`` over 0)."""
-    n = (hparams or {}).get("moe_experts")
-    n = getattr(n, "val", n)  # an experiment's Const
-    return isinstance(n, (int, float)) and n > 0
-
-
 def check_exp_config(exp_config: Any) -> None:
     """Raise for every knob the JAX Trainer reads that this port does not
     run; what passes is honoured."""
     opt = exp_config.optimizations
-    check_ported(exp_config.resources.mesh.shape, moe=_has_moe(exp_config.hyperparameters))
+    check_ported(exp_config.resources.mesh.shape)
     if opt.overlap_grad_sync and exp_config.resources.mesh.shape[MeshAxes.PIPELINE] > 1:
         raise _later("optimizations.overlap_grad_sync beside the 'pipe' mesh axis")
     problems = pipeline_problems(exp_config)
@@ -175,7 +168,7 @@ def init(
     process on its one device (``parallel/pipeline.py``'s ``VirtualPipe``:
     the schedule and the kernel launches of P pipe ranks), never with a
     mesh of more than one device."""
-    check_ported((mesh_config or MeshConfig()).shape, moe=_has_moe(hparams))
+    check_ported((mesh_config or MeshConfig()).shape)
     if exp_config is not None:
         check_exp_config(exp_config)
         if hparams is None:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Multi-GPU check of the port's mesh path on the GPUs of one host.
 
-    python3 mesh_smoke.py [--gpus 4] [--seed N] [--parts G,E,S,X,C,P,O,R]
+    python3 mesh_smoke.py [--gpus 4] [--seed N] [--parts G,E,S,X,C,P,O,R,M]
 
 (``X`` is X1, X2 and X3, each of which ``--parts`` also takes alone.)
 
@@ -139,6 +139,28 @@ R. an elastic trial through the native master: phase 7's configuration
    grow -> first step in seconds; checked: each restore's params md5
    against the checkpoint it names.
 
+M. MoE on every mesh axis.  K: the flash forward, dq and dk/dv held
+   against their plain versions at M's ring blocks (M_KERNEL_SHAPES) and
+   timed, fused_adamw at the [4, 2048, 4096] expert leaf of a tensor 2 x
+   expert 2 rank.
+   M1. moe_ep.yaml at G's width and cuts (MOE_CUTS, M1_CUTS): R once on one
+       GPU, then 5 steps through train.init(mesh_config=...) ->
+       Trainer(LMTrial).fit on seq 2 x expert 2 (routing groups of 4,096
+       that span two rows and both seq ranks: each rank gathers the gates)
+       and tensor 2 x expert 2 (the experts split on two dims).
+   M2. examples/transformer_lm/pipeline_seq_ep.yaml at its full width (d
+       2048, 16 heads, vocab 32,768, 16,384 tokens a sequence, 8 experts
+       every second block, bf16, remat, the ring), cut to four cards
+       (M2_CUTS): R one GPU aggregating the same 4 microbatches, then 3
+       steps on pipe 2 x seq 2 (MoE inside the stages routing their own seq
+       shards) and seq 2 x expert 2; a group (4,096) lies inside one rank's
+       8,192 tokens, so every path routes alike.
+   Checks: every step's loss and moe_aux_loss against R's within
+   MESH_LOSS_TOL; each rank's launches exactly (a layer's flash forward
+   once a forward unit, twice under remat, dq and dk/dv once, each times
+   its ring units from ring_block_counts; fused_adamw once a local leaf a
+   step).  Printed: each rank's step time and peak memory.
+
 Each gang has a hard timeout (GANG_TIMEOUT_S); its ranks are killed on
 expiry and the run fails.  Prints a JSON line a part, the card's name and
 power limit, and last {"ok": true, "device": {...}}; exits non-zero on any
@@ -186,7 +208,7 @@ SEQ_CKPT_CUTS = [
     ("seq_len", 32768, 256, "the same, in length"),
 ]
 SEQ_CKPT_STEPS = 3
-PARTS = ("G", "E", "S", "X", "C", "P", "O", "R")
+PARTS = ("G", "E", "S", "X", "C", "P", "O", "R", "M")
 # P: pipeline.yaml (chip_smoke.PIPE_CONST) with these changes
 P_CUTS = [
     ("resources.mesh", {"pipe": 4, "data": 2, "fsdp": 2}, "each of P_MESHES",
@@ -256,6 +278,44 @@ R_MASTER_CUTS = [
     ("--agent-timeout-sec", 90, 5, "the killed slice's agents are reaped 5 s after their last "
      "poll"),
 ]
+# M: MoE on every mesh axis.  M1: moe_ep.yaml at G's width and cuts
+# (chip_smoke.MOE_CUTS) with these changes: (key, the file's value, M1's,
+# why)
+M1_CUTS = [
+    ("attention", "flash", "auto",
+     "seq 2 runs the ring there (flash sees one shard only); auto is flash on one GPU and on "
+     "tensor 2 x expert 2, the kernels G's R runs"),
+]
+M1_MESHES = (dict(seq=2, expert=2), dict(tensor=2, expert=2))
+# M2: examples/transformer_lm/pipeline_seq_ep.yaml (its hyperparameters
+# and mesh here: the card's machine has no YAML reader) at its full width
+# with these changes: (key, the file's value, M2's, why)
+SEQ_EP_HPARAMS = dict(
+    lr=0.0003, global_batch_size=32, seq_len=16384, vocab_size=32768, d_model=2048,
+    n_layers=16, n_heads=16, dataset_size=65536, bf16=True, attention="auto", remat=True,
+    pipe_microbatches=8, moe_experts=8, moe_every=2,
+)
+SEQ_EP_MESH = {"pipe": 4, "seq": 4, "expert": 2}
+M2_CUTS = [
+    ("resources.mesh", SEQ_EP_MESH, "each of M2_MESHES",
+     "four cards: the file's 32-card mesh keeps pipe and seq (pipe 2 x seq 2: MoE inside the "
+     "stages, the ring inside each) or seq and expert (seq 2 x expert 2)"),
+    ("n_layers", 16, 4,
+     "2 layers a stage on pipe 2 (moe_every 2 divides it); one GPU holds the reference's f32 "
+     "params, gradients and moments of 4 layers (~1.1B params), not of 16 (~4.1B)"),
+    ("global_batch_size", 32, 4, "one GPU holds the reference: 4 sequences of 16,384"),
+    ("pipe_microbatches", 8, 4, "one sequence a microbatch, which the reference aggregates"),
+    ("dataset_size", 65536, 12, "3 steps of 4"),
+    ("warmup_steps", None, 1,
+     "the file sets none (LMTrial's 100): 3 steps inside it update at lr <= 9e-6"),
+]
+M2_MESHES = (dict(pipe=2, seq=2), dict(seq=2, expert=2))
+M2_STEPS = 3
+# K's rows at M's ring blocks: (label, batch, half-chunk, causal): M2's
+# zigzag halves of 4,096 on pipe 2 x seq 2 (one sequence a microbatch) and
+# M1's halves of 512 on seq 2 (8 sequences)
+M_KERNEL_SHAPES = (("m2_half_causal", 1, 4096, True), ("m2_half_full", 1, 4096, False),
+                   ("m1_half_causal", 8, 512, True))
 X_PARTS = ("X1", "X2", "X3")
 # X2: moe_ep.yaml (chip_smoke.MOE_EP_CONST) at MOE_CUTS' hyperparameters,
 # and these changes: (dotted key, the file's value, X2's value, why)
@@ -384,6 +444,8 @@ def _rank_gang(workdir: str, mesh: dict, seed: int) -> dict:
             return _rank_pipe_ckpt(core_ctx, workdir, mesh, seed)
         if mesh.get("part") == "O":
             return _rank_overlap(core_ctx, mesh, seed)
+        if mesh.get("part") == "M":
+            return _rank_moe(core_ctx, mesh, seed)
         ctx = train.init(hparams=_hparams(), seed=seed, core_context=core_ctx,
                          mesh_config=MeshConfig(**mesh))
         out = _fit(ctx, STEPS)
@@ -573,6 +635,142 @@ def _pipe_part(args, root: str) -> None:
                                 resumed_step3_loss=step3, uninterrupted_step3_loss=gpipe4[-1],
                                 bitwise=step3 == gpipe4[-1], seconds=time.monotonic() - t0)))
     log(f"P: {time.monotonic() - t_part:.1f} s")
+
+
+def _m_hparams(sub: str) -> dict:
+    """M1's (moe_ep.yaml at MOE_CUTS and M1_CUTS) or M2's
+    (pipeline_seq_ep.yaml at M2_CUTS) hyperparameters."""
+    hp, cuts = (_hparams(), M1_CUTS) if sub == "M1" else (dict(SEQ_EP_HPARAMS), M2_CUTS)
+    for key, _old, value, _why in cuts:
+        if "." not in key:
+            hp[key] = value
+    return hp
+
+
+def _rank_moe(core_ctx, inp: dict, seed: int) -> dict:
+    """One rank of M: the sub-part's fit on the mesh, and the ring's units
+    for this rank (ring_block_counts on its seq group; 1 without one)."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.ops.ring_attention import ring_block_counts
+    from determined_tpu_torch.parallel import MeshConfig
+
+    ctx = train.init(hparams=_m_hparams(inp["sub"]), seed=seed, core_context=core_ctx,
+                     mesh_config=MeshConfig(**inp["mesh"]))
+    out = _fit(ctx, inp["steps"], keep=True)
+    trainer = out.pop("trainer")
+    out["local_layers"] = len(trainer.model.blocks)
+    out["coords"] = {a: ctx.mesh.coordinate(a) for a in ("pipe", "seq", "tensor", "expert")}
+    units = 1
+    if ctx.mesh.shape["seq"] > 1:
+        q = torch.randn((1, 2, 32, 64), device=ctx.device, dtype=torch.bfloat16)
+        _, counts = ring_block_counts(q, q, q, ctx.mesh.group("seq"))
+        units = counts[ctx.mesh.coordinate("seq")]
+        out["ring_counts"] = counts
+    out["ring_units"] = units
+    torch.cuda.synchronize()
+    return out
+
+
+def _m_kernel_rows(seed: int) -> dict:
+    """M's K: the three flash kernels at M's ring blocks (M_KERNEL_SHAPES,
+    16 heads of 128) held against their plain versions and timed, and
+    fused_adamw at the expert leaf tensor 2 x expert 2 leaves on a rank."""
+    import torch
+
+    from chip_smoke import _free_cuda, adamw_kernel_row, attention_kernel_rows
+
+    hp = _m_hparams("M2")
+    h, dh = hp["n_heads"], hp["d_model"] // hp["n_heads"]
+    rows: dict = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    for label, b, s, causal in M_KERNEL_SHAPES:
+        q, k, v, do = (torch.randn((b, h, s, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        attention_kernel_rows(rows, label, q, k, v, do, causal, True, "M")
+        del q, k, v, do
+        _free_cuda()
+    e, f = hp["moe_experts"], 4 * hp["d_model"]
+    rows["fused_adamw"] = {"w_in_tensor2_expert2": adamw_kernel_row(
+        seed, hp["lr"], (e // 2, hp["d_model"], f // 2), "w_in", "M")}
+    return rows
+
+
+def _moe_part(args, root: str) -> dict:
+    """M (the docstring at the top)."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.config import ExperimentConfig
+
+    t_part = time.monotonic()
+    for sub, cuts in (("M1", M1_CUTS), ("M2", M2_CUTS)):
+        for key, old, value, why in cuts:
+            log(f"{sub} cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    t0 = time.monotonic()
+    out: dict = {"K": _m_kernel_rows(args.seed)}
+    log(f"M K: {time.monotonic() - t0:.1f} s")
+    for sub, meshes, steps in (("M1", M1_MESHES, STEPS), ("M2", M2_MESHES, M2_STEPS)):
+        hp = _m_hparams(sub)
+        t0 = time.monotonic()
+        m = hp.get("pipe_microbatches", 1)
+        if sub == "M1":
+            ref_ctx = train.init(hparams=hp, seed=args.seed)
+        else:
+            # the pipeline's microbatches, aggregated on one GPU
+            plain = {k: v for k, v in hp.items() if k != "pipe_microbatches"}
+            ref_ctx = train.init(
+                hparams=dict(plain, global_batch_size=hp["global_batch_size"] // m),
+                seed=args.seed, exp_config=ExperimentConfig.parse(
+                    {"optimizations": {"aggregation_frequency": m}}))
+        ref = _fit(ref_ctx, steps)
+        del ref_ctx
+        torch.cuda.empty_cache()
+        log(f"{sub} R (one GPU): " + json.dumps(dict(
+            losses=ref["losses"], aux=ref["aux"], step_ms=ref["step_ms"],
+            peak_memory_gib=ref["peak_memory_gib"], seconds=time.monotonic() - t0)))
+        out[sub] = {"R": ref}
+        for mesh in meshes:
+            t0 = time.monotonic()
+            tag = f"{sub} " + "x".join(f"{a}{n}" for a, n in mesh.items())
+            outs = _launch_gang(args.gpus, os.path.join(root, tag.replace(" ", "_")),
+                                dict(part="M", sub=sub, mesh=mesh, steps=steps), args.seed)
+            chief = outs[0]
+            for key in ("losses", "aux"):
+                np.testing.assert_allclose(chief[key], ref[key], err_msg=f"{tag} {key}",
+                                           **MESH_LOSS_TOL)
+            # a layer's flash forward once a forward unit (twice under
+            # remat), dq and dk/dv once, each times this rank's ring units;
+            # a pipe rank runs its layers once a microbatch
+            fwd = 2 if hp.get("remat") else 1
+            units = m if mesh.get("pipe", 1) > 1 else 1
+            for rank, o in enumerate(outs):
+                u = o["ring_units"]
+                if mesh.get("seq", 1) > 1:
+                    assert u == 2 * mesh["seq"] + 1, (tag, rank, o["ring_counts"])
+                n = o["local_layers"] * units * steps * u
+                want = dict(flash_fwd=fwd * n, flash_bwd_dq=n, flash_bwd_dkv=n,
+                            fused_adamw=o["local_leaves"] * steps)
+                assert o["launches"] == want, (tag, rank, o["launches"], want)
+            row = dict(
+                mesh=mesh, losses=chief["losses"], ref_losses=ref["losses"], aux=chief["aux"],
+                ref_aux=ref["aux"],
+                max_loss_rel=max(abs(a - b) / abs(b) for a, b in
+                                 zip(chief["losses"], ref["losses"])),
+                max_aux_rel=max(abs(a - b) / abs(b) for a, b in zip(chief["aux"], ref["aux"])),
+                step_ms=chief["step_ms"],
+                wall_ms_a_step=[1e3 * o["wall_s"] / steps for o in outs],
+                peak_memory_gib=[o["peak_memory_gib"] for o in outs],
+                ref_peak_memory_gib=ref["peak_memory_gib"],
+                local_params=[o["params"] for o in outs],
+                local_layers=[o["local_layers"] for o in outs],
+                coords=[o["coords"] for o in outs], ring_units=[o["ring_units"] for o in outs],
+                launches=[o["launches"] for o in outs], seconds=time.monotonic() - t0)
+            log(f"{tag}: " + json.dumps(row))
+            out[sub]["x".join(f"{a}{n}" for a, n in mesh.items())] = row
+    log(f"M: {time.monotonic() - t_part:.1f} s")
+    return out
 
 
 def _busbw() -> dict:
@@ -1183,44 +1381,56 @@ def _launch_gang(n: int, workdir: str, mesh: dict, seed: int,
                  timeout: float = GANG_TIMEOUT_S) -> list:
     """``n`` rank processes of this script with a torchrun environment;
     their results, or a failure naming the ranks (killed after ``timeout``
-    seconds)."""
+    seconds, or as soon as one rank fails: the others would wait for it in
+    a collective).  A gang whose rendezvous port was taken before rank 0
+    listened on it (a peer's connect can be given that very port as its
+    own) starts again once on another port."""
     from determined_tpu_torch.core import allocate_port
 
     os.makedirs(workdir, exist_ok=True)
-    env = dict(os.environ, WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(allocate_port()), MESH_SMOKE_SEED=str(seed),
-               PYTHONPATH=REPO)
-    procs, logs = [], []
-    for rank in range(n):
-        log_f = open(os.path.join(workdir, f"rank{rank}.log"), "w")
-        logs.append(log_f)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--rank-of", workdir, json.dumps(mesh),
-             "--seed", str(seed)],
-            env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)), cwd=REPO,
-            stdout=log_f, stderr=subprocess.STDOUT,
-        ))
-    deadline = time.monotonic() + timeout
-    hung = False
-    try:
-        for p in procs:
-            try:
-                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
-            except subprocess.TimeoutExpired:
-                hung = True
-                break
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    bad = [r for r, p in enumerate(procs) if hung or p.returncode != 0]
-    if bad:
+    for attempt in (1, 2):
+        env = dict(os.environ, WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(allocate_port()),
+                   MESH_SMOKE_SEED=str(seed), PYTHONPATH=REPO)
+        procs, logs = [], []
+        for rank in range(n):
+            log_f = open(os.path.join(workdir, f"rank{rank}.log"), "w")
+            logs.append(log_f)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-of", workdir,
+                 json.dumps(mesh), "--seed", str(seed)],
+                env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)), cwd=REPO,
+                stdout=log_f, stderr=subprocess.STDOUT,
+            ))
+        deadline = time.monotonic() + timeout
+        hung = False
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                if time.monotonic() > deadline:
+                    hung = True
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        bad = [r for r, p in enumerate(procs) if hung or p.returncode != 0]
+        if not bad:
+            break
+        texts = {}
         for r in bad:
             with open(os.path.join(workdir, f"rank{r}.log")) as f:
-                log(f"--- rank {r} of {mesh}:\n{f.read()[-4000:]}")
+                texts[r] = f.read()[-4000:]
+        if attempt == 1 and not hung and any("EADDRINUSE" in t for t in texts.values()):
+            log(f"gang {mesh}: its rendezvous port was taken; starting it again")
+            continue
+        for r, text in texts.items():
+            log(f"--- rank {r} of {mesh}:\n{text}")
         raise RuntimeError(f"gang {mesh} failed on ranks {bad}" + (" (timed out)" if hung else ""))
     out = []
     for rank in range(n):
@@ -1836,6 +2046,8 @@ def main() -> int:
             t0 = time.monotonic()
             _elastic_part(args, root, build)
             log(f"R: {time.monotonic() - t0:.1f} s")
+        if "M" in parts:
+            _moe_part(args, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"mesh_smoke: {time.monotonic() - t_start:.1f} s")

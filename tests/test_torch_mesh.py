@@ -113,23 +113,20 @@ def test_auto_fsdp_dim_is_the_jax_trainers_choice(devices8, n):
 @pytest.mark.parametrize("axis", ["tensor", "seq", "pipe", "dcn"])
 def test_axes_of_later_slices_raise_naming_the_slice(axis):
     if axis in ("tensor", "seq"):
-        # ported: what still waits is MoE blocks on them
-        check_ported({axis: 2})
-        with pytest.raises(NotImplementedError, match="MoE blocks .* later slice"):
-            check_ported({axis: 2}, moe=True)
+        # ported, MoE blocks on them too
+        check_ported({axis: 2, "expert": 2})
     elif axis == "pipe":
-        # ported: what still waits is tensor beside it, and MoE x seq
+        # ported beside everything but tensor and dcn: pipe x seq x expert
+        # with MoE included
         check_ported({axis: 2, "data": 2, "fsdp": 2, "seq": 2, "expert": 2})
         with pytest.raises(NotImplementedError, match="'tensor' mesh axis beside 'pipe'"):
             check_ported({axis: 2, "tensor": 2})
-        with pytest.raises(NotImplementedError, match="MoE blocks on the 'seq' .* MoE x seq"):
-            check_ported({axis: 2, "seq": 2, "expert": 2}, moe=True)
     else:
         # ported: what still waits is dcn beside pipe
         check_ported({axis: 2, "data": 2, "fsdp": 2, "seq": 2, "expert": 2, "tensor": 2})
         with pytest.raises(NotImplementedError, match="num_slices beside 'pipe'.*later slice"):
             check_ported({axis: 2, "pipe": 2})
-    check_ported({"data": 2, "fsdp": 2, "expert": 8, axis: 1}, moe=True)
+    check_ported({"data": 2, "fsdp": 2, "expert": 8, axis: 1})
 
 
 @pytest.mark.parametrize("mesh", [dict(data=2, expert=2), dict(data=2, fsdp=2),

@@ -13,7 +13,8 @@ against the JAX package's, on the CPU.
   each one's largest magnitude.
 - 1f1b holds at most P stage inputs for the backward; gpipe all M.
 - The refusals: a batch that M does not divide raises JAX's text; pipe x
-  seq x expert with MoE and pipe x tensor raise naming a later slice.
+  tensor raises naming a later slice, and pipe x seq x expert with MoE
+  passes.
 - The Trainer on a virtual pipe of 2 reports ``step.bubble.exposed_us``
   equal to ``BubbleModel.split`` times the steps, and the schedule's
   gauges.
@@ -303,6 +304,16 @@ def test_a_batch_the_microbatches_do_not_divide_raises_the_jax_text(devices8):
                          ids=["pipe-seq-expert", "pipe-tensor"])
 def test_pipe_compositions_of_later_slices_raise(axes, moe):
     hp = dict(n_layers=4, moe_experts=4 if moe else 0)
+    if moe:
+        # ported (tests/test_torch_moe_pipe.py runs it): without a process
+        # group the mesh of 8 devices is refused for its size
+        from determined_tpu_torch.train._trainer import check_exp_config
+
+        check_exp_config(ExperimentConfig.parse({"hyperparameters": hp,
+                                                 "resources": {"mesh": dict(axes)}}))
+        with pytest.raises(ValueError, match="needs 8 devices"):
+            train.init(hparams=hp, device="cpu", mesh_config=MeshConfig(**axes))
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         train.init(hparams=hp, device="cpu", mesh_config=MeshConfig(**axes))
     cfg = ExperimentConfig.parse({"hyperparameters": hp, "resources": {"mesh": dict(axes)}})
@@ -404,6 +415,10 @@ def jax_pipe_run(mesh_items, hp_items, opt_items, steps=STEPS):
 
 
 def _init_state(init, mesh, hp):
+    """The port's whole state dict of a JAX run's params: the split layout
+    on a pipe mesh, the flax tree elsewhere."""
+    if "outer" not in init:
+        return state_dict_from_flax(init)
     return state_dict_from_split(init, mesh.get("pipe", 1), int(hp.get("virtual_stages", 1)))
 
 
@@ -456,9 +471,7 @@ def check_against_jax(out, mesh, hp, opt):
             np.testing.assert_allclose(g[k], float(w[k]), rtol=1e-5, atol=1e-5,
                                        err_msg=f"step {step} {k}")
         np.testing.assert_allclose(g["perplexity"], float(w["perplexity"]), rtol=2e-2)
-    v = int(hp.get("virtual_stages", 1))
-    p = mesh.get("pipe", 1)
-    start, end = state_dict_from_split(init, p, v), state_dict_from_split(final, p, v)
+    start, end = _init_state(init, mesh, hp), _init_state(final, mesh, hp)
     for k, ref in end.items():
         upd_ref, upd = ref - start[k], out["params"][k] - start[k]
         rel = float(np.linalg.norm(upd - upd_ref) / max(np.linalg.norm(upd_ref), 1e-30))

@@ -17,8 +17,9 @@ the CPU (tests/torch_rank_worker.py, each launch under a hard timeout of
 - ``MnistTrial`` learns past 0.5 validation accuracy at fsdp 2 x tensor 2,
   resumed there from a checkpoint saved at data 2; the checkpoint also
   resumes on one rank, and both end at the params of an uninterrupted run.
-- The tensor axis or ``num_slices`` beside the pipeline axis and MoE
-  blocks on the tensor or seq axis still raise ``NotImplementedError``.
+- The tensor axis or ``num_slices`` beside the pipeline axis still raise
+  ``NotImplementedError``; MoE blocks on the tensor or seq axis pass
+  (tests/test_torch_moe_mesh.py runs them).
 """
 
 import functools
@@ -230,16 +231,29 @@ def test_axes_of_later_slices_still_raise(axes):
 
 @pytest.mark.parametrize("axis", ["tensor", "seq"])
 def test_moe_blocks_on_tensor_or_seq_raise(axis):
+    """Ported: MoE blocks on tensor or seq pass the port's checks, and the
+    model's split of them takes MoE blocks (the experts' f dim over
+    tensor; over seq the model's part of each sequence)."""
+    from determined_tpu_torch.train._trainer import check_exp_config
+
     moe = dict(LM_HP, moe_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE blocks on the .* later slice"):
+    check_exp_config(ExperimentConfig.parse({"hyperparameters": moe,
+                                             "resources": {"mesh": {axis: 2}}}))
+    # without a process group a mesh of 2 devices is refused for its size
+    with pytest.raises(ValueError, match="needs 2 devices"):
         train.init(hparams=moe, device="cpu", mesh_config=MeshConfig(**{axis: 2}))
-    cfg = ExperimentConfig.parse({"hyperparameters": moe, "resources": {"mesh": {axis: 2}}})
-    with pytest.raises(NotImplementedError, match="MoE blocks on the .* later slice"):
-        train.init(exp_config=cfg, device="cpu")
     model = TransformerLM(TransformerConfig(vocab_size=64, d_model=32, n_layers=2, n_heads=2,
                                             moe_experts=4, dtype=torch.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        getattr(model, f"shard_{axis}")(None, 2, 0)
+    if axis == "tensor":
+        assert model.shard_tensor(None, 2, 0) == {"embed.weight": 0, "lm_head.weight": 0}
+        assert model.blocks[1].moe.shard_tensor(None, 2, 1) == {"w_in": 2, "w_gate": 2,
+                                                                "w_out": 1}
+        assert tuple(model.blocks[1].moe.w_in.shape) == (4, 32, 64)
+        assert tuple(model.blocks[1].moe.w_out.shape) == (4, 64, 32)
+    else:
+        model.shard_seq(None, 2, 1)
+        assert model.seq[1:] == (2, 1)
+        assert model.seq_slice(torch.arange(8)[None]).tolist() == [[4, 5, 6, 7]]
 
 
 def test_unsupported_combinations_raise_before_sharding():

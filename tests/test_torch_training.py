@@ -399,8 +399,8 @@ def test_unported_options_raise():
 
 @pytest.mark.parametrize(
     "raw",
-    # tensor, seq and overlap are ported: MoE blocks on them and overlap
-    # beside pipe are what waits
+    # tensor, seq and overlap are ported, MoE blocks on tensor and seq too:
+    # overlap beside pipe is what waits
     [{"optimizations": {"overlap_grad_sync": True}, "resources": {"mesh": {"pipe": 2}}},
      {"resources": {"mesh": {"data": 2, "tensor": 2}}, "moe_experts": 2},
      {"resources": {"mesh": {"fsdp": 2, "data": -1, "seq": 2}}, "moe_experts": 2}],
@@ -408,10 +408,18 @@ def test_unported_options_raise():
 )
 def test_exp_config_knobs_of_later_slices_raise(raw):
     from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.train._trainer import check_exp_config
 
     raw = dict(raw)
     hp = dict(HP, moe_experts=raw.pop("moe_experts")) if "moe_experts" in raw else HP
     cfg = ExperimentConfig.parse(dict(raw, hyperparameters=hp))
+    if "moe_experts" in hp:
+        # the port runs them; here, without a process group, the mesh of
+        # several devices is what init refuses
+        check_exp_config(cfg)
+        with pytest.raises(ValueError, match="needs 4 devices|not divisible by fixed axes 4"):
+            train.init(exp_config=cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         train.init(exp_config=cfg, device="cpu")
 

@@ -228,7 +228,8 @@ def case_moe_ep(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
         layer.shard_experts(mesh.group("expert"), mesh.shape["expert"],
                             mesh.coordinate("expert"))
     if inp.get("shard_batch"):
-        layer.shard_batch(mesh.group("data"), mesh.shape["data"], mesh.coordinate("data"))
+        layer.shard_tokens(mesh.group("data"), (mesh.shape["data"], mesh.coordinate("data")),
+                           (1, 0))
     x = torch.tensor(inp["x"]).chunk(mesh.shape["data"])[mesh.coordinate("data")]
     x = x.clone().requires_grad_(True)
     y, aux = layer(x)
@@ -237,6 +238,86 @@ def case_moe_ep(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
            "y": _numpy(y), "aux": float(aux), "x_grad": _numpy(x.grad)}
     out.update({f"grad_{n}": _numpy(p.grad) for n, p in layer.named_parameters()})
     return out
+
+
+def case_moe_layers(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """Each of ``inp["cases"]``: the MoE layer split over the case's mesh as
+    ``shard_model`` splits it (experts, the tensor split, this rank's part
+    of the global batch), on this rank's part of the global ``x`` (its
+    batch shard's rows, its seq part of each); output, aux and the
+    gradients of x and of this rank's parameters under the loss
+    ``mean(y²) + 0.01 aux`` of its tokens."""
+    import torch
+
+    from determined_tpu_torch.models.moe import MoE
+    from determined_tpu_torch.parallel import MeshConfig, batch_shard, make_mesh
+    from determined_tpu_torch.parallel.sharding import token_group
+
+    meshes: Dict[Any, Any] = {}
+    out: Dict[str, Any] = {}
+    for name, c in inp["cases"].items():
+        key = tuple(sorted(c["mesh"].items()))
+        if key not in meshes:
+            mesh = make_mesh(MeshConfig(**c["mesh"]), "cpu")
+            meshes[key] = (mesh, token_group(mesh))
+        mesh, tokens = meshes[key]
+        d_model, e, f, grp = c["dims"]
+        layer = MoE(d_model, e, f, group_size=grp, capacity_factor=c.get("capacity", 1.25),
+                    dtype=torch.float32, device="cpu")
+        layer.load_state_dict({k: torch.tensor(v) for k, v in c["params"].items()})
+        if mesh.shape["expert"] > 1:
+            layer.shard_experts(mesh.group("expert"), mesh.shape["expert"],
+                                mesh.coordinate("expert"))
+        if mesh.shape["tensor"] > 1:
+            layer.shard_tensor(mesh.group("tensor"), mesh.shape["tensor"],
+                               mesh.coordinate("tensor"))
+        b_rank, n_b = batch_shard(mesh)
+        n_s, s_rank = mesh.shape["seq"], mesh.coordinate("seq")
+        if n_b * n_s > 1:
+            layer.shard_tokens(tokens, (n_b, b_rank), (n_s, s_rank))
+        x = torch.tensor(c["x"]).chunk(n_b, 0)[b_rank].chunk(n_s, 1)[s_rank]
+        x = x.clone().requires_grad_(True)
+        y, aux = layer(x)
+        ((y ** 2).mean() + 0.01 * aux).backward()
+        res = {"coords": {a: mesh.coordinate(a) for a in ("expert", "tensor", "seq")},
+               "batch_shard": (b_rank, n_b), "y": _numpy(y), "aux": float(aux),
+               "x_grad": _numpy(x.grad)}
+        res.update({f"grad_{n}": _numpy(p.grad) for n, p in layer.named_parameters()})
+        out[name] = res
+    return out
+
+
+def case_moe_plan(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """The MoE LM placed by the Trainer on ``inp["mesh"]``: one step's
+    gradients under ``LMTrial.loss``; the plan's clip norm of them and the
+    norm of their whole tensors (``ShardPlan.full``), each leaf's whole
+    tensor and the box of it this rank holds with its local shard."""
+    import torch
+
+    from determined_tpu_torch import core, train
+    from determined_tpu_torch.data import to_device
+    from determined_tpu_torch.parallel import MeshConfig
+
+    core_ctx = core._dummy_init(distributed=dist, checkpoint_dir=inp["ckpt_dir"])
+    ctx = train.init(hparams=inp["hparams"], seed=0, device="cpu", core_context=core_ctx,
+                     mesh_config=MeshConfig(**inp["mesh"]))
+    trainer = train.Trainer(_trial_class("lm", inp.get("init_state"))(ctx))
+    trainer._setup()
+    plan = trainer._plan
+    batch = to_device(next(iter(trainer.train_loader)), trainer.device)
+    trainer.trial.loss(trainer.model, batch)[0].backward()
+    local = plan.local({k: p.grad for k, p in trainer._params.items()})
+    params = plan.local(dict(trainer._params))
+    whole_grads = {k: plan.full(k, g) for k, g in local.items()}
+    return {
+        "norm": float(plan.global_norm(local)),
+        "whole_norm": float(torch.sqrt(sum(g.float().square().sum()
+                                           for g in whole_grads.values()))),
+        "params": {k: _numpy(plan.full(k, v)) for k, v in params.items()},
+        "local": {k: _numpy(v) for k, v in params.items()},
+        "boxes": {k: plan.box(k) for k in params},
+        "tensor_dims": dict(plan.tensor_dims), "expert_params": sorted(plan.expert_params),
+    }
 
 
 def _trial_class(name: str, init_state: Any):
@@ -747,7 +828,8 @@ def _vocab_parallel_ce(inp: Dict[str, Any]) -> Dict[str, Any]:
     return errs
 
 
-CASES = {"moe_ep": case_moe_ep, "train": case_train, "sharded": case_sharded, "mesh": case_mesh,
+CASES = {"moe_ep": case_moe_ep, "moe_layers": case_moe_layers, "moe_plan": case_moe_plan,
+         "train": case_train, "sharded": case_sharded, "mesh": case_mesh,
          "collectives": case_collectives, "ring": case_ring, "train_runs": case_train_runs,
          "pipe_ckpt": case_pipe_ckpt, "sync_runs": case_sync_runs, "resize": case_resize}
 
