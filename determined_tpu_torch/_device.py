@@ -28,13 +28,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def task_device(logger) -> torch.device:
-    """The device of a process the master's agent started: CUDA (the
-    current device, by index) unless ``DTPU_TORCH_DEVICE`` names another;
-    logged as ``device: ...``.  Raises as ``resolve_device`` does."""
+    """The device of a process the master's agent started: CUDA (a local
+    rank's own GPU, ``cuda:DTPU_LOCAL_RANK``, else the current device, by
+    index) unless ``DTPU_TORCH_DEVICE`` names another; logged as ``device:
+    ...``.  Raises as ``resolve_device`` does."""
     device = resolve_device(os.environ.get(DEVICE_ENV) or None)
     if device.type == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device() if device.index is None
-                              else device.index)
+        local = os.environ.get("DTPU_LOCAL_RANK")
+        index = device.index
+        if index is None:
+            index = int(local) if local is not None else torch.cuda.current_device()
+        device = torch.device("cuda", index)
         logger.info("device: %s (%s), CUDA_VISIBLE_DEVICES=%s", device,
                     torch.cuda.get_device_name(device),
                     os.environ.get("CUDA_VISIBLE_DEVICES", "(unset)"))

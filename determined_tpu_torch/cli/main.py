@@ -28,7 +28,8 @@ searcher runs here and every trial is submitted to the master at ``-m``
 resume`` of a directory whose journal records a master re-attaches to it.
 ``cluster up`` builds the native master and agent from ``native/`` at first
 use and runs a master with N agents, each agent's trials in the port (with
-``--gpus``, one GPU an agent).  Exit code 0: the experiment finished; 75:
+``--gpus``, ``--slots`` GPUs an agent, one slot a GPU: a trial on an agent
+of several runs one local rank process a GPU).  Exit code 0: the experiment finished; 75:
 it was preempted and ``experiment resume`` carries it on.  ``experiment status`` digests a local experiment's journal and
 ``experiment profile`` prints its goodput ledger (from the traces that
 ``observability.trace_export`` writes) and the op table of a
@@ -364,23 +365,23 @@ def cluster_up(args) -> int:
     built = devcluster.build_binaries()
     if built:
         print(f"built dtpu-master and dtpu-agent in {built:.1f} s")
-    gpus = None
+    slots, gpus = args.slots, None
     if args.gpus:
         import torch
 
-        gpus = [str(i) for i in range(torch.cuda.device_count())][: args.agents]
-        if len(gpus) < args.agents:
-            print(f"error: --gpus with {args.agents} agents needs {args.agents} GPUs, "
-                  f"found {len(gpus)}", file=sys.stderr)
+        try:
+            gpus = devcluster.gpu_blocks(torch.cuda.device_count(), args.agents, args.slots)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
             return 2
+        slots = None
     cluster = devcluster.LocalCluster(
-        args.state_dir, args.checkpoint_dir, agents=args.agents,
-        slots=1 if gpus is not None else args.slots, gpus=gpus, port=args.port,
-        scheduler=args.scheduler,
+        args.state_dir, args.checkpoint_dir, agents=args.agents, slots=slots, gpus=gpus,
+        port=args.port, scheduler=args.scheduler,
     )
     try:
         cluster.start()
-        per = "1 GPU" if gpus is not None else f"{args.slots} slot(s)"
+        per = f"{args.slots} {'GPU(s)' if gpus is not None else 'slot(s)'}"
         print(f"cluster up: master {cluster.url}, {args.agents} agent(s) x {per}, "
               f"trials run by determined_tpu_torch (logs under {cluster.log_dir})", flush=True)
         print("Ctrl-C to tear down", flush=True)
@@ -920,9 +921,11 @@ def build_parser() -> argparse.ArgumentParser:
                        "trials")
     cu.add_argument("--port", type=int, default=8080)
     cu.add_argument("--agents", type=int, default=1)
-    cu.add_argument("--slots", type=int, default=1)
+    cu.add_argument("--slots", type=int, default=1,
+                    help="slots an agent; with --gpus, its GPUs (its trial runs one local "
+                    "rank a GPU)")
     cu.add_argument("--gpus", action="store_true",
-                    help="one GPU an agent (CUDA_VISIBLE_DEVICES), one slot each")
+                    help="GPUs for the agents (CUDA_VISIBLE_DEVICES), one slot a GPU")
     cu.add_argument("--scheduler", default="priority", choices=["priority", "fair_share"])
     cu.add_argument("--state-dir", default=os.path.join(os.getcwd(), "dtt-cluster-state"))
     cu.add_argument("--checkpoint-dir", default=os.path.join(os.getcwd(),

@@ -426,36 +426,42 @@ class DistributedContext:
         package's ``from_jax`` reads it after ``jax.distributed``:
         ``DTPU_RENDEZVOUS`` (``coordinator`` host:port, ``num_nodes``,
         ``node_rank``) is the torch process group's TCP rendezvous (NCCL
-        on CUDA, gloo where ``device`` names the CPU), one rank a node, and
+        on CUDA, gloo where ``device`` names the CPU), and
         ``DTPU_CHIEF_ADDR``/``DTPU_CHIEF_PORT`` are the star's chief (the
-        master picks the port).  An allocation of one node is a single
-        rank with no process group.
+        master picks the port).  An allocation of one node and one slot is a
+        single rank with no process group.
 
-        A node's process drives one device here: an allocation of more
-        than one slot on a node (``DTPU_NUM_SLOTS`` > 1) raises, since
-        running a node's slots as local ranks is a later slice of the port.
-        A host with several GPUs runs one agent a GPU, each with its own
-        ``CUDA_VISIBLE_DEVICES``, which the trial inherits."""
+        A node's ``DTPU_NUM_SLOTS`` = N slots run as N local rank processes,
+        one a GPU in the style of torchrun (``exec/run_trial.py`` starts
+        them and sets each one's ``DTPU_LOCAL_RANK``): the process group's
+        rank is ``node_rank x N + local_rank`` and its world ``num_nodes x
+        N`` (the master gives every node of a gang the same slots), rank 0
+        is node 0's local rank 0 (the star's chief), and a rank runs on
+        ``cuda:local_rank`` of the node's ``CUDA_VISIBLE_DEVICES``.  Where
+        JAX drives a node's N devices from one process, its global device
+        order is process-major, then local: the same order."""
         import json
 
         slots = int(os.environ.get("DTPU_NUM_SLOTS", "1") or 1)
-        if slots > 1:
-            raise NotImplementedError(
-                f"an allocation of {slots} slots on one node needs its slots run as "
-                "local ranks, which is not ported to determined_tpu_torch yet; it comes "
-                "with a later slice of the port (ROADMAP.md, Queue 1): start one agent a "
-                "GPU (`cluster up --gpus`) so that each node holds one slot"
-            )
         info = json.loads(os.environ.get("DTPU_RENDEZVOUS") or "{}")
-        size = int(info.get("num_nodes", 1))
+        nodes = int(info.get("num_nodes", 1))
+        local = os.environ.get("DTPU_LOCAL_RANK")
+        if slots > 1 and local is None:
+            raise RuntimeError(
+                f"an allocation of {slots} slots on one node runs one local rank process a "
+                "slot: start it through determined_tpu_torch.exec.run_trial, which sets "
+                "DTPU_LOCAL_RANK in each"
+            )
+        local_rank = int(local or 0)
+        size = nodes * slots
         if size <= 1:
             return cls.single()
         host, _, port = str(info["coordinator"]).rpartition(":")
         return cls._with_process_group(
-            rank=int(info["node_rank"]),
+            rank=int(info.get("node_rank", 0)) * slots + local_rank,
             size=size,
-            local_rank=0,
-            local_size=1,
+            local_rank=local_rank,
+            local_size=slots,
             addr=os.environ.get("DTPU_CHIEF_ADDR") or host,
             init_method=f"tcp://{host}:{int(port)}",
             device=device,

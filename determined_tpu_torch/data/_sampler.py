@@ -47,6 +47,8 @@ class IndexSampler:
                 f"global batch size {batch_size} not divisible by {num_shards} shards"
             )
         if batch_size % (num_shards * blocks):
+            # the Trainer reads whole microbatches (one shard) where they do
+            # not split over the batch shards, as JAX's pipeline replicates them
             raise ValueError(
                 f"global batch size {batch_size} not divisible into {blocks} microbatches "
                 f"of {num_shards} shards"

@@ -8,11 +8,13 @@ The binaries are built at first use into ``native/build`` (or
 installed, else one ``g++`` process a binary, both at once (the tree has no
 third-party dependencies).  Every agent is started with ``--python`` set to
 the port's launcher (``exec/launcher.py``), so the trial process it execs is
-``determined_tpu_torch.exec.run_trial``; with ``gpus`` each agent gets one
-GPU through its own ``CUDA_VISIBLE_DEVICES``, which its trials inherit (one
-slot an agent).
+``determined_tpu_torch.exec.run_trial``; with ``gpus`` each agent gets its
+GPUs through its own ``CUDA_VISIBLE_DEVICES``, which its trials inherit: one
+GPU and one slot an agent, or an agent that owns N GPUs as N slots, whose
+trial runs one local rank process a GPU (``exec/run_trial.py``).
 
     python -m determined_tpu_torch.cli cluster up --agents 4 --gpus
+    python -m determined_tpu_torch.cli cluster up --agents 1 --gpus --slots 4
 """
 
 from __future__ import annotations
@@ -85,6 +87,15 @@ def _build(where: str) -> float:
     return time.monotonic() - t0
 
 
+def gpu_blocks(n_gpus: int, agents: int, per_agent: int = 1) -> List[str]:
+    """Each agent's ``CUDA_VISIBLE_DEVICES``: ``per_agent`` consecutive GPU
+    ids of the host's ``n_gpus``, agent by agent."""
+    if per_agent < 1 or agents * per_agent > n_gpus:
+        raise ValueError(f"{agents} agent(s) of {per_agent} GPU(s) need {agents * per_agent} "
+                         f"GPUs, found {n_gpus}")
+    return [",".join(str(a * per_agent + i) for i in range(per_agent)) for a in range(agents)]
+
+
 def _get(url: str, timeout: float = 2.0):
     with urllib.request.urlopen(url, timeout=timeout) as resp:
         return json.loads(resp.read() or b"null")
@@ -97,6 +108,9 @@ class LocalCluster:
     runs (a training run, then the fleet serving its checkpoints);
     ``master_args`` are extra ``dtpu-master`` flags, as
     ``scripts/devcluster.py``'s ``DevCluster(master_args=...)`` takes them.
+    Each agent has ``slots`` slots (1 by default); with ``gpus``, one
+    ``CUDA_VISIBLE_DEVICES`` block an agent, it has one slot a GPU of its
+    block instead, and ``slots`` is not taken.
     ``stop()`` ends every process it started (SIGTERM, then SIGKILL of what
     is left, with each process group, so a trial an agent forked goes
     too).
@@ -116,7 +130,7 @@ class LocalCluster:
         checkpoint_dir: str,
         *,
         agents: int = 1,
-        slots: int = 1,
+        slots: Optional[int] = None,
         gpus: Optional[Sequence[str]] = None,
         port: int = 0,
         scheduler: str = "priority",
@@ -130,10 +144,13 @@ class LocalCluster:
         self.state_dir = state_dir
         self.checkpoint_dir = checkpoint_dir
         self.n_agents = agents
-        self.slots = slots
-        self.gpus = list(gpus) if gpus is not None else None
-        if self.gpus is not None and len(self.gpus) != agents:
-            raise ValueError(f"{agents} agents need {agents} GPUs, got {self.gpus}")
+        self.gpus = [str(g) for g in gpus] if gpus is not None else None
+        if self.gpus is not None and (slots is not None or len(self.gpus) != agents):
+            raise ValueError(f"gpus gives {agents} agent(s) their slots, one GPU block an "
+                             f"agent; got {self.gpus} and slots={slots}")
+        #: each agent's slots
+        self.slots = ([len(g.split(",")) for g in self.gpus] if self.gpus is not None
+                      else [1 if slots is None else slots] * agents)
         if slices < 1 or agents % slices:
             raise ValueError(f"{agents} agents do not split into {slices} slices")
         self.slices = slices
@@ -189,12 +206,12 @@ class LocalCluster:
             env["PYTHONPATH"] = REPO + (os.pathsep + env["PYTHONPATH"]
                                         if env.get("PYTHONPATH") else "")
             if self.gpus is not None:
-                env["CUDA_VISIBLE_DEVICES"] = str(self.gpus[i])
+                env["CUDA_VISIBLE_DEVICES"] = self.gpus[i]
             slice_id = ["--slice-id", f"slice-{self.slice_of(i)}"] if self.slices > 1 else []
             self._spawn(f"agent-{i}", [
                 binary("dtpu-agent", self.where), "--master-host", "127.0.0.1",
                 "--master-port", str(self.port), "--id", f"agent-{i}",
-                "--slots", str(self.slots), "--python", LAUNCHER,
+                "--slots", str(self.slots[i]), "--python", LAUNCHER,
                 "--state-dir", os.path.join(self.state_dir, f"agent-{i}"), *slice_id,
             ], env=env)
         deadline = time.monotonic() + timeout

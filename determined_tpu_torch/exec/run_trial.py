@@ -18,6 +18,17 @@ failed attempt from its newest finalized checkpoint.  A preempted trial
 checkpoints at its next boundary and exits 0; the master relaunches it
 with ``DTPU_LATEST_CHECKPOINT``.
 
+A node given ``DTPU_NUM_SLOTS`` = N > 1 slots runs them as N local rank
+processes, one a GPU, as torchrun does (``run_local_ranks``): this process
+starts N copies of itself, each with ``DTPU_LOCAL_RANK`` set and every GPU
+of the node's ``CUDA_VISIBLE_DEVICES`` visible (rank ``i`` takes
+``cuda:i``), forwards SIGTERM and SIGINT to them (a preemption reaches
+every rank; they vote and checkpoint together), and exits with the first
+non-zero code among them, after stopping the others, or 0.  The node's
+local rank 0 holds the star's chief on node 0 (the global rank 0); this
+process ships the logs and reports the exit where the job does so itself,
+and the agent relays what every local rank writes.
+
 The trial trains on CUDA unless the experiment's ``environment.env`` sets
 ``DTPU_TORCH_DEVICE`` (``cpu`` runs the plain versions, as the CPU tests
 do); without a GPU and without that variable the process raises.  It logs
@@ -50,6 +61,56 @@ from typing import Any
 from determined_tpu_torch.exec._tls import urlopen as _tls_urlopen
 
 RUN_TRIAL = "determined_tpu_torch.exec.run_trial"
+
+#: seconds the node's other local ranks have to exit after one failed
+#: before they are killed (a peer of a lost rank may wait in a collective)
+LOCAL_RANK_GRACE_S = 10.0
+
+
+def run_local_ranks(cmd: list, slots: int) -> int:
+    """Run ``cmd`` as ``slots`` local rank processes (``DTPU_LOCAL_RANK``
+    0..slots-1, the module docstring) and wait for them: SIGTERM and SIGINT
+    are passed on to each; when one exits non-zero the others get SIGTERM,
+    then SIGKILL after LOCAL_RANK_GRACE_S, and that code is returned; else
+    0."""
+    import signal
+    import subprocess
+    import time
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DTPU_SHIP_LOGS", "DTPU_SELF_REPORT_EXIT")}
+    procs = []
+    for i in range(slots):
+        procs.append(subprocess.Popen(cmd, env=dict(env, DTPU_LOCAL_RANK=str(i))))
+
+    def forward(signum, _frame):
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+
+    previous = {sig: signal.signal(sig, forward) for sig in (signal.SIGTERM, signal.SIGINT)}
+    code, deadline = 0, None
+    try:
+        while [p.poll() for p in procs].count(None):
+            failed = [p.returncode for p in procs if p.returncode not in (None, 0)]
+            if failed and deadline is None:
+                code = failed[0]
+                print(f"run_trial: a local rank exited {code}; stopping the node's others",
+                      file=sys.stderr, flush=True)
+                forward(signal.SIGTERM, None)
+                deadline = time.monotonic() + LOCAL_RANK_GRACE_S
+            if deadline is not None and time.monotonic() > deadline:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+            time.sleep(0.1)
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+    if code == 0:
+        code = next((p.returncode for p in procs if p.returncode), 0)
+    # a rank killed by a signal reports its negative number: exit non-zero
+    return code if code >= 0 else 128 - code
 
 
 def _apply_environment_early() -> None:
@@ -419,13 +480,20 @@ def main() -> int:
     # output (and the rank prefixer, which wraps whatever stdout is)
     if os.environ.get("DTPU_SHIP_LOGS"):
         _install_log_shipper()
+    slots = int(os.environ.get("DTPU_NUM_SLOTS", "1") or 1)
+    if (slots > 1 and "DTPU_LOCAL_RANK" not in os.environ
+            and not os.environ.get("DTPU_TASK_TYPE")):
+        # a node of several slots: one local rank process a slot
+        return run_local_ranks([sys.executable, "-m", RUN_TRIAL, *sys.argv[1:]], slots)
     # per-rank prefix BEFORE logging configures its handlers
     rdzv_early = os.environ.get("DTPU_RENDEZVOUS")
     if rdzv_early:
         try:
             info_early = json.loads(rdzv_early)
-            if int(info_early.get("num_nodes", 1)) > 1:
-                prefix = f"[rank={int(info_early.get('node_rank', 0))}] "
+            if int(info_early.get("num_nodes", 1)) * slots > 1:
+                rank = (int(info_early.get("node_rank", 0)) * slots
+                        + int(os.environ.get("DTPU_LOCAL_RANK", "0")))
+                prefix = f"[rank={rank}] "
                 sys.stdout = _RankPrefixStream(sys.stdout, prefix)
                 sys.stderr = _RankPrefixStream(sys.stderr, prefix)
         except Exception:  # noqa: BLE001 - malformed rendezvous fails later
@@ -500,13 +568,15 @@ def main() -> int:
     # rendezvous.wait span, so the goodput ledger attributes setup time
     info = cluster.rendezvous or {}
     rdzv_t0 = time.monotonic()
-    if int(info.get("num_nodes", 1)) > 1:
+    gang = int(info.get("num_nodes", 1)) * slots > 1
+    if gang:
         logger.info(
-            "rendezvous: joining as rank %s/%s via coordinator %s",
-            info["node_rank"], info["num_nodes"], info["coordinator"],
+            "rendezvous: joining as node %s/%s (%d local rank(s), this one %s) via "
+            "coordinator %s", info["node_rank"], info["num_nodes"], slots,
+            os.environ.get("DTPU_LOCAL_RANK", "0"), info["coordinator"],
         )
     core_ctx = core.init(device=device)
-    if int(info.get("num_nodes", 1)) > 1:
+    if gang:
         logger.info("rendezvous: joined in %.1fs (%s, world %d)", time.monotonic() - rdzv_t0,
                     core_ctx.distributed.backend, core_ctx.distributed.size)
         if obs.enabled:

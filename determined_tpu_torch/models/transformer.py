@@ -182,16 +182,6 @@ def _linear(d_in: int, d_out: int, device: torch.device) -> nn.Linear:
     return nn.Linear(d_in, d_out, bias=False, device=device, dtype=torch.float32)
 
 
-def _check_tensor_parallel(cfg: TransformerConfig) -> None:
-    if cfg.quantized_matmul != "none":
-        raise NotImplementedError(
-            f"quantized_matmul={cfg.quantized_matmul!r} on the 'tensor' mesh axis is not ported "
-            "to determined_tpu_torch yet (a row-parallel product would scale its rows over "
-            "its own columns only); it comes with a later slice of the port (ROADMAP.md, "
-            "Queue 1)"
-        )
-
-
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: torch.device) -> None:
         super().__init__()
@@ -210,7 +200,6 @@ class Attention(nn.Module):
         """Keep this rank's heads (module docstring); the split leaves and
         their dims."""
         cfg = self.cfg
-        _check_tensor_parallel(cfg)
         hd = cfg.head_dim
         lo, hi = split_range(cfg.n_heads, size, rank, "n_heads")
         keep_slice(self.wq, "weight", 0, lo * hd, hi * hd)
@@ -250,8 +239,10 @@ class Attention(nn.Module):
         k = _rope(k, positions, cfg.rope_theta)
         out = dot_product_attention(q, k, v, causal=True, impl=cfg.attention_impl,
                                     seq=None if self.seq is None else self.seq[:2])
-        out = _out_proj(self, out, dt, quant)
-        return out if self.tensor is None else reduce_from(out, self.tensor[0])
+        if self.tensor is None:
+            return _out_proj(self, out, dt, quant)
+        # row-parallel: its quantized scales span the group (train/_quant.py)
+        return reduce_from(_out_proj(self, out, dt, quant, self.tensor[0]), self.tensor[0])
 
 
 class MLP(nn.Module):
@@ -266,7 +257,6 @@ class MLP(nn.Module):
     def shard_tensor(self, group: Any, size: int, rank: int) -> Dict[str, int]:
         """Keep this rank's ``ff / size`` hidden units: gate and up rows,
         down columns."""
-        _check_tensor_parallel(self.cfg)
         lo, hi = split_range(self.cfg.ff_dim, size, rank, "d_ff")
         keep_slice(self.w_gate, "weight", 0, lo, hi)
         keep_slice(self.w_up, "weight", 0, lo, hi)
@@ -278,7 +268,7 @@ class MLP(nn.Module):
         if self.tensor is None:
             return _mlp_apply(self, x, self.cfg.dtype, self.cfg.quantized_matmul)
         out = _mlp_apply(self, copy_to(x, self.tensor[0]), self.cfg.dtype,
-                         self.cfg.quantized_matmul)
+                         self.cfg.quantized_matmul, self.tensor[0])
         return reduce_from(out, self.tensor[0])
 
 
@@ -310,12 +300,27 @@ class Block(nn.Module):
 class _Layers(nn.Module):
     """Some layers of the stack under their indices in the whole stack (a
     pipeline rank's chunks), so that their parameters keep the whole
-    model's names (``blocks.<i>.``).  Iterates in layer order."""
+    model's names (``blocks.<i>.``).  Iterates in layer order.  Its forward
+    runs a chunk's layers: on a pipeline stage with FSDP2 it is the stage's
+    root module, whose forward every unit's forward runs inside (FSDP2
+    wants one root above a unit of several blocks)."""
 
     def __init__(self, blocks: Dict[int, nn.Module]) -> None:
         super().__init__()
         for i in sorted(blocks):
             self.add_module(str(i), blocks[i])
+
+    def forward(self, h: torch.Tensor, layers: List[int],
+                remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``layers``' blocks on ``h`` (remat: only each block's input kept,
+        the backward reruns it): the output and their aux losses summed."""
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in layers:
+            blk = self[i]
+            h, a = checkpoint(blk, h, use_reentrant=False) if remat else blk(h)
+            if a is not None:
+                aux = aux + a
+        return h, aux
 
     def __iter__(self):
         return iter(self._modules.values())
@@ -397,9 +402,8 @@ class TransformerLM(nn.Module):
         held = [c for c in range(total) if c % n in pipe.ranks()]
         self.chunk_layers = {c: list(range(c * lpc, (c + 1) * lpc)) for c in held}
         self.pipe = pipe
+        self.blocks = _Layers({i: self.blocks[i] for c in held for i in self.chunk_layers[c]})
         if len(held) < total:
-            keep = {i: self.blocks[i] for c in held for i in self.chunk_layers[c]}
-            self.blocks = _Layers(keep)
             if 0 not in held:
                 self.embed = None
             if total - 1 not in held:
@@ -408,12 +412,11 @@ class TransformerLM(nn.Module):
             # the pipe's communicators, made before anything is timed
             pipe.warm(torch.zeros(1, device=next(self.parameters()).device))
 
-    def stage_chunks(self) -> List[Optional[List[nn.Module]]]:
-        """``pipeline_apply``'s stages: each chunk's blocks (None where
-        another rank holds it)."""
+    def stage_chunks(self) -> List[Optional[List[int]]]:
+        """``pipeline_apply``'s stages: each chunk's layers (None where
+        another rank holds it), which ``self.blocks`` runs."""
         total = self.pipe.size * self.virtual_stages
-        return [[self.blocks[i] for i in self.chunk_layers[c]] if c in self.chunk_layers
-                else None for c in range(total)]
+        return [self.chunk_layers.get(c) for c in range(total)]
 
     def set_requires_gradient_sync(self, requires: bool) -> None:
         """Gradient accumulation's switch on a pipeline rank, whose blocks
@@ -436,18 +439,24 @@ class TransformerLM(nn.Module):
 
     def shard_tensor(self, group: Any, size: int, rank: int) -> Dict[str, int]:
         """Keep this rank's vocabulary rows of ``embed`` and ``lm_head``
-        (the blocks' modules, the experts' too, split their own)."""
-        _check_tensor_parallel(self.cfg)
+        (the blocks' modules, the experts' too, split their own); a
+        pipeline stage splits those of them it holds."""
         lo, hi = split_range(self.cfg.vocab_size, size, rank, "vocab_size")
-        keep_slice(self.embed, "weight", 0, lo, hi)
-        keep_slice(self.lm_head, "weight", 0, lo, hi)
+        dims = {}
+        for name, mod in (("embed", self.embed), ("lm_head", self.lm_head)):
+            if mod is not None:
+                keep_slice(mod, "weight", 0, lo, hi)
+                dims[f"{name}.weight"] = 0
         self.tensor = (group, size, rank)
-        return {"embed.weight": 0, "lm_head.weight": 0}
+        return dims
 
     @property
     def vocab_start(self) -> int:
         """The first vocabulary row this rank holds (0 unsharded)."""
-        return 0 if self.tensor is None else self.tensor[2] * self.lm_head.weight.shape[0]
+        if self.tensor is None:
+            return 0
+        _, size, rank = self.tensor
+        return rank * (self.cfg.vocab_size // size)
 
     def shard_seq(self, group: Any, size: int, rank: int) -> None:
         """Run on this rank's contiguous ``1 / size`` of every sequence,
@@ -487,6 +496,30 @@ class TransformerLM(nn.Module):
             elif isinstance(mod, MoE):
                 mod.reset_parameters(generator)
 
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding of ``tokens`` in ``cfg.dtype``; on a tensor group
+        the vocab-parallel lookup of this rank's rows, summed over it."""
+        if self.tensor is None:
+            return self.embed.weight[tokens].to(self.cfg.dtype)
+        return vocab_parallel_embedding(self.embed.weight, tokens, self.tensor[0],
+                                        self.vocab_start).to(self.cfg.dtype)
+
+    def final_hidden(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm of the last block's output: the head's input."""
+        x = self.ln_f(x)
+        if self.tensor is not None:
+            # the head's columns are this rank's vocabulary: x's gradient
+            # from them is partial, summed over the group here
+            x = copy_to(x, self.tensor[0])
+        return x
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The head's logits in f32 (on a tensor group, this rank's
+        vocabulary columns)."""
+        return quant_linear(
+            hidden, self.lm_head.weight, self.cfg.dtype, self.cfg.quantized_matmul
+        ).float()
+
     def forward(
         self, tokens: torch.Tensor, return_hidden: bool = False, return_aux: bool = False
     ) -> Any:
@@ -500,11 +533,7 @@ class TransformerLM(nn.Module):
         if self.pipe is not None and len(self.chunk_layers) < self.pipe.size * self.virtual_stages:
             raise RuntimeError("this model holds one pipeline rank's layers: run it through "
                                "parallel.pipeline.pipeline_apply (LMTrial.loss)")
-        if self.tensor is None:
-            x = self.embed.weight[tokens].to(self.cfg.dtype)
-        else:
-            x = vocab_parallel_embedding(self.embed.weight, tokens, self.tensor[0],
-                                         self.vocab_start).to(self.cfg.dtype)
+        x = self.embed_tokens(tokens)
         remat = self.cfg.remat and torch.is_grad_enabled()
         aux_total = None
         for blk in self.blocks:
@@ -512,15 +541,9 @@ class TransformerLM(nn.Module):
             x, aux = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
-        x = self.ln_f(x)
-        if self.tensor is not None:
-            # the head's columns are this rank's vocabulary: x's gradient
-            # from them is partial, summed over the group here
-            x = copy_to(x, self.tensor[0])
+        x = self.final_hidden(x)
         if not return_hidden:
-            x = quant_linear(
-                x, self.lm_head.weight, self.cfg.dtype, self.cfg.quantized_matmul
-            ).float()
+            x = self.logits(x)
         if not return_aux:
             return x
         if aux_total is None:
@@ -568,17 +591,21 @@ def _attn_proj(
 
 
 def _out_proj(
-    attn: Attention, att: torch.Tensor, dtype: torch.dtype, quant: str = "none"
+    attn: Attention, att: torch.Tensor, dtype: torch.dtype, quant: str = "none",
+    group: Any = None,
 ) -> torch.Tensor:
-    """Output projection of attention [b, heads, s, head_dim] to [b, s, d]."""
+    """Output projection of attention [b, heads, s, head_dim] to [b, s, d]
+    (``group``: the tensor group of a row-parallel ``wo``)."""
     b, h, s, hd = att.shape
-    return quant_linear(att.transpose(1, 2).reshape(b, s, h * hd), attn.wo.weight, dtype, quant)
+    return quant_linear(att.transpose(1, 2).reshape(b, s, h * hd), attn.wo.weight, dtype, quant,
+                        group)
 
 
-def _mlp_apply(mlp: MLP, x: torch.Tensor, dtype: torch.dtype, quant: str = "none") -> torch.Tensor:
+def _mlp_apply(mlp: MLP, x: torch.Tensor, dtype: torch.dtype, quant: str = "none",
+               group: Any = None) -> torch.Tensor:
     gate = quant_linear(x, mlp.w_gate.weight, dtype, quant)
     up = quant_linear(x, mlp.w_up.weight, dtype, quant)
-    return quant_linear(F.silu(gate) * up, mlp.w_down.weight, dtype, quant)
+    return quant_linear(F.silu(gate) * up, mlp.w_down.weight, dtype, quant, group)
 
 
 def _check_decodable(cfg: TransformerConfig) -> None:
@@ -1026,19 +1053,31 @@ class LMTrial(TorchTrial):
         tokens = batch["tokens"].long()
         # shift over the whole sequence, then each seq rank takes its part
         inputs, targets = (model.seq_slice(t) for t in (tokens[:, :-1], tokens[:, 1:]))
-        tp_group = None if model.tensor is None else model.tensor[0]
-        g = self.context.get_hparam
-        fused = g("fused_ce", "auto")
+        fused = self.context.get_hparam("fused_ce", "auto")
         if fused == "auto":
             fused = model.cfg.vocab_size >= 8192
         if model.pipe is not None:
             return self._pipeline_loss(model, inputs, targets, fused)
+        hidden, moe_aux = model(inputs, return_hidden=True, return_aux=True)
+        loss = self._head_loss(model, hidden, targets, fused)
+        metrics = {"perplexity": torch.exp(loss)}
+        if model.cfg.moe_experts > 0:
+            metrics["moe_aux_loss"] = moe_aux
+            loss = loss + model.cfg.moe_aux_weight * moe_aux
+        return loss, metrics
+
+    def _head_loss(self, model: TransformerLM, hidden: torch.Tensor, targets: torch.Tensor,
+                   fused: bool) -> torch.Tensor:
+        """The mean cross-entropy of the head on ``hidden``, the final
+        hidden states (``TransformerLM.final_hidden``); on a tensor group
+        over the vocabulary's shards."""
+        g = self.context.get_hparam
+        tp_group = None if model.tensor is None else model.tensor[0]
         if fused:
             from determined_tpu_torch.ops.cross_entropy import fused_cross_entropy
 
-            hidden, moe_aux = model(inputs, return_hidden=True, return_aux=True)
             chunk = g("ce_chunk", None)
-            loss = fused_cross_entropy(
+            return fused_cross_entropy(
                 hidden,
                 model.lm_head.weight.t(),  # [d, vocab], the JAX kernel layout
                 targets,
@@ -1051,41 +1090,11 @@ class LMTrial(TorchTrial):
                 group=tp_group,
                 vocab_start=model.vocab_start,
             )
-        else:
-            logits, moe_aux = model(inputs, return_aux=True)
-            if tp_group is None:
-                loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                       targets.reshape(-1))
-            else:
-                from determined_tpu_torch.ops.cross_entropy import (
-                    vocab_parallel_cross_entropy,
-                )
+        logits = model.logits(hidden)
+        if tp_group is not None:
+            from determined_tpu_torch.ops.cross_entropy import vocab_parallel_cross_entropy
 
-                loss = vocab_parallel_cross_entropy(logits, targets, tp_group, model.vocab_start)
-        metrics = {"perplexity": torch.exp(loss)}
-        if model.cfg.moe_experts > 0:
-            metrics["moe_aux_loss"] = moe_aux
-            loss = loss + model.cfg.moe_aux_weight * moe_aux
-        return loss, metrics
-
-    def _head_loss(self, model: TransformerLM, y: torch.Tensor, targets: torch.Tensor,
-                   fused: bool) -> torch.Tensor:
-        """The final norm, the head and the mean cross-entropy of one
-        microbatch's last hidden states."""
-        g = self.context.get_hparam
-        x = model.ln_f(y)
-        if fused:
-            from determined_tpu_torch.ops.cross_entropy import fused_cross_entropy
-
-            chunk = g("ce_chunk", None)
-            return fused_cross_entropy(
-                x, model.lm_head.weight.t(), targets,
-                chunk_size=None if chunk in (None, "auto") else int(chunk),
-                compute_dtype=model.cfg.dtype, batch_shards=1,
-                bf16_residual=bool(g("ce_bf16_residual", False)),
-            )
-        logits = quant_linear(x, model.lm_head.weight, model.cfg.dtype,
-                              model.cfg.quantized_matmul).float()
+            return vocab_parallel_cross_entropy(logits, targets, tp_group, model.vocab_start)
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
 
     def _pipeline_loss(
@@ -1100,24 +1109,19 @@ class LMTrial(TorchTrial):
         schedule, vstages = self._pipe_schedule()
         b, s = inputs.shape
         if model.embed is not None:
-            x = model.embed.weight[inputs].to(cfg.dtype)
+            x = model.embed_tokens(inputs)
         else:  # only the shape and dtype reach the pipe
             x = torch.empty((b, s, cfg.d_model), dtype=cfg.dtype, device=inputs.device)
         remat = cfg.remat and torch.is_grad_enabled()
 
-        def stage_fn(blocks: List[nn.Module], h: torch.Tensor):
-            aux = torch.zeros((), dtype=torch.float32, device=h.device)
-            for blk in blocks:
-                # remat: keep only each block's input; the backward reruns it
-                h, a = checkpoint(blk, h, use_reentrant=False) if remat else blk(h)
-                if a is not None:
-                    aux = aux + a
-            return h, aux
+        def stage_fn(layers: List[int], h: torch.Tensor):
+            return model.blocks(h, layers, remat)
 
         mb = b // m  # pipeline_apply raises first where m does not divide b
 
         def loss_fn(y: torch.Tensor, k: int) -> torch.Tensor:
-            return self._head_loss(model, y, targets[k * mb:(k + 1) * mb], fused) / m
+            return self._head_loss(model, model.final_hidden(y),
+                                   targets[k * mb:(k + 1) * mb], fused) / m
 
         moe = cfg.moe_experts > 0
         loss, aux = pipeline_apply(

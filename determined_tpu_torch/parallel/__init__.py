@@ -8,7 +8,7 @@ from determined_tpu_torch.parallel.sharding import (
     ShardPlan,
     batch_shard,
     batch_sharding,
-    check_ported,
+    cut_pipe,
     fsdp_shard_dim,
     logical_to_mesh_spec,
     shard_model,
@@ -22,7 +22,7 @@ __all__ = [
     "ShardPlan",
     "batch_shard",
     "batch_sharding",
-    "check_ported",
+    "cut_pipe",
     "fsdp_shard_dim",
     "logical_to_mesh_spec",
     "make_mesh",

@@ -11,8 +11,7 @@ sits at the coordinate of the JAX mesh's device ``r``.  ``dcn``
 contiguous block of the world (JAX's virtual slices on the CPU, and on one
 host a block of its GPUs; through the master a gang's node ranks follow its
 agents' order, so agents are numbered slice by slice).  The Trainer runs
-every axis; the compositions of later slices raise ``NotImplementedError``
-(``sharding.check_ported``).
+every axis and every composition of them.
 """
 
 from __future__ import annotations
@@ -77,12 +76,9 @@ class Mesh:
 
 def make_mesh(config: MeshConfig, device_type: str = "cuda") -> Mesh:
     """Resolve ``config`` against the process group's world size and build
-    its ``DeviceMesh`` (every axis present, size-1 ones included).  Raises
-    ``NotImplementedError`` for the axes the port does not run yet."""
+    its ``DeviceMesh`` (every axis present, size-1 ones included)."""
     import torch.distributed as tdist
     from torch.distributed.device_mesh import init_device_mesh
-
-    from determined_tpu_torch.parallel.sharding import check_ported
 
     if not tdist.is_initialized():
         raise RuntimeError(
@@ -91,7 +87,6 @@ def make_mesh(config: MeshConfig, device_type: str = "cuda") -> Mesh:
             "DistributedContext.from_torch()) first"
         )
     config = config.resolve(tdist.get_world_size())
-    check_ported(config.shape)
     shape = config.shape
     device_mesh = init_device_mesh(
         device_type, tuple(shape[a] for a in MESH_ORDER), mesh_dim_names=MESH_ORDER

@@ -56,18 +56,24 @@ equal (data replicas, a whole ``wk``/``wv`` on the tensor ranks, a dense
 leaf on the expert ranks) hold the same values.
 
 ``pipe`` (``parallel/pipeline.py``): first the model keeps its pipe rank's
-stage (``shard_pipe``: its chunks of layers, embed on the first rank, the
-final norm and the head on the last, all under the whole model's names),
-then the other axes place what it kept.  FSDP2 shards each of the stage's
-blocks over the batch-like axes of the rank's own pipe coordinate, with
-``reshard_after_forward`` off (the schedule reduces and reshards at each
-chunk's last backward unit, so a step gathers a block once, not once a
-microbatch); the outer leaves stay whole and their gradients are averaged
-over the same ranks (``sync_grads``).  A stage's MoE blocks route their
-own tokens (no ``shard_tokens``), as JAX's do inside its ``shard_map``, on
-a ``seq`` axis too.  The clip's norm is summed over the pipe group too.
-The mesh axes ``dcn`` and ``tensor`` beside ``pipe`` raise
-``NotImplementedError`` (``check_ported``).
+stage (``cut_pipe``, the model's ``shard_pipe``: its chunks of layers,
+embed on the first rank, the final norm and the head on the last, all under
+the whole model's names), then the other axes place what it kept, every
+axis beside ``pipe`` included.  ``tensor``: where JAX's stages replicate
+their params over tensor (its ``pipeline_apply`` gives each leaf
+``P(pipe)`` only) and its tensor ranks compute the same stage, the port
+splits each stage's blocks, and the first stage's embedding and the last
+stage's head, as it does outside a pipeline (``shard_tensor``): the same
+math, so the same losses and gradients.  FSDP2 shards each of the stage's
+blocks (or the overlapped sync's units of them) over the batch-like axes of
+the rank's own pipe coordinate, ``dcn`` included (flat, or HSDP with
+``dcn`` replicated under ``hierarchical``), with ``reshard_after_forward``
+off (the schedule reduces and reshards at each chunk's last backward unit,
+so a step gathers a block once, not once a microbatch); the outer leaves
+stay whole and their gradients are averaged over the same ranks
+(``sync_grads``).  A stage's MoE blocks route their own tokens (no
+``shard_tokens``), as JAX's do inside its ``shard_map``, on a ``seq`` axis
+too.  The clip's norm is summed over the pipe group too.
 """
 
 from __future__ import annotations
@@ -103,14 +109,6 @@ DEFAULT_RULES: LogicalAxisRules = {
     # FSDP: weight dims tagged "fsdp_shard" get scattered over the fsdp axis.
     "fsdp_shard": MeshAxes.FSDP,
 }
-
-# the mesh axes the port does not run yet beside ``pipe``, and the slice
-# each comes with
-_LATER_BESIDE_PIPE = {
-    MeshAxes.DCN: "num_slices beside 'pipe' (a pipeline stage's blocks over dcn)",
-    MeshAxes.TENSOR: "the 'tensor' mesh axis beside 'pipe' (JAX's stages replicate over tensor)",
-}
-
 
 def _axis_sizes(mesh: Any) -> Optional[Dict[str, int]]:
     if mesh is None:
@@ -236,19 +234,6 @@ def chunk_range(lo: int, hi: int, n: int, i: int) -> Tuple[int, int]:
     return lo + min(i * step, size), lo + min((i + 1) * step, size)
 
 
-def check_ported(axis_sizes: Mapping[str, int]) -> None:
-    """Raise ``NotImplementedError`` for a composition of mesh axes that the
-    port does not run yet: ``dcn`` or ``tensor`` beside ``pipe``."""
-    if int(axis_sizes.get(MeshAxes.PIPELINE, 1)) <= 1:
-        return
-    for axis, what in _LATER_BESIDE_PIPE.items():
-        if int(axis_sizes.get(axis, 1)) > 1:
-            raise NotImplementedError(
-                f"{what} is not ported to determined_tpu_torch yet; it comes with a later "
-                "slice of the port (ROADMAP.md, Queue 1)"
-            )
-
-
 def grad_sync_spec(shape: Sequence[int], param_spec: Sequence[Any], mesh: Any,
                    sync_axes: Sequence[str]) -> Optional[Tuple[Any, ...]]:
     """The spec of a gradient leaf synced by reduce-scatter
@@ -325,9 +310,10 @@ class ShardPlan:
 
     @torch.no_grad()
     def sync_grads(self, params: Dict[str, torch.nn.Parameter]) -> None:
-        """Average the gradients of the stage's whole leaves over the ranks
-        of its pipe coordinate that read other tokens (FSDP2 averages the
-        blocks')."""
+        """Average the gradients of the stage's whole leaves over the
+        batch-like ranks of its pipe coordinate (FSDP2 averages the
+        blocks'); where they read the same microbatches (replicated), the
+        mean of equal gradients is each one."""
         import torch.distributed as tdist
 
         if self.sync_group is None:
@@ -497,32 +483,45 @@ def _group_over(mesh: Any, axes: Sequence[str]) -> Any:
     return mesh.device_mesh[tuple(axes)]._flatten("_".join(axes)).get_group()
 
 
+def cut_pipe(model: torch.nn.Module, mesh: Any) -> None:
+    """Keep this rank's pipeline stage of ``model`` (``shard_pipe``) on a
+    mesh whose ``pipe`` axis is over 1; a model already cut, or a mesh
+    without a pipe axis, is left as it is.  The pipe group holds the ranks
+    that share every other coordinate, so rank (p, t, ...) hands its
+    activations to (p ± 1, t, ...): each tensor rank sends its own copy,
+    whole after the row-parallel reduce (a choice: any tensor rank's copy
+    is the same)."""
+    n_pipe = mesh.shape[MeshAxes.PIPELINE]
+    if n_pipe <= 1 or getattr(model, "pipe", None) is not None:
+        return
+    from determined_tpu_torch.parallel.pipeline import PipeGroup
+
+    if not hasattr(model, "shard_pipe"):
+        raise ValueError(f"{type(model).__name__} has no pipeline stages (shard_pipe): "
+                         "it cannot run on a 'pipe' mesh axis")
+    model.shard_pipe(PipeGroup(mesh.group(MeshAxes.PIPELINE), n_pipe,
+                               mesh.coordinate(MeshAxes.PIPELINE)))
+
+
 def shard_model(model: torch.nn.Module, mesh: Any, *, hierarchical: bool = False,
                 units: Sequence[Sequence[str]] = ()) -> ShardPlan:
     """Place ``model`` on ``mesh`` in place: its pipe rank's stage over
-    ``pipe``, expert parallelism over ``expert``, tensor parallelism over
-    ``tensor``, the sequence over ``seq``, then FSDP2 over the batch-like
-    axes (module docstring; ``hierarchical`` as ``_dp_mesh``).  ``units``
-    are the overlapped sync's buckets (``train/_overlap.py``
-    ``fsdp_units``): each list of blocks becomes one FSDP2 unit, one
-    reduce-scatter issued when the backward has produced its gradients; the
-    other blocks are a unit each and the root takes what is left."""
+    ``pipe`` (``cut_pipe``), expert parallelism over ``expert``, tensor
+    parallelism over ``tensor``, the sequence over ``seq``, then FSDP2 over
+    the batch-like axes (module docstring; ``hierarchical`` as
+    ``_dp_mesh``).  ``units`` are the overlapped sync's buckets
+    (``train/_overlap.py`` ``fsdp_units``): each list of blocks becomes one
+    FSDP2 unit, one reduce-scatter issued when the backward has produced its
+    gradients; the other blocks are a unit each and the root (outside a
+    pipeline) takes what is left."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     from determined_tpu_torch.models.moe import EXPERT_PARAMS
 
     sizes = mesh.shape
-    check_ported(sizes)
     n_pipe = sizes[MeshAxes.PIPELINE]
-    if n_pipe > 1:
-        from determined_tpu_torch.parallel.pipeline import PipeGroup
-
-        if not hasattr(model, "shard_pipe"):
-            raise ValueError(f"{type(model).__name__} has no pipeline stages (shard_pipe): "
-                             "it cannot run on a 'pipe' mesh axis")
-        model.shard_pipe(PipeGroup(mesh.group(MeshAxes.PIPELINE), n_pipe,
-                                   mesh.coordinate(MeshAxes.PIPELINE)))
+    cut_pipe(model, mesh)
     expert_params: Set[str] = set()
     n_exp = sizes[MeshAxes.EXPERT]
     if n_exp > 1:
@@ -561,18 +560,26 @@ def shard_model(model: torch.nn.Module, mesh: Any, *, hierarchical: bool = False
                 if any(k.startswith(p + ".") for p in prefixes)]
 
     made: List[Tuple[List[str], bool]] = []
-    if n_pipe == 1:
+    # a pipeline stage's units are not resharded after their forward (the
+    # schedule reshards them at each chunk's last backward unit)
+    reshard = n_pipe == 1
+
+    def shard_blocks() -> None:
         for unit in units:
             mods = [model.get_submodule(name) for name in unit]
             fully_shard(mods if len(mods) > 1 else mods[0], mesh=dp_mesh,
-                        shard_placement_fn=placement)
-            made.append((leaves(unit), True))
+                        shard_placement_fn=placement, reshard_after_forward=reshard)
+            made.append((leaves(unit), reshard))
         in_units = {name for unit in units for name in unit}
         for name, blk in getattr(model, "blocks", torch.nn.Module()).named_children():
             if f"blocks.{name}" in in_units:
                 continue
-            fully_shard(blk, mesh=dp_mesh, shard_placement_fn=placement)
-            made.append((leaves([f"blocks.{name}"]), True))
+            fully_shard(blk, mesh=dp_mesh, shard_placement_fn=placement,
+                        reshard_after_forward=reshard)
+            made.append((leaves([f"blocks.{name}"]), reshard))
+
+    if n_pipe == 1:
+        shard_blocks()
         fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
         # the root is not resharded after its forward: the backward starts
         # with it
@@ -581,15 +588,14 @@ def shard_model(model: torch.nn.Module, mesh: Any, *, hierarchical: bool = False
         plan = ShardPlan(model, mesh, expert_params, tensor_dims)
     else:
         # a pipeline stage: FSDP2 on its blocks only, the outer leaves whole
-        batch_like = (MeshAxes.DATA, MeshAxes.FSDP, MeshAxes.SEQUENCE)
+        # and averaged over every batch-like axis, dcn included
+        batch_like = (MeshAxes.DCN, MeshAxes.DATA, MeshAxes.FSDP, MeshAxes.SEQUENCE)
         sync_group = _group_over(mesh, batch_like)
-        in_blocks: Set[str] = set()
         if sync_group is not None:
-            for name, blk in model.blocks.named_children():
-                fully_shard(blk, mesh=dp_mesh, shard_placement_fn=placement,
-                            reshard_after_forward=False)
-                made.append((leaves([f"blocks.{name}"]), False))
-                in_blocks.update(made[-1][0])
+            shard_blocks()
+            # the stage's root: a chunk's forward runs its units inside it
+            fully_shard(model.blocks, mesh=dp_mesh, reshard_after_forward=False)
+        in_blocks = {k for unit, _ in made for k in unit}
         synced = [k for k, _ in model.named_parameters() if k not in in_blocks]
         plan = ShardPlan(model, mesh, expert_params, tensor_dims, synced, sync_group)
     plan.units = made

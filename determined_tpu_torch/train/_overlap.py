@@ -297,19 +297,22 @@ def fsdp_units(plan: GradSyncPlan, model: Any) -> List[List[str]]:
     unit's params in its modules' forward hooks, and the LM reads the
     embedding, the head and its projections' weights outside their own
     modules' forward; the leaves outside the blocks ride the root's
-    reduce-scatter (ROADMAP.md, Queue 3)."""
+    reduce-scatter (ROADMAP.md, Queue 3).  On a pipeline stage (a model
+    with ``chunk_layers``) a unit holds the blocks of one chunk only: the
+    schedule reduces a chunk's units at that chunk's last backward unit."""
     blocks = [f"blocks.{name}" for name, _ in getattr(model, "blocks", {}).named_children()]
+    chunk_of = {f"blocks.{i}": c for c, layers in (getattr(model, "chunk_layers", None)
+                                                   or {}).items() for i in layers}
     taken: set = set()
     units: List[List[str]] = []
     for bucket in plan.bucket_names():
-        unit: List[str] = []
+        unit: Dict[Any, List[str]] = {}
         for name in bucket:
             owner = next((b for b in blocks if name.startswith(b + ".")), None)
             if owner is not None and owner not in taken:
                 taken.add(owner)
-                unit.append(owner)
-        if unit:
-            units.append(unit)
+                unit.setdefault(chunk_of.get(owner), []).append(owner)
+        units.extend(unit.values())
     return units
 
 
@@ -321,10 +324,10 @@ def fsdp_comm(shard_plan: Any, device_kind: str = "") -> Optional[CommModel]:
     resharded after the forward, and reduce-scatters its gradients there
     ((n - 1) / n of the bytes each); HSDP all-reduces the fragment over
     the replicate group, and a pipeline stage its whole leaves over its
-    batch group.  A group that spans ``dcn`` is the cross-slice hop (a ring
-    is as fast as its slowest link), one within a slice the other.  Each
-    unit but the last is one bucket the backward can hide.  None when
-    nothing is reduced."""
+    batch group (every batch-like axis, ``dcn`` included).  A group that
+    spans ``dcn`` is the cross-slice hop (a ring is as fast as its slowest
+    link), one within a slice the other.  Each unit but the last is one
+    bucket the backward can hide.  None when nothing is reduced."""
     sizes = dict(shard_plan.mesh.shape)
     shard, replicate = shard_plan.dp_axes
     n_shard = math.prod(int(sizes.get(a, 1)) for a in shard)
@@ -340,9 +343,10 @@ def fsdp_comm(shard_plan: Any, device_kind: str = "") -> Optional[CommModel]:
     n_units = len(shard_plan.units)
     if shard_plan.sync_group is not None and shard_plan.synced:
         nbytes = sum(params[k].numel() * params[k].element_size() for k in shard_plan.synced)
-        n = math.prod(int(sizes.get(a, 1)) for a in (MeshAxes.DATA, MeshAxes.FSDP,
-                                                     MeshAxes.SEQUENCE))
-        hop["ici"] += int(2 * (n - 1) / n * nbytes)
+        n = math.prod(int(sizes.get(a, 1)) for a in (MeshAxes.DCN, MeshAxes.DATA,
+                                                     MeshAxes.FSDP, MeshAxes.SEQUENCE))
+        hop["dcn" if int(sizes.get(MeshAxes.DCN, 1)) > 1 else "ici"] += int(
+            2 * (n - 1) / n * nbytes)
         n_units += 1
     if not hop["ici"] and not hop["dcn"]:
         return None
@@ -352,9 +356,10 @@ def fsdp_comm(shard_plan: Any, device_kind: str = "") -> Optional[CommModel]:
 
 
 def model_leaves(model: Any) -> List[Tuple[str, Tuple[int, ...], Tuple]]:
-    """``build_plan``'s leaves for a whole (unsharded) model: each
-    parameter's name, shape and an empty param spec, in the JAX flatten
-    order.  The JAX LM's params carry no fsdp, data or dcn axis (its
+    """``build_plan``'s leaves for a whole (unsharded) model, or for a
+    pipeline stage (its own leaves, before the other axes place them):
+    each parameter's name, shape and an empty param spec, in the JAX
+    flatten order.  The JAX LM's params carry no fsdp, data or dcn axis (its
     logical rules put them on tensor and expert only), so the sync specs
     are JAX's; a model that the JAX Trainer auto-shards over fsdp gets
     buckets here where JAX's plan skips the leaves already sharded (ROADMAP.md,

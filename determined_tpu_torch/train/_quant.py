@@ -19,6 +19,15 @@ injection, so the param tree is untouched:
   the *unquantized* product over the saved compute-dtype operands, so they
   never see quantization noise.
 
+On a ``tensor`` mesh axis JAX's partitioner sees the whole product, so its
+scales are over the whole contracting dim.  A column-parallel product
+(q, k, v, gate, up, the vocabulary-split head) holds the whole contracting
+dim already; a row-parallel one (o, down) holds its own columns of it, so
+``quant_linear(..., group=...)`` first takes each operand's absmax row by
+row over its columns, all-reduces the two with MAX over the tensor group
+(one collective), quantizes with those scales and leaves the rescaled
+partial product for the caller's sum over the group.
+
 On CUDA tensors the products run on the card's integer and fp8 tensor-core
 paths: ``torch._int_mm`` (int8 x int8 -> int32) and ``torch._scaled_mm``
 (e4m3 x e4m3, f32 accumulate; at a bf16 compute dtype the row-wise f32
@@ -40,7 +49,7 @@ raises ``InvalidExperimentConfig`` at setup, except under
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -103,41 +112,67 @@ def require_platform(
     )
 
 
-def quantize(x: torch.Tensor, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize(x: torch.Tensor, mode: str,
+             amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric quantization of a 2-D operand over its last
-    (contracting) dim: ``(q, scale)`` with ``scale`` f32 ``[rows]``."""
+    (contracting) dim: ``(q, scale)`` with ``scale`` f32 ``[rows]``; ``amax``
+    (f32 ``[rows]``) is each row's absmax where it spans more than ``x``'s
+    columns (a row-parallel product's, ``row_parallel_amax``)."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1).clamp_min(1e-12) / _QMAX[mode]
+    if amax is None:
+        amax = xf.abs().amax(dim=-1)
+    scale = amax.clamp_min(1e-12) / _QMAX[mode]
     scaled = xf / scale[:, None]
     if mode == "int8":
         return scaled.round().clamp_(-127, 127).to(torch.int8), scale
     return scaled.to(torch.float8_e4m3fn), scale
 
 
-def quantized_matmul_reference(x2: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+def row_parallel_amax(x2: torch.Tensor, w: torch.Tensor,
+                      group: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's absmax of ``x2 [M, K]`` and of ``w [N, K]`` over the whole
+    contracting dim whose columns the ranks of ``group`` hold between them:
+    the local absmaxes, maxed over the group in one all-reduce."""
+    import torch.distributed as tdist
+
+    both = torch.cat([x2.float().abs().amax(dim=-1), w.float().abs().amax(dim=-1)])
+    tdist.all_reduce(both, op=tdist.ReduceOp.MAX, group=group)
+    return both[:x2.shape[0]], both[x2.shape[0]:]
+
+
+def quantized_matmul_reference(x2: torch.Tensor, w: torch.Tensor, mode: str,
+                               amax: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                               ) -> torch.Tensor:
     """The plain version: ``x2 [M, K] @ w[N, K].T`` through the quantized
-    operands in f32, rescaled as ``acc * s_x * s_w``, in ``x2``'s dtype."""
-    qx, sx = quantize(x2, mode)
-    qw, sw = quantize(w, mode)
+    operands in f32, rescaled as ``acc * s_x * s_w``, in ``x2``'s dtype;
+    ``amax`` the operands' row absmaxes where they span more columns."""
+    ax, aw = amax or (None, None)
+    qx, sx = quantize(x2, mode, ax)
+    qw, sw = quantize(w, mode, aw)
     acc = qx.float() @ qw.float().t()
     return (acc * sx[:, None] * sw[None, :]).to(x2.dtype)
 
 
-def quantized_matmul(x2: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+def quantized_matmul(x2: torch.Tensor, w: torch.Tensor, mode: str,
+                     amax: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """``x2 [M, K] @ w[N, K].T`` through quantized operands: on CUDA the
-    int8 or fp8 tensor-core product, on the CPU the plain version."""
+    int8 or fp8 tensor-core product, on the CPU the plain version
+    (``amax`` as ``quantized_matmul_reference``'s)."""
     if x2.device.type != "cuda":
-        return quantized_matmul_reference(x2, w, mode)
-    return _tensor_core_matmul(x2, w, mode)
+        return quantized_matmul_reference(x2, w, mode, amax=amax)
+    return _tensor_core_matmul(x2, w, mode, amax=amax)
 
 
-def _tensor_core_matmul(x2: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+def _tensor_core_matmul(x2: torch.Tensor, w: torch.Tensor, mode: str,
+                        amax: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                        ) -> torch.Tensor:
     """The card's product.  ``_scaled_mm`` applies row-wise scales in its
     epilogue only with a bf16 output, so any other compute dtype (f32, as
     the JAX package runs it too) takes unit scales and an f32 output, and
     the rescale runs after, as for int8."""
-    qx, sx = quantize(x2, mode)
-    qw, sw = quantize(w, mode)
+    ax, aw = amax or (None, None)
+    qx, sx = quantize(x2, mode, ax)
+    qw, sw = quantize(w, mode, aw)
     if mode == "int8":
         acc = torch._int_mm(qx, qw.t()).float()
     elif x2.dtype == torch.bfloat16:
@@ -158,10 +193,11 @@ class _QuantLinear(torch.autograd.Function):
     compute-dtype operands."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, mode: str, group: Any) -> torch.Tensor:
         ctx.save_for_backward(x, w)
         x2 = x.reshape(-1, x.shape[-1])
-        return quantized_matmul(x2, w, mode).view(*x.shape[:-1], w.shape[0])
+        amax = None if group is None else row_parallel_amax(x2, w, group)
+        return quantized_matmul(x2, w, mode, amax=amax).view(*x.shape[:-1], w.shape[0])
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -169,16 +205,19 @@ class _QuantLinear(torch.autograd.Function):
         g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
         dx = (g2 @ w).view(x.shape)
         dw = g2.t() @ x.reshape(-1, x.shape[-1])
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def quant_linear(
-    x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype, mode: str
+    x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype, mode: str, group: Any = None
 ) -> torch.Tensor:
     """``F.linear(x, weight.to(dtype))`` with the product quantized
     (``mode`` int8 or fp8; ``none`` is the plain product).  ``weight`` is the
-    f32 master ``[out, in]``; its gradient flows back through the cast."""
+    f32 master ``[out, in]``; its gradient flows back through the cast.
+    ``group``: a row-parallel product's tensor group (the scales over the
+    whole contracting dim; the module docstring); the caller sums the
+    partial products over it."""
     w = weight.to(dtype)
     if mode == "none":
         return F.linear(x, w)
-    return _QuantLinear.apply(x, w, mode)
+    return _QuantLinear.apply(x, w, mode, group)

@@ -65,15 +65,17 @@ sync is one flat shard group over every batch axis).  On every mesh with
 gradient-reduction axes the goodput ledger gets the JAX Trainer's
 ``step.comm`` counters at each report, counted over what the port runs
 (``_overlap.fsdp_comm``: FSDP2's units, with the knob on or off).  MoE blocks
-run on every axis (``models/moe.py``); tensor or ``dcn`` beside pipe,
-overlap beside pipe and the retrace sentinel come with later slices of the
-port.
+run on every axis (``models/moe.py``), and every axis runs beside ``pipe``,
+the overlapped sync too (its plan over the stage's own leaves); the retrace
+sentinel comes with a later slice of the port.
 
 A trial with a ``pipeline_schedule_spec`` (``LMTrial`` on a ``pipe`` axis,
 or on ``train.init(virtual_pipe=P)``) runs its loss through the schedule
 (``parallel/pipeline.py``), which runs the backward too, so the step calls
 no ``backward()`` of its own; on a mesh each rank reads its part of each
-microbatch, the stage's whole leaves have their gradients averaged
+microbatch (all of it where ``M x batch shards`` does not divide the global
+batch: JAX's ``pipeline_apply`` then replicates the microbatch over the
+batch axes), the stage's whole leaves have their gradients averaged
 (``ShardPlan.sync_grads``), and the goodput ledger gets the schedule's
 ``step.bubble`` rows (``BubbleModel``: the ``step.bubble.exposed_us``
 counter a report segment, the fraction and tick gauges at setup), as the
@@ -109,8 +111,8 @@ from determined_tpu_torch.config.experiment import (
 )
 from determined_tpu_torch.data._prefetch import EpochFeed, InputPipeline
 from determined_tpu_torch.observability import chip_peak_flops, get_tracer
-from determined_tpu_torch.parallel.mesh import MeshAxes, resolve_mesh
-from determined_tpu_torch.parallel.sharding import batch_shard, check_ported, shard_model
+from determined_tpu_torch.parallel.mesh import resolve_mesh
+from determined_tpu_torch.parallel.sharding import batch_shard, cut_pipe, shard_model
 from determined_tpu_torch.train import serialization
 from determined_tpu_torch.train._reducer import MEAN, get_reducer
 from determined_tpu_torch.train._state import TrainState
@@ -131,10 +133,6 @@ def _later(what: str) -> NotImplementedError:
 def check_exp_config(exp_config: Any) -> None:
     """Raise for every knob the JAX Trainer reads that this port does not
     run; what passes is honoured."""
-    opt = exp_config.optimizations
-    check_ported(exp_config.resources.mesh.shape)
-    if opt.overlap_grad_sync and exp_config.resources.mesh.shape[MeshAxes.PIPELINE] > 1:
-        raise _later("optimizations.overlap_grad_sync beside the 'pipe' mesh axis")
     problems = pipeline_problems(exp_config)
     if problems:
         raise InvalidExperimentConfig("; ".join(problems))
@@ -168,7 +166,6 @@ def init(
     process on its one device (``parallel/pipeline.py``'s ``VirtualPipe``:
     the schedule and the kernel launches of P pipe ranks), never with a
     mesh of more than one device."""
-    check_ported((mesh_config or MeshConfig()).shape)
     if exp_config is not None:
         check_exp_config(exp_config)
         if hparams is None:
@@ -377,6 +374,10 @@ class Trainer:
             opt = cfg.optimizations if cfg is not None else None
             hier = bool(opt is not None and opt.hierarchical_collectives)
             kind = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else ""
+            # on a pipe axis the plan is the stage's: its own leaves, in
+            # JAX's order (JAX syncs the stacked block grads over the batch
+            # axes)
+            cut_pipe(self.model, self.mesh)
             self._overlap_plan = _overlap.build_plan(
                 _overlap.model_leaves(self.model), self.mesh,
                 enabled=bool(opt is not None and opt.overlap_grad_sync),
@@ -396,11 +397,22 @@ class Trainer:
         if self.mesh is not None:
             # each rank reads its (data, fsdp) slice of every global batch;
             # under a pipeline schedule its slice of each microbatch, as
-            # JAX's shard_map lays the microbatch rows over the batch axes
+            # JAX's shard_map lays the microbatch rows over the batch axes,
+            # or where the microbatch does not split over them the whole
+            # microbatch (JAX's batch_axes = (): every batch rank runs the
+            # same tokens, and FSDP2's mean of equal gradients is each one)
             rank, shards = batch_shard(self.mesh)
             blocks = self._pipe_schedule.num_microbatches if self._pipe_schedule else 1
             for ld in (self.train_loader, self.val_loader):
-                if ld is not None:
+                if ld is None:
+                    continue
+                gbs = ld.sampler.global_batch
+                if blocks > 1 and gbs % blocks == 0 and (gbs // blocks) % shards:
+                    logger.info("pipeline: a microbatch of %d rows does not split over %d "
+                                "batch shards; every batch rank runs the whole microbatch",
+                                gbs // blocks, shards)
+                    ld.shard(0, 1, blocks)
+                else:
                     ld.shard(rank, shards, blocks)
         self.callbacks = dict(trial.build_callbacks())
         if cfg is not None:
@@ -897,8 +909,6 @@ class Trainer:
         span, as the JAX Trainer's elastic reshard is.  ``parts`` restores
         those parts of the array state alone (serving reads ``params``)."""
         tstate = serialization.load_trainer_state(path)
-        # a checkpoint of a mesh axis the port does not run raises
-        check_ported(tstate.get("mesh_axes") or {})
         stored = _mesh_axes(tstate.get("mesh_axes"))
         live = _mesh_axes(self.mesh.shape if self.mesh is not None else None)
         resize = contextlib.nullcontext()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Multi-GPU check of the port's mesh path on the GPUs of one host.
 
-    python3 mesh_smoke.py [--gpus 4] [--seed N] [--parts G,E,S,X,C,P,O,R,M]
+    python3 mesh_smoke.py [--gpus 4] [--seed N] [--parts G,E,S,X,C,P,O,R,M,T,L]
 
 (``X`` is X1, X2 and X3, each of which ``--parts`` also takes alone.)
 
@@ -160,6 +160,25 @@ M. MoE on every mesh axis.  K: the flash forward, dq and dk/dv held
    once a forward unit, twice under remat, dq and dk/dv once, each times
    its ring units from ring_block_counts; fused_adamw once a local leaf a
    step).  Printed: each rank's step time and peak memory.
+T. the pipeline on every mesh axis: pipeline.yaml at its full width and
+   P_CUTS, 3 steps of each of T_RUNS as one gang of four ranks (pipe 2 x
+   tensor 2 gpipe and 1f1b, int8 and fp8; pipe 2 x dcn 2 flat and
+   hierarchical; pipe 2 x data 2 with the overlapped sync on and off, and
+   at a global batch of 8 in 8 microbatches, replicated over data), each
+   against a one-GPU run aggregating the same microbatches (P_LOSS_TOL;
+   the quantized runs against one GPU's same mode within chip_smoke's
+   KNOBS_QUANT_LOSS_REL).  Checks: each rank's launches exactly, its
+   quantized products, the heads a tensor rank's kernels see; on two
+   slices each rank's issued ring bytes against the Trainer's comm model
+   and its cross-slice bytes against its stage's plan fragment (part O's
+   bounds).  Printed: each rank's step, host step, peak memory, idle and
+   NCCL shares against BubbleModel's fraction.
+L. a node's slots as local ranks: T1's gpipe trial (L_CUTS) through
+   dtpu-master and one dtpu-agent that owns the four GPUs, whose trial
+   runs four local rank processes; one local rank is SIGKILLed after the
+   step-2 checkpoint, the master reschedules the trial, and the resumed
+   losses must equal T's T1 bitwise (without T in ``--parts``, T1 runs
+   first).
 
 Each gang has a hard timeout (GANG_TIMEOUT_S); its ranks are killed on
 expiry and the run fails.  Prints a JSON line a part, the card's name and
@@ -208,7 +227,7 @@ SEQ_CKPT_CUTS = [
     ("seq_len", 32768, 256, "the same, in length"),
 ]
 SEQ_CKPT_STEPS = 3
-PARTS = ("G", "E", "S", "X", "C", "P", "O", "R", "M")
+PARTS = ("G", "E", "S", "X", "C", "P", "O", "R", "M", "T", "L")
 # P: pipeline.yaml (chip_smoke.PIPE_CONST) with these changes
 P_CUTS = [
     ("resources.mesh", {"pipe": 4, "data": 2, "fsdp": 2}, "each of P_MESHES",
@@ -316,6 +335,56 @@ M2_STEPS = 3
 # M1's halves of 512 on seq 2 (8 sequences)
 M_KERNEL_SHAPES = (("m2_half_causal", 1, 4096, True), ("m2_half_full", 1, 4096, False),
                    ("m1_half_causal", 8, 512, True))
+# T: the pipeline on every mesh axis, pipeline.yaml (chip_smoke.PIPE_CONST)
+# at P_CUTS on four cards, each run a gang's: (name, mesh, hparams over
+# P's, optimizations, the one-GPU reference it is held against)
+T_RUNS = (
+    ("T1-gpipe", {"pipe": 2, "tensor": 2}, {}, {}, "bf16"),
+    ("T1-1f1b", {"pipe": 2, "tensor": 2}, {"pipeline_schedule": "1f1b"}, {}, "bf16"),
+    ("T2-flat", {"pipe": 2, "num_slices": 2}, {}, {}, "bf16"),
+    ("T2-hier", {"pipe": 2, "num_slices": 2}, {},
+     {"overlap_grad_sync": True, "hierarchical_collectives": True}, "bf16"),
+    ("T3-on", {"pipe": 2, "data": 2}, {}, {"overlap_grad_sync": True}, "bf16"),
+    ("T3-off", {"pipe": 2, "data": 2}, {}, {}, "bf16"),
+    ("T4-int8", {"pipe": 2, "tensor": 2}, {}, {"quantized_matmul": "int8"}, "int8"),
+    ("T4-fp8", {"pipe": 2, "tensor": 2}, {}, {"quantized_matmul": "fp8"}, "fp8"),
+    ("T5", {"pipe": 2, "data": 2}, {"global_batch_size": 8}, {}, "b8"),
+)
+# T5's global batch of 8 in 8 microbatches: a row a microbatch, which does
+# not split over data 2, so every data rank runs the whole microbatch
+# (JAX's batch_axes = ()); its reference aggregates the same 8 rows
+T_STEPS = P_STEPS
+# a T gang (its start, 9 runs of 3 steps and a 2-step profile each) takes
+# about five minutes: a hung point-to-point fails the part before this
+T_GANG_TIMEOUT_S = 900.0
+# L: T1's gpipe trial through dtpu-master and one dtpu-agent that owns the
+# four GPUs (--slots 4: its trial runs four local rank processes), with
+# these changes to pipeline.yaml over P_CUTS: (dotted key, the file's
+# value, L's, why)
+L_ENTRY = "mesh_smoke:LocalRanksLMTrial"
+L_DIR_ENV = "DTT_SMOKE_LOCAL_RANKS_DIR"
+L_HOLD_S = 180.0
+L_TIMEOUT_S = 900.0
+L_CUTS = [
+    ("entrypoint", "model_def:Trial", L_ENTRY,
+     "LMTrial whose ranks record their pids and whose chief records each run's start and "
+     "checkpoints; the first run holds after its step-2 checkpoint until a rank is killed"),
+    ("resources.mesh", {"pipe": 4, "data": 2, "fsdp": 2}, {"pipe": 2, "tensor": 2},
+     "T1's mesh on the agent's four slots"),
+    ("searcher.max_length", {"batches": 10000}, {"batches": T_STEPS}, "T1's three steps"),
+    ("min_validation_period", {"batches": 500}, {"batches": 100000}, "no validation"),
+    ("min_checkpoint_period", {"batches": 1000}, {"batches": 2},
+     "a checkpoint at step 2 for the restart to resume"),
+    ("optimizations.async_checkpointing", True, False,
+     "the step-2 save is finalized before the hold"),
+    ("checkpoint_policy", "best", "none", "no checkpoint for a validation"),
+    ("checkpoint_storage.host_path", "/tmp/dtpu-checkpoints", "<temp dir>",
+     "a fresh temporary directory, deleted at the end"),
+    ("reproducibility.experiment_seed", None, "<--seed>",
+     "the master seeds trial 1 with experiment_seed + 1, T's gangs' seed"),
+    (f"environment.env.{L_DIR_ENV}", None, "<events dir>",
+     "where the trial's ranks write their events (a fresh temporary directory)"),
+]
 X_PARTS = ("X1", "X2", "X3")
 # X2: moe_ep.yaml (chip_smoke.MOE_EP_CONST) at MOE_CUTS' hyperparameters,
 # and these changes: (dotted key, the file's value, X2's value, why)
@@ -364,6 +433,8 @@ def __getattr__(name: str):
     first use."""
     if name == "ElasticLMTrial":
         return _elastic_trial()
+    if name == "LocalRanksLMTrial":
+        return _local_ranks_trial()
     if name != "X2SigtermLMTrial":
         raise AttributeError(name)
     from chip_smoke import sigterm_trial
@@ -446,6 +517,8 @@ def _rank_gang(workdir: str, mesh: dict, seed: int) -> dict:
             return _rank_overlap(core_ctx, mesh, seed)
         if mesh.get("part") == "M":
             return _rank_moe(core_ctx, mesh, seed)
+        if mesh.get("part") == "T":
+            return _rank_pipe_axes(core_ctx, mesh, seed)
         ctx = train.init(hparams=_hparams(), seed=seed, core_context=core_ctx,
                          mesh_config=MeshConfig(**mesh))
         out = _fit(ctx, STEPS)
@@ -871,6 +944,16 @@ def _ring_bytes(rows: dict, steps: int) -> dict:
     return out
 
 
+def _hop_bytes(rows: dict, per_slice: int) -> dict:
+    """Ring bytes a step by hop from ``_ring_bytes`` rows: a group whose
+    ranks lie in two slices is ``dcn``'s, one within a slice ``ici``'s."""
+    hops = {"ici": 0.0, "dcn": 0.0}
+    for key, v in rows.items():
+        ranks = [int(x) for x in key.split("@")[1].split(",") if x]
+        hops["dcn" if len({x // per_slice for x in ranks}) > 1 else "ici"] += v["ring_bytes"]
+    return hops
+
+
 def _comm_window(trainer, steps: int) -> dict:
     """``steps`` more steps traced twice: the device alone (its NCCL and
     compute kernels' time over the wall), then host and device for the
@@ -993,14 +1076,8 @@ def _overlap_part(args, root: str) -> None:
     for name, mesh, _ in O_RUNS:
         per_slice = args.gpus // mesh.get("num_slices", 1)
         for rank, r in enumerate(runs[name]):
-            got = {}
-            for source in ("issued_ring_bytes", "trace_ring_bytes"):
-                hops = {"ici": 0.0, "dcn": 0.0}
-                for key, v in r["comm"][source].items():
-                    ranks = [int(x) for x in key.split("@")[1].split(",") if x]
-                    hops["dcn" if len({x // per_slice for x in ranks}) > 1 else "ici"] += (
-                        v["ring_bytes"])
-                got[source] = hops
+            got = {source: _hop_bytes(r["comm"][source], per_slice)
+                   for source in ("issued_ring_bytes", "trace_ring_bytes")}
             model = r["comm_model"]
             issued = got["issued_ring_bytes"]
             for hop in ("ici", "dcn"):
@@ -1170,7 +1247,7 @@ def _elastic_part(args, root: str, build) -> dict:
         "<temp dir>": ckpt, "<--seed>": args.seed, "<events dir>": events_dir})
     flags = [str(x) for flag, _old, value, _why in R_MASTER_CUTS for x in (flag, value)]
     cluster = devcluster.LocalCluster(
-        os.path.join(root, "r-state"), ckpt, agents=4, slots=1,
+        os.path.join(root, "r-state"), ckpt, agents=4,
         gpus=[str(i) for i in range(4)], cwd=REPO, where=where, slices=2, master_args=flags)
     result: dict = {}
     try:
@@ -1906,7 +1983,7 @@ def _cluster_part(args, root: str) -> dict:
 
         ckpt = os.path.join(root, "c-cluster")
         cluster = devcluster.LocalCluster(
-            os.path.join(root, "c-state"), ckpt, agents=args.gpus, slots=1,
+            os.path.join(root, "c-state"), ckpt, agents=args.gpus,
             gpus=[str(i) for i in range(args.gpus)], cwd=REPO, where=where)
         cluster.start()
         session = cluster.session()
@@ -1981,6 +2058,350 @@ def _cluster_part(args, root: str) -> dict:
             build.wait()
 
 
+def _t_hparams(over: dict) -> dict:
+    """pipeline.yaml's hyperparameters at P_CUTS, with a run's changes."""
+    hp = _pipe_hparams()
+    hp.update(over)
+    return hp
+
+
+def _rank_pipe_axes(core_ctx, inp: dict, seed: int) -> dict:
+    """One rank of T: each of ``inp["runs"]`` in turn, T_STEPS steps through
+    train.init -> Trainer(LMTrial).fit (launches, quantized products, step
+    time, peak memory, the plan and comm model), on several slices the ring
+    bytes it issues over 2 more steps, then its idle share."""
+    import gc
+
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.data import to_device
+    from determined_tpu_torch.train import _quant
+
+    out = {}
+    for name, mesh, over, opt, _ref in inp["runs"]:
+        cfg = ExperimentConfig.parse({"hyperparameters": _t_hparams(over),
+                                      "optimizations": opt, "resources": {"mesh": mesh}})
+        ctx = train.init(exp_config=cfg, seed=seed, core_context=core_ctx)
+        _quant.reset_launches()
+        res = _fit(ctx, T_STEPS, keep=True)
+        res["quant"] = dict(_quant.launches)
+        trainer = res.pop("trainer")
+        model = trainer.model
+        first = model.chunk_layers[min(model.chunk_layers)][0]
+        sampler = trainer.train_loader.sampler
+        res.update(
+            layers=len(model.blocks), bubble_fraction=trainer._bubble_model.fraction,
+            coords={a: ctx.mesh.coordinate(a) for a in ("dcn", "pipe", "data", "tensor")},
+            batch_shard=[sampler.shard_rank, sampler.num_shards],
+            # the heads this rank's flash kernels see
+            heads=model.blocks[first].attn.wq.weight.shape[0] // model.cfg.head_dim,
+            units=len(trainer._plan.units))
+        plan = trainer._overlap_plan
+        if plan is not None:
+            res["plan"] = dict(enabled=plan.enabled, buckets=len(plan.buckets),
+                               fingerprint=plan.fingerprint(),
+                               dcn_bytes=plan.comm.dcn_bytes_per_step)
+        if trainer._comm_model is not None:
+            res["comm_model"] = dict(ici=trainer._comm_model.bytes_per_step,
+                                     dcn=trainer._comm_model.dcn_bytes_per_step)
+        if mesh.get("num_slices", 1) > 1:
+            it = iter(trainer.train_loader)
+            batches = [to_device(next(it), trainer.device) for _ in range(2)]
+            torch.cuda.synchronize()
+            with _IssuedCollectives() as issued:
+                for b in batches:
+                    trainer._train_step(b)
+                torch.cuda.synchronize()
+            res["issued"] = _hop_bytes(_ring_bytes(issued.rows, 2),
+                                       ctx.mesh.size // mesh["num_slices"])
+        # the host's step on this rank, untraced (the reports are the chief's)
+        it = iter(trainer.train_loader)
+        batches = [to_device(next(it), trainer.device) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for b in batches:
+            trainer._train_step(b)
+        torch.cuda.synchronize()
+        res["host_step_ms"] = (time.monotonic() - t0) / len(batches) * 1e3
+        res.update(_idle_share(trainer, 2))
+        # progress in the rank's log: a failed gang prints its tail
+        print(f"T {name}: " + json.dumps(dict(losses=res["losses"], step_ms=res["step_ms"])),
+              flush=True)
+        out[name] = res
+        del trainer, model, ctx
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _t_references(args, keys) -> dict:
+    """T's one-GPU references ``keys``: gradient aggregation over the same
+    microbatches (P's R), at bf16, int8 and fp8, and at T5's batch of 8."""
+    import torch
+
+    from determined_tpu_torch import train
+    from determined_tpu_torch.config import ExperimentConfig
+
+    hp = _pipe_hparams()
+    m = hp["pipe_microbatches"]
+    plain = {k: v for k, v in hp.items()
+             if k not in ("pipe_microbatches", "pipeline_schedule", "virtual_stages")}
+    refs = {}
+    for key, gbs, opt in (("bf16", hp["global_batch_size"], {}),
+                          ("int8", hp["global_batch_size"], {"quantized_matmul": "int8"}),
+                          ("fp8", hp["global_batch_size"], {"quantized_matmul": "fp8"}),
+                          ("b8", 8, {})):
+        if key not in keys:
+            continue
+        t0 = time.monotonic()
+        exp = ExperimentConfig.parse({"optimizations": dict(opt, aggregation_frequency=m)})
+        ref = _fit(train.init(hparams=dict(plain, global_batch_size=gbs // m),
+                              seed=args.seed + 1, exp_config=exp), T_STEPS)
+        torch.cuda.empty_cache()
+        refs[key] = ref
+        log(f"T R {key} (one GPU, aggregation {m} of {gbs // m}): " + json.dumps(dict(
+            losses=ref["losses"], step_ms=ref["step_ms"],
+            peak_memory_gib=ref["peak_memory_gib"], seconds=time.monotonic() - t0)))
+    return refs
+
+
+def _pipe_axes_part(args, root: str, names=None) -> dict:
+    """T (the docstring at the top), or its runs ``names``; each run's
+    chief losses by name."""
+    from chip_smoke import KNOBS_QUANT_LOSS_REL
+
+    assert args.gpus == 4, "T runs meshes of four cards"
+    t_part = time.monotonic()
+    runs = [run for run in T_RUNS if names is None or run[0] in names]
+    for key, old, value, why in P_CUTS:
+        log(f"T cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    refs = _t_references(args, {run[4] for run in runs})
+    t0 = time.monotonic()
+    outs = _launch_gang(args.gpus, os.path.join(root, "t"), dict(part="T", runs=runs),
+                        args.seed + 1, T_GANG_TIMEOUT_S)
+    log(f"T gang: {time.monotonic() - t0:.1f} s")
+    m, heads = _pipe_hparams()["pipe_microbatches"], _pipe_hparams()["n_heads"]
+    losses = {}
+    for name, mesh, over, opt, ref_key in runs:
+        ranks = [o[name] for o in outs]
+        chief = ranks[0]
+        ref = refs[ref_key]["losses"]
+        losses[name] = chief["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(chief["losses"], ref))
+        mode = opt.get("quantized_matmul", "none")
+        if mode == "none":
+            np.testing.assert_allclose(chief["losses"], ref, err_msg=name, **P_LOSS_TOL)
+        else:
+            assert rel < KNOBS_QUANT_LOSS_REL, (name, chief["losses"], ref)
+        for rank, r in enumerate(ranks):
+            n = r["layers"]
+            want = dict(flash_fwd=2 * n * m * T_STEPS, flash_bwd_dq=n * m * T_STEPS,
+                        flash_bwd_dkv=n * m * T_STEPS, fused_adamw=r["local_leaves"] * T_STEPS)
+            assert r["launches"] == want, (name, rank, r["launches"], want)
+            # q, k, v, o, gate, up and down a layer, twice under remat; the
+            # fused cross-entropy head stays bf16
+            qwant = {k: (14 * n * m * T_STEPS if k == mode else 0) for k in ("int8", "fp8")}
+            assert r["quant"] == qwant, (name, rank, r["quant"], qwant)
+            assert r["heads"] == heads // mesh.get("tensor", 1), (name, rank, r["heads"])
+        dcn_ratio = None
+        if "num_slices" in mesh:
+            for rank, r in enumerate(ranks):
+                model, issued = r["comm_model"], r["issued"]
+                for hop in ("ici", "dcn"):
+                    # the model counts FSDP2's collectives and the stage's
+                    # whole-leaf all-reduce; the rest is the norm's scalars
+                    assert model[hop] <= issued[hop] <= model[hop] + 4096, (name, rank, hop,
+                                                                             model, issued)
+            # the cross-slice bytes each rank issued against its stage's
+            # plan fragment, within part O's bounds
+            dcn_ratio = [r["issued"]["dcn"] / r["plan"]["dcn_bytes"] for r in ranks]
+            assert all(0.98 <= x <= 1.05 for x in dcn_ratio), (name, dcn_ratio)
+        if name == "T5":
+            shards = [r["batch_shard"] for r in ranks]
+            assert all(b == [0, 1] for b in shards), shards
+        log("T " + json.dumps(dict(
+            name=name, mesh=mesh, hparams=over, optimizations=opt, losses=chief["losses"],
+            ref=ref_key, ref_losses=ref, max_loss_rel=rel,
+            step_ms=chief["step_ms"], host_step_ms=[r["host_step_ms"] for r in ranks],
+            peak_memory_gib=[r["peak_memory_gib"] for r in ranks],
+            idle_share=[r["idle_share"] for r in ranks],
+            nccl_share=[r["nccl_share"] for r in ranks],
+            traced_step_ms=[r["traced_step_ms"] for r in ranks],
+            bubble_fraction=chief["bubble_fraction"], heads=[r["heads"] for r in ranks],
+            layers=[r["layers"] for r in ranks], local_leaves=[r["local_leaves"] for r in ranks],
+            units=[r["units"] for r in ranks], batch_shard=[r["batch_shard"] for r in ranks],
+            coords=[r["coords"] for r in ranks], launches=[r["launches"] for r in ranks],
+            quant=chief["quant"], plan=chief.get("plan"),
+            plan_dcn_bytes=[r.get("plan", {}).get("dcn_bytes") for r in ranks],
+            dcn_ratio=dcn_ratio, comm_model=[r.get("comm_model") for r in ranks],
+            issued=[r.get("issued") for r in ranks])))
+    # the overlapped sync and the hierarchical one compute the step the
+    # flat sync computes
+    for a, b in (("T3-on", "T3-off"), ("T2-hier", "T2-flat")):
+        if a not in losses or b not in losses:
+            continue
+        rel = max(abs(x - y) / abs(y) for x, y in zip(losses[a], losses[b]))
+        assert rel <= O_LOSS_REL, (a, b, losses[a], losses[b])
+        log(f"T {a} vs {b}: max loss rel {rel}")
+    log(f"T: {time.monotonic() - t_part:.1f} s")
+    return losses
+
+
+def _local_ranks_trial():
+    """L's trial (``LocalRanksLMTrial``): LMTrial whose ranks append their
+    pids, and whose chief appends each run's start and its checkpoints, as
+    JSON lines under ``$DTT_SMOKE_LOCAL_RANKS_DIR``; in the first run every
+    rank holds after the step-2 checkpoint (up to L_HOLD_S) so that the
+    part kills a local rank while the trial is alive."""
+    if "LocalRanksLMTrial" in _ELASTIC:
+        return _ELASTIC["LocalRanksLMTrial"]
+    from determined_tpu_torch.models import LMTrial
+    from determined_tpu_torch.train import Callback
+
+    def event(**rec) -> None:
+        rec["t"] = time.time()
+        with open(os.path.join(os.environ[L_DIR_ENV], "events.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    class LocalRanksLMTrial(LMTrial):
+        def build_callbacks(self):
+            dist = self.context.core.distributed
+            restored = os.environ.get("DTPU_LATEST_CHECKPOINT") or None
+
+            class Record(Callback):
+                def on_training_start(self, trainer) -> None:
+                    event(event="pid", rank=dist.rank, local_rank=dist.local_rank,
+                          pid=os.getpid(), restored=restored)
+                    if dist.is_chief:
+                        event(event="start", step=trainer.steps_completed, world=dist.size,
+                              local_size=dist.local_size, restored=restored)
+
+                def on_checkpoint_write_end(self, storage_id: str) -> None:
+                    if dist.is_chief:
+                        event(event="checkpoint", storage_id=storage_id, restored=restored)
+                    if restored is None:
+                        time.sleep(L_HOLD_S)
+
+            return {"record": Record()}
+
+    LocalRanksLMTrial.__module__ = __name__
+    LocalRanksLMTrial.__qualname__ = LocalRanksLMTrial.__name__
+    _ELASTIC["LocalRanksLMTrial"] = LocalRanksLMTrial
+    return LocalRanksLMTrial
+
+
+def _local_ranks_part(args, root: str, build, t1_losses) -> dict:
+    """L (the docstring at the top)."""
+    import signal
+
+    from chip_smoke import PIPE_CONST, _apply_cuts, _read_events
+    from determined_tpu_torch import devcluster
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.experiment import ClusterExperiment
+
+    assert args.gpus == 4, "L runs one agent of four GPUs"
+    for key, old, value, why in L_CUTS:
+        log(f"L cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
+    where, t_build = build
+    if t_build.returncode is None:  # R, when it ran first, waited for it
+        t0 = time.monotonic()
+        out, _ = t_build.communicate(timeout=L_TIMEOUT_S)
+        assert t_build.returncode == 0, f"native build failed:\n{out[-4000:]}"
+        log(f"L: native build {float(out.strip().splitlines()[-1]):.1f} s, waited "
+            f"{time.monotonic() - t0:.1f} s for it")
+    events_dir = tempfile.mkdtemp(prefix="l-events-", dir=root)
+    ckpt = os.path.join(root, "l-ckpt")
+    raw = dict(PIPE_CONST, hyperparameters=_pipe_hparams())
+    raw = _apply_cuts(raw, L_CUTS, {"<temp dir>": ckpt, "<--seed>": args.seed,
+                                    "<events dir>": events_dir})
+    cluster = devcluster.LocalCluster(
+        os.path.join(root, "l-state"), ckpt, agents=1,
+        gpus=devcluster.gpu_blocks(args.gpus, 1, 4), cwd=REPO, where=where)
+    result: dict = {}
+    try:
+        cluster.start()
+        session = cluster.session()
+        log(f"L: master {cluster.url}, one agent of 4 slots (CUDA_VISIBLE_DEVICES "
+            f"{cluster.gpus[0]})")
+        exp = ClusterExperiment(ExperimentConfig.parse(raw), session=session,
+                                checkpoint_dir=os.path.join(root, "l-driver"), poll_interval=0.5)
+        summary: dict = {}
+        import threading
+
+        driver = threading.Thread(target=lambda: summary.update(exp.run()), daemon=True)
+        t_submit = time.monotonic()
+        driver.start()
+        path = os.path.join(events_dir, "events.jsonl")
+
+        def wait(what, pred):
+            deadline = time.monotonic() + L_TIMEOUT_S
+            while time.monotonic() < deadline:
+                got = [e for e in _read_events(path) if pred(e)]
+                if got:
+                    return got
+                assert driver.is_alive(), f"the experiment ended before {what}: {summary}"
+                time.sleep(0.2)
+            raise AssertionError(f"L: no {what} in {L_TIMEOUT_S:.0f} s")
+
+        saved = wait("the step-2 checkpoint",
+                     lambda e: e["event"] == "checkpoint" and e["restored"] is None)[0]
+        pids = wait("four local ranks", lambda e: e["event"] == "pid"
+                    and e["restored"] is None)
+        while len(pids) < 4:
+            time.sleep(0.2)
+            pids = [e for e in _read_events(path) if e["event"] == "pid"
+                    and e["restored"] is None]
+        victim = next(e for e in pids if e["local_rank"] == 1)
+        os.kill(victim["pid"], signal.SIGKILL)
+        t_kill = time.monotonic()
+        log(f"L: local rank 1 (rank {victim['rank']}, pid {victim['pid']}) SIGKILLed "
+            f"{t_kill - t_submit:.1f} s after the submit, held after checkpoint "
+            f"{saved['storage_id']}")
+        resumed = wait("the resumed run", lambda e: e["event"] == "start"
+                       and e["restored"] is not None)[0]
+        t_resumed = time.monotonic()
+        driver.join(timeout=L_TIMEOUT_S)
+        assert not driver.is_alive(), "L: the experiment did not end"
+        assert summary.get("status") == "completed", summary
+        starts = [e for e in _read_events(path) if e["event"] == "start"]
+        assert [e["world"] for e in starts] == [4, 4] and starts[0]["local_size"] == 4, starts
+        assert resumed["step"] == 2 and resumed["restored"] == saved["storage_id"], resumed
+        mexp = session.get(f"/api/v1/experiments/{summary['master_experiment_id']}").json()
+        (trial,) = mexp["trials"]
+        assert trial["restarts"] >= 1, trial
+        rows = session.get(f"/api/v1/trials/{trial['id']}/metrics",
+                           params={"group": "training"}).json()
+        by_step = {int(r["steps_completed"]): r["metrics"]["loss"] for r in rows}
+        got = [by_step[s] for s in range(1, T_STEPS + 1)]
+        np.testing.assert_allclose(got, t1_losses, **P_LOSS_TOL)
+        result = dict(trial_id=trial["id"], restarts=trial["restarts"], losses=got,
+                      t1_losses=t1_losses, bitwise=got == t1_losses,
+                      max_loss_rel=max(abs(a - b) / abs(b) for a, b in zip(got, t1_losses)),
+                      checkpoint=saved["storage_id"], kill_to_resumed_start_s=t_resumed - t_kill,
+                      submit_to_end_s=time.monotonic() - t_submit)
+        log("L " + json.dumps(result))
+    except BaseException:
+        # what the trial's processes said, before the cluster's logs go
+        try:
+            recs = cluster.session().get("/api/v1/trials/1/logs",
+                                         params={"limit": 10000}).json()
+            lines = [r if isinstance(r, str) else str(r.get("line", r)) for r in recs]
+            log("--- L trial 1's log (tail):\n" + "\n".join(lines[-150:]))
+        except Exception as e:  # noqa: BLE001 - the failure below is the report
+            log(f"--- L: no trial log from the master ({e!r})")
+        for name in ("agent-0", "master"):
+            path = os.path.join(cluster.log_dir, f"{name}.log")
+            if os.path.exists(path):
+                with open(path, errors="replace") as f:
+                    log(f"--- L {name}.log (tail):\n" + f.read()[-6000:])
+        raise
+    finally:
+        cluster.stop()
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gpus", type=int, default=4)
@@ -2015,7 +2436,7 @@ def main() -> int:
         log(f"cut: {key} {json.dumps(old)} -> {json.dumps(value)} ({why})")
     root = tempfile.mkdtemp(prefix="dtt-mesh-smoke-")
     build = None
-    if "R" in parts:
+    if "R" in parts or "L" in parts:
         # the native control plane compiles while the earlier parts run
         where = tempfile.mkdtemp(prefix="native-", dir=root)
         build = (where, subprocess.Popen(
@@ -2048,6 +2469,16 @@ def main() -> int:
             log(f"R: {time.monotonic() - t0:.1f} s")
         if "M" in parts:
             _moe_part(args, root)
+        t1 = None
+        if "T" in parts:
+            t1 = _pipe_axes_part(args, root)["T1-gpipe"]
+        if "L" in parts:
+            if t1 is None:
+                # L holds its losses against T1 gpipe's: without T, T1 alone
+                t1 = _pipe_axes_part(args, root, ("T1-gpipe",))["T1-gpipe"]
+            t0 = time.monotonic()
+            _local_ranks_part(args, root, build, t1)
+            log(f"L: {time.monotonic() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"mesh_smoke: {time.monotonic() - t_start:.1f} s")

@@ -481,6 +481,9 @@ def test_from_rendezvous_of_one_node_is_a_single_rank_and_refuses_several_slots(
     monkeypatch.setenv("DTPU_NUM_SLOTS", "1")
     ctx = core.DistributedContext.from_rendezvous(device="cpu")
     assert (ctx.rank, ctx.size, ctx.backend) == (0, 1, None)
+    # several slots run as local ranks (tests/test_torch_local_ranks.py):
+    # outside run_trial's local rank processes, a node of two slots refuses
     monkeypatch.setenv("DTPU_NUM_SLOTS", "2")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    monkeypatch.delenv("DTPU_LOCAL_RANK", raising=False)
+    with pytest.raises(RuntimeError, match="one local rank process a slot"):
         core.DistributedContext.from_rendezvous(device="cpu")

@@ -22,7 +22,6 @@ from determined_tpu_torch.parallel import (
     MeshAxes,
     MeshConfig,
     batch_sharding,
-    check_ported,
     fsdp_shard_dim,
     logical_to_mesh_spec,
 )
@@ -112,21 +111,24 @@ def test_auto_fsdp_dim_is_the_jax_trainers_choice(devices8, n):
 
 @pytest.mark.parametrize("axis", ["tensor", "seq", "pipe", "dcn"])
 def test_axes_of_later_slices_raise_naming_the_slice(axis):
-    if axis in ("tensor", "seq"):
-        # ported, MoE blocks on them too
-        check_ported({axis: 2, "expert": 2})
-    elif axis == "pipe":
-        # ported beside everything but tensor and dcn: pipe x seq x expert
-        # with MoE included
-        check_ported({axis: 2, "data": 2, "fsdp": 2, "seq": 2, "expert": 2})
-        with pytest.raises(NotImplementedError, match="'tensor' mesh axis beside 'pipe'"):
-            check_ported({axis: 2, "tensor": 2})
-    else:
-        # ported: what still waits is dcn beside pipe
-        check_ported({axis: 2, "data": 2, "fsdp": 2, "seq": 2, "expert": 2, "tensor": 2})
-        with pytest.raises(NotImplementedError, match="num_slices beside 'pipe'.*later slice"):
-            check_ported({axis: 2, "pipe": 2})
-    check_ported({"data": 2, "fsdp": 2, "expert": 8, axis: 1})
+    """Every axis is ported, beside every other: each composition passes
+    the configuration check (MoE blocks on tensor and seq, pipe x seq x
+    expert, and tensor and dcn beside pipe)."""
+    from determined_tpu_torch.config import ExperimentConfig
+    from determined_tpu_torch.train._trainer import check_exp_config
+
+    def passes(mesh):
+        if "dcn" in mesh:
+            mesh = dict(mesh, num_slices=mesh.pop("dcn"))
+        check_exp_config(ExperimentConfig.parse({
+            "hyperparameters": {"n_layers": 4, "moe_experts": 4, "moe_every": 2},
+            "resources": {"mesh": mesh}}))
+
+    others = {"data": 2, "fsdp": 2, "seq": 2, "expert": 2, "tensor": 2, "pipe": 2, "dcn": 2}
+    for other, n in others.items():
+        if other != axis:
+            passes({axis: 2, other: n})
+    passes({"data": 2, "fsdp": 2, "expert": 8, axis: 1})
 
 
 @pytest.mark.parametrize("mesh", [dict(data=2, expert=2), dict(data=2, fsdp=2),

@@ -22,7 +22,8 @@ the Trainer's plan and FSDP2 units) against the JAX package's, on the CPU.
   JAX's names; they count what FSDP2 runs (``_overlap.fsdp_comm``): the
   ring bytes of the collectives each step issues, part hidden with the
   knob on or off.
-- Overlap beside the pipe axis raises, naming a later slice.
+- Overlap beside the pipe axis passes the configuration check
+  (tests/test_torch_pipe_axes.py trains it).
 """
 
 import functools
@@ -186,10 +187,15 @@ def test_empty_bandwidth_env_is_unset_and_the_table_is_the_cards(monkeypatch):
 
 
 def test_overlap_beside_pipe_raises_naming_a_later_slice():
+    # ported: the configuration passes, and without a process group the
+    # mesh of 2 devices is refused for its size
+    from determined_tpu_torch.train._trainer import check_exp_config
+
     cfg = ExperimentConfig.parse({"hyperparameters": dict(HP, pipe_microbatches=2),
                                   "resources": {"mesh": {"pipe": 2}},
                                   "optimizations": {"overlap_grad_sync": True}})
-    with pytest.raises(NotImplementedError, match="overlap_grad_sync beside .*later slice"):
+    check_exp_config(cfg)
+    with pytest.raises(ValueError, match="needs 2 devices"):
         train.init(exp_config=cfg, device="cpu")
 
 

@@ -18,8 +18,10 @@ mesh.
   only) ends at one device's params.
 - Preemption asked of one rank stops every rank at the same boundary,
   with one checkpoint that every rank names.
-- The mesh compositions of later slices (tensor or ``num_slices`` beside
-  pipe) raise ``NotImplementedError``; MoE blocks on tensor or seq pass.
+- Every mesh composition passes the configuration check (tensor and
+  ``num_slices`` beside pipe too; tests/test_torch_pipe_axes.py trains
+  them); without a process group a mesh of several devices is refused for
+  its size.
 """
 
 import functools
@@ -192,23 +194,20 @@ def test_checkpoint_resumes_across_a_mesh_change(tmp_path):
 )
 def test_mesh_axes_of_later_slices_raise(axes):
     # tensor, seq, pipe and num_slices are ported, MoE blocks on tensor and
-    # seq too (a mesh of several devices needs a process group: the check
-    # of the mesh passes, then the world's size refuses it); tensor or
-    # num_slices beside pipe are not
-    cfg = ExperimentConfig.parse({"hyperparameters": dict(MOE_HP),
-                                  "resources": {"mesh": dict(axes)}})
-    if set(axes) <= {"tensor", "seq"}:
-        from determined_tpu_torch.train._trainer import check_exp_config
+    # seq too, and tensor or num_slices beside pipe (a mesh of several
+    # devices needs a process group: the check of the mesh passes, then the
+    # world's size refuses it)
+    from determined_tpu_torch.train._trainer import check_exp_config
 
-        check_exp_config(cfg)
-        with pytest.raises(ValueError, match="needs 2 devices"):
-            train.init(hparams=dict(MOE_HP), device="cpu", mesh_config=MeshConfig(**axes))
-        return
-    hp = dict(MNIST_HP)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train.init(hparams=hp, device="cpu", mesh_config=MeshConfig(**axes))
+    n = 1
+    for v in axes.values():
+        n *= v
+    hp = dict(MOE_HP) if set(axes) <= {"tensor", "seq"} else dict(MNIST_HP)
     cfg = ExperimentConfig.parse({"hyperparameters": hp, "resources": {"mesh": dict(axes)}})
-    with pytest.raises(NotImplementedError, match="later slice"):
+    check_exp_config(cfg)
+    with pytest.raises(ValueError, match=f"needs {n} devices"):
+        train.init(hparams=hp, device="cpu", mesh_config=MeshConfig(**axes))
+    with pytest.raises(ValueError, match=f"needs {n} devices"):
         train.init(exp_config=cfg, device="cpu")
 
 

@@ -184,8 +184,9 @@ def test_the_jax_run_starts_from_the_converted_init():
 def test_pipeline_yaml_is_chip_smokes_and_each_schedule_passes_the_port():
     """chip_smoke's PIPE_CONST is examples/transformer_lm/pipeline.yaml,
     which the port accepts under each schedule, as it accepts
-    pipeline_seq_ep.yaml (pipe x seq x expert with MoE); pipe x tensor
-    raises, naming a later slice."""
+    pipeline_seq_ep.yaml (pipe x seq x expert with MoE), and on pipe x
+    tensor and pipe x data over two slices (tests/test_torch_pipe_axes.py
+    trains them)."""
     import os
 
     import yaml
@@ -208,9 +209,8 @@ def test_pipeline_yaml_is_chip_smokes_and_each_schedule_passes_the_port():
     with open(os.path.join(root, "pipeline_seq_ep.yaml")) as f:
         seq_ep = ExperimentConfig.parse(yaml.safe_load(f))
     check_exp_config(seq_ep)
-    with pytest.raises(NotImplementedError, match="'tensor' mesh axis beside 'pipe'.*later slice"):
-        check_exp_config(ExperimentConfig.parse(
-            dict(raw, resources={"mesh": {"pipe": 4, "tensor": 4}})))
+    for mesh in ({"pipe": 4, "tensor": 4}, {"pipe": 4, "data": 2, "num_slices": 2}):
+        check_exp_config(ExperimentConfig.parse(dict(raw, resources={"mesh": mesh})))
 
 
 def test_run_local_runs_a_pipe_trial_as_a_gang_of_ranks(tmp_path, monkeypatch):

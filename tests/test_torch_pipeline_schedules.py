@@ -13,8 +13,8 @@ against the JAX package's, on the CPU.
   each one's largest magnitude.
 - 1f1b holds at most P stage inputs for the backward; gpipe all M.
 - The refusals: a batch that M does not divide raises JAX's text; pipe x
-  tensor raises naming a later slice, and pipe x seq x expert with MoE
-  passes.
+  tensor and pipe x seq x expert with MoE pass (tests/test_torch_pipe_axes.py
+  and test_torch_moe_pipe.py train them).
 - The Trainer on a virtual pipe of 2 reports ``step.bubble.exposed_us``
   equal to ``BubbleModel.split`` times the steps, and the schedule's
   gauges.
@@ -303,22 +303,16 @@ def test_a_batch_the_microbatches_do_not_divide_raises_the_jax_text(devices8):
                                       (dict(pipe=2, tensor=2), False)],
                          ids=["pipe-seq-expert", "pipe-tensor"])
 def test_pipe_compositions_of_later_slices_raise(axes, moe):
-    hp = dict(n_layers=4, moe_experts=4 if moe else 0)
-    if moe:
-        # ported (tests/test_torch_moe_pipe.py runs it): without a process
-        # group the mesh of 8 devices is refused for its size
-        from determined_tpu_torch.train._trainer import check_exp_config
+    # both ported (tests/test_torch_moe_pipe.py and test_torch_pipe_axes.py
+    # run them): without a process group the mesh is refused for its size
+    from determined_tpu_torch.train._trainer import check_exp_config
 
-        check_exp_config(ExperimentConfig.parse({"hyperparameters": hp,
-                                                 "resources": {"mesh": dict(axes)}}))
-        with pytest.raises(ValueError, match="needs 8 devices"):
-            train.init(hparams=hp, device="cpu", mesh_config=MeshConfig(**axes))
-        return
-    with pytest.raises(NotImplementedError, match="later slice"):
+    hp = dict(n_layers=4, moe_experts=4 if moe else 0)
+    n = 8 if moe else 4
+    check_exp_config(ExperimentConfig.parse({"hyperparameters": hp,
+                                             "resources": {"mesh": dict(axes)}}))
+    with pytest.raises(ValueError, match=f"needs {n} devices"):
         train.init(hparams=hp, device="cpu", mesh_config=MeshConfig(**axes))
-    cfg = ExperimentConfig.parse({"hyperparameters": hp, "resources": {"mesh": dict(axes)}})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train.init(exp_config=cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------

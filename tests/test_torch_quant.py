@@ -336,9 +336,9 @@ def _count_quantized(monkeypatch):
     calls = []
     real = _quant.quantized_matmul_reference
 
-    def counted(x2, w, mode):
+    def counted(x2, w, mode, amax=None):
         calls.append(tuple(w.shape))
-        return real(x2, w, mode)
+        return real(x2, w, mode, amax=amax)
 
     monkeypatch.setattr(_quant, "quantized_matmul_reference", counted)
     return calls

@@ -17,9 +17,9 @@ the CPU (tests/torch_rank_worker.py, each launch under a hard timeout of
 - ``MnistTrial`` learns past 0.5 validation accuracy at fsdp 2 x tensor 2,
   resumed there from a checkpoint saved at data 2; the checkpoint also
   resumes on one rank, and both end at the params of an uninterrupted run.
-- The tensor axis or ``num_slices`` beside the pipeline axis still raise
-  ``NotImplementedError``; MoE blocks on the tensor or seq axis pass
-  (tests/test_torch_moe_mesh.py runs them).
+- The tensor axis and ``num_slices`` beside the pipeline axis pass
+  (tests/test_torch_pipe_axes.py trains them), and so do MoE blocks on the
+  tensor or seq axis (tests/test_torch_moe_mesh.py runs them).
 """
 
 import functools
@@ -225,7 +225,9 @@ def test_data2_checkpoint_resumes_at_fsdp2_tensor2_and_on_one_rank(mnist_runs):
 @pytest.mark.parametrize("axes", [dict(pipe=2, tensor=2), dict(num_slices=2, pipe=2)],
                          ids=["pipe", "num_slices"])
 def test_axes_of_later_slices_still_raise(axes):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # ported (tests/test_torch_pipe_axes.py trains both): without a process
+    # group the mesh of 4 devices is refused for its size
+    with pytest.raises(ValueError, match="needs 4 devices"):
         train.init(hparams=dict(LM_HP), device="cpu", mesh_config=MeshConfig(**axes))
 
 
@@ -257,10 +259,12 @@ def test_moe_blocks_on_tensor_or_seq_raise(axis):
 
 
 def test_unsupported_combinations_raise_before_sharding():
+    # quantized products on tensor are ported (tests/test_torch_pipe_axes.py
+    # trains them): the MLP splits as without them
     cfg = TransformerConfig(vocab_size=64, d_model=32, n_layers=1, n_heads=2,
                             dtype=torch.float32, quantized_matmul="int8")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TransformerLM(cfg, device="cpu").blocks[0].mlp.shard_tensor(None, 2, 0)
+    assert TransformerLM(cfg, device="cpu").blocks[0].mlp.shard_tensor(None, 2, 0) == {
+        "w_gate.weight": 0, "w_up.weight": 0, "w_down.weight": 1}
     flash = TransformerLM(TransformerConfig(vocab_size=64, d_model=32, n_layers=1, n_heads=2,
                                             attention_impl="flash"), device="cpu")
     with pytest.raises(ValueError, match="ring attention there"):

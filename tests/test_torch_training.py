@@ -375,12 +375,14 @@ def test_fit_checkpoint_options_work(kwargs, tmp_path):
 
 def test_unported_options_raise():
     # the pipeline hparams are ported: without a pipe axis they change
-    # nothing, as in the JAX trial; tensor beside pipe still waits
+    # nothing, as in the JAX trial; tensor beside pipe is ported too
+    # (tests/test_torch_pipe_axes.py runs it): without a process group its
+    # mesh of 4 devices is refused for its size
     ctx = train.init(hparams=dict(HP, pipe_microbatches=2), device="cpu")
     from determined_tpu_torch.parallel import MeshConfig as PortMeshConfig
 
     assert LMTrial(ctx).build_model().pipe is None
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="needs 4 devices"):
         train.init(hparams=dict(HP, pipe_microbatches=2), device="cpu",
                    mesh_config=PortMeshConfig(pipe=2, tensor=2))
     # ring attention is ported; on one device (the JAX Trainer's mesh of
@@ -399,8 +401,8 @@ def test_unported_options_raise():
 
 @pytest.mark.parametrize(
     "raw",
-    # tensor, seq and overlap are ported, MoE blocks on tensor and seq too:
-    # overlap beside pipe is what waits
+    # tensor, seq and overlap are ported, MoE blocks on tensor and seq too,
+    # and overlap beside pipe (tests/test_torch_pipe_axes.py runs it)
     [{"optimizations": {"overlap_grad_sync": True}, "resources": {"mesh": {"pipe": 2}}},
      {"resources": {"mesh": {"data": 2, "tensor": 2}}, "moe_experts": 2},
      {"resources": {"mesh": {"fsdp": 2, "data": -1, "seq": 2}}, "moe_experts": 2}],
@@ -413,14 +415,10 @@ def test_exp_config_knobs_of_later_slices_raise(raw):
     raw = dict(raw)
     hp = dict(HP, moe_experts=raw.pop("moe_experts")) if "moe_experts" in raw else HP
     cfg = ExperimentConfig.parse(dict(raw, hyperparameters=hp))
-    if "moe_experts" in hp:
-        # the port runs them; here, without a process group, the mesh of
-        # several devices is what init refuses
-        check_exp_config(cfg)
-        with pytest.raises(ValueError, match="needs 4 devices|not divisible by fixed axes 4"):
-            train.init(exp_config=cfg, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the port runs them; here, without a process group, the mesh of
+    # several devices is what init refuses
+    check_exp_config(cfg)
+    with pytest.raises(ValueError, match="needs [24] devices|not divisible by fixed axes 4"):
         train.init(exp_config=cfg, device="cpu")
 
 

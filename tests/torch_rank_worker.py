@@ -405,6 +405,14 @@ def case_train_runs(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
             "validation": ctx.core.train.metrics("validation"),
             "params": {k: _numpy(v) for k, v in params.items()} if dist.is_chief else None,
             "local_keys": sorted(trainer._params),
+            "local_shapes": {k: tuple(v.shape) for k, v in trainer._params.items()},
+            "batch_shard": (trainer.train_loader.sampler.shard_rank,
+                            trainer.train_loader.sampler.num_shards),
+            "units": [names for names, _ in trainer._plan.units],
+            "plan": None if trainer._overlap_plan is None else dict(
+                enabled=trainer._overlap_plan.enabled,
+                names=list(trainer._overlap_plan.names),
+                fingerprint=trainer._overlap_plan.fingerprint()),
         })
     return {"runs": runs}
 
@@ -548,6 +556,29 @@ def case_sync_runs(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
         })
     pg.foreach_reduce = reduce
     return {"runs": runs}
+
+
+def case_quant_rows(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
+    """A row-parallel quantized product (``quant_linear`` with the world as
+    its group): this rank's columns of ``x`` and ``w``, its partial product
+    (``<mode>_part``) and the sum over the ranks (``<mode>``)."""
+    import torch
+    import torch.distributed as tdist
+
+    from determined_tpu_torch.train._quant import quant_linear
+
+    x, w = torch.tensor(inp["x"]), torch.tensor(inp["w"])
+    cols = x.shape[1] // dist.size
+    lo, hi = dist.rank * cols, (dist.rank + 1) * cols
+    out = {}
+    with torch.no_grad():
+        for mode in ("int8", "fp8"):
+            part = quant_linear(x[:, lo:hi], w[:, lo:hi], torch.float32, mode,
+                                tdist.group.WORLD)
+            whole = part.clone()
+            tdist.all_reduce(whole)
+            out[mode], out[f"{mode}_part"] = whole.numpy(), part.numpy()
+    return out
 
 
 def case_resize(dist: Any, inp: Dict[str, Any]) -> Dict[str, Any]:
@@ -831,7 +862,8 @@ def _vocab_parallel_ce(inp: Dict[str, Any]) -> Dict[str, Any]:
 CASES = {"moe_ep": case_moe_ep, "moe_layers": case_moe_layers, "moe_plan": case_moe_plan,
          "train": case_train, "sharded": case_sharded, "mesh": case_mesh,
          "collectives": case_collectives, "ring": case_ring, "train_runs": case_train_runs,
-         "pipe_ckpt": case_pipe_ckpt, "sync_runs": case_sync_runs, "resize": case_resize}
+         "pipe_ckpt": case_pipe_ckpt, "sync_runs": case_sync_runs, "resize": case_resize,
+         "quant_rows": case_quant_rows}
 
 
 def main(case: str, rank: int, world: int, workdir: str) -> None:
